@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving path and its training step on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
-    python3 chip_smoke.py --phases build,card,kernels
-    python3 chip_smoke.py --rehearse      # tiny model on the CPU, plain versions
+    python3 chip_smoke.py --phases build,card,kernels,train
+    python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
 
   build    builds every kernel of `nos_tpu_torch/ops/csrc/` with nvcc (one
            process per source, started together) and prints ptxas' report;
   card     prints `nvidia-smi --query-gpu=name,power.limit`;
-  kernels  holds each kernel against its plain PyTorch version on the card at
-           the serving shapes (B=8, nh=8, nkv=2, hd=64, bs=32): contexts 1, 31,
-           32, 33, 2048 and 8192, windows of 16 and 256 with ragged lengths,
-           masked lanes and shared pages, pools in f32, bf16 and int8 with
-           scales (max|err| <= 1e-4 for f32, 5e-3 for bf16 and 2e-2 for int8,
-           and <= 2e-2 of max|want| for bf16 and int8), and times the kernel,
-           its plain version and scaled_dot_product_attention on the
-           pre-gathered cache;
+  kernels  holds each kernel against its plain PyTorch version on the card.
+           Paged kernels at the serving shapes (B=8, nh=8, nkv=2, hd=64,
+           bs=32): contexts 1, 31, 32, 33, 2048 and 8192, windows of 16 and
+           256 with ragged lengths, masked lanes and shared pages, pools in
+           f32, bf16 and int8 with scales (max|err| <= 1e-4 for f32, 5e-3 for
+           bf16 and 2e-2 for int8, and <= 2e-2 of max|want| for bf16 and
+           int8). Flash kernels (forward o and lse, dq, dk/dv) at the training
+           shape [8, 8, 2048, 256] bf16 causal, and at head_dim 64 and 128, T
+           177 and 1000, non-causal and f32 (each entry's error against its
+           own size and its row's, flash_err <= FLASH_TOL, a bound for each
+           output; planted faults at the training shape must fail those
+           bounds). Times each kernel, its plain version and the
+           library call (scaled_dot_product_attention: on the pre-gathered
+           cache for the paged kernels; causal forward, backward and the pair
+           for the flash kernels) at the main path's shapes;
   engine   serves the bench GPT (vocab 32000, hidden 512, 8 layers, 8 heads, 2
            KV heads) with random weights from init_gpt(seed 0) in bf16, 8 slots,
            max_len 8192, a prefill budget of two 256-token chunks per tick: six
@@ -28,10 +36,25 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            checked against a teacher-forced greedy pass of the plain programs
            on the card (see check_engine for the bounds), and the run repeats
            in float32, where the strict agreement must be 1.0. A profiler
-           window over 16 decode steps reports host and device time per step.
+           window over 16 decode steps reports host and device time per step;
+  train    the single-device GPT train step in three arms. Timed: the
+           training model of runtime/mfu.py::gpt_train_mfu (hidden 2048, 8
+           layers, 8 heads of 256, vocab 32000, bf16), init_train_state(seed
+           0), batch 8 x 2048 from synthetic_token_stream(seed 0) through
+           prefetch_to_device; 2 warm-up and 6 timed steps (the flash launch
+           counts are zeroed just before them and read just after: 8 of each
+           kernel per step), ms per step, tokens/s, MFU, peak memory, and the
+           device-busy share over one profiled step. Plain: the same width
+           at 2 layers, 3 steps through the kernels and 3 through
+           _reference_attention from the same params and batches, in bf16
+           and f32: per-step loss, every gradient leaf of the first batch and
+           the params after step 3 within TRAIN_TOL. Learning: the 2-layer
+           bf16 model, 20 steps on one batch, the loss finite throughout and
+           lower at step 20 than at step 1.
 
-The line before the last is the `kernels` JSON object; the last line is
-{"ok": true, "device": {...}}, printed only when every phase passed.
+The line before the last is the `kernels` JSON object (the two paged and
+the three flash kernels); the last line is {"ok": true, "device": {...}},
+printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -46,7 +69,6 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12        # dense tensor-core bf16
 # Kernel against plain version: max|err|, and max|err| / max|want|. The
 # bf16 bound is pinned at 2.5x the worst error measured on these inputs
 # (2.0e-3, window kernel); int8 and f32 keep the bounds first set for them.
@@ -60,6 +82,43 @@ MAX_DLOGIT_BF16 = 0.15
 MEAN_DLOGIT_BF16 = 0.02
 # Decode lanes mid-run: six streams, then the two long prompts.
 MAIN_DECODE_LIMITS = [128, 160, 192, 224, 288, 320, 4160, 4160]
+# Flash kernel against plain version, entry by entry (flash_err in
+# ops/flash_attention.py) within FLASH_TOL[input dtype][output], a bound
+# for each output of each kernel. First set at 1e-4 (f32) and 2e-2 (bf16),
+# then pinned at about 2.5x the worst over FLASH_CHECKS on an NVIDIA H100
+# 80GB HBM3 at 700 W: f32 o 5.3e-6, lse 6.9e-8, dq 1.3e-6, dk 1.1e-6, dv
+# 1.0e-6; bf16 lse 7.2e-8, dq 5.4e-3, dk 4.9e-3, dv 3.3e-3. bf16 o
+# measured 9.3e-3 and keeps its first bound. Planted 5% faults measured
+# 0.044, above every bound.
+FLASH_TOL = {
+    "float32": {"o": 1.3e-5, "lse": 1.7e-7, "dq": 3.3e-6, "dk": 2.7e-6, "dv": 2.6e-6},
+    "bfloat16": {"o": 2e-2, "lse": 1.8e-7, "dq": 1.4e-2, "dk": 1.2e-2, "dv": 8.3e-3},
+}
+# (b, h, t, d, dtype, causal): the training shape first.
+FLASH_CHECKS = [
+    (8, 8, 2048, 256, "bfloat16", True),
+    (2, 8, 2048, 256, "float32", True),
+    (2, 4, 177, 64, "float32", True),
+    (2, 4, 177, 64, "bfloat16", False),
+    (1, 4, 1000, 128, "float32", False),
+    (1, 4, 1000, 128, "bfloat16", True),
+    (1, 8, 2048, 64, "bfloat16", True),
+]
+FLASH_MAIN = FLASH_CHECKS[0]
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The train phase's kernel arm against its plain arm (2 layers, 3 steps):
+# max relative difference of the per-step loss, max|err| / max|want| of
+# each gradient leaf of the first batch, max|err| of the params after step
+# 3, and the relative difference of the two arms' updates (see
+# train_vs_plain). f32 loss and grads keep the bounds first set (1e-5 and
+# 1e-3; measured 0 and 5.1e-6). Everything else is pinned at about 2.5x
+# what was measured on an NVIDIA H100 80GB HBM3 at 700 W: f32 params 1.3e-4
+# (first bound a third of one lr-3e-4 update, 1e-4) and updates 1.35e-4;
+# bf16 loss 4.7e-6, grads 1.8e-2, params 2.4e-3 and updates 7.6e-2.
+TRAIN_TOL = {
+    "float32": {"loss": 1e-5, "grad": 1e-3, "param": 3.2e-4, "update": 3.4e-4},
+    "bfloat16": {"loss": 1.2e-5, "grad": 4.5e-2, "param": 6.1e-3, "update": 0.19},
+}
 
 
 def log(*args):
@@ -213,6 +272,8 @@ def phase_kernels(torch):
             f"(relative {RTOL[dtype]}; worst so far {json.dumps(worst)})")
         del k, v, ks, vs
     timings = time_kernels(torch, pa)
+    worst.update(check_flash(torch))
+    timings.update(time_flash(torch))
     return worst, timings
 
 
@@ -228,6 +289,8 @@ def time_kernels(torch, pa):
     contexts of the served traffic, and 256-token prefill chunks at
     position 2048, alone and as a two-lane wave among eight. Also a context
     sweep for the decode kernel."""
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
     B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
     P = 8192 // BS
     T = 1 + B * P
@@ -251,9 +314,9 @@ def time_kernels(torch, pa):
         lib = time_cuda(torch, lambda: _sdpa_decode(torch, q[:, :, None, :], kd, vd, mask))
         nbytes = decode_bytes(limits, NH, NKV, HD, BS, 2, 2)
         flops = 4.0 * NH * HD * sum(limits)
-        bound = 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS)
+        bound = 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS)
         return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_FLOPS
+                "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
                 else "operations", "bytes": nbytes}
 
     out["decode_main"] = decode_case(MAIN_DECODE_LIMITS)
@@ -288,8 +351,8 @@ def time_kernels(torch, pa):
                   + 4 * pages + 9 * b)
         flops = 4.0 * NH * HD * float(lim.sum().item())
         return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS),
-                "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_FLOPS
+                "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS),
+                "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
                 else "operations", "bytes": nbytes, "flops": flops}
 
     # The long prompts' 9th chunk (position 2048): alone (B=1), and as the
@@ -298,6 +361,161 @@ def time_kernels(torch, pa):
     out["window_main"] = window_case(2048, [False] * 6 + [True, True])
     log("kernel_times " + json.dumps(out))
     return out
+
+
+def _planted(t):
+    """Faults a kernel could make, planted in a plain output [B,H,T,D]: the
+    half of the rows (or keys) from T/2 on off by 5%, or zeroed from a
+    row on. Each must fail its bound (check_flash)."""
+    def scaled(x):
+        y = x.clone()
+        y[:, :, t // 2:] *= 0.95
+        return y
+
+    def zeroed(row):
+        def fault(x):
+            y = x.clone()
+            y[:, :, row:] = 0
+            return y
+        return fault
+
+    return [("o", "rows >= T/2 off by 5%", scaled), ("o", "rows >= T/2 zeroed", zeroed(t // 2)),
+            ("dq", "rows >= T/2 off by 5%", scaled), ("dk", "keys >= T/2 off by 5%", scaled),
+            ("dv", "keys >= T/2 off by 5%", scaled), ("dv", "keys >= 512 zeroed", zeroed(512))]
+
+
+def check_flash(torch):
+    """Each flash kernel against its plain version at FLASH_CHECKS: the
+    forward's o and lse, then dq and dk/dv from the plain forward's o and
+    lse (so each kernel is held alone), by flash_err within FLASH_TOL. At
+    the training shape, planted faults in the plain outputs must fail the
+    same bounds. Returns the worst max|err| per kernel and the worst
+    flash_err per output and dtype."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    worst = {n: 0.0 for n in FLASH_KERNELS}
+    worst.update({f"{x}_{dtype}": 0.0 for dtype in FLASH_TOL for x in FLASH_TOL[dtype]})
+
+    def hold(name, x, got, want, dtype, case):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ratio = fa.flash_err(got, want)
+        check(np.isfinite(err) and np.isfinite(ratio) and ratio <= FLASH_TOL[dtype][x],
+              f"{name} {case} {x}: flash_err {ratio} (bound {FLASH_TOL[dtype][x]}), "
+              f"max|err| {err}")
+        worst[name] = max(worst[name], err)
+        worst[f"{x}_{dtype}"] = max(worst[f"{x}_{dtype}"], ratio)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    planted = {}
+    for b, h, t, d, dtype, causal in FLASH_CHECKS:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dt)
+                       for _ in range(4))
+        scale = d ** -0.5
+        case = f"[{b},{h},{t},{d}] {dtype} causal={causal}"
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        want = dict(zip(("o", "lse"), fa._flash_fwd_reference(q, k, v, causal, scale)))
+        hold("flash_fwd", "o", o, want["o"], dtype, case)
+        hold("flash_fwd", "lse", lse, want["lse"], dtype, case)
+        dvec = fa._dvec(want["o"], do)
+        dq = fa.flash_bwd_dq(q, k, v, do, want["lse"], dvec, causal, scale)
+        want["dq"] = fa._dq_reference(q, k, v, do, want["lse"], dvec, causal, scale)
+        hold("flash_bwd_dq", "dq", dq, want["dq"], dtype, case)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, want["lse"], dvec, causal, scale)
+        want["dk"], want["dv"] = fa._dkv_reference(q, k, v, do, want["lse"], dvec, causal,
+                                                   scale)
+        hold("flash_bwd_dkv", "dk", dk, want["dk"], dtype, case)
+        hold("flash_bwd_dkv", "dv", dv, want["dv"], dtype, case)
+        if (b, h, t, d, dtype, causal) == FLASH_MAIN:
+            for x, what, fault in _planted(t):
+                ratio = fa.flash_err(fault(want[x]), want[x])
+                check(ratio > FLASH_TOL[dtype][x],
+                      f"planted fault in {x} ({what}) passes: flash_err {ratio} "
+                      f"<= {FLASH_TOL[dtype][x]}")
+                planted[f"{x}: {what}"] = ratio
+        del q, k, v, do, o, lse, dq, dk, dv, want, dvec
+    log(f"kernels flash: every case within {json.dumps(FLASH_TOL)} "
+        f"(worst {json.dumps(worst)}); planted faults at {FLASH_MAIN} fail: "
+        f"{json.dumps(planted)}")
+    return worst
+
+
+def flash_work(b, h, t, d, causal, itemsize):
+    """FLOPs and bytes per flash kernel for this input: each product counts
+    2 * d per (q, k) pair the mask keeps (t (t + 1) / 2 pairs per head when
+    causal); bytes read each input once and write each output once."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tensor = b * h * t * d * itemsize
+    rows = b * h * t * 4
+    return {
+        "flash_fwd": (2 * 2.0 * d * pairs, 4 * tensor + rows),           # QK^T, PV
+        "flash_bwd_dq": (3 * 2.0 * d * pairs, 5 * tensor + 2 * rows),    # S, dP, dQ
+        "flash_bwd_dkv": (4 * 2.0 * d * pairs, 6 * tensor + 2 * rows),   # S, dP, dV, dK
+    }
+
+
+def time_flash(torch):
+    """Each flash kernel, its plain version and the library call at the
+    training shape (FLASH_MAIN), with its bound. The library is
+    scaled_dot_product_attention(is_causal=True): its forward for
+    flash_fwd, and for both backward kernels one autograd call of its
+    backward, which computes dq, dk and dv together. Also SDPA's forward +
+    backward pair and the pair's floor (runtime/mfu.py)."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS, flash_pair_floor_ms
+
+    b, h, t, d, dtype, causal = FLASH_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    dvec = fa._dvec(o, do)
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+    def sdpa_pair():
+        o2 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(o2, (qg, kg, vg), do)
+
+    lib_bwd = time_cuda(torch, sdpa_bwd, iters=10)
+    runs = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                      lambda: fa._flash_fwd_reference(q, k, v, causal, scale),
+                      time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=causal), iters=10)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, dvec, causal, scale),
+                         lambda: fa._dq_reference(q, k, v, do, lse, dvec, causal, scale),
+                         lib_bwd),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dvec, causal, scale),
+                          lambda: fa._dkv_reference(q, k, v, do, lse, dvec, causal, scale),
+                          lib_bwd),
+    }
+    work = flash_work(b, h, t, d, causal, q.element_size())
+    out_t = {}
+    for name, (kern, plain, lib) in runs.items():
+        flops, nbytes = work[name]
+        by_ops = flops / H100_BF16_PEAK_FLOPS >= nbytes / H100_BYTES_PER_S
+        out_t[name] = {
+            "ms": time_cuda(torch, kern, iters=10),
+            "plain_ms": time_cuda(torch, plain, iters=5, warmup=1),
+            "library_ms": lib,
+            "bound_ms": 1e3 * max(flops / H100_BF16_PEAK_FLOPS, nbytes / H100_BYTES_PER_S),
+            "bound_by": "operations" if by_ops else "bytes",
+            "flops": flops, "bytes": nbytes,
+        }
+        out_t[name]["tflops"] = flops / out_t[name]["ms"] / 1e9
+    out_t["sdpa_pair_ms"] = time_cuda(torch, sdpa_pair, iters=10)
+    out_t["pair_floor_ms"] = flash_pair_floor_ms(b, h, t, d, H100_BF16_PEAK_FLOPS)
+    log("flash_times " + json.dumps(out_t))
+    return out_t
 
 
 # -- phase: engine -----------------------------------------------------------------
@@ -573,9 +791,240 @@ def profile_decode_step(torch, cfg, params, steps=16):
     }
 
 
+# -- phase: train ------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_flash():
+    """Route the model's attention through the reference's XLA-path
+    formula, `_reference_attention`, with autograd (the plain arm; the
+    package itself has no such switch)."""
+    from nos_tpu_torch.models import gpt
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    def plain(q, k, v, causal=False, scale=None):
+        return fa._reference_attention(q, k, v, causal,
+                                       q.shape[-1] ** -0.5 if scale is None else scale)
+
+    saved = gpt.flash_attention
+    gpt.flash_attention = plain
+    try:
+        yield
+    finally:
+        gpt.flash_attention = saved
+
+
+def train_model(full, layers, dtype):
+    """The training model of runtime/mfu.py::gpt_train_mfu (hidden 2048,
+    vocab 32000, 8 heads of 256, MHA, batch 8 x 2048) at `layers`, or the
+    CPU tests' tiny GQA model for a rehearsal. -> (GPTConfig, (batch, seq))."""
+    from nos_tpu_torch import GPTConfig
+
+    if full:
+        return GPTConfig(hidden=2048, layers=layers, dtype=dtype), (8, 2048)
+    return (GPTConfig(vocab=256, hidden=64, layers=layers, heads=4, kv_heads=2, max_seq=64,
+                      dtype=dtype), (2, 48))
+
+
+def train_timed(torch, device, full, warmup=2, steps=6):
+    """The main path: init_train_state, batches through prefetch_to_device,
+    `warmup` steps, then `steps` timed steps with the flash launch counts
+    zeroed just before them and read just after."""
+    from nos_tpu_torch import (TrainConfig, init_train_state, make_train_step,
+                               prefetch_to_device, synthetic_token_stream)
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS, gpt_train_flops
+
+    model, (batch, seq) = train_model(full, 8 if full else 3, "bfloat16")
+    cfg = TrainConfig(model=model)
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+    step = make_train_step(cfg)
+    batches = prefetch_to_device(
+        synthetic_token_stream(model.vocab, batch, seq, seed=0, steps=warmup + steps + 1),
+        device=device)
+    losses = []
+    for _ in range(warmup):
+        params, opt, metrics = step(params, opt, next(batches))
+        losses.append(metrics["loss"])
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    setup_s = time.perf_counter() - t0
+    fa.reset_launch_counts()
+    t1 = time.perf_counter()
+    if cuda:
+        start.record()
+    for _ in range(steps):
+        params, opt, metrics = step(params, opt, next(batches))
+        losses.append(metrics["loss"])
+    if cuda:
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / steps
+    else:
+        ms = 1e3 * (time.perf_counter() - t1) / steps
+    launches = dict(fa.LAUNCHES)
+    losses = [x.item() for x in losses]
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    flops = gpt_train_flops(model, batch, seq)
+    stats = {
+        "config": {"hidden": model.hidden, "layers": model.layers, "heads": model.heads,
+                   "head_dim": model.head_dim, "vocab": model.vocab, "dtype": model.dtype,
+                   "batch": batch, "seq": seq},
+        "ms_per_step": ms,
+        "tokens_per_s": batch * seq / (ms / 1e3),
+        "flops_per_step": flops,
+        "losses": losses,
+        "launches": launches,
+        "setup_and_warmup_s": setup_s,
+    }
+    if cuda:
+        want = {n: model.layers * steps for n in FLASH_KERNELS}
+        check(launches == want, f"train: flash launches {launches}, want {want}")
+        stats["mfu"] = flops / (ms / 1e3 * H100_BF16_PEAK_FLOPS)
+        stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        stats["step_profile"] = profile_train_step(torch, step, params, opt, next(batches))
+    return stats
+
+
+def profile_train_step(torch, step, params, opt, tokens):
+    """One train step under torch.profiler: host wall, device kernel time
+    (sum of CUDA kernel intervals; one stream), the busy share, the flash
+    kernels' time and share of the device time, the matrix products' time
+    (cuBLAS kernels: names with nvjet, gemm, xmma or cutlass) and the eight
+    kernels that took longest in sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_kernels, dev_us, attn_us, gemm_us = 0, 0.0, 0.0, 0.0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            us = e.time_range.elapsed_us()
+            dev_us += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+            if "flash_" in e.name:
+                attn_us += us
+            elif any(w in e.name.lower() for w in ("nvjet", "gemm", "xmma", "cutlass")):
+                gemm_us += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms": 1e3 * wall,
+        "device_ms": dev_us / 1e3,
+        "device_busy_share": (dev_us / 1e6) / wall if wall else None,
+        "kernels": n_kernels,
+        "flash_ms": attn_us / 1e3,
+        "flash_share_of_device": attn_us / dev_us if dev_us else None,
+        "matmul_ms": gemm_us / 1e3,
+        "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top},
+    }
+
+
+def train_vs_plain(torch, device, full, dtype, steps=3):
+    """The 2-layer model, `steps` steps through the kernels and the same
+    through _reference_attention, from the same params and batches: the
+    per-step loss, every gradient leaf of the first batch (max|err| /
+    max|want|), and the params after the last step: max|err|, and the
+    difference of the two arms' updates (params minus initial params) over
+    the plain arm's, as norms over every leaf. Adam's m / sqrt(v) turns
+    noise on near-zero gradient entries into updates of up to lr either
+    way, which max|err| sees and the norm weighs by its share."""
+    from nos_tpu_torch import TrainConfig, gpt_loss, init_train_state, make_train_step
+    from nos_tpu_torch import synthetic_token_stream
+    from nos_tpu_torch.models.train import named_leaves
+
+    model, (batch, seq) = train_model(full, 2, dtype)
+    cfg = TrainConfig(model=model)
+    batches = list(synthetic_token_stream(model.vocab, batch, seq, seed=1, steps=steps))
+
+    def run(plain):
+        params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+        step = make_train_step(cfg)
+        tokens = [torch.from_numpy(b).to(device) for b in batches]
+        with plain_flash() if plain else contextlib.nullcontext():
+            gpt_loss(params, tokens[0], model, loss_chunk=cfg.loss_chunk).backward()
+            grads = {n: p.grad.detach().clone() for n, p in named_leaves(params)}
+            opt.zero_grad(set_to_none=True)
+            losses = []
+            for tk in tokens:
+                params, opt, metrics = step(params, opt, tk)
+                losses.append(metrics["loss"].item())
+        return losses, grads, {n: p.detach().clone() for n, p in named_leaves(params)}
+
+    k_loss, k_grad, k_par = run(False)
+    p_loss, p_grad, p_par = run(True)
+    start, _ = init_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+    start = dict(named_leaves(start))
+    diff_sq = sum(((k_par[n].double() - p_par[n].double()) ** 2).sum().item() for n in p_par)
+    upd_sq = sum(((p_par[n].double() - start[n].double()) ** 2).sum().item() for n in p_par)
+    out = {
+        "update_rel": (diff_sq / upd_sq) ** 0.5 if upd_sq else float("inf"),
+        "losses_kernel": k_loss, "losses_plain": p_loss,
+        "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)),
+        "grad_rel": max((k_grad[n].float() - p_grad[n].float()).abs().max().item()
+                        / max(p_grad[n].float().abs().max().item(), 1e-30) for n in p_grad),
+        "param_abs": max((k_par[n].float() - p_par[n].float()).abs().max().item()
+                         for n in p_par),
+    }
+    out["grad_rel_by_leaf"] = {
+        n: (k_grad[n].float() - p_grad[n].float()).abs().max().item()
+        / max(p_grad[n].float().abs().max().item(), 1e-30) for n in p_grad}
+    tol = TRAIN_TOL[dtype]
+    check(all(np.isfinite(k_loss + p_loss)), f"train plain {dtype}: non-finite loss")
+    check(out["loss_rel"] <= tol["loss"] and out["grad_rel"] <= tol["grad"]
+          and out["param_abs"] <= tol["param"] and out["update_rel"] <= tol["update"],
+          f"train plain {dtype}: loss {out['loss_rel']}, grad {out['grad_rel']}, "
+          f"param {out['param_abs']}, update {out['update_rel']} against {tol}")
+    return out
+
+
+def train_learns(torch, device, full, steps=20):
+    """The 2-layer bf16 model, `steps` steps on one repeated batch."""
+    from nos_tpu_torch import TrainConfig, init_train_state, make_train_step
+    from nos_tpu_torch import synthetic_token_stream
+
+    model, (batch, seq) = train_model(full, 2, "bfloat16")
+    cfg = TrainConfig(model=model)
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+    step = make_train_step(cfg)
+    tokens = torch.from_numpy(next(synthetic_token_stream(model.vocab, batch, seq, seed=2)))
+    tokens = tokens.to(device)
+    losses = []
+    for _ in range(steps):
+        params, opt, metrics = step(params, opt, tokens)
+        losses.append(metrics["loss"])
+    losses = [x.item() for x in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train learning: losses {losses}")
+    return {"losses": losses}
+
+
+def phase_train(torch, device, full=True):
+    t0 = time.perf_counter()
+    stats = {"timed": train_timed(torch, device, full)}
+    log("train timed: " + json.dumps(stats["timed"]))
+    # The bf16 bounds are pinned for the full width on the card; a
+    # rehearsal's tiny model holds only the f32 ones.
+    dtypes = ("float32", "bfloat16") if full else ("float32",)
+    stats["plain"] = {dt: train_vs_plain(torch, device, full, dt) for dt in dtypes}
+    log("train plain: " + json.dumps(stats["plain"]))
+    stats["learning"] = train_learns(torch, device, full)
+    log(f"train learning: {json.dumps(stats['learning'])} "
+        f"phase_s={time.perf_counter() - t0:.1f}")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,card,kernels,engine")
+    ap.add_argument("--phases", default="build,card,kernels,engine,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -592,6 +1041,7 @@ def main(argv=None):
         return 2
     if args.rehearse:
         check_engine(phase_engine(torch, torch.device("cpu"), "float32", small=True))
+        phase_train(torch, torch.device("cpu"), full=False)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -613,11 +1063,14 @@ def main(argv=None):
         engine_f32 = phase_engine(torch, torch.device("cuda"), "float32")
         check_engine(engine)
         check_engine(engine_f32)
+    train = None
+    if "train" in phases:
+        train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if worst is None or engine is None:
+    if worst is None or engine is None or train is None:
         return 0
-    launches = engine["launches"]
-    for name in ("paged_decode_attention", "paged_window_attention"):
+    launches = dict(engine["launches"], **train["timed"]["launches"])
+    for name in ("paged_decode_attention", "paged_window_attention") + FLASH_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} never launched on the main path")
     main_key = {"paged_decode_attention": "decode_main",
                 "paged_window_attention": "window_main"}
@@ -630,6 +1083,19 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": "nos_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    flash_replaces = {"flash_fwd": "nos_tpu/ops/flash_attention.py:77",
+                      "flash_bwd_dq": "nos_tpu/ops/flash_attention.py:234",
+                      "flash_bwd_dkv": "nos_tpu/ops/flash_attention.py:287"}
+    for name in FLASH_KERNELS:
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nos_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": flash_replaces[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

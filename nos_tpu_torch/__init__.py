@@ -1,4 +1,5 @@
-"""nos_tpu_torch: the PyTorch/CUDA port of `nos_tpu`'s serving path.
+"""nos_tpu_torch: the PyTorch/CUDA port of `nos_tpu`'s serving path and its
+single-device GPT training step.
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module
@@ -6,8 +7,16 @@ names its reference by file and line. Entry points run on CUDA unless the
 caller passes `device="cpu"`, where the kernels' plain versions run.
 """
 
-from nos_tpu_torch.models.gpt import GPTConfig, init_gpt
+from nos_tpu_torch.models.data import prefetch_to_device, synthetic_token_stream
+from nos_tpu_torch.models.gpt import GPTConfig, gpt_forward, gpt_loss, init_gpt
 from nos_tpu_torch.models.params import from_numpy_params
+from nos_tpu_torch.models.train import TrainConfig, init_train_state, make_train_step
+from nos_tpu_torch.ops.flash_attention import flash_attention
 from nos_tpu_torch.runtime.decode_server import DecodeServer
 
-__all__ = ["DecodeServer", "GPTConfig", "init_gpt", "from_numpy_params"]
+__all__ = [
+    "DecodeServer", "GPTConfig", "init_gpt", "from_numpy_params",
+    "gpt_forward", "gpt_loss", "flash_attention",
+    "TrainConfig", "init_train_state", "make_train_step",
+    "synthetic_token_stream", "prefetch_to_device",
+]

@@ -1,7 +1,10 @@
-"""The port's model code: config and init (`gpt`), numpy param import
-(`params`), and the paged serving programs (`decode`)."""
+"""The port's model code: config, init and the training forward (`gpt`),
+numpy param import (`params`), the paged serving programs (`decode`), the
+single-device train step (`train`) and the input pipeline (`data`)."""
 
-from nos_tpu_torch.models.gpt import GPTConfig, init_gpt
+from nos_tpu_torch.models.gpt import GPTConfig, gpt_forward, gpt_loss, init_gpt
 from nos_tpu_torch.models.params import from_numpy_params
+from nos_tpu_torch.models.train import TrainConfig, init_train_state, make_train_step
 
-__all__ = ["GPTConfig", "init_gpt", "from_numpy_params"]
+__all__ = ["GPTConfig", "init_gpt", "from_numpy_params", "gpt_forward", "gpt_loss",
+           "TrainConfig", "init_train_state", "make_train_step"]

@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM: configuration, initialization and the block
-math the serving programs share.
+"""Decoder-only transformer LM: configuration, initialization, the block
+math the serving programs share, and the training forward.
 
 Port of `nos_tpu/models/gpt.py`: `GPTConfig` (:24), `_rmsnorm` (:98),
-`_rope` (:104), `tp_local_config` (:117), `project_qkv` (:143) and
-`init_gpt` (:72). Parameters are a plain nested dict of tensors with the
-reference's keys and shapes, so `models/params.py` can carry a JAX param
-tree across unchanged. The training forward (flash / ring attention) is a
-later slice of the port.
+`_rope` (:104), `tp_local_config` (:117), `project_qkv` (:143),
+`init_gpt` (:72), and the training forward `_attention` (:184), `_block`
+(:197), `gpt_hidden` (:209), `gpt_forward` (:224) and the chunked
+`gpt_loss` (:230), whose attention runs through the flash kernels
+(`ops/flash_attention.py`). Parameters are a plain nested dict of tensors
+with the reference's keys and shapes, so `models/params.py` can carry a
+JAX param tree across unchanged. Sharded training over a mesh (ring and
+Ulysses attention, sharded params) is a later slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nos_tpu_torch.device import resolve
+from nos_tpu_torch.ops.flash_attention import flash_attention
 
 
 @dataclass(frozen=True)
@@ -161,3 +167,80 @@ def project_qkv(x, p, cfg: GPTConfig, positions, repeat_kv: bool = True):
         k = torch.repeat_interleave(k, nh // nkv, dim=1)
         v = torch.repeat_interleave(v, nh // nkv, dim=1)
     return q, k, v
+
+
+def _attention(x, p, cfg: GPTConfig, positions):
+    b, t, h = x.shape
+    q, k, v = project_qkv(x, p, cfg, positions)
+    o = flash_attention(q, k, v, causal=True)
+    return o.transpose(1, 2).reshape(b, t, h) @ p["wo"]
+
+
+def _block(x, p, cfg: GPTConfig, positions):
+    x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg, positions)
+    y = _rmsnorm(x, p["ln2"])
+    if cfg.fuse_projections:
+        g, u = torch.chunk(y @ torch.cat([p["w_gate"], p["w_up"]], dim=1), 2, dim=-1)
+        y = (F.silu(g) * u) @ p["w_down"]
+    else:
+        y = (F.silu(y @ p["w_gate"]) * (y @ p["w_up"])) @ p["w_down"]
+    return x + y
+
+
+def gpt_hidden(params, tokens, cfg: GPTConfig, mesh=None):
+    """tokens [B, T] int -> final hidden states [B, T, H] (pre-head). With
+    `remat_blocks` each block runs under activation checkpointing: the
+    backward recomputes its activations instead of storing them."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training over a mesh (ring/ulysses attention, sharded "
+            "params) is not ported yet: ROADMAP A9"
+        )
+    b, t = tokens.shape
+    x = params["tok_emb"][tokens.long()]
+    positions = torch.arange(t, dtype=torch.int32, device=tokens.device).expand(b, t)
+    for i in range(cfg.layers):
+        p = params["layers"][str(i)]
+        if cfg.remat_blocks:
+            x = checkpoint(_block, x, p, cfg, positions, use_reentrant=False)
+        else:
+            x = _block(x, p, cfg, positions)
+    return _rmsnorm(x, params["ln_f"])
+
+
+def gpt_forward(params, tokens, cfg: GPTConfig, mesh=None):
+    """tokens [B, T] int -> logits [B, T, vocab] f32."""
+    return (gpt_hidden(params, tokens, cfg, mesh) @ params["lm_head"]).float()
+
+
+def _chunk_nll(x_c, tgt_c, mask_c, lm_head):
+    """Summed masked next-token NLL of one chunk: x_c [B, C, H], tgt_c
+    [B, C], mask_c [C]; f32 logsumexp."""
+    logits = (x_c @ lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, tgt_c[..., None])[..., 0]
+    return ((lse - tgt) * mask_c[None, :]).sum()
+
+
+def gpt_loss(params, tokens, cfg: GPTConfig, mesh=None, loss_chunk: int = 256):
+    """Next-token cross-entropy (mean over B x (T-1)) with the vocabulary
+    projection chunked over the sequence: the reference's math (pad to a
+    chunk multiple, mask, f32 logsumexp, a running f32 sum), as a loop over
+    checkpointed chunks where JAX scans a `jax.checkpoint`ed body, so the
+    backward recomputes one chunk's [B, C, vocab] logits at a time."""
+    b, t = tokens.shape
+    x = gpt_hidden(params, tokens, cfg, mesh)
+    xs = x[:, :-1, :]
+    targets = tokens[:, 1:].long()
+    n = t - 1
+    chunk = max(1, min(loss_chunk, n))
+    pad = (-n) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+    mask = (torch.arange(n + pad, device=tokens.device) < n).float()
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for c in range(0, n + pad, chunk):
+        total = total + checkpoint(_chunk_nll, xs[:, c:c + chunk], targets[:, c:c + chunk],
+                                   mask[c:c + chunk], params["lm_head"], use_reentrant=False)
+    return total / (b * n)

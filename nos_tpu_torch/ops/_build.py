@@ -8,9 +8,13 @@ build takes seconds, not minutes), for `sm_90a`:
          -Xcompiler -fPIC -o <build dir>/lib<name>-<digest>.so csrc/<name>.cu
 
 The library lands in `_build/` beside this file (listed in .gitignore),
-named by a digest of the source and the flags, so an edited source never
-loads a stale library. A failed build raises with nvcc's output: nothing
-falls back to a plain version.
+named by a digest of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header never loads a stale library. A failed
+build raises with nvcc's output: nothing falls back to a plain version.
+
+`load` also binds the launchers' ctypes signatures and the error string
+every library exports (`nos_cuda_error_string`, from `csrc/common.cuh`);
+`raise_on`, `require` and `stream` are the wrappers' shared launch glue.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -36,6 +42,10 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+VP = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -46,8 +56,10 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -76,11 +88,36 @@ def build(name: str) -> str:
     return res.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu's library, built on first use."""
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The ctypes handle of csrc/<name>.cu's library, built on first use,
+    with each launcher in `signatures` (function name -> argtypes) bound to
+    return an int cudaError_t code."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build(name)
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = I
+            lib.nos_cuda_error_string.argtypes = [I]
+            lib.nos_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
         return lib
+
+
+def raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.nos_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def stream(x) -> VP:
+    """The current CUDA stream of tensor x's device, for a launcher."""
+    return VP(torch.cuda.current_stream(x.device).cuda_stream)

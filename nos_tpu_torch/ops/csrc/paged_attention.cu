@@ -30,20 +30,16 @@
 // Split-page (flash-decoding), cp.async/TMA double buffering and tensor-core
 // products are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace nos;
 
 constexpr int kThreads = 128;     // four warps per CUDA block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRowTile = 64;   // query rows one CUDA block owns
 constexpr int kMaxHeadDim = 256;
-constexpr float kNegInf = -1e30f;      // the Pallas kernels' NEG_INF
-constexpr int kMaxDevices = 64;
-
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 struct Params {
   const void* q;
@@ -67,31 +63,8 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = __bfloat162float(h[i]);
-}
-
-__device__ __forceinline__ void load8(const int8_t* p, float* o) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = static_cast<float>(c[i]);
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // The per-row attention limit: decode rows share limit[b]; a window row
 // attends up to pos[b] + w + 1 while w < lengths[b] and the lane is active,
@@ -254,23 +227,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
 template <typename TQ, typename TKV, bool kQuant>
 cudaError_t launch_typed(const Params& p, int groups, size_t smem, cudaStream_t stream) {
   auto kernel = paged_attention_kernel<TQ, TKV, kQuant>;
-  // Opt in to more dynamic shared memory only when a launch needs more
-  // than this instantiation was last granted on this device (the attribute
-  // is per device). A size beyond the card's opt-in limit fails here.
   static size_t granted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > granted[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, or the next launch would report it
-      return err;
-    }
-    granted[dev] = smem;
-  }
   const dim3 grid(groups, (p.rows_per_group + p.row_tile - 1) / p.row_tile);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -302,10 +261,6 @@ int launch(Params p, int batch, int q_dtype, int kv_dtype, void* stream) {
 }  // namespace
 
 extern "C" {
-
-const char* nos_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // q [B, nh, hd]; pools [T, nkv, bs, hd]; table [B, P] i32; limit [B] i32;
 // out [B, nh, hd] in q's dtype. Returns cudaGetLastError() after the launch.

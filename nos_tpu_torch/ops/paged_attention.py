@@ -17,7 +17,6 @@ through the kernels.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
@@ -90,32 +89,16 @@ def _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
 
 
 # -- the CUDA kernels ----------------------------------------------------------
-_VP = ctypes.c_void_p
-_I = ctypes.c_int
+_VP, _I = _build.VP, _build.I
+_require = _build.require
+_SIGNATURES = {
+    "nos_paged_decode_attention": [_VP] * 8 + [_I] * 8 + [_build.F, _VP],
+    "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _VP],
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("paged_attention")
-    if not getattr(lib, "_nos_bound", False):
-        lib.nos_paged_decode_attention.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-            _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _VP,
-        ]
-        lib.nos_paged_decode_attention.restype = _I
-        lib.nos_paged_window_attention.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-            _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _VP,
-        ]
-        lib.nos_paged_window_attention.restype = _I
-        lib.nos_cuda_error_string.argtypes = [_I]
-        lib.nos_cuda_error_string.restype = ctypes.c_char_p
-        lib._nos_bound = True
-    return lib
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
+def _lib():
+    return _build.load("paged_attention", _SIGNATURES)
 
 
 def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
@@ -153,12 +136,6 @@ def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
     return _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], scales
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        msg = _lib().nos_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-
-
 def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
     b, nh, hd = q.shape
     nkv = pool_k.shape[1]
@@ -168,13 +145,14 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
              and limit.device == q.device, "limit must be [B] int32 on q's device")
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
     out = torch.empty_like(q)
-    rc = _lib().nos_paged_decode_attention(
+    lib = _lib()
+    rc = lib.nos_paged_decode_attention(
         _VP(q.data_ptr()), _VP(pool_k.data_ptr()), _VP(pool_v.data_ptr()), ks, vs,
         _VP(table.data_ptr()), _VP(limit.data_ptr()), _VP(out.data_ptr()),
         b, nh, nkv, hd, pool_k.shape[2], table.shape[1], qc, kc, hd ** -0.5,
-        _VP(torch.cuda.current_stream(q.device).cuda_stream),
+        _build.stream(q),
     )
-    _raise_on(rc, "paged_decode_attention")
+    _build.raise_on(lib, rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out
 
@@ -191,14 +169,15 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
                  and t.device == q.device, f"{name} must be [B] {dt} on q's device")
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
     out = torch.empty_like(q)
-    rc = _lib().nos_paged_window_attention(
+    lib = _lib()
+    rc = lib.nos_paged_window_attention(
         _VP(q.data_ptr()), _VP(pool_k.data_ptr()), _VP(pool_v.data_ptr()), ks, vs,
         _VP(table.data_ptr()), _VP(pos.data_ptr()), _VP(lengths.data_ptr()),
         _VP(mask.data_ptr()), _VP(out.data_ptr()),
         b, nh, nkv, w, hd, pool_k.shape[2], table.shape[1], qc, kc, hd ** -0.5,
-        _VP(torch.cuda.current_stream(q.device).cuda_stream),
+        _build.stream(q),
     )
-    _raise_on(rc, "paged_window_attention")
+    _build.raise_on(lib, rc, "paged_window_attention")
     LAUNCHES["paged_window_attention"] += 1
     return out
 

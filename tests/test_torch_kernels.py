@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (nos_tpu_torch/ops/csrc/paged_attention.cu)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (nos_tpu_torch/ops/csrc/paged_attention.cu and
+flash_attention.cu) against their plain PyTorch versions, on the card.
 
 Torch and numpy only (the card's machine has no JAX), so it runs there
 without the JAX test harness:
@@ -7,10 +7,11 @@ without the JAX test harness:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 The tests carry the `cuda` marker; without a CUDA device every test skips
-(decided in a fixture): a kernel has no CPU mode. f32 is
+(decided in a fixture): a kernel has no CPU mode. Paged kernels: f32 is
 held to atol 1e-4 (summation order); bf16 and int8 pools to 2e-2 (one bf16
 rounding of the output, and the plain version's bf16 rounding of the
-dequantized int8 values)."""
+dequantized int8 values). Flash kernels: each output entry by entry
+(`flash_err`) within FLASH_TOL, chip_smoke.py's bounds."""
 
 import numpy as np
 import pytest
@@ -104,3 +105,107 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(RuntimeError):
         tpa.paged_decode_attention(q[:1, :4, :].repeat(1, 1, 4).contiguous(), big, big,
                                    table[:1, :1].contiguous(), limit[:1].contiguous())
+
+
+# -- flash attention (nos_tpu_torch/ops/csrc/flash_attention.cu) ---------------
+FLASH_CASES = [
+    # (b, h, t, d, dtype, causal): the training shape, then head_dim 64 and
+    # 128, ragged T (177, 1000), non-causal and f32.
+    (8, 8, 2048, 256, "bfloat16", True),
+    (2, 4, 177, 64, "float32", True),
+    (2, 4, 177, 64, "bfloat16", False),
+    (1, 3, 1000, 128, "float32", False),
+    (1, 3, 1000, 128, "bfloat16", True),
+    (1, 2, 300, 256, "float32", True),
+]
+
+
+# chip_smoke.py's FLASH_TOL: a bound for each output, by input dtype.
+FLASH_TOL = {
+    "float32": {"o": 1.3e-5, "lse": 1.7e-7, "dq": 3.3e-6, "dk": 2.7e-6, "dv": 2.6e-6},
+    "bfloat16": {"o": 2e-2, "lse": 1.8e-7, "dq": 1.4e-2, "dk": 1.2e-2, "dv": 8.3e-3},
+}
+
+
+def _flash_held(got, want, dtype, what):
+    from nos_tpu_torch.ops.flash_attention import flash_err
+
+    err = flash_err(got, want)
+    assert err <= FLASH_TOL[dtype][what], (what, err, FLASH_TOL[dtype][what])
+
+
+@pytest.mark.parametrize("b,h,t,d,dtype,causal", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, b, h, t, d, dtype, causal):
+    """Forward (o, lse), dq and dk/dv against their plain versions within
+    FLASH_TOL. At the training shape, faults planted in the plain outputs
+    (half the rows or keys off by 5%, or zeroed) must fail those bounds."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(t + d)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = d ** -0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_want, lse_want = fa._flash_fwd_reference(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    _flash_held(o, o_want, dtype, "o")
+    _flash_held(lse, lse_want, dtype, "lse")
+    dvec = fa._dvec(o_want, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_want, dvec, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_want, dvec, causal, scale)
+    dq_want = fa._dq_reference(q, k, v, do, lse_want, dvec, causal, scale)
+    dk_want, dv_want = fa._dkv_reference(q, k, v, do, lse_want, dvec, causal, scale)
+    torch.cuda.synchronize()
+    outputs = {"o": o_want, "dq": dq_want, "dk": dk_want, "dv": dv_want}
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        _flash_held(got, outputs[name], dtype, name)
+    if t == 2048:
+        for name, want in outputs.items():
+            for fault in (0.95, 0.0):
+                bad = want.clone()
+                bad[:, :, t // 2:] *= fault
+                with pytest.raises(AssertionError):
+                    _flash_held(bad, want, dtype, name)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_flash_autograd_launches_the_kernels(cuda_device):
+    """flash_attention on CUDA tensors: one forward launch, one of each
+    backward kernel, gradients as the plain backward gives them, with a
+    non-contiguous incoming gradient."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 2, 130, 64), generator=gen, device="cuda")
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn((2, 130, 2, 64), generator=gen, device="cuda").transpose(1, 2)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    o_want, lse = fa._flash_fwd_reference(q.detach(), k.detach(), v.detach(), True, 64 ** -0.5)
+    want = fa._flash_bwd_reference(q.detach(), k.detach(), v.detach(), o_want, lse,
+                                   g.contiguous(), True, 64 ** -0.5)
+    torch.cuda.synchronize()
+    _flash_held(out, o_want, "float32", "o")
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _flash_held(got, w, "float32", name)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros((1, 2, 64, 64), device="cuda")
+    with pytest.raises(ValueError):  # head_dim 96
+        fa.flash_fwd(*(torch.zeros((1, 2, 64, 96), device="cuda"),) * 3, True, 0.1)
+    with pytest.raises(ValueError):  # mixed dtypes
+        fa.flash_fwd(x, x.bfloat16(), x, True, 0.1)
+    with pytest.raises(ValueError):  # a non-contiguous k
+        fa.flash_fwd(x, x.transpose(2, 3), x, True, 0.1)
+    with pytest.raises(ValueError):  # lse in bf16
+        fa.flash_bwd_dq(x, x, x, x, torch.zeros((1, 2, 64), device="cuda").bfloat16(),
+                        torch.zeros((1, 2, 64), device="cuda"), True, 0.1)
