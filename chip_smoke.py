@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and its training step on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's serving path (the paged engine and the
+dense decode programs) and its training step on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
-    python3 chip_smoke.py --phases build,card,kernels,train
+    python3 chip_smoke.py --phases build,card,kernels,dense
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -22,10 +23,15 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            177 and 1000, non-causal and f32 (each entry's error against its
            own size and its row's, flash_err <= FLASH_TOL, a bound for each
            output; planted faults at the training shape must fail those
-           bounds). Times each kernel, its plain version and the
-           library call (scaled_dot_product_attention: on the pre-gathered
-           cache for the paged kernels; causal forward, backward and the pair
-           for the flash kernels) at the main path's shapes;
+           bounds). The dense decode kernel at the bench GPT's heads over a
+           cache of 8192 with limits 0, 1, 31-33, 1000, 2048, 8191, 8192 and
+           9000, MHA at head_dim 128 and 256, and rep 2 over three KV heads,
+           f32 and bf16 (flash_err <= DECODE_TOL; planted faults must fail
+           it). Times each kernel, its plain version and the library call
+           (scaled_dot_product_attention: on the pre-gathered cache for the
+           paged kernels; causal forward, backward and the pair for the
+           flash kernels; with enable_gqa and a mask on the dense cache for
+           the dense kernel) at the main path's shapes;
   engine   serves the bench GPT (vocab 32000, hidden 512, 8 layers, 8 heads, 2
            KV heads) with random weights from init_gpt(seed 0) in bf16, 8 slots,
            max_len 8192, a prefill budget of two 256-token chunks per tick: six
@@ -34,9 +40,24 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            through the multi-slot prefill window. The launch counts are zeroed
            just before that run and read just after; then every output is
            checked against a teacher-forced greedy pass of the plain programs
-           on the card (see check_engine for the bounds), and the run repeats
+           on the card (see check_logits for the bounds), and the run repeats
            in float32, where the strict agreement must be 1.0. A profiler
            window over 16 decode steps reports host and device time per step;
+  dense    the dense programs on the same bench GPT. Greedy generate in bf16
+           (the main path) and f32: batch 8, prompts of 1024 tokens, 256
+           steps, the cache at max_len 8192; the decode_attention count is
+           zeroed just before the call and read just after (8 layers x 255
+           steps = 2040), and a teacher-forced pass of the same programs with
+           the kernel and with its plain version over the generated tokens
+           must agree (f32: every greedy pick; bf16: within one step and the
+           pinned logit deltas). decode_step_ragged over a seeded cache at
+           per-row positions 127-4159, kernel against plain. Sampled
+           generate (temperature 0.8, PRNGKey(0), 64 steps, f32) and a
+           sampled DecodeServer (seed 7, four streams): every token equals
+           the threefry draw over the plain logits, and the PRNG's keys,
+           bits and uniforms on the card equal the CPU's. Prints prefill ms,
+           the decode loop's wall and tok/s, a profiled window of 16
+           decode_step calls, the sampler's ms per step and peak memory;
   train    the single-device GPT train step in three arms. Timed: the
            training model of runtime/mfu.py::gpt_train_mfu (hidden 2048, 8
            layers, 8 heads of 256, vocab 32000, bf16), init_train_state(seed
@@ -52,9 +73,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            bf16 model, 20 steps on one batch, the loss finite throughout and
            lower at step 20 than at step 1.
 
-The line before the last is the `kernels` JSON object (the two paged and
-the three flash kernels); the last line is {"ok": true, "device": {...}},
-printed only when every phase passed.
+The line before the last is the `kernels` JSON object (the two paged, the
+three flash and the dense decode kernels); the last line is {"ok": true,
+"device": {...}}, printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -74,10 +95,12 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # (2.0e-3, window kernel); int8 and f32 keep the bounds first set for them.
 TOL = {"float32": 1e-4, "bfloat16": 5e-3, "int8": 2e-2}
 RTOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 2e-2}
-# The bf16 engine's teacher-forced oracle: the kernel arm's logits against
-# the plain arm's (see check_engine), pinned at about 2.3x what this
-# traffic measured on an NVIDIA H100 80GB HBM3 at 700 W (max 0.064, mean
-# 0.0085). Re-pin only with a new measurement recorded in PERF.md.
+# The bf16 teacher-forced oracle of the engine and the dense programs: the
+# kernel arm's logits against the plain arm's (see check_logits), pinned at
+# about 2.3x what the engine's traffic measured on an NVIDIA H100 80GB HBM3
+# at 700 W (max 0.064, mean 0.0085); the dense phase measured max 0.078 /
+# 0.082 and mean 0.0081 / 0.0076 (greedy / ragged), within them. Re-pin
+# only with a new measurement recorded in PERF.md.
 MAX_DLOGIT_BF16 = 0.15
 MEAN_DLOGIT_BF16 = 0.02
 # Decode lanes mid-run: six streams, then the two long prompts.
@@ -106,6 +129,35 @@ FLASH_CHECKS = [
 ]
 FLASH_MAIN = FLASH_CHECKS[0]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The dense decode kernel against its plain version, entry by entry
+# (flash_err) within DECODE_TOL[dtype]. First set at 1e-4 (f32) and 2e-2
+# (bf16). f32 is pinned at about 2.5x the worst over DECODE_CHECKS on an
+# NVIDIA H100 80GB HBM3 at 700 W (4.07e-6). In bf16 both versions round an
+# f32 result that agrees to ~1e-6, so an entry is either equal or one bf16
+# step off, and one step is at most 2^-7 of the entry: the bound is 2^-7
+# (measured 7.2e-4 here and 2.4e-3 in a card test; 2.5x those would fail a
+# single step on a larger entry). Planted faults at the first case (half
+# the rows off by 5%, one row zeroed) measured 0.039 and 0.74-0.77, and
+# must fail it.
+DECODE_TOL = {"float32": 1.0e-5, "bfloat16": 2.0 ** -7}
+DECODE_LIMITS = [0, 1, 31, 32, 33, 1000, 2048, 8191, 8192, 9000]
+# (nh, nkv, hd, max_len, one limit per row): the bench GPT's heads at the
+# dense phase's cache with every edge limit, MHA at head_dim 128 and 256,
+# and the reference test's uneven rep 2.
+DECODE_CHECKS = [
+    (8, 2, 64, 8192, DECODE_LIMITS[:8]),
+    (8, 2, 64, 8192, DECODE_LIMITS[2:]),
+    (4, 4, 128, 2048, [0, 63, 2047, 3000]),
+    (4, 4, 256, 2048, [1, 64, 65, 2048]),
+    (6, 3, 64, 512, [0, 300, 512]),
+]
+# The dense phase: batch 8, prompts of 1024 tokens, 256 steps, the cache
+# sized at the model's context. The decode loop's limits run 1025..1279;
+# the kernel is timed at the middle of that range.
+DENSE = {"batch": 8, "prompt": 1024, "steps": 256, "max_len": 8192, "sampled_steps": 64}
+DENSE_SMALL = {"batch": 2, "prompt": 24, "steps": 12, "max_len": 64, "sampled_steps": 8}
+DENSE_MAIN_LIMITS = [1152] * 8
+TEMPERATURE = 0.8
 # The train phase's kernel arm against its plain arm (2 layers, 3 steps):
 # max relative difference of the per-step loss, max|err| / max|want| of
 # each gradient leaf of the first batch, max|err| of the params after step
@@ -274,6 +326,8 @@ def phase_kernels(torch):
     timings = time_kernels(torch, pa)
     worst.update(check_flash(torch))
     timings.update(time_flash(torch))
+    worst.update(check_decode(torch))
+    timings.update(time_decode(torch))
     return worst, timings
 
 
@@ -518,20 +572,113 @@ def time_flash(torch):
     return out_t
 
 
+def check_decode(torch):
+    """The dense decode kernel against its plain version at DECODE_CHECKS in
+    f32 and bf16, by flash_err within DECODE_TOL; planted faults at the
+    first case must fail the same bound. Returns the worst max|err| and the
+    worst flash_err per dtype."""
+    from nos_tpu_torch.ops import decode_attention as da
+    from nos_tpu_torch.ops.flash_attention import flash_err
+
+    worst = {"decode_attention": 0.0, "decode_float32": 0.0, "decode_bfloat16": 0.0}
+    planted = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for i, (nh, nkv, hd, max_len, limits) in enumerate(DECODE_CHECKS):
+            b = len(limits)
+            q = torch.randn((b, nh, hd), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((b, nkv, max_len, hd), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+            got = da.decode_attention(q, k, v, lim)
+            want = da._reference(q, k, v, lim)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = flash_err(got, want)
+            check(got.dtype == dt and np.isfinite(err) and ratio <= DECODE_TOL[dtype],
+                  f"decode_attention {dtype} nh={nh} nkv={nkv} hd={hd} max={max_len} "
+                  f"limits={limits}: flash_err {ratio} (bound {DECODE_TOL[dtype]}), "
+                  f"max|err| {err}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            worst[f"decode_{dtype}"] = max(worst[f"decode_{dtype}"], ratio)
+            if i == 0:
+                scaled = want.clone()
+                scaled[b // 2:] *= 0.95
+                zeroed = want.clone()
+                zeroed[3] = 0
+                for what, bad in (("rows >= B/2 off by 5%", scaled), ("row 3 zeroed", zeroed)):
+                    r = flash_err(bad, want)
+                    check(r > DECODE_TOL[dtype], f"planted fault ({what}, {dtype}) passes: "
+                          f"flash_err {r} <= {DECODE_TOL[dtype]}")
+                    planted[f"{dtype}: {what}"] = r
+            del q, k, v, got, want
+    log(f"kernels decode: every case within {json.dumps(DECODE_TOL)} "
+        f"(worst {json.dumps(worst)}); planted faults fail: {json.dumps(planted)}")
+    return worst
+
+
+def time_decode(torch):
+    """The dense decode kernel, its plain version and SDPA on the same dense
+    bf16 cache (enable_gqa, a boolean mask over all `max` positions) at the
+    dense phase's shape: B 8, nh 8, nkv 2, hd 64, max 8192, every row at the
+    middle of the decode loop's limits, and a sweep of limits. SDPA is a
+    yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.ops import decode_attention as da
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    B, NH, NKV, HD, MAX = 8, 8, 2, 64, DENSE["max_len"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((B, NH, HD), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, NKV, MAX, HD), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    idx = torch.arange(MAX, device="cuda")
+
+    def case(limits):
+        lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+        mask = (idx[None, :] < lim[:, None])[:, None, None, :]  # [B, 1, 1, max]
+        q4 = q[:, :, None, :]
+        read = sum(min(x, MAX) for x in limits)  # positions the function needs
+        nbytes = read * NKV * HD * 2 * 2 + 2 * B * NH * HD * 2 + 4 * B
+        flops = 4.0 * NH * HD * read
+        by_bytes = nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
+        return {
+            "ms": time_cuda(torch, lambda: da.decode_attention(q, k, v, lim)),
+            "plain_ms": time_cuda(torch, lambda: da._reference(q, k, v, lim)),
+            "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+
+    out = {"dense_main": case(DENSE_MAIN_LIMITS)}
+    for ctx in (1025, 1279, 8192):
+        out[f"dense_ctx{ctx}"] = case([ctx] * B)
+    log("dense_kernel_times " + json.dumps(out))
+    return out
+
+
 # -- phase: engine -----------------------------------------------------------------
 @contextlib.contextmanager
 def plain_attention():
     """Route the model programs through the kernels' plain versions (the
-    oracle's arm; the package itself has no such switch)."""
+    oracle's arm; the package itself has no such switch): the paged
+    kernels and the dense decode kernel."""
+    from nos_tpu_torch.models import decode as D
+    from nos_tpu_torch.ops import decode_attention as da
     from nos_tpu_torch.ops import paged_attention as pa
 
-    saved = (pa.paged_decode_attention, pa.paged_window_attention)
+    saved = (pa.paged_decode_attention, pa.paged_window_attention, D.decode_attention)
     pa.paged_decode_attention = pa._reference
     pa.paged_window_attention = pa._window_reference
+    D.decode_attention = da._reference
     try:
         yield
     finally:
-        pa.paged_decode_attention, pa.paged_window_attention = saved
+        pa.paged_decode_attention, pa.paged_window_attention, D.decode_attention = saved
 
 
 def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, device):
@@ -646,19 +793,33 @@ def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, m
     return outs, stats
 
 
-def phase_engine(torch, device, dtype, small=False):
-    from nos_tpu_torch import GPTConfig, init_gpt
+def bench_gpt(dtype, small=False):
+    """The GPT of bench.py:2222 (vocab 32000, hidden 512, 8 layers, 8 heads,
+    2 KV heads, context 8192), or a tiny one of the same shape for a
+    rehearsal on the CPU."""
+    from nos_tpu_torch import GPTConfig
 
     if small:
-        cfg = GPTConfig(vocab=97, hidden=32, layers=2, heads=4, kv_heads=2, max_seq=512,
-                        dtype=dtype)
-        buckets, max_len, max_new = (8, 16, 32), 512, 12
-        lens, long_len = [10, 17, 24, 31, 9, 28], 150
+        return GPTConfig(vocab=97, hidden=32, layers=2, heads=4, kv_heads=2, max_seq=512,
+                         dtype=dtype)
+    return GPTConfig(vocab=32000, hidden=512, layers=8, heads=8, kv_heads=2, max_seq=8192,
+                     dtype=dtype)
+
+
+def engine_sizes(small):
+    """(prompt buckets, max_len) of the engine runs."""
+    return ((8, 16, 32), 512) if small else ((16, 32, 64, 128, 256), 8192)
+
+
+def phase_engine(torch, device, dtype, small=False):
+    from nos_tpu_torch import init_gpt
+
+    cfg = bench_gpt(dtype, small)
+    buckets, max_len = engine_sizes(small)
+    if small:
+        max_new, lens, long_len = 12, [10, 17, 24, 31, 9, 28], 150
     else:
-        cfg = GPTConfig(vocab=32000, hidden=512, layers=8, heads=8, kv_heads=2,
-                        max_seq=8192, dtype=dtype)
-        buckets, max_len, max_new = (16, 32, 64, 128, 256), 8192, 128
-        lens, long_len = [64, 96, 128, 160, 224, 256], 4096
+        max_new, lens, long_len = 128, [64, 96, 128, 160, 224, 256], 4096
     params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
@@ -717,7 +878,7 @@ def agreement(torch, kern, plain, served, dtype):
     }
 
 
-def check_engine(stats):
+def check_logits(stats, what):
     """The teacher-forced oracle's bounds (runtime/divergence.py:43,48:
     max|dlogit| <= 0.5, top-1 agreement >= 0.98). In float32 the served
     tokens must be the plain programs' greedy picks at every position. In
@@ -729,43 +890,30 @@ def check_engine(stats):
     top-1 pick, and holds the kernel arm's logits against the plain
     arm's at limits pinned from measured runs."""
     dtype = stats["dtype"]
-    check(stats["finite"], f"engine {dtype}: non-finite logits")
+    check(stats["finite"], f"{what} {dtype}: non-finite logits")
     check(stats["max_abs_dlogit"] <= 0.5,
-          f"engine {dtype}: max|dlogit| {stats['max_abs_dlogit']} > 0.5")
+          f"{what} {dtype}: max|dlogit| {stats['max_abs_dlogit']} > 0.5")
     if dtype == "float32":
         check(stats["top1_agreement"] == 1.0,
-              f"engine float32: top-1 agreement {stats['top1_agreement']} < 1.0")
+              f"{what} float32: top-1 agreement {stats['top1_agreement']} < 1.0")
         return
     check(stats["top1_agreement_1ulp"] >= 0.98,
-          f"engine {dtype}: top-1 agreement within a step "
+          f"{what} {dtype}: top-1 agreement within a step "
           f"{stats['top1_agreement_1ulp']} < 0.98")
     check(stats["max_abs_dlogit"] <= MAX_DLOGIT_BF16,
-          f"engine {dtype}: max|dlogit| {stats['max_abs_dlogit']} > {MAX_DLOGIT_BF16}")
+          f"{what} {dtype}: max|dlogit| {stats['max_abs_dlogit']} > {MAX_DLOGIT_BF16}")
     check(stats["mean_abs_dlogit"] <= MEAN_DLOGIT_BF16,
-          f"engine {dtype}: mean|dlogit| {stats['mean_abs_dlogit']} > {MEAN_DLOGIT_BF16}")
+          f"{what} {dtype}: mean|dlogit| {stats['mean_abs_dlogit']} > {MEAN_DLOGIT_BF16}")
 
 
-def profile_decode_step(torch, cfg, params, steps=16):
-    """Where one macro window's time goes: 16 decode steps at the main
-    path's B=8 lanes under torch.profiler. Host wall per step, device
-    kernel time per step (sum of CUDA kernel intervals; one stream, so no
-    overlap), kernels launched per step, and the attention kernel's
-    share."""
+def profile_steps(torch, run, steps, kernel_tag):
+    """Where one window of `steps` decode steps' time goes, under
+    torch.profiler: host wall per step, device kernel time per step (sum of
+    CUDA kernel intervals; one stream, so no overlap), the busy share,
+    kernels launched per step, and the time and share of the kernels whose
+    name holds `kernel_tag`. `run()` runs the window; it runs once before
+    the profiled window as a warm-up."""
     from torch.profiler import ProfilerActivity, profile
-
-    from nos_tpu_torch.models import decode as D
-
-    B, BS = 8, 32
-    P = -(-max(MAIN_DECODE_LIMITS) // BS) + 1
-    cache = D.init_paged_cache(cfg, 1 + B * P, BS, device="cuda")
-    table = (torch.arange(B * P, dtype=torch.int32, device="cuda") + 1).reshape(B, P)
-    pos0 = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda") - 1
-    token = torch.ones((B,), dtype=torch.int32, device="cuda")
-    mask = torch.ones((B,), dtype=torch.bool, device="cuda")
-
-    def run():
-        for k in range(steps):
-            D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS)
 
     run()
     torch.cuda.synchronize()
@@ -780,7 +928,7 @@ def profile_decode_step(torch, cfg, params, steps=16):
             n_kernels += 1
             us = e.time_range.elapsed_us()
             dev_us += us
-            if "paged_attention" in e.name:
+            if kernel_tag in e.name:
                 attn_us += us
     return {
         "wall_ms_per_step": 1e3 * wall / steps,
@@ -788,7 +936,300 @@ def profile_decode_step(torch, cfg, params, steps=16):
         "device_busy_share": (dev_us / 1e6) / wall if wall else None,
         "kernels_per_step": n_kernels / steps,
         "attention_ms_per_step": attn_us / 1e3 / steps,
+        "attention_share_of_device": attn_us / dev_us if dev_us else None,
     }
+
+
+def profile_decode_step(torch, cfg, params, steps=16):
+    """One macro window of the paged engine: 16 decode steps at the main
+    path's B=8 lanes (MAIN_DECODE_LIMITS)."""
+    from nos_tpu_torch.models import decode as D
+
+    B, BS = 8, 32
+    P = -(-max(MAIN_DECODE_LIMITS) // BS) + 1
+    cache = D.init_paged_cache(cfg, 1 + B * P, BS, device="cuda")
+    table = (torch.arange(B * P, dtype=torch.int32, device="cuda") + 1).reshape(B, P)
+    pos0 = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda") - 1
+    token = torch.ones((B,), dtype=torch.int32, device="cuda")
+    mask = torch.ones((B,), dtype=torch.bool, device="cuda")
+
+    def run():
+        for k in range(steps):
+            D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS)
+
+    return profile_steps(torch, run, steps, "paged_attention")
+
+
+# -- phase: dense ------------------------------------------------------------------
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_prefill(torch, device, marks):
+    """Record, inside one generate call, the dense prefill's wall time and
+    the moment the decode loop starts (host clock around synchronised
+    work; the package has no such hook)."""
+    from nos_tpu_torch.models import decode as D
+
+    real = D.prefill
+
+    def prefill(*args, **kw):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync(torch, device)
+        marks["prefill_s"] = time.perf_counter() - t0
+        marks["loop_t0"] = time.perf_counter()
+        return out
+
+    D.prefill = prefill
+    try:
+        yield
+    finally:
+        D.prefill = real
+
+
+def dense_teacher_forced(torch, params, cfg, prompt, tokens, max_len):
+    """Logits of a teacher-forced pass of the dense programs over prompt +
+    tokens: prefill, then decode_step fed the given tokens. Returns [B,
+    steps, vocab] f32; row t predicts token t."""
+    from nos_tpu_torch.models import decode as D
+
+    b, t = prompt.shape
+    steps = tokens.shape[1]
+    logits = torch.empty((b, steps, cfg.vocab), dtype=torch.float32, device=prompt.device)
+    lg, cache = D.prefill(params, prompt, cfg, max_len)
+    logits[:, 0] = lg
+    for i in range(1, steps):
+        lg, cache = D.decode_step(params, tokens[:, i - 1].contiguous(), cfg, cache, t + i - 1)
+        logits[:, i] = lg
+    return logits
+
+
+def dense_greedy(torch, device, dtype, small):
+    """The main path: one greedy generate call over the prompts, with the
+    decode_attention count zeroed just before it and read just after (every
+    decode step of every layer launches the kernel once: layers x (steps -
+    1)); then the teacher-forced oracle of both arms over its tokens.
+    Returns (stats, (cfg, params, prompt))."""
+    from nos_tpu_torch import generate, init_gpt
+    from nos_tpu_torch.ops import decode_attention as da
+
+    z = DENSE_SMALL if small else DENSE
+    cfg = bench_gpt(dtype, small)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    rng = np.random.default_rng(1)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab, (z["batch"], z["prompt"])),
+                          dtype=torch.int32, device=device)
+    cuda = device.type == "cuda"
+    generate(params, prompt[:, :8], cfg, steps=4, max_len=64)  # warm-up, not counted
+    sync(torch, device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    marks = {}
+    da.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_prefill(torch, device, marks):
+        tokens = generate(params, prompt, cfg, steps=z["steps"], max_len=z["max_len"])
+    sync(torch, device)
+    end = time.perf_counter()
+    launches = dict(da.LAUNCHES)
+    loop_s = end - marks["loop_t0"]
+    stats = {
+        "dtype": dtype,
+        "batch": z["batch"], "prompt": z["prompt"], "steps": z["steps"],
+        "max_len": z["max_len"],
+        "generate_s": end - t0,
+        "prefill_ms": 1e3 * marks["prefill_s"],
+        "decode_loop_s": loop_s,
+        "decode_tok_per_s": z["batch"] * (z["steps"] - 1) / loop_s,
+        "launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+    }
+    check(tuple(tokens.shape) == (z["batch"], z["steps"]) and tokens.dtype == torch.int32
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
+          f"dense {dtype}: generate returned {tuple(tokens.shape)} {tokens.dtype}")
+    if cuda:
+        want = cfg.layers * (z["steps"] - 1)
+        check(launches["decode_attention"] == want,
+              f"dense {dtype}: {launches['decode_attention']} decode_attention launches, "
+              f"want {want}")
+    kern = dense_teacher_forced(torch, params, cfg, prompt, tokens, z["max_len"])
+    with plain_attention():
+        plain = dense_teacher_forced(torch, params, cfg, prompt, tokens, z["max_len"])
+    stats.update(agreement(torch, kern, plain, tokens, dtype))
+    return stats, (cfg, params, prompt)
+
+
+def dense_ragged(torch, device, dtype, small, steps=16):
+    """decode_step_ragged over a dense cache filled from a numpy seed, at
+    per-row positions MAIN_DECODE_LIMITS - 1: the kernel arm's logits
+    against the plain arm's, step by step from the same cache."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.models import decode as D
+    from nos_tpu_torch.ops import decode_attention as da
+
+    cfg = bench_gpt(dtype, small)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    if small:
+        pos0, max_len, steps = [3, 9, 20, 40], 64, 4
+    else:
+        pos0, max_len = [x - 1 for x in MAIN_DECODE_LIMITS], DENSE["max_len"]
+    b = len(pos0)
+    rng = np.random.default_rng(2)
+    shape = (b, cfg.n_kv, max_len, cfg.head_dim)
+    cache = {str(i): {n: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                      .to(device=device, dtype=cfg.torch_dtype) for n in ("k", "v")}
+             for i in range(cfg.layers)}
+    plain_cache = {l: {n: t.clone() for n, t in lc.items()} for l, lc in cache.items()}
+    toks = torch.tensor(rng.integers(1, cfg.vocab, (steps, b)), dtype=torch.int32,
+                        device=device)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=device)
+    kern, plain = [], []
+    da.reset_launch_counts()
+    for s in range(steps):
+        kern.append(D.decode_step_ragged(params, toks[s], cfg, cache, pos + s)[0])
+    launches = da.LAUNCHES["decode_attention"]
+    with plain_attention():
+        for s in range(steps):
+            plain.append(D.decode_step_ragged(params, toks[s], cfg, plain_cache, pos + s)[0])
+    kern, plain = torch.stack(kern, dim=1), torch.stack(plain, dim=1)
+    stats = {"dtype": dtype, "positions": pos0, "steps": steps, "launches": launches}
+    stats.update(agreement(torch, kern, plain, greedy(torch, kern), dtype))
+    if device.type == "cuda":
+        check(launches == cfg.layers * steps,
+              f"dense ragged: {launches} launches, want {cfg.layers * steps}")
+    return stats
+
+
+def dense_sampled(torch, device, small, cfg, params, prompt):
+    """generate(temperature=0.8, rng=PRNGKey(0)): token t must equal
+    categorical(split(PRNGKey(0), steps)[t], plain_logits_t / 0.8) over the
+    teacher-forced plain logits. On the card the PRNG's keys, bits and
+    uniforms must equal its CPU results for the same keys, exactly."""
+    from nos_tpu_torch import generate, prng
+
+    z = DENSE_SMALL if small else DENSE
+    steps = z["sampled_steps"]
+    key = prng.PRNGKey(0, device=device)
+    t0 = time.perf_counter()
+    tokens = generate(params, prompt, cfg, steps=steps, temperature=TEMPERATURE, rng=key,
+                      max_len=z["max_len"])
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    with plain_attention():
+        plain = dense_teacher_forced(torch, params, cfg, prompt, tokens, z["max_len"])
+    keys = prng.split(key, steps)
+    want = torch.stack([prng.categorical(keys[t], plain[:, t] / TEMPERATURE)
+                        for t in range(steps)], dim=1).to(torch.int32)
+    stats = {"steps": steps, "generate_s": wall,
+             "token_match": (want == tokens).float().mean().item(),
+             "greedy_share": (greedy(torch, plain) == tokens).float().mean().item()}
+    check(stats["token_match"] == 1.0,
+          f"dense sampled: {stats['token_match']} of the tokens match the plain-logit draw")
+    if device.type == "cuda":
+        cpu_keys = prng.split(prng.PRNGKey(0), steps)
+        lanes = torch.arange(1, 9)
+        engine_keys = prng.fold_in(prng.fold_in(prng.PRNGKey(7), lanes), lanes + 65536)
+        same = {
+            "split": torch.equal(keys.cpu(), cpu_keys),
+            "fold_in": torch.equal(prng.fold_in(prng.fold_in(
+                prng.PRNGKey(7, device=device), lanes.to(device)), lanes.to(device) + 65536)
+                .cpu(), engine_keys),
+            "bits": torch.equal(prng.random_bits(keys[:8], (cfg.vocab,)).cpu(),
+                                prng.random_bits(cpu_keys[:8], (cfg.vocab,))),
+            "uniform": torch.equal(
+                prng.uniform(keys[:8], (cfg.vocab,)).cpu().view(torch.int32),
+                prng.uniform(cpu_keys[:8], (cfg.vocab,)).view(torch.int32)),
+        }
+        check(all(same.values()), f"the PRNG on the card differs from the CPU: {same}")
+        stats["prng_card_equals_cpu"] = same
+        stats["sampler_ms_per_step"] = time_cuda(
+            torch, lambda: prng.categorical(keys[1], plain[:, 1] / TEMPERATURE))
+    return stats
+
+
+def engine_sampled(torch, device, small, cfg, params):
+    """DecodeServer(temperature=0.8, seed=7): four streams submitted before
+    start() (serials 1-4); each served token t of stream i must equal
+    categorical(fold_in(fold_in(PRNGKey(7), i + 1), t), logits / 0.8) over
+    the teacher-forced plain logits."""
+    from nos_tpu_torch import DecodeServer, prng
+
+    buckets, max_len = engine_sizes(small)
+    lens, max_new = ([5, 9, 12, 20], 8) if small else ([64, 128, 192, 256], 64)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
+    server = DecodeServer(params, cfg, n_slots=4, max_len=max_len, prompt_buckets=buckets,
+                          steps_per_dispatch=16, temperature=TEMPERATURE, seed=7,
+                          device=device)
+    t0 = time.perf_counter()
+    futs = [server.submit(p, max_new) for p in prompts]
+    server.start()
+    try:
+        outs = [f.result(timeout=600) for f in futs]
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    with plain_attention():
+        plain = teacher_forced(torch, params, cfg, prompts, outs, buckets, 32, device)
+    serials = torch.arange(1, len(prompts) + 1, device=device)[:, None].expand(-1, max_new)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(7, device=device), serials),
+                        torch.arange(max_new, device=device))
+    want = prng.categorical(keys, plain / TEMPERATURE)
+    served = torch.tensor(outs, device=device)
+    stats = {"streams": len(prompts), "max_new": max_new, "wall_s": wall,
+             "token_match": (want == served).float().mean().item()}
+    check(stats["token_match"] == 1.0,
+          f"engine sampled: {stats['token_match']} of the tokens match the plain-logit draw")
+    return stats
+
+
+def profile_dense_step(torch, cfg, params, steps=16):
+    """16 lockstep decode_step calls of the dense program at the dense
+    phase's batch, from position DENSE["prompt"] on a max_len cache."""
+    from nos_tpu_torch.models import decode as D
+
+    cache = D.init_cache(cfg, DENSE["batch"], DENSE["max_len"], device="cuda")
+    token = torch.ones((DENSE["batch"],), dtype=torch.int32, device="cuda")
+
+    def run():
+        for k in range(steps):
+            D.decode_step(params, token, cfg, cache, DENSE["prompt"] + k)
+
+    return profile_steps(torch, run, steps, "decode_attention")
+
+
+def phase_dense(torch, device, small=False):
+    """The dense programs at the bench GPT's full width: greedy generate in
+    bf16 and f32 (the bf16 call is the main path), ragged decode, sampled
+    generate and the sampled engine (f32), and a profiled window."""
+    t0 = time.perf_counter()
+    stats, models = {}, {}
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        stats[dtype], models[dtype] = dense_greedy(torch, device, dtype, small)
+        log(f"dense greedy {dtype}: " + json.dumps(stats[dtype]))
+        check_logits(stats[dtype], "dense greedy")
+    ragged_dtype = "float32" if small else "bfloat16"
+    stats["ragged"] = dense_ragged(torch, device, ragged_dtype, small)
+    log("dense ragged: " + json.dumps(stats["ragged"]))
+    check_logits(stats["ragged"], "dense ragged")
+    stats["sampled"] = dense_sampled(torch, device, small, *models["float32"])
+    log("dense sampled: " + json.dumps(stats["sampled"]))
+    stats["engine_sampled"] = engine_sampled(torch, device, small, *models["float32"][:2])
+    log("dense engine sampled: " + json.dumps(stats["engine_sampled"]))
+    main = stats["float32" if small else "bfloat16"]
+    summary = {k: main[k] for k in ("dtype", "prefill_ms", "decode_loop_s", "decode_tok_per_s",
+                                    "peak_mem_bytes", "launches")}
+    if device.type == "cuda":
+        stats["step_profile"] = profile_dense_step(torch, *models["bfloat16"][:2])
+        summary["step_profile"] = stats["step_profile"]
+        summary["sampler_ms_per_step"] = stats["sampled"]["sampler_ms_per_step"]
+    summary["phase_s"] = stats["phase_s"] = time.perf_counter() - t0
+    log("dense: " + json.dumps(summary))
+    return stats
 
 
 # -- phase: train ------------------------------------------------------------------
@@ -1024,7 +1465,7 @@ def phase_train(torch, device, full=True):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,card,kernels,engine,train")
+    ap.add_argument("--phases", default="build,card,kernels,engine,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -1040,7 +1481,8 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     if args.rehearse:
-        check_engine(phase_engine(torch, torch.device("cpu"), "float32", small=True))
+        check_logits(phase_engine(torch, torch.device("cpu"), "float32", small=True), "engine")
+        phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
     if not torch.cuda.is_available():
@@ -1061,16 +1503,21 @@ def main(argv=None):
     if "engine" in phases:
         engine = phase_engine(torch, torch.device("cuda"), "bfloat16")
         engine_f32 = phase_engine(torch, torch.device("cuda"), "float32")
-        check_engine(engine)
-        check_engine(engine_f32)
+        check_logits(engine, "engine")
+        check_logits(engine_f32, "engine")
+    dense = None
+    if "dense" in phases:
+        dense = phase_dense(torch, torch.device("cuda"))
     train = None
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if worst is None or engine is None or train is None:
+    if worst is None or engine is None or dense is None or train is None:
         return 0
-    launches = dict(engine["launches"], **train["timed"]["launches"])
-    for name in ("paged_decode_attention", "paged_window_attention") + FLASH_KERNELS:
+    launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
+                    **train["timed"]["launches"])
+    for name in ("paged_decode_attention", "paged_window_attention", "decode_attention") \
+            + FLASH_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} never launched on the main path")
     main_key = {"paged_decode_attention": "decode_main",
                 "paged_window_attention": "window_main"}
@@ -1100,6 +1547,15 @@ def main(argv=None):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    t = timings["dense_main"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "nos_tpu_torch/ops/csrc/decode_attention.cu",
+        "replaces": "nos_tpu/ops/decode_attention.py:46",
+        "launches": launches["decode_attention"],
+        "max_abs_err": worst["decode_attention"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Where the port's entry points run.
 
 Every entry point (`init_gpt`, `from_numpy_params`, `init_paged_cache`,
-`DecodeServer`) takes a `device`: None means CUDA, and raises when no CUDA
+`init_cache`, `DecodeServer`) takes a `device`: None means CUDA, and raises when no CUDA
 device exists, so the port never drifts to the CPU on its own. The CPU runs
 only when a caller names it (`device="cpu"`), and there the kernels' plain
 versions run.

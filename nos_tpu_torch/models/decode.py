@@ -1,19 +1,21 @@
-"""The serving programs over a block-paged KV pool.
+"""The serving programs: over a dense KV cache and over a block-paged pool.
 
-Port of `nos_tpu/models/decode.py`: `_attend_cache` (:33), `_embed` /
-`_lm_logits` (:113, :117), `_block_core` (:123, single device),
-`init_paged_cache` (:242, native pool), `paged_decode_step` (:322),
-`paged_prefill_chunk` (:393), `_paged_window_core` (:469) and
-`paged_prefill_window` (:603).
+Port of `nos_tpu/models/decode.py`: the dense programs `init_cache` (:21),
+`_block_with_cache` (:158), `_forward_with_cache` (:204), `prefill` (:222),
+`decode_step` (:235), `decode_step_ragged` (:636) and `generate` (:648);
+`_attend_cache` (:33), `_embed` / `_lm_logits` (:113, :117), `_block_core`
+(:123, single device); and the paged ones, `init_paged_cache` (:242, native
+pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393),
+`_paged_window_core` (:469) and `paged_prefill_window` (:603).
 
-The JAX programs return a new pool; these write K/V IN PLACE (advanced-index
-assignment, i.e. `index_put_`) and return the same tensors. Ordering on the
-one CUDA stream takes the place of JAX's donation chain, which keeps the
-composition contract of decode.py:574-593: the programs of one tick write
-disjoint page sets, and masked-off lanes and padding write only the scratch
-page (block 0). Several lanes may hit the same scratch offset; which write
-lands there is unspecified, and nothing reads it past position 0 of an
-invalid row, whose output is discarded.
+The JAX programs return a new cache; these write K/V IN PLACE (`index_copy_`
+or advanced-index assignment, i.e. `index_put_`) and return the same tensors.
+Ordering on the one CUDA stream takes the place of JAX's donation chain,
+which keeps the composition contract of decode.py:574-593: the programs of
+one tick write disjoint page sets, and masked-off lanes and padding write
+only the scratch page (block 0). Several lanes may hit the same scratch
+offset; which write lands there is unspecified, and nothing reads it past
+position 0 of an invalid row, whose output is discarded.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from nos_tpu_torch import constants
+from nos_tpu_torch import constants, prng
 from nos_tpu_torch.device import resolve
 from nos_tpu_torch.models.gpt import GPTConfig, _rmsnorm, project_qkv
+from nos_tpu_torch.ops.decode_attention import decode_attention
 
 
 def _attend_cache(q, cache_k, cache_v, n_rep: int, limit):
@@ -54,6 +57,17 @@ def _lm_logits(x, params):
     return (x @ params["lm_head"]).float()
 
 
+def greedy(logits):
+    """The LOWEST index among the exact maxima of the last axis (int32), not
+    argmax: argmax's tie-break is not stable across program shapes, and the
+    dense `generate` and the engine must agree token for token
+    (decode.py:678-685, decode_server.py:999)."""
+    vocab = logits.shape[-1]
+    top = logits.max(dim=-1, keepdim=True).values
+    idx = torch.arange(vocab, dtype=torch.int32, device=logits.device)
+    return torch.where(logits == top, idx, vocab).min(dim=-1).values
+
+
 def _block_core(x, p, cfg: GPTConfig, positions, attend):
     """The one copy of the cached transformer block math (norms, QKV
     projection, residuals, gated MLP); every cache layout supplies only
@@ -67,6 +81,149 @@ def _block_core(x, p, cfg: GPTConfig, positions, attend):
     z = _rmsnorm(x, p["ln2"])
     z = (F.silu(z @ p["w_gate"]) * (z @ p["w_up"])) @ p["w_down"]
     return x + z
+
+
+# -- the dense contiguous cache ------------------------------------------------
+def init_cache(cfg: GPTConfig, batch: int, max_len: int, device=None) -> Dict:
+    """Per-layer K/V buffers [B, n_kv, max_len, head_dim] in `cfg.dtype` on
+    `device` (None: CUDA)."""
+    device = resolve(device, "init_cache")
+    shape = (batch, cfg.n_kv, max_len, cfg.head_dim)
+    return {
+        str(i): {
+            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        }
+        for i in range(cfg.layers)
+    }
+
+
+def _is_lockstep(start) -> bool:
+    """A scalar start (a Python int or a 0-d tensor: the whole batch at one
+    offset) rather than a [B] vector of per-row offsets (decode.py:168)."""
+    return not isinstance(start, torch.Tensor) or start.dim() == 0
+
+
+def _block_with_cache(x, p, cfg: GPTConfig, layer_cache, positions, start):
+    """One transformer block writing its new K/V into the cache at `start`
+    and attending over everything cached so far. x: [B, T, h]. `start` is a
+    scalar (prefill, lockstep decode) or a [B] tensor (ragged decode). The
+    write start is clamped to [0, max - T] as `dynamic_update_slice` clamps
+    it; the attention limits use the unclamped start, as in JAX."""
+    b, t, _ = x.shape
+    dev = x.device
+    max_len = layer_cache["k"].shape[2]
+    ar = torch.arange(t, dtype=torch.int32, device=dev)
+
+    def attend(q, k_new, v_new):
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        if _is_lockstep(start):
+            if isinstance(start, torch.Tensor):
+                s0 = torch.clamp(start, 0, max_len - t)
+            else:
+                s0 = min(max(int(start), 0), max_len - t)
+            idx = (s0 + ar).long()
+            ck.index_copy_(2, idx, k_new)
+            cv.index_copy_(2, idx, v_new)
+            limit = start + ar + 1  # [T]: causal within the new chunk
+            limit_b = (start + torch.ones((b,), dtype=torch.int32, device=dev)).to(torch.int32)
+        else:
+            rows = torch.arange(b, device=dev)[:, None]
+            idx = (torch.clamp(start, 0, max_len - t)[:, None] + ar).long()  # [B, T]
+            ck[rows, :, idx, :] = k_new.transpose(1, 2)
+            cv[rows, :, idx, :] = v_new.transpose(1, 2)
+            limit = start[:, None] + ar + 1  # [B, T]
+            limit_b = (start + 1).to(torch.int32)
+        if t == 1:
+            # Every single-token step (lockstep and ragged) goes through the
+            # cached-attention op: the kernel on CUDA, the plain version on
+            # the CPU.
+            return decode_attention(
+                q[:, :, 0, :].contiguous(), ck, cv, limit_b.contiguous()
+            )[:, :, None, :]
+        return _attend_cache(q, ck, cv, cfg.heads // cfg.n_kv, limit)
+
+    return _block_core(x, p, cfg, positions, attend)
+
+
+def _forward_with_cache(params, tokens, cfg: GPTConfig, cache, start):
+    """tokens [B, T] at `start` through every block -> (logits [B, T,
+    vocab] f32, the cache written in place)."""
+    b, t = tokens.shape
+    x = _embed(params, tokens)
+    ar = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    if _is_lockstep(start):
+        positions = (start + ar).expand(b, t)
+    else:
+        positions = start[:, None] + ar
+    for i in range(cfg.layers):
+        x = _block_with_cache(x, params["layers"][str(i)], cfg, cache[str(i)],
+                              positions, start)
+    x = _rmsnorm(x, params["ln_f"])
+    return _lm_logits(x, params), cache
+
+
+def prefill(params, tokens, cfg: GPTConfig, max_len: int):
+    """Run the prompt [B, T] through the model in one batched pass, filling a
+    fresh cache for `max_len` on the tokens' device. Returns (last-position
+    logits [B, vocab], cache)."""
+    if tokens.shape[1] > max_len:
+        raise ValueError(
+            f"prompt length {tokens.shape[1]} exceeds cache max_len {max_len}"
+        )
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    logits, cache = _forward_with_cache(params, tokens, cfg, cache, 0)
+    return logits[:, -1, :], cache
+
+
+def decode_step(params, token, cfg: GPTConfig, cache, pos):
+    """One token [B] at position `pos` (a scalar) -> (logits [B, vocab],
+    cache)."""
+    logits, cache = _forward_with_cache(params, token[:, None], cfg, cache, pos)
+    return logits[:, 0, :], cache
+
+
+def decode_step_ragged(params, token, cfg: GPTConfig, cache, pos):
+    """One token [B] with per-row positions [B] -> (logits [B, vocab],
+    cache), against the dense cache. Row b writes its K/V at pos[b] and
+    attends to cache[:pos[b]+1]."""
+    logits, cache = _forward_with_cache(params, token[:, None], cfg, cache, pos)
+    return logits[:, 0, :], cache
+
+
+def generate(params, prompt, cfg: GPTConfig, steps: int, temperature: float = 0.0,
+             rng: Optional[torch.Tensor] = None, max_len: Optional[int] = None):
+    """Greedy (temperature 0) or sampled continuation of `prompt` [B, T].
+    Returns int32 tokens [B, steps]. The keys are `split(rng, steps)` (rng
+    None: PRNGKey(0)), as in JAX: key 0 samples from the prefill's logits,
+    keys 1.. drive the steps-1 decode steps, a Python loop where JAX scans."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    b, t = prompt.shape
+    max_len = max_len or (t + steps)
+    # The cache holds the prompt plus every generated token but the last
+    # (sampled, never re-attended): the loop writes positions t..t+steps-2.
+    if t + steps - 1 > max_len:
+        raise ValueError(
+            f"prompt ({t}) + steps ({steps}) exceed cache max_len {max_len}"
+        )
+    if rng is None:
+        rng = prng.PRNGKey(0)
+    keys = prng.split(rng.to(prompt.device), steps)
+
+    def pick(logits, key):
+        if temperature > 0.0:
+            return prng.categorical(key, logits / temperature).to(torch.int32)
+        return greedy(logits)
+
+    logits, cache = prefill(params, prompt, cfg, max_len)
+    token = pick(logits, keys[0])
+    out = [token]
+    for i in range(1, steps):
+        logits, cache = decode_step(params, token, cfg, cache, t + i - 1)
+        token = pick(logits, keys[i])
+        out.append(token)
+    return torch.stack(out, dim=1)
 
 
 def init_paged_cache(cfg: GPTConfig, total_blocks: int, block_size: int,

@@ -1,7 +1,7 @@
 // Device helpers and the error-string export shared by the port's kernel
-// sources (paged_attention.cu, flash_attention.cu). Each source includes it
-// and builds into its own library; ops/_build.py hashes this header with
-// every source, so an edit here rebuilds both.
+// sources (paged_attention.cu, flash_attention.cu, decode_attention.cu).
+// Each source includes it and builds into its own library; ops/_build.py
+// hashes this header with every source, so an edit here rebuilds them all.
 
 #pragma once
 

@@ -1,17 +1,40 @@
-"""Cached decode attention, plain PyTorch version.
+"""Cached decode attention over a dense KV cache: a hand-written CUDA kernel
+for Hopper, with its plain PyTorch version beside it.
 
-Port of `nos_tpu/ops/decode_attention.py:28` (`_reference`): the math the
-paged reference (`ops/paged_attention.py::_reference`) calls on its gathered
-cache. The dense single-token kernel (`decode_attention.py:46`, `_pallas`)
-serves only the dense `prefill`/`decode_step`/`generate` programs, which are
-a later slice of the port.
+Port of `nos_tpu/ops/decode_attention.py`. The plain version is the
+reference's `_reference` (:28) op for op; it is also the math the paged
+reference (`ops/paged_attention.py::_reference`) runs on its gathered
+cache. The TPU kernel (`_pallas`, :46) becomes `csrc/decode_attention.cu`
+(see its header for the design), built with nvcc and bound with ctypes
+(`ops/_build.py`). It serves every single-token step of the dense programs
+(`models/decode.py`: `prefill` of a one-token prompt, `decode_step`,
+`decode_step_ragged`, `generate`).
+
+`decode_attention` dispatches on the tensors' device: CUDA tensors always
+launch the kernel (a failed build or launch raises, nothing falls back),
+CPU tensors take `_reference`. `LAUNCHES` counts kernel launches, so a run
+can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
+from nos_tpu_torch.ops import _build
+
 NEG_INF = -1e30
+
+#: Kernel launches (incremented only where the kernel launches).
+LAUNCHES: Dict[str, int] = {"decode_attention": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _reference(q, cache_k, cache_v, limit):
@@ -28,3 +51,50 @@ def _reference(q, cache_k, cache_v, limit):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bgsd->bgrd", p, cache_v.float())
     return o.reshape(b, nh, hd).to(q.dtype)
+
+
+# -- the CUDA kernel -----------------------------------------------------------
+_VP, _I = _build.VP, _build.I
+_require = _build.require
+_SIGNATURES = {"nos_decode_attention": [_VP] * 5 + [_I] * 6 + [_build.F, _VP]}
+
+
+def _kernel(q, cache_k, cache_v, limit):
+    dev = q.device
+    for t in (q, cache_k, cache_v, limit):
+        _require(t.device == dev, f"all tensors must lie on {dev}, got {t.device}")
+        _require(t.is_contiguous(), "the kernel takes contiguous tensors only")
+    _require(q.dtype in _DTYPE_CODE, f"q must be float32 or bfloat16, got {q.dtype}")
+    _require(cache_k.dtype == q.dtype and cache_v.dtype == q.dtype,
+             f"the cache must match q's dtype ({cache_k.dtype}, {cache_v.dtype} vs {q.dtype})")
+    _require(q.dim() == 3, "q must be [B, nh, hd]")
+    b, nh, hd = q.shape
+    _require(cache_k.dim() == 4 and cache_v.shape == cache_k.shape,
+             "caches must be [B, nkv, max, hd]")
+    _, nkv, max_len, _ = cache_k.shape
+    _require(cache_k.shape[0] == b and cache_k.shape[3] == hd and nh % nkv == 0,
+             "q does not match the cache's batch, heads or head_dim")
+    _require(hd % 8 == 0 and 0 < hd <= 256, f"head_dim must be a multiple of 8 up to 256, got {hd}")
+    _require(max_len > 0, "the cache must hold at least one position")
+    _require(limit.dtype == torch.int32 and limit.shape == (b,), "limit must be [B] int32")
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention", _SIGNATURES)
+    rc = lib.nos_decode_attention(
+        _VP(q.data_ptr()), _VP(cache_k.data_ptr()), _VP(cache_v.data_ptr()),
+        _VP(limit.data_ptr()), _VP(out.data_ptr()),
+        b, nh, nkv, hd, max_len, _DTYPE_CODE[q.dtype], hd ** -0.5, _build.stream(q),
+    )
+    _build.raise_on(lib, rc, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, cache_k, cache_v, limit):
+    """Single-token cached attention: q [B,nh,hd] over caches [B,nkv,max,hd]
+    with per-row attention limits [B] (int32 on CUDA). CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
+    if q.device.type == "cuda":
+        return _kernel(q, cache_k, cache_v, limit)
+    if q.device.type == "cpu":
+        return _reference(q, cache_k, cache_v, limit)
+    raise ValueError(f"decode attention runs on cuda or cpu, not {q.device}")

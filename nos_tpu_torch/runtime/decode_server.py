@@ -8,15 +8,16 @@ through a K-step macro program, one token per sequence per step, each at its
 own position in a block-paged KV pool. Sequences finish and free their slot
 independently.
 
-What this slice carries over: the native pool, greedy sampling, a single
-device, the budgeted chunked prefill (including the multi-slot
+What this port carries over: the native pool, greedy and temperature
+sampling (the threefry keys of `nos_tpu_torch/prng.py`, bit for bit JAX's),
+a single device, the budgeted chunked prefill (including the multi-slot
 `paged_prefill_window` wave), the K-step macro decode, the flat chain-key
 prefix cache of `BlockManager`, and eos handling. The constructor keeps the
 reference's signature; every argument that would arm a feature not yet
-ported (radix COW, the spill tier, temperature sampling, bursts,
-speculation, the int8 pool, tensor parallelism, quotas, fault injection and
-recovery, tracing, the cost ledger, the fleet KV store) raises
-NotImplementedError naming its ROADMAP item. An exception on the tick path
+ported (radix COW, the spill tier, bursts, speculation, the int8 pool,
+tensor parallelism, quotas, fault injection and recovery, tracing, the cost
+ledger, the fleet KV store) raises NotImplementedError naming its ROADMAP
+item. An exception on the tick path
 fails every outstanding request and resets the pool (the reference's
 `surgical_recovery=False` behaviour).
 
@@ -42,9 +43,10 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nos_tpu_torch import constants
+from nos_tpu_torch import constants, prng
 from nos_tpu_torch.device import resolve
 from nos_tpu_torch.models.decode import (
+    greedy,
     init_paged_cache,
     paged_decode_step,
     paged_prefill_chunk,
@@ -183,7 +185,6 @@ class DecodeServer:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
         # (armed?, what it arms, its item in ROADMAP.md queue A)
         armed = [
-            (float(temperature) > 0.0, "temperature sampling", "The threefry sampler"),
             (int(burst_windows) > 1, "fused bursts", "Fused bursts"),
             (int(spec_k) > 0, "speculation", "Speculation"),
             (bool(radix_cache) and bool(prefix_cache), "the radix cache",
@@ -219,6 +220,8 @@ class DecodeServer:
                 f"no prompt bucket smaller than max_len={max_len}: {prompt_buckets}"
             )
         self.eos_id = eos_id
+        self.temperature = float(temperature)
+        self._base_key = prng.PRNGKey(seed, device=self.device)
         self.pipeline_depth = max(
             1, pipeline_depth if eos_id is None else min(pipeline_depth, 2)
         )
@@ -273,21 +276,24 @@ class DecodeServer:
         self.ttft_s: List[float] = []
         #: Host wall seconds per tick phase (constants.TICK_PHASES).
         self.tick_phase_s: Dict[str, float] = {p: 0.0 for p in constants.TICK_PHASES}
-        # Per-slot request serials ride in the packed tick state (the
-        # sampling identity the temperature sampler will read).
+        # Per-slot sampling identity: (serial of the request in the slot,
+        # step within the request), riding in the packed tick state. Serials
+        # make streams independent of slot reuse order.
         self._slot_serial = np.zeros((n_slots,), dtype=np.int64)
         self._next_serial = 1
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
 
     # -- the programs ----------------------------------------------------------
-    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """The LOWEST index among the exact maxima, not argmax: argmax's
-        tie-break is not stable across program shapes (decode_server.py:999)."""
-        top = logits.max(dim=-1, keepdim=True).values
-        idx = torch.arange(self.cfg.vocab, dtype=torch.int32, device=logits.device)
-        return torch.where(logits == top, idx, self.cfg.vocab).min(dim=-1).values
+    def _sample(self, logits, serial, step) -> torch.Tensor:
+        """Greedy at temperature 0, else lane i samples
+        categorical(fold_in(fold_in(PRNGKey(seed), serial[i]), step[i]),
+        logits[i] / T) (decode_server.py:1014-1024). int32 [N]."""
+        if self.temperature <= 0.0:
+            return greedy(logits)
+        keys = prng.fold_in(prng.fold_in(self._base_key, serial), step)
+        return prng.categorical(keys, logits / self.temperature).to(torch.int32)
 
-    def _macro(self, token, table, pos0, active, step0, steps_left):
+    def _macro(self, token, table, pos0, active, serial, step0, steps_left):
         """K ragged decode steps (decode_server.py:1067). Per step k a lane
         takes part iff it is active, still owes tokens (k < steps_left) and
         stays inside the cache window; lanes that finish mid-window coast
@@ -303,7 +309,7 @@ class DecodeServer:
                 self.params, token, self.cfg, self.cache, table, pos_k, mask,
                 self.block_size,
             )
-            nxt = self._greedy(logits)
+            nxt = self._sample(logits, serial, step0 + k)
             token = torch.where(mask, nxt, token)
             toks.append(torch.where(mask, nxt, 0))
         execd = torch.where(
@@ -328,7 +334,10 @@ class DecodeServer:
             self.params, tokens, self.cfg, self.cache, table_row, start, length,
             self.block_size,
         )
-        first = self._greedy(logits[length - 1][None, :])[0]
+        serial = torch.full((1,), int(self._slot_serial[slot]), dtype=torch.int64,
+                            device=self.device)
+        first = self._sample(logits[length - 1][None, :], serial,
+                             torch.zeros_like(serial))[0]
         self._last_dev[slot] = first
         self._first_dev[slot] = first
 
@@ -781,7 +790,7 @@ class DecodeServer:
         st = self._tick_state
         K = self.steps_per_dispatch
         last, toks, pos, step, steps_left = self._macro(
-            self._last_dev, st.table, st.pos, st.mask, st.step, st.steps_left
+            self._last_dev, st.table, st.pos, st.mask, st.serial, st.step, st.steps_left
         )
         self._last_dev = last
         st.advance(pos, step, steps_left)

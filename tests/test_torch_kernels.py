@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (nos_tpu_torch/ops/csrc/paged_attention.cu and
-flash_attention.cu) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (nos_tpu_torch/ops/csrc/paged_attention.cu,
+flash_attention.cu and decode_attention.cu) against their plain PyTorch
+versions, on the card.
 
 Torch and numpy only (the card's machine has no JAX), so it runs there
 without the JAX test harness:
@@ -11,7 +12,9 @@ The tests carry the `cuda` marker; without a CUDA device every test skips
 held to atol 1e-4 (summation order); bf16 and int8 pools to 2e-2 (one bf16
 rounding of the output, and the plain version's bf16 rounding of the
 dequantized int8 values). Flash kernels: each output entry by entry
-(`flash_err`) within FLASH_TOL, chip_smoke.py's bounds."""
+(`flash_err`) within FLASH_TOL, chip_smoke.py's bounds. Dense decode
+kernel: entry by entry (`flash_err`) within DECODE_TOL, chip_smoke.py's
+bounds."""
 
 import numpy as np
 import pytest
@@ -209,3 +212,59 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # lse in bf16
         fa.flash_bwd_dq(x, x, x, x, torch.zeros((1, 2, 64), device="cuda").bfloat16(),
                         torch.zeros((1, 2, 64), device="cuda"), True, 0.1)
+
+
+# -- dense decode attention (nos_tpu_torch/ops/csrc/decode_attention.cu) -------
+# chip_smoke.py's DECODE_TOL: flash_err bounds by dtype (bf16: one output
+# rounding step, at most 2^-7 of the entry).
+DECODE_TOL = {"float32": 1.0e-5, "bfloat16": 2.0 ** -7}
+DECODE_LIMITS = [0, 1, 31, 32, 33, 1000, 2048, 8191, 8192, 9000]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,nkv,hd,max_len,limits", [
+    (8, 2, 64, 8192, DECODE_LIMITS),          # the bench GPT's heads, the edge limits
+    (4, 4, 128, 2048, [0, 63, 2047, 3000]),   # MHA, rep 1
+    (2, 2, 256, 2048, [1, 64, 65, 2048]),
+    (6, 3, 64, 512, [0, 300, 512]),           # the reference test's uneven rep 2
+])
+def test_decode_kernel_matches_plain(cuda_device, dtype, nh, nkv, hd, max_len, limits):
+    """Limit 0 (the uniform mean of V over every row), limits below, at and
+    past a 64-position tile's edge, max - 1, max and past max, one row
+    each; one launch."""
+    from nos_tpu_torch.ops import decode_attention as tda
+    from nos_tpu_torch.ops.flash_attention import flash_err
+
+    gen = torch.Generator(device="cuda").manual_seed(hd + max_len)
+    dt = getattr(torch, dtype)
+    b = len(limits)
+    q = torch.randn((b, nh, hd), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((b, nkv, max_len, hd), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    limit = torch.tensor(limits, dtype=torch.int32, device="cuda")
+    before = tda.LAUNCHES["decode_attention"]
+    got = tda.decode_attention(q, k, v, limit)
+    want = tda._reference(q, k, v, limit)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert flash_err(got, want) <= DECODE_TOL[dtype]
+    assert tda.LAUNCHES["decode_attention"] == before + 1
+
+
+def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
+    from nos_tpu_torch.ops import decode_attention as tda
+
+    q = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((2, 2, 32, 64), dtype=torch.bfloat16, device="cuda")
+    limit = torch.ones((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # the cache's dtype differs from q's
+        tda.decode_attention(q, k.float(), k.float(), limit)
+    with pytest.raises(ValueError):  # a non-contiguous q
+        tda.decode_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, k, limit)
+    with pytest.raises(ValueError):  # a CPU limit
+        tda.decode_attention(q, k, k, limit.cpu())
+    with pytest.raises(ValueError):  # an int64 limit
+        tda.decode_attention(q, k, k, limit.long())
+    with pytest.raises(ValueError):  # head_dim 100, not a multiple of 8
+        tda.decode_attention(torch.zeros((2, 8, 100), device="cuda"),
+                             *(torch.zeros((2, 2, 32, 100), device="cuda"),) * 2, limit)
