@@ -43,6 +43,20 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            on the card (see check_logits for the bounds), and the run repeats
            in float32, where the strict agreement must be 1.0. A profiler
            window over 16 decode steps reports host and device time per step;
+  tp       tensor-parallel serving. The sharded paged kernels over two shards
+           (4 query heads and 1 KV head each) at the serving shapes, f32 and
+           bf16: each shard's output equals the unsharded kernel's on its
+           heads bit for bit, and the gathered output is held against the
+           plain version; their times against the plain version per shard and
+           SDPA per shard. Then the engine phase's model, settings and traffic
+           at tp=2 over build_mesh({"tp": 2}, devices=[cuda:0, cuda:0]) and at
+           tp=1, both driven tick by tick on this thread so that they run one
+           schedule, in bf16 (the main path) and f32: f32 tokens of tp=2 equal
+           tp=1's; bf16 teacher-forced logits of the tp=2 programs against
+           tp=1's within check_logits' bounds; every dispatch, upload and sync
+           counter equal; each paged kernel launched exactly twice its tp=1
+           count through the sharded entry points. Prints tok/s, long-prompt
+           TTFT, peak memory and a profiled decode window at both widths;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -74,7 +88,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            lower at step 20 than at step 1.
 
 The line before the last is the `kernels` JSON object (the two paged, the
-three flash and the dense decode kernels); the last line is {"ok": true,
+three flash, the dense decode and the two sharded paged entry points,
+which run the paged kernel once per shard); the last line is {"ok": true,
 "device": {...}}, printed only when every phase passed.
 """
 
@@ -681,21 +696,26 @@ def plain_attention():
         pa.paged_decode_attention, pa.paged_window_attention, D.decode_attention = saved
 
 
-def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, device):
+def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, device,
+                   mesh=None):
     """Logits of a teacher-forced greedy pass over prompt+output, shaped as
     the engine's own programs: each prompt in chunks of the largest bucket
     (the final one padded to its bucket, batch 1), then the outputs fed
     back through batched single-token decode steps. Returns [n, max_new,
-    vocab] f32 logits; row t predicts output token t."""
+    vocab] f32 logits; row t predicts output token t. With a `mesh` the
+    programs run tensor-parallel over its "tp" shards."""
     from nos_tpu_torch.models import decode as D
 
+    tp = None
+    if mesh is not None:
+        params, _, tp = D.place_tp(params, cfg, mesh)
     n = len(prompts)
     max_new = len(outputs[0])
     chunk = buckets[-1]
     pages_per = [-(-(len(p) + max_new) // block_size) for p in prompts]
     width = max(pages_per)
     total = 1 + sum(pages_per)
-    cache = D.init_paged_cache(cfg, total, block_size, device=device)
+    cache = D.init_paged_cache(cfg, total, block_size, device=device, mesh=mesh)
     table = torch.zeros((n, width), dtype=torch.int32, device=device)
     nxt = 1
     for i, n_p in enumerate(pages_per):
@@ -713,7 +733,7 @@ def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, de
             toks[0, : len(piece)] = torch.tensor(piece, dtype=torch.int32)
             last = start + len(piece) >= len(prompt)
             lg, _ = D.paged_prefill_chunk(params, toks, cfg, cache, table[i], start,
-                                          len(piece), block_size, with_logits=last)
+                                          len(piece), block_size, with_logits=last, tp=tp)
             if last:
                 logits[i, 0] = lg[len(piece) - 1]
     out_t = torch.tensor(outputs, dtype=torch.int32, device=device)
@@ -721,7 +741,7 @@ def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, de
     mask = torch.ones((n,), dtype=torch.bool, device=device)
     for t in range(max_new - 1):
         lg, _ = D.paged_decode_step(params, out_t[:, t].contiguous(), cfg, cache, table,
-                                    plen + t, mask, block_size)
+                                    plen + t, mask, block_size, tp=tp)
         logits[:, t + 1] = lg
     return logits
 
@@ -762,35 +782,44 @@ def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, m
         t_long = time.perf_counter()
         futs += [server.submit(p, max_new) for p in long_prompts]
         outs = [f.result(timeout=900) for f in futs]
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(pa.LAUNCHES)
-        check(len(server.ttft_s) == len(futs), f"{len(server.ttft_s)} TTFT samples")
-        stats = {
-            "wall_s": wall,
-            "decode_tok_per_s": len(futs) * max_new / wall,
-            "long_prompt_ttft_s": server.ttft_s[-len(long_prompts):],
-            "long_submit_offset_s": t_long - t0,
-            "ttft_s": server.ttft_s,
-            "queue_wait_s": server.queue_wait_s,
-            "macro_dispatches": server.macro_dispatches,
-            "prefill_dispatches": server.prefill_dispatches,
-            "prefill_window_dispatches": server.prefill_window_dispatches,
-            "prefill_tokens": server.prefill_tokens,
-            "steps_run": server.steps_run,
-            "h2d_uploads": server.h2d_uploads,
-            "blocking_syncs": server.blocking_syncs,
-            "staging_syncs": server.staging_syncs,
-            "ticks_with_prefill_and_macro": server.ticks_with_prefill_and_macro,
-            "prefix_hit_tokens": server.prefix_hit_tokens,
-            "tick_phase_s": server.tick_phase_s,
-            "launches": launches,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
-        }
+        stats = serve_stats(torch, server, device, t0, t_long, len(futs), max_new,
+                            len(long_prompts))
     finally:
         server.stop()
     return outs, stats
+
+
+# The engine counters two widths of one engine must agree on for one schedule.
+BUDGET_COUNTERS = ("macro_dispatches", "prefill_dispatches", "prefill_window_dispatches",
+                   "prefill_tokens", "steps_run", "h2d_uploads", "staging_syncs",
+                   "blocking_syncs")
+
+
+def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
+    """An engine run's numbers, read just after its last future: wall time
+    from the first submit, output tok/s, TTFTs, the counters, the launch
+    counts and peak device memory."""
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(server.ttft_s) == n_req, f"{len(server.ttft_s)} TTFT samples")
+    stats = {
+        "wall_s": wall,
+        "decode_tok_per_s": n_req * max_new / wall,
+        "long_prompt_ttft_s": server.ttft_s[-n_long:],
+        "long_submit_offset_s": t_long - t0,
+        "ttft_s": server.ttft_s,
+        "queue_wait_s": server.queue_wait_s,
+        **{c: getattr(server, c) for c in BUDGET_COUNTERS},
+        "ticks_with_prefill_and_macro": server.ticks_with_prefill_and_macro,
+        "prefix_hit_tokens": server.prefix_hit_tokens,
+        "tick_phase_s": server.tick_phase_s,
+        "launches": dict(pa.LAUNCHES),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
+    }
+    return stats
 
 
 def bench_gpt(dtype, small=False):
@@ -811,19 +840,26 @@ def engine_sizes(small):
     return ((8, 16, 32), 512) if small else ((16, 32, 64, 128, 256), 8192)
 
 
+def engine_traffic(cfg, small):
+    """(max_new, six stream prompts, two long prompts) of the engine runs,
+    from a numpy seed."""
+    if small:
+        max_new, lens, long_len = 12, [10, 17, 24, 31, 9, 28], 150
+    else:
+        max_new, lens, long_len = 128, [64, 96, 128, 160, 224, 256], 4096
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
+    long_prompts = [rng.integers(1, cfg.vocab, long_len).tolist() for _ in range(2)]
+    return max_new, prompts, long_prompts
+
+
 def phase_engine(torch, device, dtype, small=False):
     from nos_tpu_torch import init_gpt
 
     cfg = bench_gpt(dtype, small)
     buckets, max_len = engine_sizes(small)
-    if small:
-        max_new, lens, long_len = 12, [10, 17, 24, 31, 9, 28], 150
-    else:
-        max_new, lens, long_len = 128, [64, 96, 128, 160, 224, 256], 4096
+    max_new, prompts, long_prompts = engine_traffic(cfg, small)
     params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
-    long_prompts = [rng.integers(1, cfg.vocab, long_len).tolist() for _ in range(2)]
     outs, stats = serve(torch, cfg, params, device, prompts, long_prompts, max_new,
                         buckets, max_len)
     for o in outs:
@@ -940,14 +976,18 @@ def profile_steps(torch, run, steps, kernel_tag):
     }
 
 
-def profile_decode_step(torch, cfg, params, steps=16):
+def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
     """One macro window of the paged engine: 16 decode steps at the main
-    path's B=8 lanes (MAIN_DECODE_LIMITS)."""
+    path's B=8 lanes (MAIN_DECODE_LIMITS); tensor-parallel over a mesh's
+    "tp" shards when one is given."""
     from nos_tpu_torch.models import decode as D
 
+    tp = None
+    if mesh is not None:
+        params, _, tp = D.place_tp(params, cfg, mesh)
     B, BS = 8, 32
     P = -(-max(MAIN_DECODE_LIMITS) // BS) + 1
-    cache = D.init_paged_cache(cfg, 1 + B * P, BS, device="cuda")
+    cache = D.init_paged_cache(cfg, 1 + B * P, BS, device="cuda", mesh=mesh)
     table = (torch.arange(B * P, dtype=torch.int32, device="cuda") + 1).reshape(B, P)
     pos0 = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda") - 1
     token = torch.ones((B,), dtype=torch.int32, device="cuda")
@@ -955,9 +995,260 @@ def profile_decode_step(torch, cfg, params, steps=16):
 
     def run():
         for k in range(steps):
-            D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS)
+            D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS, tp=tp)
 
     return profile_steps(torch, run, steps, "paged_attention")
+
+
+# -- phase: tp ---------------------------------------------------------------------
+SHARDED = ("paged_decode_attention_sharded", "paged_window_attention_sharded")
+SHARDED_REPLACES = {"paged_decode_attention_sharded": "nos_tpu/ops/paged_attention.py:193",
+                    "paged_window_attention_sharded": "nos_tpu/ops/paged_attention.py:226"}
+
+
+def _heads(x, n=2):
+    """x split into n contiguous shards on its head axis (dim 1)."""
+    return [t.contiguous() for t in x.chunk(n, dim=1)]
+
+
+def check_sharded(torch):
+    """The sharded kernels at the serving shapes over two shards (nh 4, nkv
+    1 per shard: the bench GPT at tp=2), f32 and bf16: each shard's output
+    equals the unsharded kernel's on the same heads bit for bit, and the
+    gathered output is held against the plain version (`held`). Decode at
+    the main path's limits and at edge limits; windows of 16 and 256 with
+    ragged lengths and masked lanes, and the main path's two-lane wave.
+    Returns the worst max|err| and relative error per kernel."""
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
+    P = 8192 // BS
+    T = 1 + B * P
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {n + sfx: 0.0 for n in SHARDED for sfx in ("", "_rel")}
+    for dtype in ("float32", "bfloat16"):
+        k, v, _, _, dt = _pools(torch, gen, dtype, T, NKV, BS, HD)
+        ks, vs = _heads(k), _heads(v)
+        table = _table(torch, gen, B, P, T)
+        q = torch.randn((B, NH, HD), generator=gen, device="cuda").to(dt)
+        for limits in (MAIN_DECODE_LIMITS, [1, 31, 32, 33, 2048, 8192, 100, 4160]):
+            tab = table.clone()
+            tab[:, -(-max(limits) // BS):] = 0
+            lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+            got = torch.cat(pa.paged_decode_attention_sharded(_heads(q), ks, vs, tab, lim), 1)
+            whole = pa.paged_decode_attention(q, k, v, tab, lim)
+            torch.cuda.synchronize()
+            check(torch.equal(got, whole),
+                  f"paged_decode_attention_sharded {dtype} limits={limits}: differs from the "
+                  f"unsharded kernel by {(got.float() - whole.float()).abs().max().item()}")
+            held(torch, got, pa._reference(q, k, v, tab, lim), dtype,
+                 f"paged_decode_attention_sharded limits={limits}", worst)
+        windows = [(16, [0, 31, 33, 1000, 2047, 4096, 7000, 8192 - 16], [16, 1, 13, 16, 5, 16, 8, 16],
+                    [True, True, True, False, True, True, False, True]),
+                   (256, [0, 31, 33, 1000, 2047, 4096, 7000, 8192 - 256],
+                    [256, 1, 253, 256, 5, 256, 128, 256],
+                    [True, True, True, False, True, True, False, True]),
+                   (256, [2048] * B, [256] * B, [False] * 6 + [True, True])]
+        for w, pos, lengths, mask in windows:
+            qw = torch.randn((B, NH, w, HD), generator=gen, device="cuda").to(dt)
+            args = [torch.tensor(x, device="cuda", dtype=torch.bool if x is mask else torch.int32)
+                    for x in (pos, lengths, mask)]
+            got = torch.cat(pa.paged_window_attention_sharded(_heads(qw), ks, vs, table, *args), 1)
+            whole = pa.paged_window_attention(qw, k, v, table, *args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, whole),
+                  f"paged_window_attention_sharded {dtype} W={w}: differs from the unsharded "
+                  f"kernel by {(got.float() - whole.float()).abs().max().item()}")
+            held(torch, got, pa._window_reference(qw, k, v, table, *args), dtype,
+                 f"paged_window_attention_sharded W={w}", worst)
+        del k, v, ks, vs
+    log(f"kernels sharded: bit-identical to the unsharded kernel per head, and within "
+        f"{json.dumps(TOL)} of the plain versions (worst {json.dumps(worst)})")
+    return worst
+
+
+def time_sharded(torch):
+    """The sharded kernels at the tp=2 main path's shapes, bf16 pool split
+    over two shards: the decode step's B=8 lanes at MAIN_DECODE_LIMITS, and
+    the two-lane 256-token window wave at position 2048. ms is one sharded
+    call (both shards' launches), plain the plain version per shard, and
+    library SDPA over each shard's heads on its pre-gathered cache. The
+    bound sums the two shards: each reads its half of the K/V bytes and of
+    q and out, and all of the table and limits."""
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
+    P = 8192 // BS
+    T = 1 + B * P
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k, v, _, _, dt = _pools(torch, gen, "bfloat16", T, NKV, BS, HD)
+    ks, vs = _heads(k), _heads(v)
+    table = _table(torch, gen, B, P, T)
+    table[1, :8] = torch.arange(9, 17, device="cuda", dtype=torch.int32)  # no sharing
+    shards = range(2)
+
+    def bound(nbytes, flops):
+        by_bytes = nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
+        return {"bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS),
+                "bound_by": "bytes" if by_bytes else "operations", "bytes": nbytes,
+                "flops": flops}
+
+    def dense(pool, tab, s):
+        return pa._gather_pool(pool[s], tab, None, dt).repeat_interleave(NH // NKV, dim=1)
+
+    out = {}
+    lim = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda")
+    qs = _heads(torch.randn((B, NH, HD), generator=gen, device="cuda").to(dt))
+    tab = table[:, :-(-max(MAIN_DECODE_LIMITS) // BS)].contiguous()
+    kd, vd = [dense(ks, tab, s) for s in shards], [dense(vs, tab, s) for s in shards]
+    mask = (torch.arange(kd[0].shape[2], device="cuda")[None, :] < lim[:, None])[:, None, None, :]
+    out["decode"] = {
+        "ms": time_cuda(torch, lambda: pa.paged_decode_attention_sharded(qs, ks, vs, tab, lim)),
+        "plain_ms": time_cuda(torch, lambda: [pa._reference(qs[s], ks[s], vs[s], tab, lim)
+                                              for s in shards]),
+        "library_ms": time_cuda(torch, lambda: [_sdpa_decode(torch, qs[s][:, :, None, :], kd[s],
+                                                             vd[s], mask) for s in shards]),
+        **bound(2 * decode_bytes(MAIN_DECODE_LIMITS, NH // 2, NKV // 2, HD, BS, 2, 2),
+                4.0 * NH * HD * sum(MAIN_DECODE_LIMITS)),
+    }
+    W, pos0 = 256, 2048
+    active = torch.tensor([False] * 6 + [True, True], device="cuda")
+    qw = _heads(torch.randn((B, NH, W, HD), generator=gen, device="cuda").to(dt))
+    tab = table[:, :-(-(pos0 + W) // BS)].contiguous()
+    pos = torch.full((B,), pos0, dtype=torch.int32, device="cuda")
+    lengths = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    kd, vd = [dense(ks, tab, s) for s in shards], [dense(vs, tab, s) for s in shards]
+    wlim = torch.where(active[:, None], pos0 + torch.arange(W, device="cuda")[None, :] + 1, 1)
+    causal = (torch.arange(kd[0].shape[2], device="cuda")[None, None, :]
+              < wlim[:, :, None])[:, None]
+    pages = sum(-(-int(x) // BS) for x in wlim.max(dim=1).values.tolist())
+    shard_bytes = (pages * (NKV // 2) * BS * HD * 2 * 2 + 2 * B * (NH // 2) * W * HD * 2
+                   + 4 * pages + 9 * B)
+    out["window"] = {
+        "ms": time_cuda(torch, lambda: pa.paged_window_attention_sharded(
+            qw, ks, vs, tab, pos, lengths, active)),
+        "plain_ms": time_cuda(torch, lambda: [pa._window_reference(
+            qw[s], ks[s], vs[s], tab, pos, lengths, active) for s in shards]),
+        "library_ms": time_cuda(torch, lambda: [_sdpa_decode(torch, qw[s], kd[s], vd[s], causal)
+                                                for s in shards]),
+        **bound(2 * shard_bytes, 4.0 * NH * HD * float(wlim.sum().item())),
+    }
+    log("sharded_kernel_times " + json.dumps(out))
+    return out
+
+
+def tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts, max_new, buckets,
+             max_len):
+    """The engine phase's traffic and settings, at tp=2 over `mesh` or at
+    tp=1 (mesh None), driven tick by tick on this thread: the loop start()'s
+    thread runs, without a thread's timing, so both widths see one schedule
+    and their counters compare. Launch counts are zeroed just before the
+    run and read just after. Returns (outputs in submit order, stats)."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    def engine():
+        return DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
+                            steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
+                            mesh=mesh, device=None if mesh is not None else device)
+
+    def tick_until(server, done):
+        while not done():
+            server._tick()
+
+    warm = engine()  # warm-up (not counted): one short request through both programs
+    fut = warm.submit(prompts[0][:40], 20)
+    tick_until(warm, fut.done)
+    fut.result()
+    del warm
+    server = engine()
+    sync(torch, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [server.submit(p, max_new) for p in prompts]
+    tick_until(server, lambda: server.steps_run >= 2)  # the streams are decoding
+    t_long = time.perf_counter()
+    futs += [server.submit(p, max_new) for p in long_prompts]
+    tick_until(server, lambda: all(f.done() for f in futs))
+    outs = [f.result() for f in futs]
+    stats = serve_stats(torch, server, device, t0, t_long, len(futs), max_new,
+                        len(long_prompts))
+    stats["tp"] = server.tp
+    server.stop()
+    return outs, stats
+
+
+def phase_tp(torch, device, small=False):
+    """Tensor-parallel serving at tp=2 with both shards on one device, against
+    tp=1 on the same traffic. Returns the stats; the bf16 tp=2 run is the
+    main path."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.parallel import build_mesh
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    mesh = build_mesh({"tp": 2}, devices=[device, device])
+    buckets, max_len = engine_sizes(small)
+    stats = {}
+    if cuda:
+        stats["kernels"] = check_sharded(torch)
+        stats["times"] = time_sharded(torch)
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        max_new, prompts, long_prompts = engine_traffic(cfg, small)
+        run = {}
+        outs1, run["tp1"] = tp_serve(torch, cfg, params, device, None, prompts, long_prompts,
+                                     max_new, buckets, max_len)
+        outs2, run["tp2"] = tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts,
+                                     max_new, buckets, max_len)
+        # Teacher-forced over the tp=2 engine's tokens: tp=2 programs against
+        # tp=1 programs (both through the kernels on the card).
+        all_prompts = prompts + long_prompts
+        t1 = teacher_forced(torch, params, cfg, all_prompts, outs2, buckets, 32, device)
+        t2 = teacher_forced(torch, params, cfg, all_prompts, outs2, buckets, 32, device,
+                            mesh=mesh)
+        run.update(agreement(torch, t2, t1, torch.tensor(outs2, device=device), dtype))
+        run["dtype"] = dtype
+        run["engine_token_match"] = float(np.mean(np.array(outs1) == np.array(outs2)))
+        for c in BUDGET_COUNTERS:
+            check(run["tp2"][c] == run["tp1"][c],
+                  f"tp {dtype}: {c} {run['tp2'][c]} at tp=2, {run['tp1'][c]} at tp=1")
+        if cuda:
+            l1, l2 = run["tp1"]["launches"], run["tp2"]["launches"]
+            for name, sharded in zip(("paged_decode_attention", "paged_window_attention"),
+                                     SHARDED):
+                check(l1[name] > 0 and l1[sharded] == 0 and l2[name] == 0
+                      and l2[sharded] == 2 * l1[name],
+                      f"tp {dtype}: launches {l2} at tp=2 against {l1} at tp=1")
+        if dtype == "float32":
+            check(outs2 == outs1, f"tp float32: {run['engine_token_match']} of the tp=2 "
+                  f"tokens equal tp=1's")
+        check_logits(run, "tp")
+        if cuda and dtype == "bfloat16":
+            run["step_profile_tp1"] = profile_decode_step(torch, cfg, params)
+            run["step_profile_tp2"] = profile_decode_step(torch, cfg, params, mesh=mesh)
+        log(f"tp {dtype}: " + json.dumps(run))
+        stats[dtype] = run
+    main = stats["float32" if small else "bfloat16"]
+    summary = {w: {k: main[w][k] for k in ("decode_tok_per_s", "long_prompt_ttft_s", "wall_s",
+                                           "peak_mem_bytes", "launches")}
+               for w in ("tp1", "tp2")}
+    for w in ("tp1", "tp2"):
+        if f"step_profile_{w}" in main:
+            summary[w]["step_profile"] = main[f"step_profile_{w}"]
+    summary.update({k: main[k] for k in ("dtype", "engine_token_match", "top1_agreement",
+                                         "top1_agreement_1ulp", "max_abs_dlogit",
+                                         "mean_abs_dlogit")})
+    if not small:
+        summary["float32"] = {k: stats["float32"][k] for k in (
+            "engine_token_match", "top1_agreement", "max_abs_dlogit", "mean_abs_dlogit")}
+    summary["phase_s"] = stats["phase_s"] = time.perf_counter() - t0
+    log("tp: " + json.dumps(summary))
+    return stats
 
 
 # -- phase: dense ------------------------------------------------------------------
@@ -1465,7 +1756,7 @@ def phase_train(torch, device, full=True):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,card,kernels,engine,dense,train")
+    ap.add_argument("--phases", default="build,card,kernels,engine,tp,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -1482,6 +1773,7 @@ def main(argv=None):
         return 2
     if args.rehearse:
         check_logits(phase_engine(torch, torch.device("cpu"), "float32", small=True), "engine")
+        phase_tp(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -1505,6 +1797,9 @@ def main(argv=None):
         engine_f32 = phase_engine(torch, torch.device("cuda"), "float32")
         check_logits(engine, "engine")
         check_logits(engine_f32, "engine")
+    tp = None
+    if "tp" in phases:
+        tp = phase_tp(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -1512,12 +1807,13 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if worst is None or engine is None or dense is None or train is None:
+    if worst is None or engine is None or tp is None or dense is None or train is None:
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
+    launches.update({n: tp["bfloat16"]["tp2"]["launches"][n] for n in SHARDED})
     for name in ("paged_decode_attention", "paged_window_attention", "decode_attention") \
-            + FLASH_KERNELS:
+            + FLASH_KERNELS + SHARDED:
         check(launches.get(name, 0) > 0, f"{name} never launched on the main path")
     main_key = {"paged_decode_attention": "decode_main",
                 "paged_window_attention": "window_main"}
@@ -1556,6 +1852,16 @@ def main(argv=None):
         "max_abs_err": worst["decode_attention"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
+    for name, key in zip(SHARDED, ("decode", "window")):
+        t = tp["times"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nos_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": SHARDED_REPLACES[name], "launches": launches[name],
+            "max_abs_err": tp["kernels"][name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,17 @@
 Port of `nos_tpu/models/decode.py`: the dense programs `init_cache` (:21),
 `_block_with_cache` (:158), `_forward_with_cache` (:204), `prefill` (:222),
 `decode_step` (:235), `decode_step_ragged` (:636) and `generate` (:648);
-`_attend_cache` (:33), `_embed` / `_lm_logits` (:113, :117), `_block_core`
-(:123, single device); and the paged ones, `init_paged_cache` (:242, native
-pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393),
+`_attend_cache` (:33), `TPLocal` (:54), `_embed` / `_lm_logits` (:113,
+:117), `_block_core` (:123); and the paged ones, `init_paged_cache` (:242,
+native pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393),
 `_paged_window_core` (:469) and `paged_prefill_window` (:603).
+
+Tensor parallelism (docs/sharded-decode.md) runs under one controller: where
+JAX runs a `shard_map`'d body once per device, the paged programs here take
+`tp` (a `TPLocal`) and loop over its shards. Params, pool and per-shard
+activations are then lists in shard order; replicated activations are one
+tensor per shard (the same tensor where shards share a device). `tp=None`
+is the single-device path, unchanged.
 
 The JAX programs return a new cache; these write K/V IN PLACE (`index_copy_`
 or advanced-index assignment, i.e. `index_put_`) and return the same tensors.
@@ -20,6 +27,7 @@ position 0 of an invalid row, whose output is discarded.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -27,7 +35,7 @@ import torch.nn.functional as F
 
 from nos_tpu_torch import constants, prng
 from nos_tpu_torch.device import resolve
-from nos_tpu_torch.models.gpt import GPTConfig, _rmsnorm, project_qkv
+from nos_tpu_torch.models.gpt import GPTConfig, _rmsnorm, project_qkv, tp_local_config
 from nos_tpu_torch.ops.decode_attention import decode_attention
 
 
@@ -49,11 +57,96 @@ def _attend_cache(q, cache_k, cache_v, n_rep: int, limit):
     return out.reshape(b, nh, t, hd).to(cache_v.dtype)
 
 
-def _embed(params, tokens):
+class TPLocal:
+    """The tensor-parallel context of the paged programs (decode.py:54) in
+    the all-column-parallel layout of `parallel/sharding.py::
+    decode_param_rules`: every weight shard holds output columns, so no
+    contraction is split across shards, and the only collective is
+    `gather`, an exact concatenation in shard order. `devices` are the
+    shards' devices in shard order (tp = their count); a device may
+    repeat."""
+
+    def __init__(self, cfg: GPTConfig, devices, emb_sharded: bool, head_sharded: bool):
+        self.devices = [torch.device(d) for d in devices]
+        self.tp = len(self.devices)
+        self.cfg = cfg
+        #: The per-shard config view (heads/tp, n_kv/tp, hidden/tp).
+        self.lcfg = tp_local_config(cfg, self.tp)
+        #: Whether tok_emb rows / lm_head columns are sharded (a vocabulary
+        #: that tp does not divide stays replicated, sharding.py's guard).
+        self.emb_sharded = bool(emb_sharded)
+        self.head_sharded = bool(head_sharded)
+
+    def replicate(self, x):
+        """x on every shard's device (no copy where it already lies); a
+        per-shard list passes through."""
+        if isinstance(x, (list, tuple)):
+            return list(x)
+        return [x.to(d) for d in self.devices]
+
+    def _cat(self, parts, dim):
+        return torch.cat([p.to(self.devices[0]) for p in parts], dim=dim)
+
+    def gather(self, parts, dim=-1):
+        """All-gather: the shards' parts concatenated along `dim` in shard
+        order, replicated to every shard. Exact, and in the parts' dtype."""
+        return self.replicate(self._cat(parts, dim))
+
+    def embed(self, params, tokens):
+        """The token embedding, replicated. Over vocab-row-sharded tables
+        each shard looks up the rows it holds, zeros elsewhere, and the
+        parts are summed in shard order: one real row plus zeros, exact."""
+        toks = self.replicate(tokens.long())
+        if not self.emb_sharded:
+            return [p["tok_emb"][t] for p, t in zip(params, toks)]
+        total = None
+        for s, (p, t) in enumerate(zip(params, toks)):
+            emb = p["tok_emb"]
+            vshard = emb.shape[0]
+            local = t - s * vshard
+            ok = (local >= 0) & (local < vshard)
+            rows = emb[local.clamp(0, vshard - 1)]
+            part = torch.where(ok[..., None], rows, torch.zeros_like(rows)).to(self.devices[0])
+            total = part if total is None else total + part
+        return self.replicate(total)
+
+    def head(self, xs, lm_heads):
+        """Logits [.., vocab] f32 on the first shard's device, from the
+        final-normed activations: over vocab-column-sharded heads the local
+        logits are cast to f32, then gathered; a replicated head is shard
+        0's product alone."""
+        if not self.head_sharded:
+            return (xs[0] @ lm_heads[0]).float()
+        return self._cat([(x @ w).float() for x, w in zip(xs, lm_heads)], -1)
+
+
+def place_tp(params, cfg: GPTConfig, mesh, tp_axis: str = "tp"):
+    """Params placed for tensor-parallel decode over `mesh`'s `tp_axis` by
+    `decode_param_rules` (decode_server.py:676-689): (one param tree per
+    shard, the spec of every leaf, the TPLocal of the shards)."""
+    from nos_tpu_torch.parallel.sharding import (decode_param_rules, param_partition_specs,
+                                                 shard_params)
+
+    rules = decode_param_rules(tp_axis)
+    specs = param_partition_specs(params, mesh, rules)
+    tp = TPLocal(cfg, mesh.axis_devices(tp_axis), emb_sharded=specs["tok_emb"] != (),
+                 head_sharded=specs["lm_head"] != ())
+    return shard_params(params, mesh, rules, tp_axis), specs, tp
+
+
+def _embed(params, tokens, tp=None):
+    if tp is not None:
+        return tp.embed(params, tokens)
     return params["tok_emb"][tokens.long()]
 
 
-def _lm_logits(x, params):
+def _lm_logits(x, params, tp=None):
+    """Head logits f32. With `tp`, x and params are per-shard lists and the
+    final norm runs here, per shard, on the shards the head reads."""
+    if tp is not None:
+        n = tp.tp if tp.head_sharded else 1
+        xs = [_rmsnorm(x[s], params[s]["ln_f"]) for s in range(n)]
+        return tp.head(xs, [p["lm_head"] for p in params[:n]])
     return (x @ params["lm_head"]).float()
 
 
@@ -68,10 +161,13 @@ def greedy(logits):
     return torch.where(logits == top, idx, vocab).min(dim=-1).values
 
 
-def _block_core(x, p, cfg: GPTConfig, positions, attend):
+def _block_core(x, p, cfg: GPTConfig, positions, attend, tp=None):
     """The one copy of the cached transformer block math (norms, QKV
     projection, residuals, gated MLP); every cache layout supplies only
-    its `attend(q, k_new, v_new) -> o [B, nh, T, hd]` strategy."""
+    its `attend(q, k_new, v_new) -> o [B, nh, T, hd]` strategy. With `tp`
+    see `_block_core_tp`."""
+    if tp is not None:
+        return _block_core_tp(x, p, positions, attend, tp)
     b, t, _ = x.shape
     y = _rmsnorm(x, p["ln1"])
     q, k_new, v_new = project_qkv(y, p, cfg, positions, repeat_kv=False)
@@ -81,6 +177,32 @@ def _block_core(x, p, cfg: GPTConfig, positions, attend):
     z = _rmsnorm(x, p["ln2"])
     z = (F.silu(z @ p["w_gate"]) * (z @ p["w_up"])) @ p["w_down"]
     return x + z
+
+
+def _block_core_tp(xs, ps, positions, attend, tp: TPLocal):
+    """`_block_core` over tensor-parallel shards (decode.py:144-155): xs is
+    the replicated activation, one tensor per shard, ps the shards' layer
+    params. Each shard projects its heads' q, k, v from its column shard;
+    `attend(qs, ks, vs)` takes and returns per-shard lists; `tp.gather`
+    stands exactly where the reference puts `g_`, so every product
+    consumes its full contraction operand."""
+    b, t, _ = xs[0].shape
+    shards = range(tp.tp)
+    pos = tp.replicate(positions)
+    qs, ks, vs = [], [], []
+    for s in shards:
+        y = _rmsnorm(xs[s], ps[s]["ln1"])
+        q, k_new, v_new = project_qkv(y, ps[s], tp.lcfg, pos[s], repeat_kv=False)
+        qs.append(q)
+        ks.append(k_new)
+        vs.append(v_new)
+    o = tp.gather([o.transpose(1, 2).reshape(b, t, -1) for o in attend(qs, ks, vs)])
+    a = tp.gather([o[s] @ ps[s]["wo"] for s in shards])
+    xs = [xs[s] + a[s] for s in shards]
+    zs = [_rmsnorm(xs[s], ps[s]["ln2"]) for s in shards]
+    h = tp.gather([F.silu(zs[s] @ ps[s]["w_gate"]) * (zs[s] @ ps[s]["w_up"]) for s in shards])
+    d = tp.gather([h[s] @ ps[s]["w_down"] for s in shards])
+    return [xs[s] + d[s] for s in shards]
 
 
 # -- the dense contiguous cache ------------------------------------------------
@@ -227,10 +349,24 @@ def generate(params, prompt, cfg: GPTConfig, steps: int, temperature: float = 0.
 
 
 def init_paged_cache(cfg: GPTConfig, total_blocks: int, block_size: int,
-                     kv_dtype: Optional[str] = None, device=None) -> Dict:
+                     kv_dtype: Optional[str] = None, device=None, mesh=None,
+                     tp_axis: str = "tp"):
     """A shared pool of fixed-size KV blocks [total_blocks, n_kv, block,
     head_dim] per layer in `cfg.dtype` on `device` (None: CUDA); block 0 is
-    the scratch page."""
+    the scratch page. On a `mesh` whose `tp_axis` is wider than 1 the pool
+    is partitioned on KV heads: a list in shard order of per-layer pools
+    [total_blocks, n_kv/tp, block, head_dim], each on its shard's device
+    (`device` is not used). Block ids and page tables mean the same at
+    every width; only a block's bytes per shard shrink."""
+    from nos_tpu_torch.ops.paged_attention import _tp_width
+
+    width = _tp_width(mesh, tp_axis)
+    if width > 1:
+        if cfg.n_kv % width:
+            raise ValueError(f"tp={width} must divide kv_heads={cfg.n_kv}")
+        local = dataclasses.replace(cfg, kv_heads=cfg.n_kv // width)
+        return [init_paged_cache(local, total_blocks, block_size, kv_dtype, device=d)
+                for d in mesh.axis_devices(tp_axis)]
     device = resolve(device, "init_paged_cache")
     if kv_dtype is not None and kv_dtype not in constants.KV_DTYPES:
         raise ValueError(
@@ -258,12 +394,33 @@ def _page_of(table, positions, block_size: int):
 
 
 def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
-                      block_size: int):
+                      block_size: int, tp: Optional[TPLocal] = None):
     """One token [B] with per-row positions [B] against the paged pool.
     Lanes with mask[b]=False write to the scratch page and their logits are
-    garbage the caller ignores. Returns (logits [B, vocab] f32, pool)."""
-    from nos_tpu_torch.ops.paged_attention import paged_decode_attention
+    garbage the caller ignores. Returns (logits [B, vocab] f32, pool).
 
+    `tp`: params and pool are per-shard lists; each shard writes and reads
+    its own head slices of the pool through `paged_decode_attention_sharded`,
+    and the logits come back gathered on the first shard's device."""
+    from nos_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_sharded,
+    )
+
+    if tp is not None:
+        tables = tp.replicate(table)
+        page = _page_of(tables[0], pos[:, None], block_size)
+        page = torch.where(mask[:, None], page, torch.zeros_like(page)).long()
+        limits = tp.replicate((pos + 1).to(torch.int32))
+
+        def read(qs, pool_k, pool_v):
+            out = paged_decode_attention_sharded(
+                [q[:, :, 0, :].contiguous() for q in qs], pool_k, pool_v, tables, limits)
+            return [o[:, :, None, :] for o in out]
+
+        xs = _tp_forward(params, token[:, None], pcache, pos[:, None].to(torch.int32),
+                         page, (pos % block_size).long()[:, None], read, tp)
+        return _lm_logits(xs, params, tp)[:, 0, :], pcache
     x = _embed(params, token[:, None])
     positions = pos[:, None].to(torch.int32)
     off = (pos % block_size).long()
@@ -286,13 +443,22 @@ def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
 
 
 def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start: int,
-                        length: int, block_size: int, with_logits: bool = True):
+                        length: int, block_size: int, with_logits: bool = True,
+                        tp: Optional[TPLocal] = None):
     """One prompt chunk [1, C] for a single sequence, written into its pages
     at positions start..start+C-1 (positions >= start+length, the chunk
     padding, go to the scratch page). Returns (logits [C, vocab] or None,
-    pool)."""
+    pool). `tp`: see `paged_decode_step`."""
     from nos_tpu_torch.ops.paged_attention import paged_window_attention
 
+    if tp is not None:
+        dev = tokens.device
+        rows = [r[None, :].contiguous() for r in tp.replicate(table_row)]
+        x = _paged_window_tp(params, tokens, pcache, rows,
+                             torch.full((1,), start, dtype=torch.int32, device=dev),
+                             torch.full((1,), length, dtype=torch.int32, device=dev),
+                             torch.ones((1,), dtype=torch.bool, device=dev), block_size, tp)
+        return (_lm_logits(x, params, tp)[0] if with_logits else None), pcache
     dev = tokens.device
     _, c = tokens.shape
     ar = torch.arange(c, dtype=torch.int32, device=dev)
@@ -325,13 +491,17 @@ def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start
 
 
 def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,
-                       mask, block_size: int):
+                       mask, block_size: int, tp: Optional[TPLocal] = None):
     """Shared body of the batched per-slot window programs: tokens [B, W]
     written at per-row positions pos[b]..pos[b]+lengths[b]-1 into each
     row's own pages, attending causally over the prefix plus the window.
-    Returns (pre-final-norm activations [B, W, h], pool)."""
+    Returns (pre-final-norm activations [B, W, h], pool); with `tp` the
+    activations are per shard (see `paged_decode_step`)."""
     from nos_tpu_torch.ops.paged_attention import paged_window_attention
 
+    if tp is not None:
+        return _paged_window_tp(params, tokens, pcache, table, pos, lengths, mask,
+                                block_size, tp), pcache
     b, w = tokens.shape
     ar = torch.arange(w, dtype=torch.int32, device=tokens.device)
     positions = pos[:, None] + ar[None, :]  # [B, W]
@@ -355,13 +525,59 @@ def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengt
 
 
 def paged_prefill_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,
-                         mask, block_size: int):
+                         mask, block_size: int, tp: Optional[TPLocal] = None):
     """Multi-slot batched prefill chunk: `paged_prefill_chunk` batched
     across slots. Active row b writes its chunk's K/V at positions
     pos[b]..pos[b]+lengths[b]-1 into its own pages; inactive rows and
     window padding hit the scratch page. Mid-prompt chunks only feed the
     cache, so no head projection runs. Returns the pool."""
     _, pcache = _paged_window_core(
-        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size
+        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp
     )
     return pcache
+
+
+# -- the tensor-parallel paged programs ----------------------------------------
+def _tp_forward(params, tokens, pcache, positions, pages, offs, read, tp: TPLocal):
+    """The layers of a tensor-parallel paged program: tokens [B, T] at
+    positions [B, T], whose K/V rows go to pool page pages[b, t] at offset
+    offs[b, t] (scratch page 0 for masked rows), on every shard's own head
+    slices; `read(qs, pool_k, pool_v)` is the sharded attention over the
+    written pools. Returns the per-shard pre-final-norm activations."""
+    xs = _embed(params, tokens, tp)
+    pages, offs = tp.replicate(pages), tp.replicate(offs)
+    for i in range(tp.cfg.layers):
+        lcs = [pc[str(i)] for pc in pcache]
+
+        def attend(qs, ks, vs, lcs=lcs):
+            for s, lc in enumerate(lcs):
+                lc["k"][pages[s], :, offs[s], :] = ks[s].transpose(1, 2)
+                lc["v"][pages[s], :, offs[s], :] = vs[s].transpose(1, 2)
+            return read(qs, [lc["k"] for lc in lcs], [lc["v"] for lc in lcs])
+
+        xs = _block_core(xs, [p["layers"][str(i)] for p in params], tp.lcfg, positions,
+                         attend, tp=tp)
+    return xs
+
+
+def _paged_window_tp(params, tokens, pcache, table, pos, lengths, mask, block_size: int,
+                     tp: TPLocal):
+    """`_paged_window_core` over tensor-parallel shards, reading through
+    `paged_window_attention_sharded`. Returns per-shard activations."""
+    from nos_tpu_torch.ops.paged_attention import paged_window_attention_sharded
+
+    w = tokens.shape[1]
+    tables = tp.replicate(table)
+    ar = torch.arange(w, dtype=torch.int32, device=tokens.device)
+    positions = pos[:, None] + ar[None, :]  # [B, W]
+    valid = (ar[None, :] < lengths[:, None]) & mask[:, None]
+    pages = _page_of(tables[0], positions, block_size)
+    pages = torch.where(valid, pages, torch.zeros_like(pages)).long()
+    pos_s, len_s, mask_s = tp.replicate(pos), tp.replicate(lengths), tp.replicate(mask)
+
+    def read(qs, pool_k, pool_v):
+        return paged_window_attention_sharded(
+            [q.contiguous() for q in qs], pool_k, pool_v, tables, pos_s, len_s, mask_s)
+
+    return _tp_forward(params, tokens, pcache, positions, pages,
+                       (positions % block_size).long(), read, tp)

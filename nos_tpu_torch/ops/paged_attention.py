@@ -12,7 +12,9 @@ launch the kernel (a failed build or launch raises, nothing falls back), CPU
 tensors take the plain gather versions, which are the reference's
 `_reference` (:48) / `_window_reference` (:258) op for op. `LAUNCHES` counts
 kernel launches per entry point, so a run can show that its main path went
-through the kernels.
+through the kernels. The `_sharded` entry points (`_pallas_sharded` :193,
+`_window_pallas_sharded` :226) run the same kernel once per tensor-parallel
+shard and count each of those launches under their own name.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ NEG_INF = -1e30
 LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
     "paged_window_attention": 0,
+    "paged_decode_attention_sharded": 0,
+    "paged_window_attention_sharded": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -136,7 +140,8 @@ def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
     return _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], scales
 
 
-def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
+def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
+                   count="paged_decode_attention"):
     b, nh, hd = q.shape
     nkv = pool_k.shape[1]
     _require(nh % nkv == 0 and pool_k.shape[3] == hd, "q does not match the pool's heads")
@@ -153,12 +158,12 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
         _build.stream(q),
     )
     _build.raise_on(lib, rc, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+    LAUNCHES[count] += 1
     return out
 
 
 def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
-                   k_scale=None, v_scale=None):
+                   k_scale=None, v_scale=None, count="paged_window_attention"):
     b, nh, w, hd = q.shape
     nkv = pool_k.shape[1]
     _require(nh % nkv == 0 and pool_k.shape[3] == hd, "q does not match the pool's heads")
@@ -178,7 +183,7 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
         _build.stream(q),
     )
     _build.raise_on(lib, rc, "paged_window_attention")
-    LAUNCHES["paged_window_attention"] += 1
+    LAUNCHES[count] += 1
     return out
 
 
@@ -216,3 +221,67 @@ def paged_window_attention(q, pool_k, pool_v, table, pos, lengths, mask,
                               k_scale, v_scale)
     return _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
                              k_scale, v_scale)
+
+
+# -- tensor-parallel sharding (docs/sharded-decode.md) -------------------------
+def _tp_width(mesh, tp_axis) -> int:
+    """The width of `tp_axis` on `mesh`; 1 without a mesh or the axis."""
+    if mesh is None or tp_axis is None or tp_axis not in mesh.shape:
+        return 1
+    return int(mesh.shape[tp_axis])
+
+
+def _replicated(x, devices):
+    """A replicated operand as one tensor per shard: a per-shard list as it
+    is, a single tensor moved to each shard's device (no copy where it
+    already lies)."""
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [None if x is None else x.to(d) for d in devices]
+
+
+def paged_decode_attention_sharded(q, pool_k, pool_v, table, limit,
+                                   k_scale=None, v_scale=None):
+    """`paged_decode_attention` on a tensor-parallel mesh
+    (`nos_tpu/ops/paged_attention.py::_pallas_sharded`, :193). `q`,
+    `pool_k` and `pool_v` are per-shard lists in shard order: shard s holds
+    q [B, nh/tp, hd] and its pools [T, nkv/tp, bs, hd], head slices of every
+    block. The table, the limits and the int8 scales are replicated (a
+    tensor, or one per shard). Each shard runs the unchanged kernel over its
+    own nkv/tp groups (its plain version on a CPU shard); the
+    per-(sequence, group) math never crosses heads, so every head's output
+    is bit for bit the unsharded kernel's. No collective runs: the result
+    is the per-shard outputs [B, nh/tp, hd], each on its shard's device."""
+    devices = [x.device for x in q]
+    table, limit = _replicated(table, devices), _replicated(limit, devices)
+    k_scale, v_scale = _replicated(k_scale, devices), _replicated(v_scale, devices)
+    out = []
+    for s in range(len(q)):
+        args = (q[s], pool_k[s], pool_v[s], table[s], limit[s], k_scale[s], v_scale[s])
+        if _on_cuda(q[s]):
+            out.append(_decode_kernel(*args, count="paged_decode_attention_sharded"))
+        else:
+            out.append(_reference(*args))
+    return out
+
+
+def paged_window_attention_sharded(q, pool_k, pool_v, table, pos, lengths, mask,
+                                   k_scale=None, v_scale=None):
+    """`paged_window_attention` on a tensor-parallel mesh
+    (`_window_pallas_sharded`, :226), the same way as
+    `paged_decode_attention_sharded`: q [B, nh/tp, W, hd] and the pools per
+    shard; the table, pos, lengths, mask and scales replicated. Returns the
+    per-shard outputs [B, nh/tp, W, hd]."""
+    devices = [x.device for x in q]
+    table, pos = _replicated(table, devices), _replicated(pos, devices)
+    lengths, mask = _replicated(lengths, devices), _replicated(mask, devices)
+    k_scale, v_scale = _replicated(k_scale, devices), _replicated(v_scale, devices)
+    out = []
+    for s in range(len(q)):
+        args = (q[s], pool_k[s], pool_v[s], table[s], pos[s], lengths[s], mask[s],
+                k_scale[s], v_scale[s])
+        if _on_cuda(q[s]):
+            out.append(_window_kernel(*args, count="paged_window_attention_sharded"))
+        else:
+            out.append(_window_reference(*args))
+    return out

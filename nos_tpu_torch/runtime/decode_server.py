@@ -10,19 +10,26 @@ independently.
 
 What this port carries over: the native pool, greedy and temperature
 sampling (the threefry keys of `nos_tpu_torch/prng.py`, bit for bit JAX's),
-a single device, the budgeted chunked prefill (including the multi-slot
-`paged_prefill_window` wave), the K-step macro decode, the flat chain-key
-prefix cache of `BlockManager`, and eos handling. The constructor keeps the
-reference's signature; every argument that would arm a feature not yet
-ported (radix COW, the spill tier, bursts, speculation, the int8 pool,
-tensor parallelism, quotas, fault injection and recovery, tracing, the cost
-ledger, the fleet KV store) raises NotImplementedError naming its ROADMAP
-item. An exception on the tick path
+one device or a tensor-parallel mesh, the budgeted chunked prefill
+(including the multi-slot `paged_prefill_window` wave), the K-step macro
+decode, the flat chain-key prefix cache of `BlockManager`, and eos handling.
+The constructor keeps the reference's signature; every argument that would
+arm a feature not yet ported (radix COW, the spill tier, bursts,
+speculation, the int8 pool, quotas, fault injection and recovery, tracing,
+the cost ledger, the fleet KV store) raises NotImplementedError naming its
+ROADMAP item, with a mesh or without. An exception on the tick path
 fails every outstanding request and resets the pool (the reference's
 `surgical_recovery=False` behaviour).
 
 PyTorch in place of JAX: the programs write the pool in place and run
 eagerly on one CUDA stream, whose ordering replaces JAX's donation chain.
+Tensor parallelism (`mesh` with a `tp_axis` wider than 1,
+docs/sharded-decode.md) keeps one controller: params are placed per shard by
+`decode_param_rules`, the pool is partitioned on KV heads, and the programs
+loop over the shards (`models/decode.py::TPLocal`) with exact gathers only.
+Sampling runs once, on the gathered logits on the first shard's device,
+where the token vectors, the tick state and the host uploads live, so every
+counter is the same at any width.
 Token vectors stay on the device; a `_TokRef` starts an asynchronous copy
 into pinned host memory when it is created and materializes on first host
 need, so neither admission nor steady decode blocks on a host round trip.
@@ -51,8 +58,10 @@ from nos_tpu_torch.models.decode import (
     paged_decode_step,
     paged_prefill_chunk,
     paged_prefill_window,
+    place_tp,
 )
 from nos_tpu_torch.models.gpt import GPTConfig
+from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
 
@@ -173,7 +182,10 @@ class DecodeServer:
         to the ported features; see the module docstring. `device` is
         where the engine runs: None means CUDA and raises when no CUDA
         device exists (the port never drifts to the CPU on its own);
-        "cpu" runs the kernels' plain versions, as the tests do.
+        "cpu" runs the kernels' plain versions, as the tests do. With a
+        tensor-parallel `mesh` (`nos_tpu_torch.parallel.build_mesh`) the
+        engine runs on the devices of its `tp_axis`, and `device` may only
+        name the first of them.
 
         `steps_per_dispatch` (K) runs K decode steps per macro dispatch;
         `prefill_budget_tokens` bounds the prompt tokens one tick may
@@ -192,7 +204,6 @@ class DecodeServer:
             (spill_blocks is None or int(spill_blocks) > 0, "the spill tier",
              "Radix COW and the spill tier"),
             (kv_dtype == constants.KV_DTYPE_INT8, "the int8 pool", "The int8 engine"),
-            (mesh is not None, "a tensor-parallel mesh", "Tensor parallelism"),
             (quota is not None, "tenant quotas", "Fleet"),
             (fault_injector is not None or bool(surgical_recovery),
              "fault injection and surgical recovery", "Fleet"),
@@ -207,8 +218,44 @@ class DecodeServer:
                     f"{feature} is not ported to PyTorch yet "
                     f"(ROADMAP.md queue A: {item})"
                 )
-        self.device = resolve(device, "DecodeServer")
-        self.params = _params_to(params, self.device)
+        # Tensor-parallel serving (decode_server.py:646-691): a mesh whose
+        # tp axis is wider than 1 arms it; tp=1 (or no mesh) is the
+        # single-device path, with no placement and no wrapping.
+        tp_width = 1
+        if mesh is not None:
+            if tp_axis not in mesh.shape:
+                raise ValueError(f"mesh has no '{tp_axis}' axis: {dict(mesh.shape)}")
+            tp_width = int(mesh.shape[tp_axis])
+        if tp_width > 1:
+            if cfg.fuse_projections:
+                raise ValueError(
+                    "fuse_projections is incompatible with tensor-parallel "
+                    "decode: concatenating column-sharded weights would "
+                    "reshard mid-block"
+                )
+            if cfg.heads % tp_width or cfg.n_kv % tp_width or cfg.hidden % tp_width:
+                raise ValueError(
+                    f"tp={tp_width} must divide heads={cfg.heads}, "
+                    f"kv_heads={cfg.n_kv}, and hidden={cfg.hidden}"
+                )
+            self._mesh = mesh
+        else:
+            self._mesh = None
+        self._tp_axis = tp_axis
+        #: Shards this engine computes over (1 = single device).
+        self.tp = tp_width if self._mesh is not None else 1
+        if self._mesh is not None:
+            self.params, self._param_specs, self._tp = place_tp(params, cfg, mesh, tp_axis)
+            self.device = self._tp.devices[0]
+            if device is not None and canonical_device(device) != self.device:
+                raise ValueError(
+                    f"device {device} is not the mesh's first shard device {self.device}"
+                )
+        else:
+            self.device = resolve(device, "DecodeServer")
+            self._param_specs = None
+            self._tp = None
+            self.params = _params_to(params, self.device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -233,12 +280,11 @@ class DecodeServer:
         )
         if self.total_blocks < 2:
             raise ValueError("total_blocks must be >= 2 (scratch + 1)")
-        self.cache = init_paged_cache(
-            cfg, self.total_blocks, self.block_size, device=self.device
-        )
+        self.cache = self._new_pool()
         self._stage = HostStage(self.device)
         self._syncs = SyncLedger()
-        self._tick_state = TickState(self._stage, n_slots, self.max_pages)
+        self._tick_state = TickState(self._stage, n_slots, self.max_pages,
+                                     mesh=self._mesh, tp_axis=tp_axis)
         self._table_np = np.zeros((n_slots, self.max_pages), dtype=np.int32)
         self.prefix_cache = bool(prefix_cache)
         self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots)
@@ -284,6 +330,21 @@ class DecodeServer:
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
 
     # -- the programs ----------------------------------------------------------
+    def _new_pool(self):
+        """The paged pool: one device, or partitioned on KV heads across the
+        mesh's shards."""
+        return init_paged_cache(self.cfg, self.total_blocks, self.block_size,
+                                device=self.device, mesh=self._mesh, tp_axis=self._tp_axis)
+
+    def _table(self):
+        """The tick state's block table as the programs take it: one tensor,
+        or one per shard."""
+        st = self._tick_state
+        return st.table if self._tp is None else st.tables
+
+    def _table_row(self, table, idx: int):
+        return table[idx] if self._tp is None else [t[idx] for t in table]
+
     def _sample(self, logits, serial, step) -> torch.Tensor:
         """Greedy at temperature 0, else lane i samples
         categorical(fold_in(fold_in(PRNGKey(seed), serial[i]), step[i]),
@@ -307,7 +368,7 @@ class DecodeServer:
             mask = active & (k < steps_left) & (pos_k < self.max_len)
             logits, _ = paged_decode_step(
                 self.params, token, self.cfg, self.cache, table, pos_k, mask,
-                self.block_size,
+                self.block_size, tp=self._tp,
             )
             nxt = self._sample(logits, serial, step0 + k)
             token = torch.where(mask, nxt, token)
@@ -322,7 +383,7 @@ class DecodeServer:
     def _prefill_chunk(self, tokens, table_row, start: int, length: int) -> None:
         paged_prefill_chunk(
             self.params, tokens, self.cfg, self.cache, table_row, start, length,
-            self.block_size, with_logits=False,
+            self.block_size, with_logits=False, tp=self._tp,
         )
 
     def _prefill_last(self, tokens, table_row, start: int, length: int, slot: int) -> None:
@@ -332,7 +393,7 @@ class DecodeServer:
         waves' refs still hold the previous one)."""
         logits, _ = paged_prefill_chunk(
             self.params, tokens, self.cfg, self.cache, table_row, start, length,
-            self.block_size,
+            self.block_size, tp=self._tp,
         )
         serial = torch.full((1,), int(self._slot_serial[slot]), dtype=torch.int64,
                             device=self.device)
@@ -344,7 +405,7 @@ class DecodeServer:
     def _prefill_window(self, tokens, table, pos, lengths, active) -> None:
         paged_prefill_window(
             self.params, tokens, self.cfg, self.cache, table, pos, lengths, active,
-            self.block_size,
+            self.block_size, tp=self._tp,
         )
 
     # -- client side -----------------------------------------------------------
@@ -437,9 +498,7 @@ class DecodeServer:
 
     def _reset_device_state(self) -> None:
         """After an engine error the pool is untrustworthy: reallocate it."""
-        self.cache = init_paged_cache(
-            self.cfg, self.total_blocks, self.block_size, device=self.device
-        )
+        self.cache = self._new_pool()
         self._table_np[:] = 0
         self._tick_state.mark_table_dirty()
         self._block_mgr.reset()
@@ -582,7 +641,7 @@ class DecodeServer:
         the batch-1 program. Final chunks always go through the per-slot
         `_prefill_last`, which samples the first token."""
         self._sync_tick_state(for_table_only=True)
-        table = self._tick_state.table
+        table = self._table()
         mids: Dict[int, List[Tuple[int, int, list]]] = {}
         finals: List[Tuple[int, int, list]] = []
         for entry in wave:
@@ -598,7 +657,8 @@ class DecodeServer:
                 padded = np.zeros((1, bucket), dtype=np.int32)
                 padded[0, : len(piece)] = piece
                 self._prefill_chunk(
-                    self._stage.to_device(padded), table[idx], start, len(piece)
+                    self._stage.to_device(padded), self._table_row(table, idx), start,
+                    len(piece),
                 )
             else:
                 tokens = np.zeros((self.n_slots, bucket), dtype=np.int32)
@@ -625,7 +685,8 @@ class DecodeServer:
             padded = np.zeros((1, self._bucket(len(piece))), dtype=np.int32)
             padded[0, : len(piece)] = piece
             self._prefill_last(
-                self._stage.to_device(padded), table[idx], start, len(piece), idx
+                self._stage.to_device(padded), self._table_row(table, idx), start,
+                len(piece), idx,
             )
             dispatches += 1
         # Cursor/phase advances dirty the scheduling metadata (not the table).
@@ -790,7 +851,7 @@ class DecodeServer:
         st = self._tick_state
         K = self.steps_per_dispatch
         last, toks, pos, step, steps_left = self._macro(
-            self._last_dev, st.table, st.pos, st.mask, st.serial, st.step, st.steps_left
+            self._last_dev, self._table(), st.pos, st.mask, st.serial, st.step, st.steps_left
         )
         self._last_dev = last
         st.advance(pos, step, steps_left)

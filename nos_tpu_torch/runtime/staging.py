@@ -1,7 +1,7 @@
 """Host<->device staging discipline for the serving engine's tick path.
 
 Port of `nos_tpu/runtime/staging.py`: `SyncLedger` (:53), `HostStage` (:68)
-and `TickState` (:87).
+and `TickState` (:87, with `mesh` :99-142).
 
   - ``HostStage`` is the one host->device funnel of the tick path: every
     upload goes through :meth:`HostStage.to_device`, which counts it
@@ -64,10 +64,20 @@ class TickState:
     block-table row, then pos, mask (0/1), serial, step, steps_left.
     `sync` performs the single counted upload and unpacks it on the
     device (each field contiguous, as the kernels require); `advance`
-    swaps in the program-advanced pos/step/steps_left."""
+    swaps in the program-advanced pos/step/steps_left.
 
-    def __init__(self, stage: HostStage, n_slots: int, max_pages: int):
+    With a tensor-parallel `mesh` the upload stays ONE counted transfer to
+    the stage's device, whatever the width; `tables` then holds the table
+    once per shard of `tp_axis`, copied device to device to each distinct
+    shard device (no copy where a shard shares the stage's device, and the
+    copies are not uploads). Only the table is read per shard: pos, mask,
+    serial, step and steps_left feed the macro's arithmetic, which runs
+    once on the stage's device."""
+
+    def __init__(self, stage: HostStage, n_slots: int, max_pages: int, mesh=None,
+                 tp_axis: str = "tp"):
         self._stage = stage
+        self._devices = mesh.axis_devices(tp_axis) if mesh is not None else None
         self.n_slots = int(n_slots)
         self.max_pages = int(max_pages)
         self.dirty = True
@@ -77,6 +87,8 @@ class TickState:
         #: Packed-sync count.
         self.syncs = 0
         self.table = None
+        #: The table on every shard's device, in shard order.
+        self.tables = None
         self.pos = None
         self.mask = None
         self.serial = None
@@ -100,6 +112,8 @@ class TickState:
         dev = self._stage.to_device(packed, dtype=torch.int32)
         P = self.max_pages
         self.table = dev[:, :P].contiguous()
+        self.tables = ([self.table] if self._devices is None
+                       else [self.table.to(d) for d in self._devices])
         self.pos = dev[:, P].contiguous()
         self.mask = dev[:, P + 1] > 0
         self.serial = dev[:, P + 2].contiguous()

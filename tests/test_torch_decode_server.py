@@ -154,7 +154,7 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    for kw in (dict(mesh=object()), dict(burst_windows=4), dict(spec_k=2),
+    for kw in (dict(quota=object()), dict(burst_windows=4), dict(spec_k=2),
                dict(radix_cache=True), dict(spill_blocks=None), dict(spill_blocks=8),
                dict(kv_dtype="int8"), dict(surgical_recovery=True),
                dict(cost_ledger=object())):

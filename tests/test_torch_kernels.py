@@ -14,7 +14,8 @@ rounding of the output, and the plain version's bf16 rounding of the
 dequantized int8 values). Flash kernels: each output entry by entry
 (`flash_err`) within FLASH_TOL, chip_smoke.py's bounds. Dense decode
 kernel: entry by entry (`flash_err`) within DECODE_TOL, chip_smoke.py's
-bounds."""
+bounds. The sharded paged kernels bit for bit against the unsharded kernel
+on the same heads, and a tp=2 engine on one card against tp=1."""
 
 import numpy as np
 import pytest
@@ -268,3 +269,71 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # head_dim 100, not a multiple of 8
         tda.decode_attention(torch.zeros((2, 8, 100), device="cuda"),
                              *(torch.zeros((2, 2, 32, 100), device="cuda"),) * 2, limit)
+
+
+# -- tensor parallelism: the sharded paged kernels and a tp=2 engine ---------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nkv", [2, 4], ids=["nkv_per_shard_1", "nkv_per_shard_2"])
+def test_sharded_kernels_bit_identical_per_head(cuda_device, dtype, nkv):
+    """Two shards, each with nh/2 query heads and nkv/2 KV heads of every
+    block: each shard's output equals the unsharded kernel's on its heads,
+    bit for bit, and each shard is one launch on the sharded count."""
+    rng = np.random.RandomState(21)
+    b, nh, hd, bs, n_pages, total, w = 4, 8, 64, 32, 6, 40, 16
+    qdt = getattr(torch, dtype)
+    k, v, _, _, table, owned = _case(rng, b, nkv, hd, bs, n_pages, total, False, qdt,
+                                     cuda_device)
+
+    def heads(x):
+        return [t.contiguous() for t in x.chunk(2, dim=1)]
+
+    q = torch.from_numpy(rng.randn(b, nh, hd).astype(np.float32)).to(cuda_device, qdt)
+    limit = torch.tensor([rng.randint(1, o * bs + 1) for o in owned], dtype=torch.int32,
+                         device=cuda_device)
+    before = dict(tpa.LAUNCHES)
+    got = tpa.paged_decode_attention_sharded(heads(q), heads(k), heads(v), table, limit)
+    whole = tpa.paged_decode_attention(q, k, v, table, limit)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, heads(whole)))
+    qw = torch.from_numpy(rng.randn(b, nh, w, hd).astype(np.float32)).to(cuda_device, qdt)
+    pos = torch.tensor([rng.randint(0, max(1, o * bs - w) + 1) for o in owned],
+                       dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([w, 3, 1, w], dtype=torch.int32, device=cuda_device)
+    mask = torch.tensor([True, True, False, True], device=cuda_device)
+    got = tpa.paged_window_attention_sharded(heads(qw), heads(k), heads(v), table, pos,
+                                             lengths, mask)
+    whole = tpa.paged_window_attention(qw, k, v, table, pos, lengths, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, heads(whole)))
+    for name in ("paged_decode_attention", "paged_window_attention"):
+        assert tpa.LAUNCHES[name + "_sharded"] == before[name + "_sharded"] + 2
+        assert tpa.LAUNCHES[name] == before[name] + 1
+
+
+def test_tp2_engine_tokens_equal_tp1(cuda_device):
+    """A small f32 model served at tp=2 with both shards on one card gives
+    the tp=1 engine's tokens, through the sharded kernels."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+    from nos_tpu_torch.parallel import build_mesh
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 96, size=n).tolist() for n in (5, 20, 40)]
+
+    def serve(mesh):
+        server = DecodeServer(params, cfg, mesh=mesh, device=None if mesh else cuda_device,
+                              n_slots=3, max_len=128, prompt_buckets=(8, 16),
+                              steps_per_dispatch=4, block_size=8)
+        futs = [server.submit(p, max_new=12) for p in prompts]
+        while not all(f.done() for f in futs):
+            server._tick()
+        return [f.result() for f in futs]
+
+    want = serve(None)
+    before = dict(tpa.LAUNCHES)
+    assert serve(build_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"])) == want
+    for name in ("paged_decode_attention_sharded", "paged_window_attention_sharded"):
+        assert tpa.LAUNCHES[name] > before[name]
+    assert tpa.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"]
