@@ -1,8 +1,10 @@
 // Flash attention forward and backward, written by hand for Hopper (sm_90a).
-// Three kernels, each with an extern "C" launcher:
+// Four kernels, each with an extern "C" launcher:
 //
 //   nos_flash_fwd      replaces nos_tpu/ops/flash_attention.py::_flash_fwd_pallas
-//                      (kernel :102, pallas_call :161);
+//                      (kernel :102, pallas_call :161): the simt route, for f32;
+//   nos_flash_fwd_mma  the same forward on tensor cores: the mma route, for
+//                      bf16 (the training main path);
 //   nos_flash_bwd_dq   replaces _flash_bwd_pallas's dq_kernel (:234, pallas_call :269);
 //   nos_flash_bwd_dkv  replaces _flash_bwd_pallas's dkv_kernel (:287, pallas_call :329).
 //
@@ -29,25 +31,35 @@
 // [64, 2048, 256] bf16 causal the forward does 1.4e11 useful FLOPs against
 // 0.27 GB of bytes, some 500 FLOPs per byte, above the card's ~295.
 //
-// The design. The Pallas grid's sequential axis (k tiles for the forward
-// and dq, q tiles for dkv) becomes a loop inside one CUDA block; the other
-// two axes become the CUDA grid (blockIdx.x = b*h, blockIdx.y = the tile the
-// block owns). A block owns kOwn = 64 rows (q rows for the forward and dq,
-// k rows for dkv) and streams the other side in tiles of kStream = 32 rows.
-// Tiles live in shared memory as f32 (converted once on load, rows padded
-// to D + 1 floats so that both products read conflict-free). 256 threads
-// form a 16 x 16 grid: thread (ty, tx) owns rows 4 ty .. 4 ty + 3 of the
-// block's tile, streamed columns tx and tx + 16 of each score tile, and
-// output columns tx + 16 e of the D-wide accumulators, which stay in
-// registers (4 x D/16 floats each). A row's softmax reductions run over the
-// 16 lanes of a half-warp with shuffles. At D = 256 a block needs 137-210
-// KB of dynamic shared memory, so one block runs per SM. This first version
-// is simple SIMT f32 arithmetic out of shared memory, not tensor cores:
-// it holds the Pallas kernels' f32 numerics in every dtype, and it is far
-// from the operation bound (PERF.md). mma/wgmma products, TMA loads and a
-// persistent causal schedule are later work.
+// The simt design (the backward kernels, and the forward in f32). The
+// Pallas grid's sequential axis (k tiles for the forward and dq, q tiles for
+// dkv) becomes a loop inside one CUDA block; the other two axes become the
+// CUDA grid (blockIdx.x = b*h, blockIdx.y = the tile the block owns). A block
+// owns kOwn = 64 rows (q rows for the forward and dq, k rows for dkv) and
+// streams the other side in tiles of kStream = 32 rows. Tiles live in shared
+// memory as f32 (converted once on load, rows padded to D + 1 floats so that
+// both products read conflict-free). 256 threads form a 16 x 16 grid: thread
+// (ty, tx) owns rows 4 ty .. 4 ty + 3 of the block's tile, streamed columns
+// tx and tx + 16 of each score tile, and output columns tx + 16 e of the
+// D-wide accumulators, which stay in registers (4 x D/16 floats each). A
+// row's softmax reductions run over the 16 lanes of a half-warp with
+// shuffles. At D = 256 a block needs 137-210 KB of dynamic shared memory, so
+// one block runs per SM. It holds the Pallas kernels' f32 numerics in every
+// dtype and is far from the operation bound (PERF.md).
+//
+// The mma route (flash_fwd_mma_kernel). The design is FlashAttention-2 on
+// mma.sync (csrc/mma.cuh): four warps own 16 q rows each, Q in swizzled
+// shared memory, K and V through a two-stage cp.async ring, S and O in f32
+// registers, P rounded to bf16 in registers (the contract's own rounding)
+// for PV, the heaviest causal tiles launched first. At D = 256 the 16 x 256
+// accumulator takes 128 registers a thread, so K/V tiles are 32 keys (96 KB
+// of shared memory, two blocks per SM) and no fragment can be loaded ahead:
+// what bounds it now is the latency of the dependent ldmatrix -> mma chain
+// and of issuing the cp.async copies, with two warps per scheduler. wgmma, TMA and warp
+// specialisation are the next step.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -59,12 +71,6 @@ constexpr int kStream = 32;    // rows of each streamed tile
 constexpr int kTM = kOwn / 16;     // own rows per thread
 constexpr int kTN = kStream / 16;  // streamed columns per thread
 constexpr int kPS = kStream + 1;   // row stride of a score tile in shared memory
-
-// x rounded to T and back: the forward's p.astype(v.dtype) (:136).
-__device__ __forceinline__ float round_to(float x, float*) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Reductions over the 16 lanes of a half-warp (the tx of one row group).
 __device__ __forceinline__ float row_max(float x) {
@@ -218,7 +224,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int n = 0; n < kTN; ++n) {
         const float p = ok[n] ? expf(s[i][n] - m_new) : 0.f;
         sum += p;
-        p_s[(ty * kTM + i) * kPS + tx + 16 * n] = round_to(p, static_cast<T*>(nullptr));
+        // p.astype(v.dtype) (:136) is p itself: this kernel runs f32 only
+        // (bf16 takes flash_fwd_mma_kernel).
+        p_s[(ty * kTM + i) * kPS + tx + 16 * n] = p;
       }
       sum = row_sum(sum);
       const float alpha = expf(m[i] - m_new);
@@ -452,6 +460,169 @@ struct Dkv {
   }
 };
 
+// -- the forward's mma route: bf16, head_dim 64, 128 or 256 ---------------------
+//
+// One CUDA block of four warps per (b*h, 64-row q tile); warp w owns rows
+// 16 w .. 16 w + 15 of the tile. Q stays in swizzled shared memory (at D =
+// 256 its fragments would take 64 more registers beside the 128 of the
+// accumulator); K and V tiles of kFwdKeys<D> rows stream through a
+// two-stage cp.async ring, the next tile's copy in flight while this one's
+// products run. S = (q k^T) * scale in f32 from bf16 fragments; the masked
+// online softmax runs on the S fragment; P is rounded to bf16 in registers
+// (the reference's p.astype(v.dtype), :136) and O += P V accumulates in f32.
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // q rows a block owns
+
+// Keys per stage: 32 at D = 256 keeps S at 16 registers beside the
+// accumulator's 128, and the block at 96 KB of shared memory (two per SM).
+template <int D>
+constexpr int kFwdKeys = D == 256 ? 32 : 64;
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return sizeof(__nv_bfloat16) * (kFwdRows * D + 2 * 2 * kFwdKeys<D> * D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int t, int causal, float scale) {
+  using namespace nos::mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int kK = kFwdKeys<D>;
+  constexpr int kN = kK / 8;  // 8-key accumulator blocks of S
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kFwdRows][D]
+  bf16* k_s = q_s + kFwdRows * D;                  // [2][kK][D]
+  bf16* v_s = k_s + 2 * kK * D;                    // [2][kK][D]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // The causal grid's heaviest tiles (the last rows) launch first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  const size_t base = static_cast<size_t>(blockIdx.x) * t * D;
+  const bf16* qb = q + base;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  copy_rows<D, kFwdThreads>(q_s, kFwdRows, tid, qb, [&](int r) -> const bf16* {
+    return q0 + r < t ? qb + static_cast<size_t>(q0 + r) * D : nullptr;
+  });
+  const int n_k = (t + kK - 1) / kK;
+  // Causal: k tiles up to the one holding the block's last row (:149).
+  const int upper = causal ? min(n_k, (q0 + kFwdRows - 1) / kK + 1) : n_k;
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * kK;
+    copy_rows<D, kFwdThreads>(k_s + stage * kK * D, kK, tid, kb, [&](int r) -> const bf16* {
+      return k0 + r < t ? kb + static_cast<size_t>(k0 + r) * D : nullptr;
+    });
+    copy_rows<D, kFwdThreads>(v_s + stage * kK * D, kK, tid, vb, [&](int r) -> const bf16* {
+      return k0 + r < t ? vb + static_cast<size_t>(k0 + r) * D : nullptr;
+    });
+  };
+  load_kv(0, 0);
+  cp_async_commit();  // Q and the first K/V tile
+
+  const int qw = q0 + warp * 16;  // the warp's first row
+  const int tq = lane & 3;
+  const int rows[2] = {qw + (lane >> 2), qw + (lane >> 2) + 8};
+  Softmax<kN> sm;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  for (int kt = 0; kt < upper; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < upper) load_kv(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    const int k0 = kt * kK;
+    // Nothing to do where every row is padding or every key lies above the
+    // warp's rows; m, l and acc are unchanged by a fully masked tile.
+    if (qw >= t || (causal && k0 > qw + 15)) continue;
+    const bf16* kt_s = k_s + (kt & 1) * kK * D;
+    const bf16* vt_s = v_s + (kt & 1) * kK * D;
+    float s[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      load_a<D>(a, q_s, warp * 16, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kN / 2; ++n) {
+        uint32_t bk[4];
+        load_b_k<D>(bk, kt_s, 16 * n, kk, lane);
+        mma_bf16(s[2 * n], a, bk[0], bk[1]);
+        mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+    // Every entry valid: the tile lies inside T and, causal, at or below
+    // the warp's first row.
+    const bool full = k0 + kK <= t && qw + 15 < t && (!causal || k0 + kK - 1 <= qw);
+    float alpha[2];
+    sm.update(s, [&](int n, int e) {
+      const int kp = k0 + 8 * n + 2 * tq + (e & 1);
+      const int qp = rows[e >> 1];
+      return full || (kp < t && qp < t && (!causal || qp >= kp));
+    }, alpha);
+    rescale(acc, alpha);
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t bv[4];
+        load_b_v<D>(bv, vt_s, 16 * kk, 2 * c, lane);
+        mma_bf16(acc[2 * c], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * c + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  sm.finish();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = rows[i];
+    if (qp >= t) continue;
+    const float den = fmaxf(sm.l[i], 1e-30f);
+    bf16* orow = o + base + static_cast<size_t>(qp) * D + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(acc[c][2 * i] / den, acc[c][2 * i + 1] / den);
+    }
+    if (tq == 0) {
+      lse[static_cast<size_t>(blockIdx.x) * t + qp] =
+          sm.l[i] > 0.f ? sm.m[i] + logf(den) : kNegInf;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_mma(dim3 grid, cudaStream_t s, const void* q, const void* k,
+                           const void* v, void* o, float* lse, int t, int causal, float scale) {
+  static size_t granted[kMaxDevices] = {};
+  auto kernel = flash_fwd_mma_kernel<D>;
+  const cudaError_t err = opt_in_smem(kernel, fwd_mma_smem<D>(), granted);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFwdThreads, fwd_mma_smem<D>(), s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, t, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 template <template <typename, int> class Launch, typename T, typename... Args>
 cudaError_t by_head_dim(int head_dim, Args... args) {
   switch (head_dim) {
@@ -462,8 +633,9 @@ cudaError_t by_head_dim(int head_dim, Args... args) {
   return cudaErrorInvalidValue;
 }
 
-// Launch<dtype, head_dim>::run over the grid (b*h, q or k tiles of kOwn rows).
-template <template <typename, int> class Launch, typename... Args>
+// Launch<dtype, head_dim>::run over the grid (b*h, q or k tiles of kOwn rows);
+// bf16 only where kWithBF16 (the simt forward is f32 only).
+template <template <typename, int> class Launch, bool kWithBF16, typename... Args>
 int dispatch(int dtype, int head_dim, int bh, int t, void* stream, Args... args) {
   if (bh <= 0 || t <= 0 || (t + kOwn - 1) / kOwn > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -474,7 +646,7 @@ int dispatch(int dtype, int head_dim, int bh, int t, void* stream, Args... args)
   if (dtype == kF32) {
     err = by_head_dim<Launch, float>(head_dim, grid, s, args...);
   } else if (dtype == kBF16) {
-    err = by_head_dim<Launch, __nv_bfloat16>(head_dim, grid, s, args...);
+    if constexpr (kWithBF16) err = by_head_dim<Launch, __nv_bfloat16>(head_dim, grid, s, args...);
   }
   return static_cast<int>(err);
 }
@@ -483,11 +655,13 @@ int dispatch(int dtype, int head_dim, int bh, int t, void* stream, Args... args)
 
 extern "C" {
 
-// q, k, v, o [bh, t, head_dim] in dtype (0 f32, 1 bf16); lse [bh, t] f32.
-// head_dim 64, 128 or 256. Returns cudaGetLastError() after the launch.
+// q, k, v, o [bh, t, head_dim] in dtype (0 f32; bf16 takes nos_flash_fwd_mma
+// and is refused here); lse [bh, t] f32. head_dim 64, 128 or 256. Returns
+// cudaGetLastError() after the launch.
 int nos_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                   int t, int head_dim, int dtype, int causal, float scale, void* stream) {
-  return dispatch<Fwd>(dtype, head_dim, bh, t, stream, q, k, v, o, lse, t, causal, scale);
+  return dispatch<Fwd, false>(dtype, head_dim, bh, t, stream, q, k, v, o, lse, t, causal,
+                              scale);
 }
 
 // dq [bh, t, head_dim] from q, k, v, dO and the forward's lse and D =
@@ -495,7 +669,7 @@ int nos_flash_fwd(const void* q, const void* k, const void* v, void* o, float* l
 int nos_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* dvec, void* dq, int bh, int t,
                      int head_dim, int dtype, int causal, float scale, void* stream) {
-  return dispatch<Dq>(dtype, head_dim, bh, t, stream, q, k, v, dout, lse, dvec, dq, t,
+  return dispatch<Dq, true>(dtype, head_dim, bh, t, stream, q, k, v, dout, lse, dvec, dq, t,
                       causal, scale);
 }
 
@@ -503,8 +677,26 @@ int nos_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
 int nos_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* dvec, void* dk, void* dv, int bh, int t,
                       int head_dim, int dtype, int causal, float scale, void* stream) {
-  return dispatch<Dkv>(dtype, head_dim, bh, t, stream, q, k, v, dout, lse, dvec, dk, dv, t,
+  return dispatch<Dkv, true>(dtype, head_dim, bh, t, stream, q, k, v, dout, lse, dvec, dk, dv, t,
                        causal, scale);
+}
+
+// The forward's mma route: bf16 q, k, v, o [bh, t, head_dim], lse [bh, t]
+// f32, head_dim 64, 128 or 256. Returns cudaGetLastError() after the launch.
+int nos_flash_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                      int t, int head_dim, int causal, float scale, void* stream) {
+  if (bh <= 0 || t <= 0 || (t + kFwdRows - 1) / kFwdRows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(bh, (t + kFwdRows - 1) / kFwdRows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 64: err = launch_fwd_mma<64>(grid, s, q, k, v, o, lse, t, causal, scale); break;
+    case 128: err = launch_fwd_mma<128>(grid, s, q, k, v, o, lse, t, causal, scale); break;
+    case 256: err = launch_fwd_mma<256>(grid, s, q, k, v, o, lse, t, causal, scale); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

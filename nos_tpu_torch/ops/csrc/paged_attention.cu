@@ -1,12 +1,19 @@
 // Paged attention over a block-paged KV pool, written by hand for Hopper
-// (sm_90a). Two entry points share one kernel body:
+// (sm_90a). Three launchers over two kernel bodies:
 //
-//   nos_paged_decode_attention  replaces nos_tpu/ops/paged_attention.py::_pallas
-//                               (one query token per sequence);
-//   nos_paged_window_attention  replaces nos_tpu/ops/paged_attention.py::_window_pallas
-//                               (W query tokens per sequence, per-row causal limit).
+//   nos_paged_decode_attention      replaces nos_tpu/ops/paged_attention.py::_pallas
+//                                   (one query token per sequence), simt body;
+//   nos_paged_window_attention      replaces nos_tpu/ops/paged_attention.py::_window_pallas
+//                                   (W query tokens per sequence, per-row causal
+//                                   limit): the simt route, for f32, int8 pools and
+//                                   head dims outside 64/128/256;
+//   nos_paged_window_attention_mma  the same contract on tensor cores: the mma
+//                                   route, bf16 q over a bf16 pool at head_dim 64,
+//                                   128 or 256 (the serving main path).
+// The wrapper (ops/paged_attention.py::_window_route) picks the route from
+// dtypes and shapes alone.
 //
-// What it computes (the Pallas kernels' contract): for every (sequence b, KV
+// What they compute (the Pallas kernels' contract): for every (sequence b, KV
 // group g) the `rep` query heads of the group (times W window rows, laid out
 // group-major: row = r * W + w) attend the pages table[b, 0..] of the pool
 // [T, nkv, bs, hd] up to a per-row limit, with an online f32 softmax across
@@ -14,23 +21,36 @@
 // output is divided by max(l, 1e-30), and an int8 pool is dequantized by its
 // per-block scale right after each block load.
 //
-// What bounds it on an H100: bytes. The least time is the K and V pages under
-// each limit read once over HBM's 3.35 TB/s; the scores are rows x bs dot
-// products of length hd, far below the card's arithmetic rate. The design:
-// one CUDA block per (b, g, row tile) keeps the row tile's queries, running
-// max / normalizer and f32 accumulator in shared memory, streams one page at
-// a time (16-byte vector loads, converted to f32 on the way into shared
+// The simt body. Bytes bound it on an H100 for decode: the least time is
+// the K and V pages under each limit read once over HBM's 3.35 TB/s. One
+// CUDA block per (b, g, row tile) keeps the row tile's queries, running max
+// / normalizer and f32 accumulator in shared memory, streams one page at a
+// time (16-byte vector loads, converted to f32 on the way into shared
 // memory) and never writes scores to device memory. The loop stops at the
 // page of the tile's largest limit, which is exact: a fully masked page
-// leaves m, l and acc unchanged. No sublane padding of `rep` to 8 as on the
-// TPU. This first version is the simple one that is right, and it is far
-// from the byte bound (PERF.md): few blocks per SM, page loads not
-// overlapped with compute, and each score a dependent FMA chain make it
-// latency-bound, and one block walks a long sequence's pages alone.
-// Split-page (flash-decoding), cp.async/TMA double buffering and tensor-core
-// products are later work.
+// leaves m, l and acc unchanged. It is far from the byte bound (PERF.md):
+// few blocks per SM, page loads not overlapped with compute, and each score
+// a dependent FMA chain make it latency-bound; split-page decoding is later
+// work.
+//
+// The mma route. A prefill window's rows x keys products make operations
+// its bound (2.3 GFLOP for the serving wave of two 256-row chunks at
+// position 2048, 2.3 us at 989 TFLOP/s against 2 us of bytes); as SIMT f32
+// arithmetic it ran at 1 TFLOP/s. The design (FlashAttention-2 on
+// mma.sync, csrc/mma.cuh): warps own 16 window rows of one head, so rows of
+// a warp share positions and one K/V stream; S = q k^T comes from ldmatrix'd
+// bf16 fragments in f32, then times the scale; the masked online softmax
+// runs on the S fragment, each row held to its own limit; P stays in
+// registers and enters PV as three bf16 terms (all of its f32 bits, so the
+// window keeps the Pallas kernel's f32 weights); key rows, not pages, are
+// gathered by cp.async into a two-stage ring, the next tile's copies in
+// flight while this tile's products run, whatever the block size. What
+// still bounds it is latency: the serving wave has 256 warp tiles of work
+// for the card's 528 schedulers, so two warps split each tile's keys and
+// merge at the end (window_mma_kernel below).
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -258,6 +278,275 @@ int launch(Params p, int batch, int q_dtype, int kv_dtype, void* stream) {
   return static_cast<int>(err);
 }
 
+// -- the mma route: bf16 q over a bf16 pool, head_dim 64, 128 or 256 ------------
+//
+// One CUDA block per (sequence b, KV group g) and kWinUnits consecutive
+// warp units of the group's (window tile, head) grid, unit u = the 16
+// window positions from (u / rep) * 16 of head u % rep: at rep 4 a block is
+// one 16-position tile of the group's four heads, at rep 1 four tiles of
+// one head, at rep 8 half the heads of a tile. Every row of the block reads
+// one K/V stream, key j at pool row (table[b, j / bs] * nkv + g) * bs +
+// j % bs, staged kWinKeys keys at a time by cp.async into a two-stage ring
+// whatever the block size. Each unit has two warps, each taking one half
+// of every staged tile's keys with its own softmax state; they merge at the
+// end. Two warps per unit put two warps on every scheduler the block
+// occupies, which hides the latency of the dependent products.
+
+constexpr int kWinUnits = 4;                  // 16-row warp units per block
+constexpr int kWinWarps = 2 * kWinUnits;      // two warps per unit
+constexpr int kWinThreads = 32 * kWinWarps;
+constexpr int kWinKeys = 64;                  // keys per stage
+constexpr int kWarpKeys = kWinKeys / 2;       // of which one warp takes
+// P enters PV as hi + mid + lo, three bf16 terms that hold all 24 bits of
+// the f32 weight. One bf16 rounding of P (2^-9) moves outputs near 1 by a
+// bf16 step (2^-7), beyond the 5e-3 that the kernel is held to, and so can
+// hi + lo (16 bits) on the card gate's shapes (tests/
+// test_torch_paged_attention.py::test_window_two_bf16_terms_of_p_can_miss_the_bound).
+constexpr int kPTerms = 3;
+
+struct WindowMmaParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int32_t* table;
+  const int32_t* pos;
+  const int32_t* lengths;
+  const uint8_t* mask;
+  __nv_bfloat16* out;
+  int n_heads;
+  int n_kv;
+  int rep;
+  int window;
+  int block_size;
+  int n_pages;
+  int units;  // ceil(window / 16) * rep
+  float scale;
+};
+
+// Q, the K/V ring and the staged page table.
+template <int D>
+size_t window_mma_smem(int n_pages) {
+  return sizeof(__nv_bfloat16) * (kWinUnits * 16 * D + 2 * 2 * kWinKeys * D) +
+         sizeof(int) * static_cast<size_t>(n_pages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams p) {
+  using namespace nos::mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int kN = kWarpKeys / 8;  // 8-key accumulator blocks of a warp's S
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kWinUnits * 16][D]
+  bf16* k_s = q_s + kWinUnits * 16 * D;            // [2][kWinKeys][D]
+  bf16* v_s = k_s + 2 * kWinKeys * D;              // [2][kWinKeys][D]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int slot = (tid >> 5) % kWinUnits;  // the warp's unit in the block
+  const int part = (tid >> 5) / kWinUnits;  // and its share of each tile
+  const int b = blockIdx.y / p.n_kv;
+  const int g = blockIdx.y % p.n_kv;
+  const int blk = gridDim.x - 1 - blockIdx.x;  // the last tiles (longest rows) first
+  const int unit0 = blk * kWinUnits;
+  const int pos_b = p.pos[b];
+  const int len_b = p.lengths[b];
+  const bool active = p.mask[b] != 0;
+  const int n_stream = p.n_pages * p.block_size;  // keys the table can address
+  // Row w's limit (row_limit above); a masked lane's rows all read key 0.
+  auto limit_of = [&](int w) { return (active && w < len_b) ? pos_b + w + 1 : 1; };
+  // The largest limit of unit u's rows (0 for no unit): limits grow with w
+  // up to lengths[b] - 1 and are 1 past it.
+  auto unit_max = [&](int u) {
+    if (u >= p.units) return 0;
+    const int w0 = (u / p.rep) * 16;
+    return limit_of(min(min(w0 + 15, p.window - 1), max(len_b - 1, w0)));
+  };
+  int block_max = 0;
+#pragma unroll
+  for (int i = 0; i < kWinUnits; ++i) block_max = max(block_max, unit_max(unit0 + i));
+  const int n_keys = min(block_max, n_stream);
+  const int n_tiles = (n_keys + kWinKeys - 1) / kWinKeys;
+
+  const size_t q_rows = static_cast<size_t>(b) * p.n_heads * p.window;  // b's first row
+  copy_rows<D, kWinThreads>(q_s, kWinUnits * 16, tid, p.q, [&](int r) -> const bf16* {
+    const int u = unit0 + r / 16;
+    const int w = (u / p.rep) * 16 + r % 16;
+    if (u >= p.units || w >= p.window) return nullptr;
+    const int head = g * p.rep + u % p.rep;
+    return p.q + (q_rows + static_cast<size_t>(head) * p.window + w) * D;
+  });
+  // The pages the stream spans, staged once: each key's page id is then a
+  // shared-memory read, not a dependent global load ahead of its copy.
+  int* table_s = reinterpret_cast<int*>(v_s + 2 * kWinKeys * D);  // [n_pages]
+  {
+    const int n_used = min(p.n_pages, (n_keys + p.block_size - 1) / p.block_size);
+    const int32_t* table = p.table + static_cast<size_t>(b) * p.n_pages;
+    for (int i = tid; i < n_used; i += kWinThreads) table_s[i] = table[i];
+    __syncthreads();
+  }
+  const bool bs_pow2 = (p.block_size & (p.block_size - 1)) == 0;
+  const int bs_shift = __ffs(p.block_size) - 1;
+  auto load_kv = [&](int kt, int stage) {
+    constexpr int kC = D / 8;  // as copy_rows: a fixed chunk, every (threads / kC)-th key
+    bf16* kd = k_s + stage * kWinKeys * D;
+    bf16* vd = v_s + stage * kWinKeys * D;
+    const int c = tid % kC;
+    for (int r = tid / kC; r < kWinKeys; r += kWinThreads / kC) {
+      const int j = kt * kWinKeys + r;
+      const bool in = j < n_keys;  // past every row's limit: zeros, nothing read
+      size_t off = 0;
+      if (in) {
+        const int page = bs_pow2 ? j >> bs_shift : j / p.block_size;
+        const int row = j - page * p.block_size;
+        off = ((static_cast<size_t>(table_s[page]) * p.n_kv + g) * p.block_size + row) * D +
+              c * 8;
+      }
+      const int at = Swizzled<D>::at(r, c);
+      cp_async16(smem_addr(kd + at), p.k + off, in);
+      cp_async16(smem_addr(vd + at), p.v + off, in);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();  // Q and the first K/V tile
+
+  const int unit = unit0 + slot;
+  const bool has_unit = unit < p.units;
+  const int w0 = (unit / p.rep) * 16;
+  const int warp_max = unit_max(unit);
+  const int key0 = part * kWarpKeys;  // the warp's first key of each tile
+  const int tq = lane & 3;
+  int lim[2];  // the thread's rows w0 + lane / 4 and w0 + lane / 4 + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int w = w0 + (lane >> 2) + 8 * i;
+    lim[i] = (has_unit && w < p.window) ? min(limit_of(w), n_stream) : 0;
+  }
+  Softmax<kN> sm;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < n_tiles) load_kv(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    const int j0 = kt * kWinKeys + key0;
+    if (j0 >= warp_max) continue;  // every key from here is past the warp's limits
+    const bf16* kt_s = k_s + (kt & 1) * kWinKeys * D;
+    const bf16* vt_s = v_s + (kt & 1) * kWinKeys * D;
+    float s[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      load_a<D>(a, q_s, slot * 16, kk, lane);
+#pragma unroll
+      for (int n = 0; n < kN / 2; ++n) {
+        uint32_t bk[4];
+        load_b_k<D>(bk, kt_s, key0 + 16 * n, kk, lane);
+        mma_bf16(s[2 * n], a, bk[0], bk[1]);
+        mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= p.scale;  // the unscaled product, then scale
+    float alpha[2];
+    sm.update(s, [&](int n, int e) { return j0 + 8 * n + 2 * tq + (e & 1) < lim[e >> 1]; },
+              alpha);
+    rescale(acc, alpha);
+#pragma unroll
+    for (int kk = 0; kk < kWarpKeys / 16; ++kk) {
+      uint32_t pa[kPTerms][4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float x0 = s[2 * kk + (h >> 1)][(h & 1) * 2];
+        float x1 = s[2 * kk + (h >> 1)][(h & 1) * 2 + 1];
+#pragma unroll
+        for (int term = 0; term < kPTerms; ++term) {
+          const uint32_t w = pack_bf16(x0, x1);
+          pa[term][h] = w;
+          x0 -= bf16_lo(w);  // exact: the remainder of a rounding
+          x1 -= bf16_hi(w);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t bv[4];
+        load_b_v<D>(bv, vt_s, key0 + 16 * kk, 2 * c, lane);
+#pragma unroll
+        for (int term = 0; term < kPTerms; ++term) {
+          mma_bf16(acc[2 * c], pa[term], bv[0], bv[1]);
+          mma_bf16(acc[2 * c + 1], pa[term], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  sm.finish();
+  // The second warp of each unit hands (acc, m, l) to the first through
+  // the K/V ring, which no warp reads any more; the first merges them.
+  constexpr int kSlots = D / 8 + 1;  // float4s per thread: acc blocks, then m and l
+  float4* xchg = reinterpret_cast<float4*>(k_s) + (slot * 32 + lane) * kSlots;
+  __syncthreads();
+  if (part == 1) {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      xchg[c] = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+    }
+    xchg[D / 8] = make_float4(sm.m[0], sm.m[1], sm.l[0], sm.l[1]);
+  }
+  __syncthreads();
+  if (part == 1) return;
+  const float4 ml = xchg[D / 8];
+  const float m_o[2] = {ml.x, ml.y};
+  const float l_o[2] = {ml.z, ml.w};
+  float a_self[2], a_o[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(sm.m[i], m_o[i]);
+    a_self[i] = expf(sm.m[i] - m_new);
+    a_o[i] = expf(m_o[i] - m_new);
+    sm.l[i] = sm.l[i] * a_self[i] + l_o[i] * a_o[i];
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const float4 o = xchg[c];
+    acc[c][0] = acc[c][0] * a_self[0] + o.x * a_o[0];
+    acc[c][1] = acc[c][1] * a_self[0] + o.y * a_o[0];
+    acc[c][2] = acc[c][2] * a_self[1] + o.z * a_o[1];
+    acc[c][3] = acc[c][3] * a_self[1] + o.w * a_o[1];
+  }
+  if (!has_unit) return;
+  const int head = g * p.rep + unit % p.rep;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int w = w0 + (lane >> 2) + 8 * i;
+    if (w >= p.window) continue;
+    const float den = fmaxf(sm.l[i], 1e-30f);
+    bf16* orow = p.out + (q_rows + static_cast<size_t>(head) * p.window + w) * D + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(acc[c][2 * i] / den, acc[c][2 * i + 1] / den);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_window_mma(const WindowMmaParams& p, int groups, cudaStream_t stream) {
+  auto kernel = window_mma_kernel<D>;
+  static size_t granted[kMaxDevices] = {};
+  const size_t smem = window_mma_smem<D>(p.n_pages);
+  const cudaError_t err = opt_in_smem(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.units + kWinUnits - 1) / kWinUnits, groups);
+  kernel<<<grid, kWinThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,6 +590,39 @@ int nos_paged_window_attention(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   return launch(p, batch, q_dtype, kv_dtype, stream);
+}
+
+// The window's mma route: bf16 q [B, nh, W, hd] over bf16 pools, head_dim
+// 64, 128 or 256; the other arguments as nos_paged_window_attention's.
+int nos_paged_window_attention_mma(const void* q, const void* k, const void* v,
+                                   const int32_t* table, const int32_t* pos,
+                                   const int32_t* lengths, const uint8_t* mask, void* out,
+                                   int batch, int n_heads, int n_kv, int window, int head_dim,
+                                   int block_size, int n_pages, float scale, void* stream) {
+  if (n_kv <= 0 || n_heads % n_kv != 0 || window <= 0 || block_size <= 0 || n_pages <= 0 ||
+      batch < 0 || batch * n_kv > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  WindowMmaParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.table = table; p.pos = pos; p.lengths = lengths; p.mask = mask;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.n_heads = n_heads; p.n_kv = n_kv; p.rep = n_heads / n_kv; p.window = window;
+  p.block_size = block_size; p.n_pages = n_pages;
+  p.units = ((window + 15) / 16) * p.rep;
+  p.scale = scale;
+  const int groups = batch * n_kv;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 64: err = launch_window_mma<64>(p, groups, s); break;
+    case 128: err = launch_window_mma<128>(p, groups, s); break;
+    case 256: err = launch_window_mma<256>(p, groups, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

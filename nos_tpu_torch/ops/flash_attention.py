@@ -17,7 +17,9 @@ kernels compute, in f32, over the whole [T, T] score matrix:
 `_flash_fwd_reference` -> (o, lse), `_flash_bwd_reference` -> (dq, dk, dv).
 `_reference_attention` (:39) is the reference's XLA path op for op.
 `LAUNCHES` counts kernel launches per kernel, so a run can show that its
-main path went through them.
+main path went through them, and `ROUTE_LAUNCHES` the same launches by
+route: the forward takes "mma", a tensor-core kernel, for bf16 inputs
+(`_flash_route`), and "simt" for f32; the backward kernels are simt.
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dkv": 0,
 }
 
+#: The same launches by kernel and route ("mma" or "simt").
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {name: {"mma": 0, "simt": 0} for name in LAUNCHES}
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 
@@ -48,6 +53,14 @@ _HEAD_DIMS = (64, 128, 256)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        ROUTE_LAUNCHES[name] = {"mma": 0, "simt": 0}
+
+
+def _flash_route(q) -> str:
+    """The forward kernel's route, a pure function of dtype and shape:
+    "mma" (the tensor-core kernel) for bf16 at head_dim 64, 128 or 256,
+    "simt" otherwise (f32; the kernels take no other head_dim)."""
+    return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS else "simt"
 
 
 # -- plain versions ------------------------------------------------------------
@@ -153,6 +166,7 @@ _VP, _I = _build.VP, _build.I
 _require = _build.require
 _SIGNATURES = {
     "nos_flash_fwd": [_VP] * 5 + [_I] * 5 + [_build.F, _VP],
+    "nos_flash_fwd_mma": [_VP] * 5 + [_I] * 4 + [_build.F, _VP],
     "nos_flash_bwd_dq": [_VP] * 7 + [_I] * 5 + [_build.F, _VP],
     "nos_flash_bwd_dkv": [_VP] * 8 + [_I] * 5 + [_build.F, _VP],
 }
@@ -187,15 +201,19 @@ def _check_rows(q, *rows) -> None:
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """The forward kernel on CUDA tensors -> (o, lse [B,H,T] f32)."""
     bh, t, d = _check(q, k, v)
+    route = _flash_route(q)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _lib()
-    rc = lib.nos_flash_fwd(
-        _VP(q.data_ptr()), _VP(k.data_ptr()), _VP(v.data_ptr()), _VP(o.data_ptr()),
-        _VP(lse.data_ptr()), bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale,
-        _build.stream(q))
-    _build.raise_on(lib, rc, "flash_fwd")
+    ptrs = [_VP(x.data_ptr()) for x in (q, k, v, o, lse)]
+    if route == "mma":
+        rc = lib.nos_flash_fwd_mma(*ptrs, bh, t, d, int(causal), scale, _build.stream(q))
+    else:
+        rc = lib.nos_flash_fwd(*ptrs, bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale,
+                               _build.stream(q))
+    _build.raise_on(lib, rc, f"flash_fwd ({route})")
     LAUNCHES["flash_fwd"] += 1
+    ROUTE_LAUNCHES["flash_fwd"][route] += 1
     return o, lse
 
 
@@ -211,6 +229,7 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
         bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale, _build.stream(q))
     _build.raise_on(lib, rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
+    ROUTE_LAUNCHES["flash_bwd_dq"]["simt"] += 1
     return dq
 
 
@@ -227,6 +246,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float):
         bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale, _build.stream(q))
     _build.raise_on(lib, rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    ROUTE_LAUNCHES["flash_bwd_dkv"]["simt"] += 1
     return dk, dv
 
 

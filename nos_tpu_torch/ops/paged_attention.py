@@ -5,16 +5,21 @@ Port of `nos_tpu/ops/paged_attention.py`. The TPU read path streamed each
 sequence's pages straight from the pool with the page table as a
 scalar-prefetch operand (`_pallas` :62, `_window_pallas` :288); here the
 same contract is carried by `csrc/paged_attention.cu` (see its header for
-the design), built with nvcc and bound with ctypes (`ops/_build.py`).
+the design), built with nvcc and bound with ctypes (`ops/_build.py`). The
+window kernel has two routes, chosen by `_window_route` from dtypes and
+shapes alone: "mma", a tensor-core kernel for a bf16 q over a bf16 pool at
+head_dim 64, 128 or 256, and "simt" for everything else (f32, int8 pools,
+other head dims); the decode kernel has the simt route only.
 
 The public entry points dispatch on the tensors' device: CUDA tensors always
 launch the kernel (a failed build or launch raises, nothing falls back), CPU
 tensors take the plain gather versions, which are the reference's
 `_reference` (:48) / `_window_reference` (:258) op for op. `LAUNCHES` counts
 kernel launches per entry point, so a run can show that its main path went
-through the kernels. The `_sharded` entry points (`_pallas_sharded` :193,
-`_window_pallas_sharded` :226) run the same kernel once per tensor-parallel
-shard and count each of those launches under their own name.
+through the kernels, and `ROUTE_LAUNCHES` the same launches by route. The
+`_sharded` entry points (`_pallas_sharded` :193, `_window_pallas_sharded`
+:226) run the same kernel once per tensor-parallel shard and count each of
+those launches under their own name.
 """
 
 from __future__ import annotations
@@ -35,12 +40,28 @@ LAUNCHES: Dict[str, int] = {
     "paged_window_attention_sharded": 0,
 }
 
+#: The same launches by entry point and route ("mma" or "simt").
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {name: {"mma": 0, "simt": 0} for name in LAUNCHES}
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MMA_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        ROUTE_LAUNCHES[name] = {"mma": 0, "simt": 0}
+
+
+def _window_route(q, pool_k, k_scale) -> str:
+    """The window kernel's route, a pure function of dtypes and shapes:
+    "mma" (csrc/paged_attention.cu's tensor-core kernel) for a bf16 q over a
+    bf16 pool at head_dim 64, 128 or 256; "simt" for f32, an int8 pool with
+    scales, or any other head_dim."""
+    if (q.dtype == torch.bfloat16 and pool_k.dtype == torch.bfloat16 and k_scale is None
+            and pool_k.shape[-1] in _MMA_HEAD_DIMS):
+        return "mma"
+    return "simt"
 
 
 # -- plain versions ------------------------------------------------------------
@@ -98,6 +119,7 @@ _require = _build.require
 _SIGNATURES = {
     "nos_paged_decode_attention": [_VP] * 8 + [_I] * 8 + [_build.F, _VP],
     "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _VP],
+    "nos_paged_window_attention_mma": [_VP] * 8 + [_I] * 7 + [_build.F, _VP],
 }
 
 
@@ -159,6 +181,7 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
     )
     _build.raise_on(lib, rc, "paged_decode_attention")
     LAUNCHES[count] += 1
+    ROUTE_LAUNCHES[count]["simt"] += 1
     return out
 
 
@@ -173,17 +196,21 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
         _require(t.dtype == dt and t.shape == (b,) and t.is_contiguous()
                  and t.device == q.device, f"{name} must be [B] {dt} on q's device")
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
+    route = _window_route(q, pool_k, k_scale)
     out = torch.empty_like(q)
     lib = _lib()
-    rc = lib.nos_paged_window_attention(
-        _VP(q.data_ptr()), _VP(pool_k.data_ptr()), _VP(pool_v.data_ptr()), ks, vs,
-        _VP(table.data_ptr()), _VP(pos.data_ptr()), _VP(lengths.data_ptr()),
-        _VP(mask.data_ptr()), _VP(out.data_ptr()),
-        b, nh, nkv, w, hd, pool_k.shape[2], table.shape[1], qc, kc, hd ** -0.5,
-        _build.stream(q),
-    )
-    _build.raise_on(lib, rc, "paged_window_attention")
+    ptrs = [_VP(x.data_ptr()) for x in (q, pool_k, pool_v)]
+    rows = [_VP(x.data_ptr()) for x in (table, pos, lengths, mask, out)]
+    dims = (b, nh, nkv, w, hd, pool_k.shape[2], table.shape[1])
+    if route == "mma":
+        rc = lib.nos_paged_window_attention_mma(*ptrs, *rows, *dims, hd ** -0.5,
+                                                _build.stream(q))
+    else:
+        rc = lib.nos_paged_window_attention(*ptrs, ks, vs, *rows, *dims, qc, kc, hd ** -0.5,
+                                            _build.stream(q))
+    _build.raise_on(lib, rc, f"paged_window_attention ({route})")
     LAUNCHES[count] += 1
+    ROUTE_LAUNCHES[count][route] += 1
     return out
 
 

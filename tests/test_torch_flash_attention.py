@@ -142,3 +142,69 @@ def test_cpu_runs_no_kernel_and_defaults_match_reference():
     assert tfa.LAUNCHES == before
     with pytest.raises(ValueError):
         tfa.flash_attention(x, x, x, block_q=0)
+
+
+# -- the forward's routes and its mma route's arithmetic -----------------------
+@pytest.mark.parametrize("dtype,d,route", [
+    ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"), ("bfloat16", 256, "mma"),
+    ("float32", 64, "simt"), ("float32", 128, "simt"), ("float32", 256, "simt"),
+    ("bfloat16", 96, "simt"),
+])
+def test_flash_route(dtype, d, route):
+    """`_flash_route` depends on dtype and head_dim alone: the tensor-core
+    forward for bf16 at head_dim 64, 128 or 256 (the kernels take no other
+    head_dim; `_check` refuses it before any launch)."""
+    assert tfa._flash_route(torch.zeros((1, 2, 8, d), dtype=getattr(torch, dtype))) == route
+
+
+# chip_smoke.py's FLASH_TOL for the bf16 forward.
+FWD_TOL = {"o": 2e-2, "lse": 4.0e-7}
+
+
+def _mma_fwd(q, k, v, causal, scale, tile=64):
+    """The forward's mma-route arithmetic on the CPU, per 64-row q tile over
+    `tile`-key stages (64; 32 at head_dim 256): S = (q k^T) * scale in f32
+    from bf16 inputs, the mask k < T and, causal, q >= k, the weights
+    exp2((s - m) log2 e) zeroed where masked, l summed from them, P rounded
+    to bf16 for PV, o = acc / max(l, 1e-30) in bf16, lse = m + log(l) or
+    NEG_INF where l = 0."""
+    t = q.shape[-2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3], NEG_INF)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape[:3] + (q.shape[-1],))
+    rows = torch.arange(t)
+    for k0 in range(0, t, tile):
+        idx = torch.arange(k0, min(k0 + tile, t))
+        ok = (rows[:, None] >= idx[None, :]) if causal else torch.ones((t, len(idx)), dtype=bool)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, idx]) * scale
+        s = torch.where(ok, s, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp2((s - m_new[..., None]) * LOG2E), torch.tensor(0.0))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, idx])
+        m = m_new
+    den = l.clamp_min(1e-30)
+    lse = torch.where(l > 0, m + torch.log(den), torch.full_like(l, NEG_INF))
+    return (acc / den[..., None]).to(q.dtype), lse
+
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("t,causal", [(256, True), (256, False), (177, True)])
+def test_flash_fwd_mma_arithmetic_within_the_card_bounds(t, causal):
+    """The mma route's arithmetic at head_dim 128, whose scale 2^-3.5 is not
+    a power of two (applied after the product, where the reference scales
+    q first), against `_flash_fwd_reference`: o and lse by `flash_err`
+    within chip_smoke.py's bf16 FLASH_TOL, the gate the card holds the
+    kernel to."""
+    _, (tq, tk, tv, _) = _inputs((1, 2, t, 128), "bfloat16", 6)
+    o, lse = _mma_fwd(tq, tk, tv, causal, 128 ** -0.5)
+    o_want, lse_want = tfa._flash_fwd_reference(tq, tk, tv, causal, 128 ** -0.5)
+    assert o.dtype == torch.bfloat16
+    assert tfa.flash_err(o, o_want) <= FWD_TOL["o"]
+    assert tfa.flash_err(lse, lse_want) <= FWD_TOL["lse"]

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (nos_tpu_torch/ops/csrc/paged_attention.cu,
 flash_attention.cu and decode_attention.cu) against their plain PyTorch
-versions, on the card.
+versions, on the card, and the routes each entry point takes.
 
 Torch and numpy only (the card's machine has no JAX), so it runs there
 without the JAX test harness:
@@ -11,7 +11,9 @@ The tests carry the `cuda` marker; without a CUDA device every test skips
 (decided in a fixture): a kernel has no CPU mode. Paged kernels: f32 is
 held to atol 1e-4 (summation order); bf16 and int8 pools to 2e-2 (one bf16
 rounding of the output, and the plain version's bf16 rounding of the
-dequantized int8 values). Flash kernels: each output entry by entry
+dequantized int8 values); the window's mma route (bf16 q over a bf16
+pool) to chip_smoke.py's `held` bounds, max|err| 5e-3 and 2e-2 of
+max|want|. Flash kernels: each output entry by entry
 (`flash_err`) within FLASH_TOL, chip_smoke.py's bounds. Dense decode
 kernel: entry by entry (`flash_err`) within DECODE_TOL, chip_smoke.py's
 bounds. The sharded paged kernels bit for bit against the unsharded kernel
@@ -71,6 +73,7 @@ def test_kernels_match_plain(cuda_device, dtype, nh, nkv, hd, bs):
     limit = torch.tensor([rng.randint(1, o * bs + 1) for o in owned], dtype=torch.int32,
                          device=cuda_device)
     before = dict(tpa.LAUNCHES)
+    routes = {n: dict(r) for n, r in tpa.ROUTE_LAUNCHES.items()}
     got = tpa.paged_decode_attention(q, k, v, table, limit, ks, vs)
     want = tpa._reference(q, k, v, table, limit, ks, vs)
     torch.cuda.synchronize()
@@ -86,6 +89,58 @@ def test_kernels_match_plain(cuda_device, dtype, nh, nkv, hd, bs):
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert tpa.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"] + 1
     assert tpa.LAUNCHES["paged_window_attention"] == before["paged_window_attention"] + 1
+    route = "mma" if dtype == "bfloat16" else "simt"  # every head_dim here is 64/128/256
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"][route] == \
+        routes["paged_window_attention"][route] + 1
+    assert tpa.ROUTE_LAUNCHES["paged_decode_attention"]["simt"] == \
+        routes["paged_decode_attention"]["simt"] + 1
+
+
+# (nh, nkv, hd, bs, w): rep 1, 2, 4 and 8; head_dim 64, 128 and 256; blocks
+# of 8, 16, 32 and 64 positions; windows of 1, 5, 16, 37 and 256 rows.
+WINDOW_MMA_CASES = [
+    (8, 2, 64, 32, 16),    # the serving heads, a bucket-16 chunk
+    (8, 2, 64, 32, 256),   # the main path's 256-token chunk
+    (4, 4, 64, 8, 37),     # rep 1, 8-position blocks, a ragged last warp tile
+    (8, 4, 128, 16, 5),    # rep 2
+    (8, 1, 128, 64, 1),    # rep 8, one row
+    (4, 2, 256, 16, 37),   # rep 2 at head_dim 256
+    (8, 1, 256, 8, 16),    # rep 8 at head_dim 256
+    (4, 1, 64, 64, 256),   # rep 4 over 64-position blocks
+]
+
+
+@pytest.mark.parametrize("nh,nkv,hd,bs,w", WINDOW_MMA_CASES)
+def test_window_mma_route_matches_plain(cuda_device, nh, nkv, hd, bs, w):
+    """The window kernel's mma route against the plain version, one launch
+    over five lanes: length 1; a length that ends inside a 16-row warp
+    tile; a masked lane; a full window whose positions cross a page
+    boundary; a full window from position 0. Held to max|err| 5e-3 and 2e-2
+    of max|want| (chip_smoke.py's `held`)."""
+    rng = np.random.RandomState(hd + bs + w)
+    pos = [3 * bs + 5, bs - 1, 7, 2 * bs - 2, 0]
+    lengths = [1, min(w, 11), w, w, w]
+    n_pages = -(-(max(pos) + w) // bs) + 1
+    b = len(pos)
+    total = 1 + b * n_pages
+    pool = [torch.from_numpy(rng.randn(total, nkv, bs, hd).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2)]
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32)).to(cuda_device)
+    qw = torch.from_numpy(rng.randn(b, nh, w, hd).astype(np.float32)).to(cuda_device,
+                                                                        torch.bfloat16)
+    args = (table, torch.tensor(pos, dtype=torch.int32, device=cuda_device),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+            torch.tensor([True, True, False, True, True], device=cuda_device))
+    assert tpa._window_route(qw, pool[0], None) == "mma"
+    before = tpa.ROUTE_LAUNCHES["paged_window_attention"]["mma"]
+    got = tpa.paged_window_attention(qw, *pool, *args)
+    want = tpa._window_reference(qw, *pool, *args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert err <= 5e-3 and err / want.float().abs().max().item() <= 2e-2, err
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["mma"] == before + 1
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
@@ -127,7 +182,7 @@ FLASH_CASES = [
 # chip_smoke.py's FLASH_TOL: a bound for each output, by input dtype.
 FLASH_TOL = {
     "float32": {"o": 1.3e-5, "lse": 1.7e-7, "dq": 3.3e-6, "dk": 2.7e-6, "dv": 2.6e-6},
-    "bfloat16": {"o": 2e-2, "lse": 1.8e-7, "dq": 1.4e-2, "dk": 1.2e-2, "dv": 8.3e-3},
+    "bfloat16": {"o": 2e-2, "lse": 4.0e-7, "dq": 1.4e-2, "dk": 1.2e-2, "dv": 8.3e-3},
 }
 
 
@@ -151,6 +206,7 @@ def test_flash_kernels_match_plain(cuda_device, b, h, t, d, dtype, causal):
                    for _ in range(4))
     scale = d ** -0.5
     before = dict(fa.LAUNCHES)
+    fwd_routes = dict(fa.ROUTE_LAUNCHES["flash_fwd"])
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     o_want, lse_want = fa._flash_fwd_reference(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -174,6 +230,32 @@ def test_flash_kernels_match_plain(cuda_device, b, h, t, d, dtype, causal):
                     _flash_held(bad, want, dtype, name)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    route = "mma" if dtype == "bfloat16" else "simt"
+    assert fa.ROUTE_LAUNCHES["flash_fwd"][route] == fwd_routes[route] + 1
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [177, 1000, 2048])
+def test_flash_fwd_routes(cuda_device, t, causal, d):
+    """The forward in bf16 takes the mma route, in f32 the simt route; each
+    against its plain version within FLASH_TOL (o and lse), one launch on
+    its route's count."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(t * 7 + d + causal)
+    base = [torch.randn((1, 2, t, d), generator=gen, device="cuda") for _ in range(3)]
+    for dtype, route in (("bfloat16", "mma"), ("float32", "simt")):
+        q, k, v = (x.to(getattr(torch, dtype)) for x in base)
+        assert fa._flash_route(q) == route
+        before = dict(fa.ROUTE_LAUNCHES["flash_fwd"])
+        o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+        o_want, lse_want = fa._flash_fwd_reference(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        _flash_held(o, o_want, dtype, "o")
+        _flash_held(lse, lse_want, dtype, "lse")
+        want = dict(before, **{route: before[route] + 1})
+        assert fa.ROUTE_LAUNCHES["flash_fwd"] == want
 
 
 def test_flash_autograd_launches_the_kernels(cuda_device):
@@ -300,6 +382,7 @@ def test_sharded_kernels_bit_identical_per_head(cuda_device, dtype, nkv):
                        dtype=torch.int32, device=cuda_device)
     lengths = torch.tensor([w, 3, 1, w], dtype=torch.int32, device=cuda_device)
     mask = torch.tensor([True, True, False, True], device=cuda_device)
+    routes = dict(tpa.ROUTE_LAUNCHES["paged_window_attention_sharded"])
     got = tpa.paged_window_attention_sharded(heads(qw), heads(k), heads(v), table, pos,
                                              lengths, mask)
     whole = tpa.paged_window_attention(qw, k, v, table, pos, lengths, mask)
@@ -308,6 +391,8 @@ def test_sharded_kernels_bit_identical_per_head(cuda_device, dtype, nkv):
     for name in ("paged_decode_attention", "paged_window_attention"):
         assert tpa.LAUNCHES[name + "_sharded"] == before[name + "_sharded"] + 2
         assert tpa.LAUNCHES[name] == before[name] + 1
+    route = "mma" if dtype == "bfloat16" else "simt"
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention_sharded"][route] == routes[route] + 2
 
 
 def test_tp2_engine_tokens_equal_tp1(cuda_device):

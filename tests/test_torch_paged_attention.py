@@ -161,3 +161,163 @@ def test_public_entry_points_take_the_plain_version_on_cpu():
     want = tpa._reference(_t(q[:, :, 0]), _t(k), _t(v), _t(table), _t(pos + 1))
     assert torch.equal(got, want)
     assert tpa.LAUNCHES == before
+
+
+# -- the window kernel's routes and its mma route's arithmetic -----------------
+@pytest.mark.parametrize("q_dtype,pool_dtype,hd,route", [
+    ("bfloat16", "bfloat16", 64, "mma"),
+    ("bfloat16", "bfloat16", 128, "mma"),
+    ("bfloat16", "bfloat16", 256, "mma"),
+    ("float32", "float32", 64, "simt"),
+    ("float32", "float32", 256, "simt"),
+    ("bfloat16", "int8", 64, "simt"),
+    ("float32", "int8", 128, "simt"),
+    ("bfloat16", "bfloat16", 96, "simt"),
+    ("bfloat16", "bfloat16", 32, "simt"),
+])
+def test_window_route(q_dtype, pool_dtype, hd, route):
+    """`_window_route` depends on dtypes and head_dim alone: the tensor-core
+    kernel for a bf16 q over a bf16 pool at head_dim 64, 128 or 256."""
+    q = torch.zeros((1, 4, 2, hd), dtype=getattr(torch, q_dtype))
+    pool = torch.zeros((3, 2, 8, hd), dtype=getattr(torch, pool_dtype))
+    scale = torch.ones(3) if pool_dtype == "int8" else None
+    assert tpa._window_route(q, pool, scale) == route
+
+
+# chip_smoke.py's `held` bounds for a bf16 window against its plain version.
+HELD_TOL, HELD_RTOL = 5e-3, 2e-2
+
+
+def _mma_window(q, pool_k, pool_v, table, pos, lengths, mask, tile=64, parts=2, terms=3):
+    """The window kernel's mma-route arithmetic on the CPU: per (b, g) the
+    group's rows stream the keys in `tile`-key stages, each cut into
+    `parts` slices with their own online softmax (one warp each), merged at
+    the end; S is the bf16 q k^T summed in f32, then times the scale; the
+    weights are exp2((s - m) log2 e), zeroed where masked; P enters PV as
+    `terms` bf16 terms (hi, mid, lo); out = acc / max(l, 1e-30) in bf16."""
+    b, nh, w, hd = q.shape
+    nkv = pool_k.shape[1]
+    rep = nh // nkv
+    keys = tpa._gather_pool(pool_k, table, None, q.dtype).float()  # [B, nkv, S, hd]
+    vals = tpa._gather_pool(pool_v, table, None, q.dtype).float()
+    n_stream = keys.shape[2]
+    offs = torch.arange(w)
+    out = torch.empty((b, nh, w, hd))
+    for bi in range(b):
+        valid = (offs < int(lengths[bi])) & bool(mask[bi])
+        lim = torch.where(valid, int(pos[bi]) + offs + 1, torch.ones_like(offs))
+        lim = lim.clamp(max=n_stream).repeat(rep)  # rows r * W + w
+        n_keys = int(lim.max())
+        for g in range(nkv):
+            rows = q[bi, g * rep:(g + 1) * rep].float().reshape(rep * w, hd)
+            states = []
+            for part in range(parts):
+                m = torch.full((rep * w,), NEG_INF)
+                l = torch.zeros(rep * w)
+                acc = torch.zeros((rep * w, hd))
+                for j0 in range(part * tile // parts, n_keys, tile):
+                    idx = torch.arange(j0, min(j0 + tile // parts, n_stream))
+                    ok = idx[None, :] < lim[:, None]
+                    s = torch.where(ok, (rows @ keys[bi, g, idx].T) * hd ** -0.5,
+                                    torch.tensor(NEG_INF))
+                    m_new = torch.maximum(m, s.max(dim=1).values)
+                    p = torch.where(ok, torch.exp2((s - m_new[:, None]) * LOG2E),
+                                    torch.tensor(0.0))
+                    alpha = torch.exp2((m - m_new) * LOG2E)
+                    l = l * alpha + p.sum(dim=1)
+                    pv = torch.zeros_like(acc)
+                    for _ in range(terms):
+                        term = p.to(torch.bfloat16).float()
+                        pv += term @ vals[bi, g, idx]
+                        p = p - term
+                    acc = acc * alpha[:, None] + pv
+                    m = m_new
+                states.append((m, l, acc))
+            m, l, acc = states[0]
+            for m2, l2, acc2 in states[1:]:
+                m_new = torch.maximum(m, m2)
+                a1, a2 = torch.exp(m - m_new), torch.exp(m2 - m_new)
+                m, l, acc = m_new, l * a1 + l2 * a2, acc * a1[:, None] + acc2 * a2[:, None]
+            o = acc / l.clamp_min(1e-30)[:, None]
+            out[bi, g * rep:(g + 1) * rep] = o.reshape(rep, w, hd)
+    return out.to(q.dtype)
+
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("w", [16, 64])
+def test_window_mma_arithmetic_within_the_card_bounds(w):
+    """The mma route's arithmetic (bf16 inputs, scale after the product,
+    three bf16 terms of P, two key slices merged) against the plain
+    version at the kernel phase's heads (nh 8, nkv 2, hd 64, bs 32) on a
+    reduced pool, ragged lengths and masked lanes: within chip_smoke.py's
+    bf16 `held` bounds, the gate the card holds the kernel to."""
+    rng = np.random.RandomState(w)
+    nh, nkv, hd, bs = 8, 2, 64, 32
+    pos = np.array([0, 31, 33, 70, 100, 5], np.int32)
+    lengths = np.array([w, 1, w - 3, w, 5, w // 2], np.int32)
+    mask = np.array([True, True, True, False, True, False])
+    b = len(pos)
+    n_pages = -(-(int(pos.max()) + w) // bs) + 1
+    total = 1 + b * n_pages
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    q = bf(rng.randn(b, nh, w, hd))
+    k, v = bf(rng.randn(total, nkv, bs, hd)), bf(rng.randn(total, nkv, bs, hd))
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32))
+    args = (table, torch.from_numpy(pos), torch.from_numpy(lengths), torch.from_numpy(mask))
+    got = _mma_window(q, k, v, *args)
+    want = tpa._window_reference(q, k, v, *args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= HELD_TOL and err / want.float().abs().max().item() <= HELD_RTOL, err
+
+
+def test_window_one_bf16_term_of_p_would_miss_the_bound():
+    """Why P enters PV as three bf16 terms: on the same inputs, one bf16
+    rounding of P moves outputs near 1 by a bf16 step, past the bound."""
+    rng = np.random.RandomState(64)
+    w, nh, nkv, hd, bs = 64, 8, 2, 64, 32
+    pos = np.array([0, 31, 33, 70, 100, 5], np.int32)
+    lengths = np.array([w, 1, w - 3, w, 5, w // 2], np.int32)
+    mask = np.array([True, True, True, False, True, False])
+    b = len(pos)
+    n_pages = -(-(int(pos.max()) + w) // bs) + 1
+    total = 1 + b * n_pages
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    q = bf(rng.randn(b, nh, w, hd))
+    k, v = bf(rng.randn(total, nkv, bs, hd)), bf(rng.randn(total, nkv, bs, hd))
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32))
+    args = (table, torch.from_numpy(pos), torch.from_numpy(lengths), torch.from_numpy(mask))
+    want = tpa._window_reference(q, k, v, *args)
+    err = (_mma_window(q, k, v, *args, terms=1).float() - want.float()).abs().max().item()
+    assert err > HELD_TOL
+
+
+def test_window_two_bf16_terms_of_p_can_miss_the_bound():
+    """Why a third term: at the card gate's shapes (chip_smoke.py
+    phase_kernels, W 16: an 8192-position pool of 32-key pages, eight lanes
+    with ragged lengths and two masked), on this draw hi + lo of P (16 bits)
+    moves an output in [1, 2) by a bf16 step (2^-7), past the bound; three
+    terms stay within it."""
+    rng = np.random.RandomState(3)
+    b, w, nh, nkv, hd, bs = 8, 16, 8, 2, 64, 32
+    n_pages = 8192 // bs
+    total = 1 + b * n_pages
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    k, v = bf(rng.randn(total, nkv, bs, hd)), bf(rng.randn(total, nkv, bs, hd))
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32))
+    table[1, :8] = table[0, :8]  # a shared prefix, as the gate's table has
+    q = bf(rng.randn(b, nh, w, hd))
+    pos = torch.tensor([0, 31, 33, 1000, 2047, 4096, 7000, 8192 - w], dtype=torch.int32)
+    lengths = torch.tensor([w, 1, w - 3, w, 5, w, w // 2, w], dtype=torch.int32)
+    mask = torch.tensor([True, True, True, False, True, True, False, True])
+    args = (table, pos, lengths, mask)
+    want = tpa._window_reference(q, k, v, *args).float()
+    err = {t: (_mma_window(q, k, v, *args, terms=t).float() - want).abs().max().item()
+           for t in (2, 3)}
+    assert err[2] > HELD_TOL and err[3] <= HELD_TOL, err
