@@ -91,8 +91,8 @@ The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
 which run the paged kernel once per shard), each entry with the route its
 main-path launches took (`kernel_route`: "mma", the tensor-core kernels of
-the bf16 window and flash forward, or "simt"; the engine, tp and train
-phases check that every bf16 window and flash-forward launch took "mma");
+the bf16 window and the three bf16 flash kernels, or "simt"; the engine, tp
+and train phases check that every bf16 window and flash launch took "mma");
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -1649,7 +1649,8 @@ def train_timed(torch, device, full, warmup=2, steps=6):
     if cuda:
         want = {n: model.layers * steps for n in FLASH_KERNELS}
         check(launches == want, f"train: flash launches {launches}, want {want}")
-        check_routes(routes, "flash_fwd", "mma", "train")
+        for name in FLASH_KERNELS:
+            check_routes(routes, name, "mma", "train")
         stats["mfu"] = flops / (ms / 1e3 * H100_BF16_PEAK_FLOPS)
         stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         stats["step_profile"] = profile_train_step(torch, step, params, opt, next(batches))
@@ -1852,7 +1853,7 @@ def main(argv=None):
         check(launches.get(name, 0) > 0, f"{name} never launched on the main path")
     # The route each kernel's main-path launches took (the dense decode
     # kernel has the simt route only); check_routes held the windows and the
-    # flash forward to "mma" in their phases.
+    # flash kernels to "mma" in their phases.
     by_route = dict(engine["routes"], **train["timed"]["routes"])
     by_route.update({n: tp["bfloat16"]["tp2"]["routes"][n] for n in SHARDED})
     by_route["decode_attention"] = {"simt": launches["decode_attention"]}

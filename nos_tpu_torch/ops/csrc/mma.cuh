@@ -1,14 +1,19 @@
 // Tensor-core primitives shared by the port's mma-route kernels
-// (paged_attention.cu's window kernel and flash_attention.cu's forward):
-// Ampere-style warp-level bf16 products, which Hopper keeps at sm_90a.
+// (paged_attention.cu's window kernel, flash_attention.cu's forward and
+// backward): Ampere-style warp-level bf16 products, which Hopper keeps at
+// sm_90a.
 //
 //   mma_bf16        mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32;
 //   ldmatrix_x4     four 8x8 b16 matrices from shared memory (.trans for V);
 //   cp_async16      a 16-byte cp.async.cg global -> shared copy, zero-filled
-//                   when the source is out of range, with commit / wait;
+//                   when the source is out of range, with commit / wait
+//                   (cp_async4: one 4-byte word, for f32 rows);
 //   Swizzled<D>     the XOR-swizzled layout of a [rows, D] bf16 tile, so that
 //                   ldmatrix's eight 16-byte row reads hit eight distinct
 //                   bank groups;
+//   mma_abt         S = A B^T for a warp's 16 rows over all of D;
+//   a_terms, mma_av an f32 fragment as bf16 A-fragment terms, and acc +=
+//                   (those terms) V;
 //   Softmax<N>      the online-softmax state of one warp's 16 rows over an
 //                   [16, 8 N] f32 score fragment: row max over the quad,
 //                   explicitly zeroed masked weights, the rescale by alpha.
@@ -36,6 +41,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+// One 4-byte word from global `src` to shared `dst`; zero when !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -124,6 +135,66 @@ __device__ __forceinline__ void load_b_v(uint32_t (&b)[4], const __nv_bfloat16* 
   const int row = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
   const int chunk = c + (lane >> 4);
   ldmatrix_x4_trans(b, smem_addr(tile + Swizzled<D>::at(row, chunk)));
+}
+
+// s = (rows row0 .. row0 + 15 of the swizzled [rows, D] tile a) times (rows
+// n0 .. n0 + 8 N - 1 of the swizzled [rows, D] tile b)^T, summed over all
+// of D in f32: S = Q K^T for a warp's 16 rows and 8 N keys.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&s)[N][4], const __nv_bfloat16* a, int row0,
+                                        const __nv_bfloat16* b, int n0, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    load_a<D>(af, a, row0, kk, lane);
+#pragma unroll
+    for (int n = 0; n < N / 2; ++n) {
+      uint32_t bk[4];
+      load_b_k<D>(bk, b, n0 + 16 * n, kk, lane);
+      mma_bf16(s[2 * n], af, bk[0], bk[1]);
+      mma_bf16(s[2 * n + 1], af, bk[2], bk[3]);
+    }
+  }
+}
+
+// Keys 16 kk .. 16 kk + 15 of an f32 fragment x laid out as S (rows g and
+// g + 8, 8 N keys) as the A fragments of kTerms bf16 terms: the first is
+// the rounding of x, each next one the rounding of what the earlier terms
+// left (an exact remainder), so three terms hold all 24 bits of x.
+template <int kTerms, int N>
+__device__ __forceinline__ void a_terms(uint32_t (&a)[kTerms][4], const float (&x)[N][4],
+                                        int kk) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float x0 = x[2 * kk + (h >> 1)][(h & 1) * 2];
+    float x1 = x[2 * kk + (h >> 1)][(h & 1) * 2 + 1];
+#pragma unroll
+    for (int term = 0; term < kTerms; ++term) {
+      const uint32_t w = pack_bf16(x0, x1);
+      a[term][h] = w;
+      x0 -= bf16_lo(w);  // exact: the remainder of a rounding
+      x1 -= bf16_hi(w);
+    }
+  }
+}
+
+// acc += (the sum of the terms a) times rows k0 .. k0 + 15 of the swizzled
+// [rows, D] tile b, transposed on load: O += P V over 16 keys, f32 sums.
+template <int D, int kTerms>
+__device__ __forceinline__ void mma_av(float (&acc)[D / 8][4], const uint32_t (&a)[kTerms][4],
+                                       const __nv_bfloat16* b, int k0, int lane) {
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    uint32_t bv[4];
+    load_b_v<D>(bv, b, k0, 2 * c, lane);
+#pragma unroll
+    for (int term = 0; term < kTerms; ++term) {
+      mma_bf16(acc[2 * c], a[term], bv[0], bv[1]);
+      mma_bf16(acc[2 * c + 1], a[term], bv[2], bv[3]);
+    }
+  }
 }
 
 // Rows 0 .. n_rows of a swizzled tile from global memory by 16-byte

@@ -435,20 +435,7 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
     const bf16* kt_s = k_s + (kt & 1) * kWinKeys * D;
     const bf16* vt_s = v_s + (kt & 1) * kWinKeys * D;
     float s[kN][4];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a<D>(a, q_s, slot * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < kN / 2; ++n) {
-        uint32_t bk[4];
-        load_b_k<D>(bk, kt_s, key0 + 16 * n, kk, lane);
-        mma_bf16(s[2 * n], a, bk[0], bk[1]);
-        mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
-      }
-    }
+    mma_abt<D>(s, q_s, slot * 16, kt_s, key0, lane);
 #pragma unroll
     for (int n = 0; n < kN; ++n)
 #pragma unroll
@@ -460,28 +447,8 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
 #pragma unroll
     for (int kk = 0; kk < kWarpKeys / 16; ++kk) {
       uint32_t pa[kPTerms][4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        float x0 = s[2 * kk + (h >> 1)][(h & 1) * 2];
-        float x1 = s[2 * kk + (h >> 1)][(h & 1) * 2 + 1];
-#pragma unroll
-        for (int term = 0; term < kPTerms; ++term) {
-          const uint32_t w = pack_bf16(x0, x1);
-          pa[term][h] = w;
-          x0 -= bf16_lo(w);  // exact: the remainder of a rounding
-          x1 -= bf16_hi(w);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        uint32_t bv[4];
-        load_b_v<D>(bv, vt_s, key0 + 16 * kk, 2 * c, lane);
-#pragma unroll
-        for (int term = 0; term < kPTerms; ++term) {
-          mma_bf16(acc[2 * c], pa[term], bv[0], bv[1]);
-          mma_bf16(acc[2 * c + 1], pa[term], bv[2], bv[3]);
-        }
-      }
+      a_terms<kPTerms>(pa, s, kk);
+      mma_av<D, kPTerms>(acc, pa, vt_s, key0 + 16 * kk, lane);
     }
   }
   cp_async_wait<0>();

@@ -18,8 +18,8 @@ kernels compute, in f32, over the whole [T, T] score matrix:
 `_reference_attention` (:39) is the reference's XLA path op for op.
 `LAUNCHES` counts kernel launches per kernel, so a run can show that its
 main path went through them, and `ROUTE_LAUNCHES` the same launches by
-route: the forward takes "mma", a tensor-core kernel, for bf16 inputs
-(`_flash_route`), and "simt" for f32; the backward kernels are simt.
+route: each of the three kernels takes "mma", a tensor-core kernel, for
+bf16 inputs (`_flash_route`), and "simt" for f32.
 """
 
 from __future__ import annotations
@@ -57,9 +57,10 @@ def reset_launch_counts() -> None:
 
 
 def _flash_route(q) -> str:
-    """The forward kernel's route, a pure function of dtype and shape:
-    "mma" (the tensor-core kernel) for bf16 at head_dim 64, 128 or 256,
-    "simt" otherwise (f32; the kernels take no other head_dim)."""
+    """The route of the forward, dq and dk/dv kernels alike, a pure
+    function of dtype and shape: "mma" (the tensor-core kernels) for bf16
+    at head_dim 64, 128 or 256, "simt" otherwise (f32; the kernels take no
+    other head_dim, and the simt kernels refuse bf16)."""
     return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS else "simt"
 
 
@@ -168,7 +169,9 @@ _SIGNATURES = {
     "nos_flash_fwd": [_VP] * 5 + [_I] * 5 + [_build.F, _VP],
     "nos_flash_fwd_mma": [_VP] * 5 + [_I] * 4 + [_build.F, _VP],
     "nos_flash_bwd_dq": [_VP] * 7 + [_I] * 5 + [_build.F, _VP],
+    "nos_flash_bwd_dq_mma": [_VP] * 7 + [_I] * 4 + [_build.F, _VP],
     "nos_flash_bwd_dkv": [_VP] * 8 + [_I] * 5 + [_build.F, _VP],
+    "nos_flash_bwd_dkv_mma": [_VP] * 8 + [_I] * 4 + [_build.F, _VP],
 }
 
 
@@ -217,36 +220,37 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
-    """The dq kernel on CUDA tensors -> dq."""
+def _bwd(name, q, k, v, do, lse, dvec, outs, causal: bool, scale: float) -> None:
+    """Launch backward kernel `name` (flash_bwd_dq or flash_bwd_dkv) on its
+    route, writing `outs` (dq, or dk and dv)."""
     bh, t, d = _check(q, k, v, do)
     _check_rows(q, lse, dvec)
-    dq = torch.empty_like(q)
+    route = _flash_route(q)
     lib = _lib()
-    rc = lib.nos_flash_bwd_dq(
-        _VP(q.data_ptr()), _VP(k.data_ptr()), _VP(v.data_ptr()), _VP(do.data_ptr()),
-        _VP(lse.data_ptr()), _VP(dvec.data_ptr()), _VP(dq.data_ptr()),
-        bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale, _build.stream(q))
-    _build.raise_on(lib, rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
-    ROUTE_LAUNCHES["flash_bwd_dq"]["simt"] += 1
+    ptrs = [_VP(x.data_ptr()) for x in (q, k, v, do, lse, dvec, *outs)]
+    if route == "mma":
+        rc = getattr(lib, f"nos_{name}_mma")(*ptrs, bh, t, d, int(causal), scale,
+                                             _build.stream(q))
+    else:
+        rc = getattr(lib, f"nos_{name}")(*ptrs, bh, t, d, _DTYPE_CODE[q.dtype], int(causal),
+                                         scale, _build.stream(q))
+    _build.raise_on(lib, rc, f"{name} ({route})")
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[name][route] += 1
+
+
+def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
+    """The dq kernel on CUDA tensors -> dq."""
+    dq = torch.empty_like(q)
+    _bwd("flash_bwd_dq", q, k, v, do, lse, dvec, (dq,), causal, scale)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float):
     """The dk/dv kernel on CUDA tensors -> (dk, dv)."""
-    bh, t, d = _check(q, k, v, do)
-    _check_rows(q, lse, dvec)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
-    rc = lib.nos_flash_bwd_dkv(
-        _VP(q.data_ptr()), _VP(k.data_ptr()), _VP(v.data_ptr()), _VP(do.data_ptr()),
-        _VP(lse.data_ptr()), _VP(dvec.data_ptr()), _VP(dk.data_ptr()), _VP(dv.data_ptr()),
-        bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale, _build.stream(q))
-    _build.raise_on(lib, rc, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
-    ROUTE_LAUNCHES["flash_bwd_dkv"]["simt"] += 1
+    _bwd("flash_bwd_dkv", q, k, v, do, lse, dvec, (dk, dv), causal, scale)
     return dk, dv
 
 

@@ -152,8 +152,9 @@ def test_cpu_runs_no_kernel_and_defaults_match_reference():
 ])
 def test_flash_route(dtype, d, route):
     """`_flash_route` depends on dtype and head_dim alone: the tensor-core
-    forward for bf16 at head_dim 64, 128 or 256 (the kernels take no other
-    head_dim; `_check` refuses it before any launch)."""
+    kernels (forward, dq and dk/dv alike) for bf16 at head_dim 64, 128 or
+    256 (the kernels take no other head_dim; `_check` refuses it before any
+    launch)."""
     assert tfa._flash_route(torch.zeros((1, 2, 8, d), dtype=getattr(torch, dtype))) == route
 
 
@@ -208,3 +209,156 @@ def test_flash_fwd_mma_arithmetic_within_the_card_bounds(t, causal):
     assert o.dtype == torch.bfloat16
     assert tfa.flash_err(o, o_want) <= FWD_TOL["o"]
     assert tfa.flash_err(lse, lse_want) <= FWD_TOL["lse"]
+
+
+# -- the backward's mma route: its arithmetic -----------------------------------
+# chip_smoke.py's FLASH_TOL for the bf16 backward.
+BWD_TOL = {"dq": 1.4e-2, "dk": 1.2e-2, "dv": 8.3e-3}
+BWD_TERMS = 2  # bf16 terms of P and dS (csrc/flash_attention.cu, kBwdTerms)
+
+
+def _terms(x, n):
+    """f32 `x` as n bf16 terms (a_terms in csrc/mma.cuh): the rounding of
+    x, then the rounding of each remainder."""
+    out = []
+    for _ in range(n):
+        out.append(x.to(torch.bfloat16).float())
+        x = x - out[-1]
+    return out
+
+
+def _mma_p_ds(q, k, v, do, lse, dvec, causal, scale):
+    """P and dS as the mma backward forms them in f32: S = q k^T from bf16
+    inputs, P = 2^(S scale log2 e - lse log2 e) zeroed where masked, dS = P
+    (dO v^T - D)."""
+    t = q.shape[-2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones((t, t), dtype=torch.bool).tril(), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - dvec[..., None])
+
+
+def _stream_tiles(t, d):
+    """The mma backward's streamed tiles: 32 rows at head_dim 256, else 64."""
+    tile = 32 if d == 256 else 64
+    return [slice(a, a + tile) for a in range(0, t, tile)]
+
+
+def _mma_dq(q, k, v, do, lse, dvec, causal, scale, terms=BWD_TERMS):
+    """dq on the mma route: over key tiles in order, dQ += (dS as `terms`
+    bf16 terms) K in f32; dq = dQ * scale in q's dtype."""
+    _, ds = _mma_p_ds(q, k, v, do, lse, dvec, causal, scale)
+    acc = torch.zeros(q.shape)
+    for sl in _stream_tiles(*q.shape[-2:]):
+        for x in _terms(ds[..., sl], terms):
+            acc += torch.einsum("bhqk,bhkd->bhqd", x, k[..., sl, :].float())
+    return (acc * scale).to(q.dtype)
+
+
+def _mma_dkv(q, k, v, do, lse, dvec, causal, scale, terms=BWD_TERMS):
+    """dk, dv on the mma route: over q tiles in order, dK += (dS^T as
+    `terms` bf16 terms) Q and dV += (P^T as `terms` terms) dO in f32; dk =
+    dK * scale and dv = dV in k's and v's dtype."""
+    p, ds = _mma_p_ds(q, k, v, do, lse, dvec, causal, scale)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for sl in _stream_tiles(*q.shape[-2:]):
+        for x in _terms(ds[..., sl, :], terms):
+            dk += torch.einsum("bhqk,bhqd->bhkd", x, q[..., sl, :].float())
+        for x in _terms(p[..., sl, :], terms):
+            dv += torch.einsum("bhqk,bhqd->bhkd", x, do[..., sl, :].float())
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_case(shape, causal, seed):
+    """bf16 inputs and the plain forward's lse and D, as check_flash makes
+    them on the card."""
+    _, (q, k, v, do) = _inputs(shape, "bfloat16", seed)
+    scale = shape[-1] ** -0.5
+    o, lse = tfa._flash_fwd_reference(q, k, v, causal, scale)
+    return (q, k, v, do, lse, tfa._dvec(o, do)), causal, scale
+
+
+def _bwd_errs(args, causal, scale, terms=BWD_TERMS):
+    """flash_err of the emulated mma dq, dk, dv against the plain versions."""
+    got = (_mma_dq(*args, causal, scale, terms), *_mma_dkv(*args, causal, scale, terms))
+    want = (tfa._dq_reference(*args, causal, scale), *tfa._dkv_reference(*args, causal, scale))
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    return {n: tfa.flash_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,h", [(256, 2), (177, 2), (2048, 1)])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_bwd_mma_arithmetic_within_the_card_bounds(d, t, h, causal):
+    """The mma backward's arithmetic (two bf16 terms of P and dS, the scale
+    after the product, exp2, tile order) against `_dq_reference` and
+    `_dkv_reference` by `flash_err`, within chip_smoke.py's bf16 FLASH_TOL,
+    the gate the card holds the kernels to."""
+    args, causal, scale = _bwd_case((1, h, t, d), causal, 7)
+    errs = _bwd_errs(args, causal, scale)
+    assert all(errs[n] <= BWD_TOL[n] for n in BWD_TOL), errs
+
+
+def test_flash_bwd_mma_arithmetic_matches_pallas_kernels():
+    """The emulated mma dq, dk, dv against `_flash_bwd_pallas` (interpret
+    mode) from the Pallas forward's o and lse, bf16, at JAX's own bound."""
+    (q, k, v, g), (tq, tk, tv, tg) = _inputs((1, 2, 256, 128), "bfloat16", 8)
+    scale = 128 ** -0.5
+    o, lse = FA._flash_fwd_pallas(q, k, v, True, scale, 128, 128, return_lse=True,
+                                  interpret=True)
+    want = FA._flash_bwd_pallas(q, k, v, o, lse, g, True, scale, 128, 128, interpret=True)
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).bfloat16()
+    args = (tq, tk, tv, tg, torch.from_numpy(np.array(lse, np.float32)), tfa._dvec(to, tg))
+    got = (_mma_dq(*args, True, scale), *_mma_dkv(*args, True, scale))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _held(a, b, "bfloat16", name)
+
+
+def test_flash_bwd_one_bf16_term_of_p_would_miss_the_bound():
+    """One bf16 rounding of P (2^-9) before dV += P^T dO puts dv past its
+    bound on this draw, where the kernel's two terms hold it: the reason
+    the mma backward feeds P (and dS) as hi + lo."""
+    args, causal, scale = _bwd_case((1, 4, 1000, 128), True, 0)
+    assert _bwd_errs(args, causal, scale, terms=1)["dv"] > BWD_TOL["dv"]
+    assert _bwd_errs(args, causal, scale)["dv"] <= BWD_TOL["dv"]
+
+
+def sweep(seed=0, terms=(1, 2, 3)):
+    """The emulated mma backward's worst flash_err over chip_smoke.py's bf16
+    FLASH_CHECKS, per count of bf16 terms of P and dS, inputs from a CPU
+    generator seeded `seed` (the card's draws differ), one head at a time.
+
+        python -m tests.test_torch_flash_attention [seed]
+    """
+    from chip_smoke import FLASH_CHECKS
+
+    for b, h, t, d, dtype, causal in FLASH_CHECKS:
+        if dtype != "bfloat16":
+            continue
+        gen = torch.Generator().manual_seed(seed * 100 + t + d)
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen).bfloat16() for _ in range(4))
+        scale = d ** -0.5
+        want = [torch.empty_like(q) for _ in range(3)]
+        got = {n: [torch.empty_like(q) for _ in range(3)] for n in terms}
+        for i in range(b):
+            for j in range(h):
+                at = (slice(i, i + 1), slice(j, j + 1))
+                x = [a[at] for a in (q, k, v, do)]
+                o, lse = tfa._flash_fwd_reference(*x[:3], causal, scale)
+                args = (*x, lse, tfa._dvec(o, x[3]))
+                want[0][at] = tfa._dq_reference(*args, causal, scale)
+                want[1][at], want[2][at] = tfa._dkv_reference(*args, causal, scale)
+                for n in terms:
+                    got[n][0][at] = _mma_dq(*args, causal, scale, n)
+                    got[n][1][at], got[n][2][at] = _mma_dkv(*args, causal, scale, n)
+        for n in terms:
+            errs = {x: tfa.flash_err(g, w) for x, g, w in zip(("dq", "dk", "dv"), got[n], want)}
+            print(f"[{b},{h},{t},{d}] causal={causal} terms={n} {errs}", flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sweep(int(sys.argv[1]) if len(sys.argv) > 1 else 0)

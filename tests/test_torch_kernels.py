@@ -206,7 +206,7 @@ def test_flash_kernels_match_plain(cuda_device, b, h, t, d, dtype, causal):
                    for _ in range(4))
     scale = d ** -0.5
     before = dict(fa.LAUNCHES)
-    fwd_routes = dict(fa.ROUTE_LAUNCHES["flash_fwd"])
+    routes = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     o_want, lse_want = fa._flash_fwd_reference(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -231,7 +231,8 @@ def test_flash_kernels_match_plain(cuda_device, b, h, t, d, dtype, causal):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     route = "mma" if dtype == "bfloat16" else "simt"
-    assert fa.ROUTE_LAUNCHES["flash_fwd"][route] == fwd_routes[route] + 1
+    for name in before:
+        assert fa.ROUTE_LAUNCHES[name] == dict(routes[name], **{route: routes[name][route] + 1})
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -256,6 +257,54 @@ def test_flash_fwd_routes(cuda_device, t, causal, d):
         _flash_held(lse, lse_want, dtype, "lse")
         want = dict(before, **{route: before[route] + 1})
         assert fa.ROUTE_LAUNCHES["flash_fwd"] == want
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [177, 1000, 2048])
+def test_flash_bwd_routes(cuda_device, t, causal, d):
+    """dq and dk/dv in bf16 take the mma route, in f32 the simt route; each
+    against its plain version within FLASH_TOL from the plain forward's lse
+    and D, one launch on its route's count."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(t * 11 + d + causal)
+    base = [torch.randn((1, 2, t, d), generator=gen, device="cuda") for _ in range(4)]
+    scale = d ** -0.5
+    for dtype, route in (("bfloat16", "mma"), ("float32", "simt")):
+        q, k, v, do = (x.to(getattr(torch, dtype)) for x in base)
+        o, lse = fa._flash_fwd_reference(q, k, v, causal, scale)
+        dvec = fa._dvec(o, do)
+        before = {n: dict(fa.ROUTE_LAUNCHES[n]) for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, dvec, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dvec, causal, scale)
+        dk_want, dv_want = fa._dkv_reference(q, k, v, do, lse, dvec, causal, scale)
+        torch.cuda.synchronize()
+        _flash_held(dq, fa._dq_reference(q, k, v, do, lse, dvec, causal, scale), dtype, "dq")
+        _flash_held(dk, dk_want, dtype, "dk")
+        _flash_held(dv, dv_want, dtype, "dv")
+        for name, counts in before.items():
+            assert fa.ROUTE_LAUNCHES[name] == dict(counts, **{route: counts[route] + 1})
+
+
+def test_flash_simt_entry_points_refuse_bf16(cuda_device):
+    """The simt launchers take f32 only: bf16 must go the mma route, so a
+    bf16 call to nos_flash_fwd, nos_flash_bwd_dq or nos_flash_bwd_dkv
+    returns an error and launches nothing."""
+    from nos_tpu_torch.ops import _build
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    x = torch.ones((1, 2, 64, 64), device="cuda", dtype=torch.bfloat16)
+    rows = torch.zeros((1, 2, 64), device="cuda")
+    out = [torch.full_like(x, 7.0) for _ in range(2)]
+    lib = fa._lib()
+    vp = [_build.VP(a.data_ptr()) for a in (x, x, x, x, rows, rows, *out)]
+    stream = _build.stream(x)
+    assert lib.nos_flash_fwd(*vp[:3], vp[6], vp[4], 2, 64, 64, 1, 1, 0.125, stream) != 0
+    assert lib.nos_flash_bwd_dq(*vp[:7], 2, 64, 64, 1, 1, 0.125, stream) != 0
+    assert lib.nos_flash_bwd_dkv(*vp, 2, 64, 64, 1, 1, 0.125, stream) != 0
+    torch.cuda.synchronize()
+    assert all(bool((o == 7.0).all()) for o in out)
 
 
 def test_flash_autograd_launches_the_kernels(cuda_device):
