@@ -10,11 +10,14 @@ them.
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
 
   build    builds every kernel of `nos_tpu_torch/ops/csrc/` with nvcc (one
-           process per source, started together) and prints ptxas' report;
+           process per source, started together) and prints ptxas' report,
+           one line per entry function (registers, stack frame, spills);
   card     prints `nvidia-smi --query-gpu=name,power.limit`;
   kernels  holds each kernel against its plain PyTorch version on the card.
            Paged kernels at the serving shapes (B=8, nh=8, nkv=2, hd=64,
-           bs=32): contexts 1, 31, 32, 33, 2048 and 8192, windows of 16 and
+           bs=32): contexts 1, 31, 32, 33, 2048 and 8192, the split decode
+           kernel's boundaries (kSplitKeys - 1, kSplitKeys, + 1, twice and
+           three times it; `split_limits`), windows of 16 and
            256 with ragged lengths, masked lanes and shared pages, pools in
            f32, bf16 and int8 with scales (max|err| <= 1e-4 for f32, 5e-3 for
            bf16 and 2e-2 for int8, and <= 2e-2 of max|want| for bf16 and
@@ -24,14 +27,17 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            own size and its row's, flash_err <= FLASH_TOL, a bound for each
            output; planted faults at the training shape must fail those
            bounds). The dense decode kernel at the bench GPT's heads over a
-           cache of 8192 with limits 0, 1, 31-33, 1000, 2048, 8191, 8192 and
-           9000, MHA at head_dim 128 and 256, and rep 2 over three KV heads,
+           cache of 8192 with limits 0, 1, 31-33, 1000, 2048, 8191, 8192,
+           9000 and the split boundaries, MHA at head_dim 128 and 256, and
+           rep 2 over three KV heads,
            f32 and bf16 (flash_err <= DECODE_TOL; planted faults must fail
            it). Times each kernel, its plain version and the library call
            (scaled_dot_product_attention: on the pre-gathered cache for the
            paged kernels; causal forward, backward and the pair for the
            flash kernels; with enable_gqa and a mask on the dense cache for
-           the dense kernel) at the main path's shapes;
+           the dense kernel) at the main path's shapes, and for the decode
+           kernels and their SDPA calls also the device time alone
+           (`device_ms`, torch.profiler);
   engine   serves the bench GPT (vocab 32000, hidden 512, 8 layers, 8 heads, 2
            KV heads) with random weights from init_gpt(seed 0) in bf16, 8 slots,
            max_len 8192, a prefill budget of two 256-token chunks per tick: six
@@ -90,9 +96,11 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
 which run the paged kernel once per shard), each entry with the route its
-main-path launches took (`kernel_route`: "mma", the tensor-core kernels of
-the bf16 window and the three bf16 flash kernels, or "simt"; the engine, tp
-and train phases check that every bf16 window and flash launch took "mma");
+main-path launches took (`kernel_route`: "split", the split-KV decode
+kernels, paged and dense; "mma", the tensor-core kernels of the bf16 window
+and the three bf16 flash kernels; or "simt"; the engine, tp, dense and
+train phases check that every decode launch took "split" and every bf16
+window and flash launch "mma");
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -230,6 +238,50 @@ def time_cuda(torch, fn, iters=20, warmup=3):
     return float(np.mean(times))
 
 
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of `fn`'s kernels per call (ms), from torch.profiler,
+    with time_cuda's L2 flush before each call: the kernels' time without
+    the host work that time_cuda's events hold. The profiler can miss the
+    first device events of a profile, so the flush's kernel is named by a
+    profile of flushes alone, and the timed profile's kernels are cut into
+    calls at each flush: the last `iters` calls count (`warmup` calls run
+    before them in the same profile), and each must hold a kernel; a
+    profile that misses that is logged and gives None (not measured). An
+    auxiliary figure: PERF.md compares kernels by time_cuda's ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def kernels(run):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+
+    flush_names = {e.name for e in kernels(lambda: [flush.zero_() for _ in range(32)])}
+    fn()
+
+    def run():
+        for _ in range(warmup + iters):
+            flush.zero_()
+            fn()
+
+    calls = []
+    for e in kernels(run):
+        if e.name in flush_names:
+            calls.append([])
+        elif calls:
+            calls[-1].append(e.time_range.elapsed_us())
+    calls = calls[-iters:]
+    if not flush_names or len(calls) < iters or not all(calls):
+        log(f"device_ms: not measured ({len(flush_names)} flush kernel names, {len(calls)} "
+            f"calls, kernels per call {[len(c) for c in calls]})")
+        return None
+    return sum(map(sum, calls)) / 1e3 / iters
+
+
 # -- phase: build ------------------------------------------------------------
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
@@ -243,9 +295,33 @@ def phase_build():
     log(f"build: {names} wall_s={time.perf_counter() - t0:.2f}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")) \
-                    or "error" in line.lower():
+            if "error" in line.lower():
                 log(f"ptxas[{name}]: {line.strip()}")
+        for entry in ptxas_entries(text):
+            log(f"ptxas[{name}]: {json.dumps(entry)}")
+
+
+def ptxas_entries(text):
+    """ptxas' report (`-Xptxas=-v`) as one dict per entry function: its
+    mangled name, registers, stack frame and spill bytes."""
+    import re
+
+    entries, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            entries.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return entries
 
 
 # -- phase: card ---------------------------------------------------------------
@@ -314,6 +390,7 @@ def phase_kernels(torch):
     B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
     P = 8192 // BS
     T = 1 + B * P
+    k_split = split_keys()
     gen = torch.Generator(device="cuda").manual_seed(0)
     names = ("paged_decode_attention", "paged_window_attention")
     worst = {n + sfx: 0.0 for n in names for sfx in ("", "_rel")}
@@ -322,9 +399,10 @@ def phase_kernels(torch):
         table = _table(torch, gen, B, P, T)
         q = torch.randn((B, NH, HD), generator=gen, device="cuda").to(qdt)
         # Decode: every row at one context (pages past it -> scratch 0), then
-        # a ragged mix of all of them.
-        cases = [[c] * B for c in (1, 31, 32, 33, 2048, 8192)]
+        # a ragged mix of all of them, then the split kernel's boundaries.
+        cases = [[c] * B for c in (1, 31, 32, 33, 2048, 8192, k_split)]
         cases.append([1, 31, 32, 33, 2048, 8192, 100, 4160])
+        cases.append(split_limits(k_split))
         for limits in cases:
             tab = table.clone()
             tab[:, -(-max(limits) // BS):] = 0
@@ -355,18 +433,32 @@ def phase_kernels(torch):
     return worst, timings
 
 
+def split_keys():
+    """kSplitKeys of the decode kernels (csrc/split_decode.cuh)."""
+    from nos_tpu_torch.ops import _build
+
+    return _build.split_keys()
+
+
+def split_limits(k):
+    """Eight limits at the decode kernels' split boundaries: one key short
+    of, at and one past the first and second split, three splits, and the
+    serving cache's 8192 (64 splits at k = 128)."""
+    return [k - 1, k, k + 1, 2 * k - 1, 2 * k, 2 * k + 1, 3 * k, 8192]
+
+
 def _sdpa_decode(torch, q, k_dense, v_dense, mask):
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q, k_dense, v_dense, attn_mask=mask)
 
 
-def time_kernels(torch, pa):
+def time_kernels(torch, pa, decode_only=False):
     """Kernel, plain version and SDPA (on a pre-gathered dense cache) at the
     main path's shapes, bf16 pool: the decode step's B=8 lanes at the mixed
     contexts of the served traffic, and 256-token prefill chunks at
-    position 2048, alone and as a two-lane wave among eight. Also a context
-    sweep for the decode kernel."""
+    position 2048, alone and as a two-lane wave among eight (not with
+    `decode_only`). Also a context sweep for the decode kernel."""
     from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
 
     B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
@@ -387,13 +479,17 @@ def time_kernels(torch, pa):
         vd = pa._gather_pool(v, tab, None, dt).repeat_interleave(NH // NKV, dim=1)
         idx = torch.arange(kd.shape[2], device="cuda")
         mask = (idx[None, :] < lim[:, None])[:, None, None, :]
-        ms = time_cuda(torch, lambda: pa.paged_decode_attention(q, k, v, tab, lim))
+        kernel = lambda: pa.paged_decode_attention(q, k, v, tab, lim)  # noqa: E731
+        sdpa = lambda: _sdpa_decode(torch, q[:, :, None, :], kd, vd, mask)  # noqa: E731
+        ms = time_cuda(torch, kernel)
         plain = time_cuda(torch, lambda: pa._reference(q, k, v, tab, lim))
-        lib = time_cuda(torch, lambda: _sdpa_decode(torch, q[:, :, None, :], kd, vd, mask))
+        lib = time_cuda(torch, sdpa)
         nbytes = decode_bytes(limits, NH, NKV, HD, BS, 2, 2)
         flops = 4.0 * NH * HD * sum(limits)
         bound = 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS)
         return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                "device_ms": device_ms(torch, kernel),
+                "library_device_ms": device_ms(torch, sdpa),
                 "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
                 else "operations", "bytes": nbytes}
 
@@ -434,6 +530,9 @@ def time_kernels(torch, pa):
                 else "operations", "bytes": nbytes, "flops": flops,
                 "tflops": flops / ms / 1e9, "route": pa._window_route(qw, k, None)}
 
+    if decode_only:
+        log("kernel_times " + json.dumps(out))
+        return out
     # The long prompts' 9th chunk (position 2048): alone (B=1), and as the
     # main path's wave, the two long prompts' lanes active among eight.
     out["window_chunk"] = window_case(2048, [True])
@@ -614,9 +713,11 @@ def check_decode(torch):
     worst = {"decode_attention": 0.0, "decode_float32": 0.0, "decode_bfloat16": 0.0}
     planted = {}
     gen = torch.Generator(device="cuda").manual_seed(4)
+    # The bench GPT's heads at the split kernel's boundaries.
+    checks = DECODE_CHECKS + [(8, 2, 64, 8192, split_limits(split_keys()))]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for i, (nh, nkv, hd, max_len, limits) in enumerate(DECODE_CHECKS):
+        for i, (nh, nkv, hd, max_len, limits) in enumerate(checks):
             b = len(limits)
             q = torch.randn((b, nh, hd), generator=gen, device="cuda").to(dt)
             k, v = (torch.randn((b, nkv, max_len, hd), generator=gen, device="cuda").to(dt)
@@ -675,11 +776,15 @@ def time_decode(torch):
         nbytes = read * NKV * HD * 2 * 2 + 2 * B * NH * HD * 2 + 4 * B
         flops = 4.0 * NH * HD * read
         by_bytes = nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
+        kernel = lambda: da.decode_attention(q, k, v, lim)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k, v, attn_mask=mask, enable_gqa=True)
         return {
-            "ms": time_cuda(torch, lambda: da.decode_attention(q, k, v, lim)),
+            "ms": time_cuda(torch, kernel),
             "plain_ms": time_cuda(torch, lambda: da._reference(q, k, v, lim)),
-            "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(
-                q4, k, v, attn_mask=mask, enable_gqa=True)),
+            "library_ms": time_cuda(torch, sdpa),
+            "device_ms": device_ms(torch, kernel),
+            "library_device_ms": device_ms(torch, sdpa),
             "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS),
             "bound_by": "bytes" if by_bytes else "operations",
             "bytes": nbytes, "flops": flops,
@@ -893,6 +998,7 @@ def phase_engine(torch, device, dtype, small=False):
     if device.type == "cuda":  # bf16 windows take the tensor cores, f32 the simt kernel
         check_routes(stats["routes"], "paged_window_attention",
                      "mma" if dtype == "bfloat16" else "simt", f"engine {dtype}")
+        check_routes(stats["routes"], "paged_decode_attention", "split", f"engine {dtype}")
     all_prompts = prompts + long_prompts
     kern = teacher_forced(torch, params, cfg, all_prompts, outs, buckets, 32, device)
     with plain_attention():
@@ -1024,7 +1130,7 @@ def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
         for k in range(steps):
             D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS, tp=tp)
 
-    return profile_steps(torch, run, steps, "paged_attention")
+    return profile_steps(torch, run, steps, "split_decode_kernel")
 
 
 # -- phase: tp ---------------------------------------------------------------------
@@ -1058,7 +1164,8 @@ def check_sharded(torch):
         ks, vs = _heads(k), _heads(v)
         table = _table(torch, gen, B, P, T)
         q = torch.randn((B, NH, HD), generator=gen, device="cuda").to(dt)
-        for limits in (MAIN_DECODE_LIMITS, [1, 31, 32, 33, 2048, 8192, 100, 4160]):
+        for limits in (MAIN_DECODE_LIMITS, [1, 31, 32, 33, 2048, 8192, 100, 4160],
+                       split_limits(split_keys())):
             tab = table.clone()
             tab[:, -(-max(limits) // BS):] = 0
             lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
@@ -1132,6 +1239,8 @@ def time_sharded(torch):
     mask = (torch.arange(kd[0].shape[2], device="cuda")[None, :] < lim[:, None])[:, None, None, :]
     out["decode"] = {
         "ms": time_cuda(torch, lambda: pa.paged_decode_attention_sharded(qs, ks, vs, tab, lim)),
+        "device_ms": device_ms(torch, lambda: pa.paged_decode_attention_sharded(
+            qs, ks, vs, tab, lim)),
         "plain_ms": time_cuda(torch, lambda: [pa._reference(qs[s], ks[s], vs[s], tab, lim)
                                               for s in shards]),
         "library_ms": time_cuda(torch, lambda: [_sdpa_decode(torch, qs[s][:, :, None, :], kd[s],
@@ -1256,6 +1365,10 @@ def phase_tp(torch, device, small=False):
                          f"tp {dtype} tp=2")
             check_routes(run["tp1"]["routes"], "paged_window_attention", window_route,
                          f"tp {dtype} tp=1")
+            check_routes(run["tp2"]["routes"], "paged_decode_attention_sharded", "split",
+                         f"tp {dtype} tp=2")
+            check_routes(run["tp1"]["routes"], "paged_decode_attention", "split",
+                         f"tp {dtype} tp=1")
         if dtype == "float32":
             check(outs2 == outs1, f"tp float32: {run['engine_token_match']} of the tp=2 "
                   f"tokens equal tp=1's")
@@ -1359,6 +1472,7 @@ def dense_greedy(torch, device, dtype, small):
     sync(torch, device)
     end = time.perf_counter()
     launches = dict(da.LAUNCHES)
+    routes = {n: dict(r) for n, r in da.ROUTE_LAUNCHES.items()}
     loop_s = end - marks["loop_t0"]
     stats = {
         "dtype": dtype,
@@ -1369,6 +1483,7 @@ def dense_greedy(torch, device, dtype, small):
         "decode_loop_s": loop_s,
         "decode_tok_per_s": z["batch"] * (z["steps"] - 1) / loop_s,
         "launches": launches,
+        "routes": routes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
     check(tuple(tokens.shape) == (z["batch"], z["steps"]) and tokens.dtype == torch.int32
@@ -1379,6 +1494,7 @@ def dense_greedy(torch, device, dtype, small):
         check(launches["decode_attention"] == want,
               f"dense {dtype}: {launches['decode_attention']} decode_attention launches, "
               f"want {want}")
+        check_routes(routes, "decode_attention", "split", f"dense {dtype}")
     kern = dense_teacher_forced(torch, params, cfg, prompt, tokens, z["max_len"])
     with plain_attention():
         plain = dense_teacher_forced(torch, params, cfg, prompt, tokens, z["max_len"])
@@ -1522,7 +1638,7 @@ def profile_dense_step(torch, cfg, params, steps=16):
         for k in range(steps):
             D.decode_step(params, token, cfg, cache, DENSE["prompt"] + k)
 
-    return profile_steps(torch, run, steps, "decode_attention")
+    return profile_steps(torch, run, steps, "split_decode_kernel")
 
 
 def phase_dense(torch, device, small=False):
@@ -1851,12 +1967,12 @@ def main(argv=None):
     for name in ("paged_decode_attention", "paged_window_attention", "decode_attention") \
             + FLASH_KERNELS + SHARDED:
         check(launches.get(name, 0) > 0, f"{name} never launched on the main path")
-    # The route each kernel's main-path launches took (the dense decode
-    # kernel has the simt route only); check_routes held the windows and the
-    # flash kernels to "mma" in their phases.
-    by_route = dict(engine["routes"], **train["timed"]["routes"])
+    # The route each kernel's main-path launches took; check_routes held the
+    # decode kernels to "split" and the bf16 windows and flash kernels to
+    # "mma" in their phases.
+    by_route = dict(engine["routes"], **train["timed"]["routes"],
+                    **dense["bfloat16"]["routes"])
     by_route.update({n: tp["bfloat16"]["tp2"]["routes"][n] for n in SHARDED})
-    by_route["decode_attention"] = {"simt": launches["decode_attention"]}
     kernel_route = {}
     for name, counts in by_route.items():
         used = [r for r, n in counts.items() if n > 0]

@@ -14,14 +14,18 @@ build raises with nvcc's output: nothing falls back to a plain version.
 
 `load` also binds the launchers' ctypes signatures and the error string
 every library exports (`nos_cuda_error_string`, from `csrc/common.cuh`);
-`raise_on`, `require` and `stream` are the wrappers' shared launch glue.
+`raise_on`, `require` and `stream` are the wrappers' shared launch glue, and
+`split_keys`/`split_scratch` size the split decode kernels' scratch
+(`csrc/split_decode.cuh`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,6 +49,7 @@ NVCC_FLAGS = (
 VP = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+LL = ctypes.c_longlong
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -113,11 +118,43 @@ def raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg) unless cond; with args, msg is a str.format
+    template filled only then (a launch's checks format nothing)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)
 
 
 def stream(x) -> VP:
     """The current CUDA stream of tensor x's device, for a launcher."""
     return VP(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def split_keys() -> int:
+    """kSplitKeys, the keys of one split of the decode kernels, as
+    csrc/split_decode.cuh defines it (its launcher checks the scratch sized
+    from it)."""
+    text = (CSRC / "split_decode.cuh").read_text()
+    return int(re.search(r"constexpr int kSplitKeys = (\d+);", text).group(1))
+
+
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_scratch(q, groups: int, rep: int, head_dim: int, keys: int):
+    """The split decode kernels' scratch on q's device: the f32 partials
+    (acc, m, l of every split of every (b, g) head; allocated per call) and
+    the per-(b, g, row tile) arrival counters, zeroed once and kept: each
+    launch leaves them at 0 again, so one stream may reuse them (two
+    streams must not run the decode kernels on one device at once)."""
+    n_split = -(-keys // split_keys())
+    part = torch.empty(groups * n_split * rep * (head_dim + 2), dtype=torch.float32,
+                       device=q.device)
+    need = max(groups * rep, 1)  # at least one counter per (b, g, row tile)
+    with _lock:
+        cnt = _counters.get(q.device)
+        if cnt is None or cnt.numel() < need:
+            cnt = torch.zeros(need, dtype=torch.int32, device=q.device)
+            _counters[q.device] = cnt
+    return part, cnt

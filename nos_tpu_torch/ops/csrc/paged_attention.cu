@@ -1,8 +1,10 @@
 // Paged attention over a block-paged KV pool, written by hand for Hopper
-// (sm_90a). Three launchers over two kernel bodies:
+// (sm_90a). Three launchers over three kernel bodies:
 //
 //   nos_paged_decode_attention      replaces nos_tpu/ops/paged_attention.py::_pallas
-//                                   (one query token per sequence), simt body;
+//                                   (one query token per sequence): the "split"
+//                                   route, split_decode.cuh's kernel, for every
+//                                   dtype;
 //   nos_paged_window_attention      replaces nos_tpu/ops/paged_attention.py::_window_pallas
 //                                   (W query tokens per sequence, per-row causal
 //                                   limit): the simt route, for f32, int8 pools and
@@ -10,8 +12,8 @@
 //   nos_paged_window_attention_mma  the same contract on tensor cores: the mma
 //                                   route, bf16 q over a bf16 pool at head_dim 64,
 //                                   128 or 256 (the serving main path).
-// The wrapper (ops/paged_attention.py::_window_route) picks the route from
-// dtypes and shapes alone.
+// The wrapper (ops/paged_attention.py::_window_route) picks the window's
+// route from dtypes and shapes alone.
 //
 // What they compute (the Pallas kernels' contract): for every (sequence b, KV
 // group g) the `rep` query heads of the group (times W window rows, laid out
@@ -21,17 +23,18 @@
 // output is divided by max(l, 1e-30), and an int8 pool is dequantized by its
 // per-block scale right after each block load.
 //
-// The simt body. Bytes bound it on an H100 for decode: the least time is
-// the K and V pages under each limit read once over HBM's 3.35 TB/s. One
-// CUDA block per (b, g, row tile) keeps the row tile's queries, running max
-// / normalizer and f32 accumulator in shared memory, streams one page at a
-// time (16-byte vector loads, converted to f32 on the way into shared
-// memory) and never writes scores to device memory. The loop stops at the
-// page of the tile's largest limit, which is exact: a fully masked page
-// leaves m, l and acc unchanged. It is far from the byte bound (PERF.md):
-// few blocks per SM, page loads not overlapped with compute, and each score
-// a dependent FMA chain make it latency-bound; split-page decoding is later
-// work.
+// The decode kernel splits each lane's keys into fixed 128-key splits
+// spread over the card and combines them in split order (flash-decoding);
+// split_decode.cuh holds its design, shared with the dense decode kernel.
+//
+// The simt body (the window's route for f32 and int8). One CUDA block per
+// (b, g, row tile) keeps the row tile's queries, running max / normalizer
+// and f32 accumulator in shared memory, streams one page at a time (16-byte
+// vector loads, converted to f32 on the way into shared memory) and never
+// writes scores to device memory. The loop stops at the page of the tile's
+// largest limit, which is exact: a fully masked page leaves m, l and acc
+// unchanged. Few blocks per SM, page loads not overlapped with compute, and
+// each score a dependent FMA chain make it latency-bound (PERF.md).
 //
 // The mma route. A prefill window's rows x keys products make operations
 // its bound (2.3 GFLOP for the serving wave of two 256-row chunks at
@@ -51,6 +54,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -68,17 +72,16 @@ struct Params {
   const float* k_scale;    // [T] f32, int8 pools only
   const float* v_scale;
   const int32_t* table;    // [B, n_pages]
-  const int32_t* limit;    // decode: [B]; window: nullptr
-  const int32_t* pos;      // window: [B]
-  const int32_t* lengths;  // window: [B]
-  const uint8_t* mask;     // window: [B] bool
+  const int32_t* pos;      // [B]
+  const int32_t* lengths;  // [B]
+  const uint8_t* mask;     // [B] bool
   void* out;
   int n_kv;
   int head_dim;
   int block_size;
   int n_pages;
   int rows_per_group;  // rep * W
-  int window;          // W (1 for decode)
+  int window;          // W
   int row_tile;        // rows one CUDA block owns (<= kMaxRowTile)
   float scale;
 };
@@ -86,11 +89,10 @@ struct Params {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// The per-row attention limit: decode rows share limit[b]; a window row
-// attends up to pos[b] + w + 1 while w < lengths[b] and the lane is active,
-// else only the first position (the scratch guard of _window_pallas).
+// The per-row attention limit: a window row attends up to pos[b] + w + 1
+// while w < lengths[b] and the lane is active, else only the first position
+// (the scratch guard of _window_pallas).
 __device__ __forceinline__ int row_limit(const Params& p, int b, int row) {
-  if (p.limit != nullptr) return p.limit[b];
   const int w = row % p.window;
   const bool in_window = (w < p.lengths[b]) && (p.mask[b] != 0);
   return in_window ? p.pos[b] + w + 1 : 1;
@@ -514,27 +516,52 @@ cudaError_t launch_window_mma(const WindowMmaParams& p, int groups, cudaStream_t
   return cudaGetLastError();
 }
 
+// The decode kernel (split_decode.cuh) for each (q, pool) dtype pair.
+cudaError_t launch_decode(const split::Params& p, int batch, int q_dtype, int kv_dtype,
+                          long long part_floats, long long n_counters, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (q_dtype == kF32 && kv_dtype == kF32) {
+    return split::launch<float, float, false, true>(p, batch, part_floats, n_counters, s);
+  }
+  if (q_dtype == kBF16 && kv_dtype == kBF16) {
+    return split::launch<bf16, bf16, false, true>(p, batch, part_floats, n_counters, s);
+  }
+  if (q_dtype == kF32 && kv_dtype == kI8) {
+    return split::launch<float, int8_t, true, true>(p, batch, part_floats, n_counters, s);
+  }
+  if (q_dtype == kBF16 && kv_dtype == kI8) {
+    return split::launch<bf16, int8_t, true, true>(p, batch, part_floats, n_counters, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B, nh, hd]; pools [T, nkv, bs, hd]; table [B, P] i32; limit [B] i32;
-// out [B, nh, hd] in q's dtype. Returns cudaGetLastError() after the launch.
+// out [B, nh, hd] in q's dtype; part (part_floats f32) and counters
+// (n_counters i32, 0 between launches) the split kernel's scratch
+// (split_decode.cuh). Returns cudaGetLastError() after the launch.
 int nos_paged_decode_attention(const void* q, const void* k, const void* v,
                                const float* k_scale, const float* v_scale,
                                const int32_t* table, const int32_t* limit, void* out,
-                               int batch, int n_heads, int n_kv, int head_dim,
-                               int block_size, int n_pages, int q_dtype, int kv_dtype,
-                               float scale, void* stream) {
-  if (n_kv <= 0 || n_heads % n_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{};
+                               float* part, int* counters, int batch, int n_heads, int n_kv,
+                               int head_dim, int block_size, int n_pages, int q_dtype,
+                               int kv_dtype, float scale, long long part_floats,
+                               long long n_counters, void* stream) {
+  if (n_kv <= 0 || n_heads % n_kv != 0 || block_size <= 0 || n_pages <= 0 ||
+      static_cast<long long>(block_size) * n_pages > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  nos::split::Params p{};
   p.q = q; p.k = k; p.v = v; p.k_scale = k_scale; p.v_scale = v_scale;
-  p.table = table; p.limit = limit; p.out = out;
-  p.n_kv = n_kv; p.head_dim = head_dim; p.block_size = block_size; p.n_pages = n_pages;
-  p.rows_per_group = n_heads / n_kv;
-  p.window = 1;
+  p.table = table; p.limit = limit; p.out = out; p.part = part; p.counters = counters;
+  p.n_kv = n_kv; p.rep = n_heads / n_kv; p.head_dim = head_dim;
+  p.keys = block_size * n_pages; p.block_size = block_size; p.n_pages = n_pages;
   p.scale = scale;
-  return launch(p, batch, q_dtype, kv_dtype, stream);
+  return static_cast<int>(launch_decode(p, batch, q_dtype, kv_dtype, part_floats, n_counters,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // q [B, nh, W, hd]; pools and table as above; pos/lengths [B] i32; mask [B]

@@ -9,7 +9,9 @@ the design), built with nvcc and bound with ctypes (`ops/_build.py`). The
 window kernel has two routes, chosen by `_window_route` from dtypes and
 shapes alone: "mma", a tensor-core kernel for a bf16 q over a bf16 pool at
 head_dim 64, 128 or 256, and "simt" for everything else (f32, int8 pools,
-other head dims); the decode kernel has the simt route only.
+other head dims). The decode kernel has one route, "split": each lane's
+keys in fixed splits over the card, combined in split order
+(`csrc/split_decode.cuh`), for every dtype.
 
 The public entry points dispatch on the tensors' device: CUDA tensors always
 launch the kernel (a failed build or launch raises, nothing falls back), CPU
@@ -40,8 +42,13 @@ LAUNCHES: Dict[str, int] = {
     "paged_window_attention_sharded": 0,
 }
 
-#: The same launches by entry point and route ("mma" or "simt").
-ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {name: {"mma": 0, "simt": 0} for name in LAUNCHES}
+#: The routes of each entry point: "split" for decode, "mma" or "simt" for
+#: the window.
+_ROUTES = {name: ("split",) if "decode" in name else ("mma", "simt") for name in LAUNCHES}
+
+#: The same launches by entry point and route.
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: dict.fromkeys(routes, 0) for name, routes in _ROUTES.items()}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MMA_HEAD_DIMS = (64, 128, 256)
@@ -50,7 +57,7 @@ _MMA_HEAD_DIMS = (64, 128, 256)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-        ROUTE_LAUNCHES[name] = {"mma": 0, "simt": 0}
+        ROUTE_LAUNCHES[name] = dict.fromkeys(_ROUTES[name], 0)
 
 
 def _window_route(q, pool_k, k_scale) -> str:
@@ -117,7 +124,8 @@ def _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
 _VP, _I = _build.VP, _build.I
 _require = _build.require
 _SIGNATURES = {
-    "nos_paged_decode_attention": [_VP] * 8 + [_I] * 8 + [_build.F, _VP],
+    "nos_paged_decode_attention": [_VP] * 10 + [_I] * 8 + [_build.F, _build.LL, _build.LL,
+                                                          _VP],
     "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _VP],
     "nos_paged_window_attention_mma": [_VP] * 8 + [_I] * 7 + [_build.F, _VP],
 }
@@ -129,8 +137,9 @@ def _lib():
 
 def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
     """Device, dtype, shape and contiguity checks shared by both kernels;
-    returns (dtype codes, scale pointers). The launcher itself refuses a
-    block_size x head_dim whose CUDA block would not fit shared memory."""
+    returns (dtype codes, scale pointers). The window's simt launcher
+    itself refuses a block_size x head_dim whose CUDA block would not fit
+    shared memory."""
     dev = q.device
     tensors = [q, pool_k, pool_v, table]
     if k_scale is not None or v_scale is not None:
@@ -138,10 +147,10 @@ def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
                  "k_scale and v_scale come together")
         tensors += [k_scale, v_scale]
     for t in tensors:
-        _require(t.device == dev, f"all tensors must lie on {dev}, got {t.device}")
+        _require(t.device == dev, "all tensors must lie on {}, got {}", dev, t.device)
         _require(t.is_contiguous(), "the kernel takes contiguous tensors only")
     _require(q.dtype in (torch.float32, torch.bfloat16),
-             f"q must be float32 or bfloat16, got {q.dtype}")
+             "q must be float32 or bfloat16, got {}", q.dtype)
     _require(pool_k.dtype == pool_v.dtype, "K and V pools differ in dtype")
     quant = k_scale is not None
     if quant:
@@ -152,11 +161,12 @@ def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
                  "scales must be [total_blocks]")
     else:
         _require(pool_k.dtype == q.dtype,
-                 f"a native pool must match q's dtype ({pool_k.dtype} vs {q.dtype})")
+                 "a native pool must match q's dtype ({} vs {})", pool_k.dtype, q.dtype)
     _require(pool_k.dim() == 4 and pool_v.shape == pool_k.shape,
              "pools must be [total_blocks, nkv, block, hd]")
     hd = pool_k.shape[3]
-    _require(hd % 8 == 0 and 0 < hd <= 256, f"head_dim must be a multiple of 8 up to 256, got {hd}")
+    _require(hd % 8 == 0 and 0 < hd <= 256, "head_dim must be a multiple of 8 up to 256, got {}",
+             hd)
     _require(table.dtype == torch.int32 and table.dim() == 2, "table must be [B, P] int32")
     scales = (_VP(k_scale.data_ptr()), _VP(v_scale.data_ptr())) if quant else (None, None)
     return _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], scales
@@ -171,17 +181,20 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
     _require(limit.dtype == torch.int32 and limit.shape == (b,) and limit.is_contiguous()
              and limit.device == q.device, "limit must be [B] int32 on q's device")
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
+    bs, n_pages = pool_k.shape[2], table.shape[1]
     out = torch.empty_like(q)
+    part, counters = _build.split_scratch(q, b * nkv, nh // nkv, hd, n_pages * bs)
     lib = _lib()
     rc = lib.nos_paged_decode_attention(
         _VP(q.data_ptr()), _VP(pool_k.data_ptr()), _VP(pool_v.data_ptr()), ks, vs,
         _VP(table.data_ptr()), _VP(limit.data_ptr()), _VP(out.data_ptr()),
-        b, nh, nkv, hd, pool_k.shape[2], table.shape[1], qc, kc, hd ** -0.5,
+        _VP(part.data_ptr()), _VP(counters.data_ptr()),
+        b, nh, nkv, hd, bs, n_pages, qc, kc, hd ** -0.5, part.numel(), counters.numel(),
         _build.stream(q),
     )
     _build.raise_on(lib, rc, "paged_decode_attention")
     LAUNCHES[count] += 1
-    ROUTE_LAUNCHES[count]["simt"] += 1
+    ROUTE_LAUNCHES[count]["split"] += 1
     return out
 
 
@@ -194,7 +207,7 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
     for name, t, dt in (("pos", pos, torch.int32), ("lengths", lengths, torch.int32),
                         ("mask", mask, torch.bool)):
         _require(t.dtype == dt and t.shape == (b,) and t.is_contiguous()
-                 and t.device == q.device, f"{name} must be [B] {dt} on q's device")
+                 and t.device == q.device, "{} must be [B] {} on q's device", name, dt)
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
     route = _window_route(q, pool_k, k_scale)
     out = torch.empty_like(q)

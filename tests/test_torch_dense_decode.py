@@ -27,6 +27,7 @@ from nos_tpu_torch import DecodeServer
 from nos_tpu_torch.models import decode as td
 from nos_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from nos_tpu_torch.models.params import from_numpy_params
+from nos_tpu_torch.ops import _build
 from nos_tpu_torch.ops import decode_attention as tda
 
 from conftest import serving_test_config, serving_test_params
@@ -129,6 +130,90 @@ def test_decode_attention_takes_the_plain_version_on_the_cpu():
     assert tda.LAUNCHES == before
     with pytest.raises(ValueError):
         tda.decode_attention(*(a.to("meta") for a in args))
+
+
+# -- the split decode kernels' arithmetic (csrc/split_decode.cuh) -------------------
+SPLIT_KEYS = _build.split_keys()
+
+
+def split_decode(q, keys, vals, n_keys, uniform, split=SPLIT_KEYS):
+    """The split decode kernels' arithmetic in plain PyTorch, in f32: for
+    every (b, g) the group's query rows attend the lane's first n_keys[b]
+    keys in fixed `split`-key splits, each split's partial (m, l, acc)
+    taken over its keys (every score 0 where `uniform[b]`: the dense
+    kernel's limit <= 0), then the splits combined in split order, out =
+    sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M} l_s, 1e-30), M = max_s
+    m_s; a lane with no key gives zeros. q [B, nh, hd]; keys and vals [B,
+    nkv, S, hd] f32 -> [B, nh, hd] in q's dtype."""
+    b, nh, hd = q.shape
+    nkv = keys.shape[1]
+    rep = nh // nkv
+    out = torch.zeros((b, nh, hd))
+    for bi in range(b):
+        n = int(n_keys[bi])
+        for g in range(nkv):
+            rows = q[bi, g * rep:(g + 1) * rep].float()
+            parts = []
+            for s0 in range(0, n, split):
+                idx = torch.arange(s0, min(s0 + split, n))
+                if uniform[bi]:
+                    s = torch.zeros((rep, len(idx)))
+                else:
+                    s = (rows @ keys[bi, g, idx].T) * hd ** -0.5
+                m = s.max(dim=1).values
+                p = torch.exp(s - m[:, None])
+                parts.append((m, p.sum(dim=1), p @ vals[bi, g, idx]))
+            if not parts:
+                continue
+            big_m = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            num, den = torch.zeros((rep, hd)), torch.zeros(rep)
+            for m, l, acc in parts:
+                e = torch.exp(m - big_m)
+                num, den = num + e[:, None] * acc, den + e * l
+            out[bi, g * rep:(g + 1) * rep] = num / den.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def dense_split_decode(q, cache_k, cache_v, limit, split=SPLIT_KEYS):
+    """`split_decode` as the dense kernel runs it: n_keys = min(limit, max),
+    and limit <= 0 scores all `max` positions alike."""
+    max_len = cache_k.shape[2]
+    lim = limit.long()
+    n_keys = torch.where(lim <= 0, max_len, lim.clamp(max=max_len))
+    return split_decode(q, cache_k.float(), cache_v.float(), n_keys, (lim <= 0).tolist(), split)
+
+
+J_DENSE_REF = jax.jit(jda._reference)
+J_DENSE_PALLAS = jax.jit(functools.partial(jda._pallas, interpret=True))
+K = SPLIT_KEYS
+DENSE_SPLIT_MAX = 3 * K + 10
+
+
+@pytest.mark.parametrize("limits", [
+    [1, K - 1, K, K + 1],                           # the first split's edge
+    [2 * K - 1, 2 * K, 2 * K + 1, 3 * K],           # the second's, and three splits
+    [5, 2 * K + 3, K, 77],                          # a ragged mix
+    [DENSE_SPLIT_MAX, DENSE_SPLIT_MAX + 9, 0, -2],  # max, past max, and <= 0 (uniform)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_arithmetic_matches_jax(limits, dtype):
+    """The split-and-combine arithmetic against the JAX package's `_pallas`
+    (interpret mode) and `_reference` at the split boundaries. f32: atol
+    1e-5 (summation order only); bf16 inputs (the arithmetic stays f32, the
+    output is rounded to bf16 once): within one bf16 rounding of the
+    output, 2^-8 relative plus 1e-6, against both."""
+    q, ck, cv = _attention_inputs(4, 2, 4, DENSE_SPLIT_MAX, 32, seed=sum(limits) % 1000)
+    lim = np.array(limits, np.int32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, ck, cv))
+    got = dense_split_decode(tq, tk, tv, torch.from_numpy(lim)).float().numpy()
+    jargs = [jnp.asarray(a, jdt) for a in (q, ck, cv)] + [jnp.asarray(lim)]
+    for want in (J_DENSE_REF(*jargs), J_DENSE_PALLAS(*jargs)):
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=2.0 ** -8)
 
 
 # -- the dense programs ------------------------------------------------------------

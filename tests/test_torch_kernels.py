@@ -92,8 +92,8 @@ def test_kernels_match_plain(cuda_device, dtype, nh, nkv, hd, bs):
     route = "mma" if dtype == "bfloat16" else "simt"  # every head_dim here is 64/128/256
     assert tpa.ROUTE_LAUNCHES["paged_window_attention"][route] == \
         routes["paged_window_attention"][route] + 1
-    assert tpa.ROUTE_LAUNCHES["paged_decode_attention"]["simt"] == \
-        routes["paged_decode_attention"]["simt"] + 1
+    assert tpa.ROUTE_LAUNCHES["paged_decode_attention"]["split"] == \
+        routes["paged_decode_attention"]["split"] + 1
 
 
 # (nh, nkv, hd, bs, w): rep 1, 2, 4 and 8; head_dim 64, 128 and 256; blocks
@@ -159,11 +159,19 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # a CPU limit
         tpa.paged_decode_attention(q, k, v, table, limit.cpu())
     # A block of 256 positions x head_dim 256 would need more shared memory
-    # than a CUDA block has: the launcher refuses it and the wrapper raises.
-    big = torch.zeros((3, 1, 256, 256), dtype=torch.bfloat16, device=cuda_device)
+    # than a CUDA block of the window's simt kernel has: the launcher refuses
+    # it and the wrapper raises. The split decode kernel keeps no page in
+    # shared memory and takes it.
+    big = torch.ones((3, 1, 256, 256), device=cuda_device)
+    qb = torch.ones((1, 4, 256), device=cuda_device)
+    one = torch.ones((1,), dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError):
-        tpa.paged_decode_attention(q[:1, :4, :].repeat(1, 1, 4).contiguous(), big, big,
-                                   table[:1, :1].contiguous(), limit[:1].contiguous())
+        tpa.paged_window_attention(qb[:, :, None, :].contiguous(), big, big,
+                                   table[:1, :1].contiguous(), one - 1, one,
+                                   torch.ones((1,), dtype=torch.bool, device=cuda_device))
+    got = tpa.paged_decode_attention(qb, big, big, one[:, None], one + 299)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.ones_like(qb))
 
 
 # -- flash attention (nos_tpu_torch/ops/csrc/flash_attention.cu) ---------------
@@ -362,7 +370,7 @@ DECODE_LIMITS = [0, 1, 31, 32, 33, 1000, 2048, 8191, 8192, 9000]
 ])
 def test_decode_kernel_matches_plain(cuda_device, dtype, nh, nkv, hd, max_len, limits):
     """Limit 0 (the uniform mean of V over every row), limits below, at and
-    past a 64-position tile's edge, max - 1, max and past max, one row
+    past 32 and 64 positions, max - 1, max and past max, one row
     each; one launch."""
     from nos_tpu_torch.ops import decode_attention as tda
     from nos_tpu_torch.ops.flash_attention import flash_err
@@ -375,12 +383,14 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, nh, nkv, hd, max_len, l
             for _ in range(2))
     limit = torch.tensor(limits, dtype=torch.int32, device="cuda")
     before = tda.LAUNCHES["decode_attention"]
+    split = tda.ROUTE_LAUNCHES["decode_attention"]["split"]
     got = tda.decode_attention(q, k, v, limit)
     want = tda._reference(q, k, v, limit)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
     assert flash_err(got, want) <= DECODE_TOL[dtype]
     assert tda.LAUNCHES["decode_attention"] == before + 1
+    assert tda.ROUTE_LAUNCHES["decode_attention"]["split"] == split + 1
 
 
 def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -400,6 +410,74 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # head_dim 100, not a multiple of 8
         tda.decode_attention(torch.zeros((2, 8, 100), device="cuda"),
                              *(torch.zeros((2, 2, 32, 100), device="cuda"),) * 2, limit)
+
+
+# -- the split decode kernels at their split boundaries (csrc/split_decode.cuh) --
+def _split_limits():
+    from nos_tpu_torch.ops import _build
+
+    k = _build.split_keys()
+    return [1, k - 1, k, k + 1, 2 * k - 1, 2 * k, 2 * k + 1, 4 * k + 5]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("nh,nkv,hd,bs", [(8, 2, 64, 32), (4, 4, 128, 16), (12, 1, 256, 24)])
+def test_paged_decode_split_boundaries(cuda_device, dtype, nh, nkv, hd, bs):
+    """The paged decode kernel at one key short of, at and one past the
+    first and second split, and past the table's keys (block sizes 32 and
+    16; 24 stops short of them): within the bounds
+    of test_kernels_match_plain, two launches equal bit for bit, each on
+    the "split" route; limit 0 gives zeros (every weight masked, as the
+    Pallas kernel's)."""
+    limits = _split_limits()
+    rng = np.random.RandomState(hd + bs)
+    b, total = len(limits), 1 + len(limits) * (-(-max(limits) // bs))
+    n_pages = -(-(max(limits) - 5) // bs)
+    quant = dtype == "int8"
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    k, v, ks, vs, _, _ = _case(rng, b, nkv, hd, bs, n_pages, total, quant, qdt, cuda_device)
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32)).to(cuda_device)
+    q = torch.from_numpy(rng.randn(b, nh, hd).astype(np.float32)).to(cuda_device, qdt)
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda_device)
+    before = dict(tpa.ROUTE_LAUNCHES["paged_decode_attention"])
+    got = tpa.paged_decode_attention(q, k, v, table, lim, ks, vs)
+    again = tpa.paged_decode_attention(q, k, v, table, lim, ks, vs)
+    zero = tpa.paged_decode_attention(q, k, v, table, lim * 0, ks, vs)
+    want = tpa._reference(q, k, v, table, lim, ks, vs)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again) and bool((zero == 0).all())
+    assert tpa.ROUTE_LAUNCHES["paged_decode_attention"] == {"split": before["split"] + 3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 2, 64), (4, 4, 128), (12, 1, 256)])
+def test_dense_decode_split_boundaries(cuda_device, dtype, nh, nkv, hd):
+    """The dense decode kernel at the split boundaries, at limit 0 (the
+    mean of V over every position) and past max: within DECODE_TOL, two
+    launches equal bit for bit, each on the "split" route."""
+    from nos_tpu_torch.ops import decode_attention as tda
+    from nos_tpu_torch.ops.flash_attention import flash_err
+
+    limits = [0] + _split_limits()
+    max_len = limits[-1] - 5
+    gen = torch.Generator(device="cuda").manual_seed(hd + nh)
+    dt = getattr(torch, dtype)
+    b = len(limits)
+    q = torch.randn((b, nh, hd), generator=gen, device="cuda").to(dt)
+    kc, vc = (torch.randn((b, nkv, max_len, hd), generator=gen, device="cuda").to(dt)
+              for _ in range(2))
+    lim = torch.tensor(limits, dtype=torch.int32, device="cuda")
+    before = dict(tda.ROUTE_LAUNCHES["decode_attention"])
+    got = tda.decode_attention(q, kc, vc, lim)
+    again = tda.decode_attention(q, kc, vc, lim)
+    want = tda._reference(q, kc, vc, lim)
+    torch.cuda.synchronize()
+    assert flash_err(got, want) <= DECODE_TOL[dtype]
+    assert torch.equal(got, again)
+    assert tda.ROUTE_LAUNCHES["decode_attention"] == {"split": before["split"] + 2}
 
 
 # -- tensor parallelism: the sharded paged kernels and a tp=2 engine ---------------

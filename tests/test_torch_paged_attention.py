@@ -22,6 +22,8 @@ import torch
 from nos_tpu.ops import paged_attention as jpa
 from nos_tpu_torch.ops import paged_attention as tpa
 
+from test_torch_dense_decode import SPLIT_KEYS, split_decode
+
 ATOL = 1e-5
 
 # The reference's functions compiled whole: one compile per shape instead
@@ -321,3 +323,96 @@ def test_window_two_bf16_terms_of_p_can_miss_the_bound():
     err = {t: (_mma_window(q, k, v, *args, terms=t).float() - want).abs().max().item()
            for t in (2, 3)}
     assert err[2] > HELD_TOL and err[3] <= HELD_TOL, err
+
+
+# -- the split decode kernel's arithmetic (csrc/split_decode.cuh) ----------------
+K = SPLIT_KEYS
+
+
+def paged_split_decode(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
+    """`split_decode` as the paged kernel runs it: key j of lane b is row
+    j % bs of page table[b, j / bs], an int8 pool dequantized by its
+    block's scale in f32, n_keys = min(limit, n_pages bs); limit <= 0
+    leaves no key (zeros)."""
+    keys = tpa._gather_pool(pool_k, table, k_scale, torch.float32).float()
+    vals = tpa._gather_pool(pool_v, table, v_scale, torch.float32).float()
+    n_keys = limit.long().clamp(min=0, max=keys.shape[2])
+    return split_decode(q, keys, vals, n_keys, [False] * q.shape[0])
+
+
+def _split_case(seed, nkv, quant, bs=32):
+    """Four lanes of nh 8 at head_dim 32 over a pool whose tables address
+    3 K + 10 keys, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    b, nh, hd = 4, 8, 32
+    n_pages = -(-(3 * K + 10) // bs)
+    total = 1 + b * n_pages
+    q = rng.randn(b, nh, hd).astype(np.float32)
+    k, v, ks, vs = make_pool(rng, total, nkv, bs, hd, quant)
+    table = rng.permutation(np.arange(1, total))[: b * n_pages].reshape(b, n_pages)
+    return q, k, v, ks, vs, table.astype(np.int32), n_pages * bs
+
+
+@pytest.mark.parametrize("limits", [
+    [1, K - 1, K, K + 1],                  # the first split's edge
+    [2 * K - 1, 2 * K, 2 * K + 1, 3 * K],  # the second's, and three splits
+    [5, 2 * K + 3, K, 77],                 # a ragged mix
+    ["keys", "keys+9", 2 * K, 0],          # every key, past them, and 0 (zeros)
+])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_arithmetic_matches_jax(limits, quant):
+    """The split-and-combine arithmetic over the pool against the JAX
+    package's `_pallas` (interpret mode) and `_reference`, f32 q, native or
+    int8 pools with per-block scales, at the split boundaries: atol 1e-5
+    (summation order only). Limit 0: zeros, as `_pallas` gives (every
+    weight masked); `_reference` is held on the other lanes."""
+    q, k, v, ks, vs, table, keys = _split_case(3, 2, quant)
+    lim = np.array([keys if x == "keys" else keys + 9 if x == "keys+9" else x for x in limits],
+                   np.int32)
+    got = paged_split_decode(_t(q), _t(k), _t(v), _t(table), _t(lim), _t(ks), _t(vs)).numpy()
+    args = (_j(q), _j(k), _j(v), _j(table), _j(lim))
+    want_pallas = np.asarray(J_PALLAS(*args, k_scale=_j(ks), v_scale=_j(vs)))
+    want_ref = np.asarray(J_REF(*args, k_scale=_j(ks), v_scale=_j(vs)))
+    np.testing.assert_allclose(got, want_pallas, atol=ATOL, rtol=0)
+    live = lim > 0
+    np.testing.assert_allclose(got[live], want_ref[live], atol=ATOL, rtol=0)
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_bits_equal_per_head_across_nkv(quant):
+    """The split boundaries depend on the position alone: each head's output
+    from the whole pool (nkv 2) equals, bit for bit, its shard's output
+    (nkv 1 per shard, the head slices of every block) at the split edges."""
+    q, k, v, ks, vs, table, keys = _split_case(5, 2, quant)
+    lim = _t(np.array([K - 1, K + 1, 2 * K, keys], np.int32))
+    whole = paged_split_decode(_t(q), _t(k), _t(v), _t(table), lim, _t(ks), _t(vs))
+    for s in range(2):
+        heads = slice(4 * s, 4 * s + 4)
+        shard = paged_split_decode(_t(q[:, heads]), _t(k[:, s:s + 1]), _t(v[:, s:s + 1]),
+                                   _t(table), lim, _t(ks), _t(vs))
+        assert torch.equal(shard, whole[:, heads])
+
+
+def test_split_combine_planted_faults_fail():
+    """The check above can fail: dropping a lane's last split, or combining
+    the splits without their e^{m_s - M} weights, moves the output past
+    atol 1e-5 against `_pallas`."""
+    q, k, v, _, _, table, keys = _split_case(9, 2, False)
+    lim = np.array([K + 1, 2 * K + 1, 3 * K, keys], np.int32)
+    want = np.asarray(J_PALLAS(_j(q), _j(k), _j(v), _j(table), _j(lim)))
+    short = paged_split_decode(_t(q), _t(k), _t(v), _t(table), _t(lim - 1))
+    assert np.abs(short.numpy() - want).max() > ATOL
+    keys_f = tpa._gather_pool(_t(k), _t(table), None, torch.float32)
+    vals_f = tpa._gather_pool(_t(v), _t(table), None, torch.float32)
+    unweighted = torch.zeros_like(_t(q))
+    for bi in range(4):
+        for g in range(2):
+            rows = _t(q)[bi, 4 * g:4 * g + 4]
+            num, den = 0, 0
+            for s0 in range(0, int(lim[bi]), K):
+                idx = torch.arange(s0, min(s0 + K, int(lim[bi])))
+                p = torch.softmax((rows @ keys_f[bi, g, idx].T) * 32 ** -0.5, dim=1)
+                num, den = num + p @ vals_f[bi, g, idx], den + 1
+            unweighted[bi, 4 * g:4 * g + 4] = num / den
+    assert np.abs(unweighted.numpy() - want).max() > ATOL
