@@ -5,6 +5,7 @@ them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
+    python3 chip_smoke.py --phases build,card,graph
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -43,12 +44,24 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            max_len 8192, a prefill budget of two 256-token chunks per tick: six
            streams (prompts of 64-256 tokens, 128 new) and two 4096-token
            prompts arriving together while they decode, whose chunks batch
-           through the multi-slot prefill window. The launch counts are zeroed
+           through the multi-slot prefill window. The engine runs its
+           defaults: fused bursts of up to 4 windows, and every 16-step
+           window a replay of the CUDA graph the constructor captured
+           (check_replays: graph_replays equals the windows run, some of
+           them in bursts). The launch counts (replays included) are zeroed
            just before that run and read just after; then every output is
            checked against a teacher-forced greedy pass of the plain programs
            on the card (see check_logits for the bounds), and the run repeats
            in float32, where the strict agreement must be 1.0. A profiler
-           window over 16 decode steps reports host and device time per step;
+           window over 16 eager decode steps reports host and device time
+           per step;
+  graph    the engine's captured window. From one engine state at the serving
+           shape (8 lanes at MAIN_DECODE_LIMITS, K 16), bf16 and f32: the
+           replay against the eager `_macro`, equal tokens, state and pool
+           pages byte for byte, equal launches. In bf16, one replayed and one
+           eager window under torch.profiler and by CUDA events. Then the
+           engine phase's traffic with burst_windows 1, 4, 4, 1: tok/s,
+           long-prompt TTFT and the dispatch and replay counters;
   tp       tensor-parallel serving. The sharded paged kernels over two shards
            (4 query heads and 1 KV head each) at the serving shapes, f32 and
            bf16: each shard's output equals the unsharded kernel's on its
@@ -59,10 +72,13 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            tp=1, both driven tick by tick on this thread so that they run one
            schedule, in bf16 (the main path) and f32: f32 tokens of tp=2 equal
            tp=1's; bf16 teacher-forced logits of the tp=2 programs against
-           tp=1's within check_logits' bounds; every dispatch, upload and sync
-           counter equal; each paged kernel launched exactly twice its tp=1
-           count through the sharded entry points. Prints tok/s, long-prompt
-           TTFT, peak memory and a profiled decode window at both widths;
+           tp=1's within check_logits' bounds; every dispatch, upload, sync,
+           burst and replay counter equal (both widths capture their whole
+           window, both shards in one graph); each paged kernel launched
+           exactly twice its tp=1 count through the sharded entry points.
+           Prints tok/s, long-prompt TTFT, peak memory and a profiled decode
+           window at both widths, and the bf16 traffic again at both widths
+           with burst_windows=1;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -73,7 +89,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            pinned logit deltas). decode_step_ragged over a seeded cache at
            per-row positions 127-4159, kernel against plain. Sampled
            generate (temperature 0.8, PRNGKey(0), 64 steps, f32) and a
-           sampled DecodeServer (seed 7, four streams): every token equals
+           sampled DecodeServer (seed 7, four streams, its windows graph
+           replays with the sampler inside): every token equals
            the threefry draw over the plain logits, and the PRNG's keys,
            bits and uniforms on the card equal the CPU's. Prints prefill ms,
            the decode loop's wall and tok/s, a profiled window of 16
@@ -873,16 +890,19 @@ def greedy(torch, logits):
     return torch.where(logits == top, idx, logits.shape[-1]).min(dim=-1).values
 
 
-def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, max_len):
+def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, max_len,
+          **engine_kw):
     """The main path: the short streams first, the long prompts together
-    once the streams decode. Returns (outputs in submit order, stats)."""
+    once the streams decode. `engine_kw` (`burst_windows`) goes to the
+    engine, which otherwise runs its defaults. Returns (outputs in submit
+    order, stats)."""
     from nos_tpu_torch import DecodeServer
     from nos_tpu_torch.ops import paged_attention as pa
 
     def engine():
         return DecodeServer(params, cfg, n_slots=8, max_len=max_len,
                             prompt_buckets=buckets, steps_per_dispatch=16,
-                            prefill_budget_tokens=2 * buckets[-1], device=device)
+                            prefill_budget_tokens=2 * buckets[-1], device=device, **engine_kw)
 
     server = engine()
     try:
@@ -911,7 +931,8 @@ def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, m
 
 
 # The engine counters two widths of one engine must agree on for one schedule.
-BUDGET_COUNTERS = ("macro_dispatches", "prefill_dispatches", "prefill_window_dispatches",
+BUDGET_COUNTERS = ("macro_dispatches", "burst_dispatches", "burst_windows_run",
+                   "graph_replays", "prefill_dispatches", "prefill_window_dispatches",
                    "prefill_tokens", "steps_run", "h2d_uploads", "staging_syncs",
                    "blocking_syncs")
 
@@ -934,6 +955,8 @@ def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
         "ttft_s": server.ttft_s,
         "queue_wait_s": server.queue_wait_s,
         **{c: getattr(server, c) for c in BUDGET_COUNTERS},
+        "burst_windows": server.burst_windows,
+        "graph_captures": server.graph_captures,
         "ticks_with_prefill_and_macro": server.ticks_with_prefill_and_macro,
         "prefix_hit_tokens": server.prefix_hit_tokens,
         "tick_phase_s": server.tick_phase_s,
@@ -942,6 +965,18 @@ def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
     }
     return stats
+
+
+def check_replays(stats, what, bursts=True):
+    """On the card every decode window of an engine run was a replay of its
+    captured graph (one capture per engine), and with bursts on (the
+    default) some windows ran inside bursts."""
+    windows = stats["macro_dispatches"] + stats["burst_windows_run"]
+    check(stats["graph_captures"] == 1 and stats["graph_replays"] == windows > 0,
+          f"{what}: {stats['graph_replays']} graph replays for {windows} windows "
+          f"({stats['graph_captures']} captures)")
+    if bursts:
+        check(stats["burst_dispatches"] > 0, f"{what}: no burst dispatched")
 
 
 def check_routes(routes, name, route, what):
@@ -973,7 +1008,7 @@ def engine_traffic(cfg, small):
     """(max_new, six stream prompts, two long prompts) of the engine runs,
     from a numpy seed."""
     if small:
-        max_new, lens, long_len = 12, [10, 17, 24, 31, 9, 28], 150
+        max_new, lens, long_len = 40, [10, 17, 24, 31, 9, 28], 150
     else:
         max_new, lens, long_len = 128, [64, 96, 128, 160, 224, 256], 4096
     rng = np.random.default_rng(0)
@@ -996,6 +1031,7 @@ def phase_engine(torch, device, dtype, small=False):
     check(stats["prefill_window_dispatches"] > 0,
           "the long prompts' chunks never went through the multi-slot prefill window")
     if device.type == "cuda":  # bf16 windows take the tensor cores, f32 the simt kernel
+        check_replays(stats, f"engine {dtype}")
         check_routes(stats["routes"], "paged_window_attention",
                      "mma" if dtype == "bfloat16" else "simt", f"engine {dtype}")
         check_routes(stats["routes"], "paged_decode_attention", "split", f"engine {dtype}")
@@ -1131,6 +1167,169 @@ def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
             D.paged_decode_step(params, token, cfg, cache, table, pos0 + k, mask, BS, tp=tp)
 
     return profile_steps(torch, run, steps, "split_decode_kernel")
+
+
+# -- phase: graph ------------------------------------------------------------------
+# The graph phase's lanes on the CPU rehearsal (the card runs
+# MAIN_DECODE_LIMITS).
+GRAPH_SMALL_LIMITS = [9, 11, 13, 15, 19, 21, 260, 260]
+
+
+def graph_engine(torch, cfg, params, device, small):
+    """An engine at the serving settings (8 slots, K 16, default bursts)
+    whose 8 lanes decode from the main path's positions (prompts one token
+    shorter than MAIN_DECODE_LIMITS, prefilled unbudgeted in one tick,
+    which also runs the first window), its tick state synced."""
+    from nos_tpu_torch import DecodeServer
+
+    buckets, max_len = engine_sizes(small)
+    server = DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
+                          steps_per_dispatch=16, prefill_budget_tokens=0, device=device)
+    rng = np.random.default_rng(5)
+    limits = GRAPH_SMALL_LIMITS if small else MAIN_DECODE_LIMITS
+    max_new = 128 if small else 1024  # more than the phase's ~37 windows of 16
+    futs = [server.submit(rng.integers(1, cfg.vocab, n - 1).tolist(), max_new)
+            for n in limits]
+    server._tick()
+    check(all(s.active and s.phase == "decoding" for s in server._slots),
+          "graph: the lanes are not decoding after one tick")
+    server._sync_tick_state()
+    return server, futs
+
+
+def window_tensors(server):
+    """What a window reads and writes in place: pos, step, steps_left, the
+    last tokens, the eos carry, then every pool tensor."""
+    st = server._tick_state
+    pools = server.cache if isinstance(server.cache, list) else [server.cache]
+    return ([st.pos, st.step, st.steps_left, server._last_dev, server._finished]
+            + [t for pool in pools for layer in pool.values() for t in layer.values()])
+
+
+def replay_against_eager(torch, server):
+    """One window from one engine state, run as the eager `_macro` and as
+    the captured graph's replay: its tokens, the advanced state, the pool
+    outside the scratch page (block 0, which masked lanes write in no fixed
+    order) byte for byte, and the launches each added."""
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    tensors = window_tensors(server)
+    start = [t.clone() for t in tensors]
+    runs = []
+    for run in (server._macro, server._window):
+        for t, v in zip(tensors, start):
+            t.copy_(v)
+        before = ds._launch_counts()
+        toks = run().clone()
+        sync(torch, toks.device)
+        after = ds._launch_counts()
+        runs.append((toks, [t.clone() for t in tensors],
+                     sum(n - before[k] for k, n in after.items())))
+    (toks_e, state_e, n_e), (toks_g, state_g, n_g) = runs
+    pools = list(zip(state_g[5:], state_e[5:]))
+    stats = {
+        "tokens_equal": bool(torch.equal(toks_g, toks_e)),
+        "state_equal": all(torch.equal(g, e) for g, e in zip(state_g[:5], state_e[:5])),
+        "pool_bytes_equal": all(torch.equal(g[1:].view(torch.uint8), e[1:].view(torch.uint8))
+                                for g, e in pools),
+        "pool_max_abs_diff": max((g[1:].float() - e[1:].float()).abs().max().item()
+                                 for g, e in pools),
+        "launches_eager": n_e, "launches_replay": n_g,
+        "advanced": not torch.equal(state_e[0], start[0]),
+    }
+    return stats
+
+
+def window_ms(torch, run, iters=5):
+    """CUDA-event ms per window over `iters` windows after one warm-up: the
+    wall of a window as the stream sees it (no L2 flush)."""
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def issue_ms(torch, run, iters=10):
+    """Host ms to issue one window: `iters` calls with no synchronize
+    between them (the queue drained before and after), over the host
+    clock. For a replay, the host's whole share of a window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / iters
+
+
+def phase_graph(torch, device, small=False):
+    """The engine's captured decode window. (1) From one engine state at the
+    serving shape (8 lanes at MAIN_DECODE_LIMITS, K 16), in bf16 and f32:
+    the replay against the eager `_macro`, tokens, state and pool pages
+    byte for byte, launches equal. (2) bf16: torch.profiler over one
+    16-step window replayed and one eager, from that engine, CUDA-event ms
+    per window of each, and the host ms to issue one. (3) The engine
+    phase's bf16 traffic served with burst_windows=1 and with the default
+    4, in turns (1, 4, 4, 1): tok/s, long-prompt TTFT, dispatch and replay
+    counters."""
+    from nos_tpu_torch import init_gpt
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    stats = {}
+    main_dtype = "float32" if small else "bfloat16"
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        server, futs = graph_engine(torch, cfg, params, device, small)
+        run = replay_against_eager(torch, server)
+        run["graph_captures"] = server.graph_captures
+        check(run["tokens_equal"] and run["state_equal"] and run["advanced"],
+              f"graph {dtype}: the replayed window differs from the eager one: {run}")
+        check(run["pool_bytes_equal"] and run["launches_eager"] == run["launches_replay"],
+              f"graph {dtype}: pool pages or launches differ: {run}")
+        if cuda:
+            check(server.graph_captures == 1 and run["launches_replay"] > 0,
+                  f"graph {dtype}: no captured window, or it launched no kernel: {run}")
+        if cuda and dtype == main_dtype:
+            run["window_eager"] = profile_steps(torch, server._macro, 16, "split_decode_kernel")
+            run["window_replay"] = profile_steps(torch, server._window, 16,
+                                                 "split_decode_kernel")
+            run["window_event_ms_eager"] = window_ms(torch, server._macro)
+            run["window_event_ms_replay"] = window_ms(torch, server._window)
+            run["window_issue_ms_eager"] = issue_ms(torch, server._macro)
+            run["window_issue_ms_replay"] = issue_ms(torch, server._window)
+        for f in futs:
+            f.cancel()
+        server.stop()
+        del server
+        stats[dtype] = run
+        log(f"graph {dtype}: " + json.dumps(run))
+    cfg = bench_gpt(main_dtype, small)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    buckets, max_len = engine_sizes(small)
+    max_new, prompts, long_prompts = engine_traffic(cfg, small)
+    serving = []
+    for bw in (1, 4, 4, 1):
+        outs, st = serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets,
+                         max_len, burst_windows=bw)
+        check(all(len(o) == max_new for o in outs), f"graph burst_windows={bw}: short output")
+        check((st["burst_dispatches"] > 0) == (bw > 1),
+              f"graph burst_windows={bw}: {st['burst_dispatches']} bursts")
+        if cuda:
+            check_replays(st, f"graph burst_windows={bw}", bursts=bw > 1)
+        serving.append({k: st[k] for k in (
+            "burst_windows", "decode_tok_per_s", "long_prompt_ttft_s", "wall_s", "steps_run",
+            "macro_dispatches", "burst_dispatches", "burst_windows_run", "graph_replays",
+            "tick_phase_s")})
+    stats["serving"] = serving
+    stats["phase_s"] = time.perf_counter() - t0
+    log("graph serving: " + json.dumps(serving))
+    return stats
 
 
 # -- phase: tp ---------------------------------------------------------------------
@@ -1275,19 +1474,21 @@ def time_sharded(torch):
 
 
 def tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts, max_new, buckets,
-             max_len):
+             max_len, **engine_kw):
     """The engine phase's traffic and settings, at tp=2 over `mesh` or at
     tp=1 (mesh None), driven tick by tick on this thread: the loop start()'s
     thread runs, without a thread's timing, so both widths see one schedule
     and their counters compare. Launch counts are zeroed just before the
-    run and read just after. Returns (outputs in submit order, stats)."""
+    run and read just after. `engine_kw` (`burst_windows`) goes to the
+    engine. Returns (outputs in submit order, stats)."""
     from nos_tpu_torch import DecodeServer
     from nos_tpu_torch.ops import paged_attention as pa
 
     def engine():
         return DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
                             steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
-                            mesh=mesh, device=None if mesh is not None else device)
+                            mesh=mesh, device=None if mesh is not None else device,
+                            **engine_kw)
 
     def tick_until(server, done):
         while not done():
@@ -1354,6 +1555,8 @@ def phase_tp(torch, device, small=False):
             check(run["tp2"][c] == run["tp1"][c],
                   f"tp {dtype}: {c} {run['tp2'][c]} at tp=2, {run['tp1'][c]} at tp=1")
         if cuda:
+            check_replays(run["tp1"], f"tp {dtype} tp=1")
+            check_replays(run["tp2"], f"tp {dtype} tp=2")
             l1, l2 = run["tp1"]["launches"], run["tp2"]["launches"]
             for name, sharded in zip(("paged_decode_attention", "paged_window_attention"),
                                      SHARDED):
@@ -1376,12 +1579,25 @@ def phase_tp(torch, device, small=False):
         if cuda and dtype == "bfloat16":
             run["step_profile_tp1"] = profile_decode_step(torch, cfg, params)
             run["step_profile_tp2"] = profile_decode_step(torch, cfg, params, mesh=mesh)
+        if dtype == ("float32" if small else "bfloat16"):
+            # The main path's traffic with every window its own tick, at
+            # both widths: what bursts change end to end.
+            for w, m in (("tp1", None), ("tp2", mesh)):
+                outs, run[f"{w}_burst1"] = tp_serve(torch, cfg, params, device, m, prompts,
+                                                    long_prompts, max_new, buckets, max_len,
+                                                    burst_windows=1)
+                check(run[f"{w}_burst1"]["burst_dispatches"] == 0,
+                      f"tp {dtype} {w}: burst_windows=1 dispatched a burst")
+                if cuda:
+                    check_replays(run[f"{w}_burst1"], f"tp {dtype} {w} burst_windows=1",
+                                  bursts=False)
         log(f"tp {dtype}: " + json.dumps(run))
         stats[dtype] = run
     main = stats["float32" if small else "bfloat16"]
     summary = {w: {k: main[w][k] for k in ("decode_tok_per_s", "long_prompt_ttft_s", "wall_s",
-                                           "peak_mem_bytes", "launches")}
-               for w in ("tp1", "tp2")}
+                                           "peak_mem_bytes", "launches", "burst_dispatches",
+                                           "graph_replays")}
+               for w in ("tp1", "tp2", "tp1_burst1", "tp2_burst1")}
     for w in ("tp1", "tp2"):
         if f"step_profile_{w}" in main:
             summary[w]["step_profile"] = main[f"step_profile_{w}"]
@@ -1620,9 +1836,13 @@ def engine_sampled(torch, device, small, cfg, params):
     want = prng.categorical(keys, plain / TEMPERATURE)
     served = torch.tensor(outs, device=device)
     stats = {"streams": len(prompts), "max_new": max_new, "wall_s": wall,
-             "token_match": (want == served).float().mean().item()}
+             "token_match": (want == served).float().mean().item(),
+             "graph_captures": server.graph_captures,
+             **{c: getattr(server, c) for c in BUDGET_COUNTERS}}
     check(stats["token_match"] == 1.0,
           f"engine sampled: {stats['token_match']} of the tokens match the plain-logit draw")
+    if device.type == "cuda":
+        check_replays(stats, "engine sampled", bursts=False)
     return stats
 
 
@@ -1908,7 +2128,7 @@ def phase_train(torch, device, full=True):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,card,kernels,engine,tp,dense,train")
+    ap.add_argument("--phases", default="build,card,kernels,engine,graph,tp,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -1925,6 +2145,7 @@ def main(argv=None):
         return 2
     if args.rehearse:
         check_logits(phase_engine(torch, torch.device("cpu"), "float32", small=True), "engine")
+        phase_graph(torch, torch.device("cpu"), small=True)
         phase_tp(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
@@ -1949,6 +2170,9 @@ def main(argv=None):
         engine_f32 = phase_engine(torch, torch.device("cuda"), "float32")
         check_logits(engine, "engine")
         check_logits(engine_f32, "engine")
+    graph = None
+    if "graph" in phases:
+        graph = phase_graph(torch, torch.device("cuda"))
     tp = None
     if "tp" in phases:
         tp = phase_tp(torch, torch.device("cuda"))
@@ -1959,7 +2183,7 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if worst is None or engine is None or tp is None or dense is None or train is None:
+    if None in (worst, engine, graph, tp, dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

@@ -23,11 +23,13 @@ TICK_PHASE_ADMIT = "admit"
 TICK_PHASE_EOS_SCAN = "eos_scan"
 TICK_PHASE_PUMP_PREFILL = "pump_prefill"
 TICK_PHASE_DISPATCH_MACRO = "dispatch_macro"
+TICK_PHASE_DISPATCH_BURST = "dispatch_burst"
 TICK_PHASE_IDLE = "idle"
 TICK_PHASES = (
     TICK_PHASE_ADMIT,
     TICK_PHASE_EOS_SCAN,
     TICK_PHASE_PUMP_PREFILL,
     TICK_PHASE_DISPATCH_MACRO,
+    TICK_PHASE_DISPATCH_BURST,
     TICK_PHASE_IDLE,
 )

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,12 +110,26 @@ def _rmsnorm(x, p):
     return (out * p["scale"].float()).to(x.dtype)
 
 
+_ROPE_FREQS: Dict[Tuple[torch.device, int, float], torch.Tensor] = {}
+
+
+def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """theta ** -(i / half) for i < half, f32, computed on `device` on first
+    use and kept (per device, width and theta): the same bits every call,
+    and no host copy on the decode path, which a CUDA graph captures."""
+    key = (device, half, float(theta))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def _rope(x, positions, theta: float):
     """x: [B, H, T, D]; rotate half-pairs by position-dependent angles."""
-    d = x.shape[-1]
-    half = d // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, theta, x.device)
     angles = positions[:, :, None].float() * freqs[None, None, :]
     cos = torch.cos(angles)[:, None, :, :]  # [B,1,T,half]
     sin = torch.sin(angles)[:, None, :, :]

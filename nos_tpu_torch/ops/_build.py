@@ -140,6 +140,9 @@ def split_keys() -> int:
 
 
 _counters: Dict[torch.device, torch.Tensor] = {}
+# Counter buffers outgrown by a larger launch: kept alive, since a captured
+# CUDA graph (the engine's decode window) may still address one.
+_retired: List[torch.Tensor] = []
 
 
 def split_scratch(q, groups: int, rep: int, head_dim: int, keys: int):
@@ -147,7 +150,8 @@ def split_scratch(q, groups: int, rep: int, head_dim: int, keys: int):
     (acc, m, l of every split of every (b, g) head; allocated per call) and
     the per-(b, g, row tile) arrival counters, zeroed once and kept: each
     launch leaves them at 0 again, so one stream may reuse them (two
-    streams must not run the decode kernels on one device at once)."""
+    streams must not run the decode kernels on one device at once), and a
+    CUDA graph may capture them (its replays leave them at 0 too)."""
     n_split = -(-keys // split_keys())
     part = torch.empty(groups * n_split * rep * (head_dim + 2), dtype=torch.float32,
                        device=q.device)
@@ -155,6 +159,8 @@ def split_scratch(q, groups: int, rep: int, head_dim: int, keys: int):
     with _lock:
         cnt = _counters.get(q.device)
         if cnt is None or cnt.numel() < need:
+            if cnt is not None:
+                _retired.append(cnt)
             cnt = torch.zeros(need, dtype=torch.int32, device=q.device)
             _counters[q.device] = cnt
     return part, cnt

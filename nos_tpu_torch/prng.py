@@ -29,12 +29,18 @@ wrap-around and the logical right shift explicit. `log` is not
 bit-identical across XLA's CPU code, torch's CPU and CUDA, so gumbel noise
 agrees with JAX's to float32 rounding, not bit for bit; keys, bits and
 uniforms are exact.
+
+Nothing on a draw's path copies from host memory, so a CUDA graph can
+capture it (the engine's decode window, `runtime/decode_server.py`): the
+float constants of `uniform` are 0-d tensors made once per device and
+value and kept (`_f32`). `fold_in` with a Python int still builds its
+datum on the host; the engine folds tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -45,6 +51,19 @@ _F32_TINY = torch.finfo(torch.float32).tiny
 _F32_ONE_BITS = 0x3F800000  # 1.0f: exponent 0, mantissa filled from the bits
 
 IntOrTensor = Union[int, torch.Tensor]
+
+_F32: Dict[Tuple[torch.device, float], torch.Tensor] = {}
+
+
+def _f32(value: float, device: torch.device) -> torch.Tensor:
+    """The 0-d float32 tensor `value` on `device`, made on first use and
+    kept: the same bits as a fresh `torch.tensor(value)`, without a host
+    copy on every draw."""
+    key = (device, float(value))
+    t = _F32.get(key)
+    if t is None:
+        t = _F32[key] = torch.tensor(value, dtype=torch.float32, device=device)
+    return t
 
 
 def _rotl(x, r: int):
@@ -124,9 +143,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     at least minval."""
     bits = random_bits(key, shape)
     floats = (((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
-              - torch.tensor(1.0, dtype=torch.float32, device=key.device))
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+              - _f32(1.0, key.device))
+    lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

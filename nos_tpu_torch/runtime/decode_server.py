@@ -12,17 +12,23 @@ What this port carries over: the native pool, greedy and temperature
 sampling (the threefry keys of `nos_tpu_torch/prng.py`, bit for bit JAX's),
 one device or a tensor-parallel mesh, the budgeted chunked prefill
 (including the multi-slot `paged_prefill_window` wave), the K-step macro
-decode, the flat chain-key prefix cache of `BlockManager`, and eos handling.
-The constructor keeps the reference's signature; every argument that would
-arm a feature not yet ported (radix COW, the spill tier, bursts,
-speculation, the int8 pool, quotas, fault injection and recovery, tracing,
-the cost ledger, the fleet KV store) raises NotImplementedError naming its
-ROADMAP item, with a mesh or without. An exception on the tick path
-fails every outstanding request and resets the pool (the reference's
-`surgical_recovery=False` behaviour).
+decode, fused bursts of N macro windows in one dispatch (`burst_windows`,
+4 by default as in the reference), the flat chain-key prefix cache of
+`BlockManager`, and eos handling. The constructor keeps the reference's
+signature; every argument that would arm a feature not yet ported (radix
+COW, the spill tier, speculation, the int8 pool, quotas, fault injection
+and recovery, tracing, the cost ledger, the fleet KV store) raises
+NotImplementedError naming its ROADMAP item, with a mesh or without. An
+exception on the tick path fails every outstanding request and resets the
+pool (the reference's `surgical_recovery=False` behaviour).
 
-PyTorch in place of JAX: the programs write the pool in place and run
-eagerly on one CUDA stream, whose ordering replaces JAX's donation chain.
+PyTorch in place of JAX: the programs write the pool in place on one CUDA
+stream, whose ordering replaces JAX's donation chain. The reference jits
+its K-step window (`_macro`); here, on CUDA, the constructor captures the
+window once as a CUDA graph (`_WindowGraph`) over fixed device state (the
+pool, the TickState buffers, the last-token and eos-carry vectors), and
+every macro dispatch and every window of a burst replays it. Prefill runs
+eagerly. On the CPU the same `_macro` runs eagerly as the window.
 Tensor parallelism (`mesh` with a `tp_axis` wider than 1,
 docs/sharded-decode.md) keeps one controller: params are placed per shard by
 `decode_param_rules`, the pool is partitioned on KV heads, and the programs
@@ -61,6 +67,7 @@ from nos_tpu_torch.models.decode import (
     place_tp,
 )
 from nos_tpu_torch.models.gpt import GPTConfig
+from nos_tpu_torch.ops import decode_attention, flash_attention, paged_attention
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
@@ -73,9 +80,11 @@ class _TokRef:
     materializes to numpy once, on first host need. A CUDA tensor is copied
     into pinned host memory asynchronously at construction, behind a
     recorded event that `is_ready` queries; `np()` waits on that event.
-    Tensor-backed refs count into the engine's `blocking_syncs` ledger when
-    they materialize. The engine never writes a tensor it has handed to a
-    ref."""
+    The copy is ordered on the stream before any later write, so a CUDA
+    graph's output buffer may be handed over and rewritten by the next
+    replay. A CPU ref holds the tensor itself: the engine never writes a
+    CPU tensor it has handed to a ref. Tensor-backed refs count into the
+    engine's `blocking_syncs` ledger when they materialize."""
 
     __slots__ = ("_arr", "_event", "_np", "_ledger")
 
@@ -104,6 +113,62 @@ class _TokRef:
 
     def is_ready(self) -> bool:
         return self._np is not None or self._event is None or self._event.query()
+
+
+def _launch_counts() -> Dict[tuple, int]:
+    """Every kernel wrapper's launch count, keyed (ops module, entry
+    point, route); LAUNCHES[name] is the sum over its routes."""
+    counts = {}
+    for mod in (decode_attention, flash_attention, paged_attention):
+        for entry, routes in mod.ROUTE_LAUNCHES.items():
+            for route, n in routes.items():
+                counts[(mod, entry, route)] = n
+    return counts
+
+
+def _add_launches(delta: Dict[tuple, int]) -> None:
+    for (mod, entry, route), n in delta.items():
+        mod.LAUNCHES[entry] += n
+        mod.ROUTE_LAUNCHES[entry][route] += n
+
+
+class _WindowGraph:
+    """The engine's K-step decode window as one CUDA graph: the reference's
+    `jax.jit` of `_macro` (decode_server.py:1067), on the H100.
+
+    `body()` runs the window over the engine's fixed device state and
+    returns its [K, n_slots] token window. At construction it runs once
+    eagerly on the current stream, with every lane masked (the caller's
+    state), which builds and loads the kernels, allocates the split decode
+    kernels' counters and the kept constants (rope frequencies, sampler
+    floats), and writes only the scratch page; then it is captured on a
+    side stream in "thread_local" mode, so client threads may submit
+    meanwhile. A capture or replay failure raises.
+
+    A kernel wrapper counts its launch when its Python runs, so the
+    capture's counts are taken back and kept as the graph's `delta`, and
+    each replay adds the delta: launch counts stay true under replay."""
+
+    def __init__(self, body, device: torch.device):
+        with torch.cuda.device(device):
+            body()  # warm-up
+            before = _launch_counts()
+            self._graph = torch.cuda.CUDAGraph()
+            # A side stream of this card (torch's shared capture stream
+            # lives on whichever card first made it).
+            side = torch.cuda.Stream(device)
+            with torch.cuda.graph(self._graph, stream=side, capture_error_mode="thread_local"):
+                self._out = body()
+        after = _launch_counts()
+        self.delta = {k: n - before[k] for k, n in after.items() if n != before[k]}
+        _add_launches({k: -n for k, n in self.delta.items()})
+
+    def replay(self) -> torch.Tensor:
+        """Replay on the current stream; returns the graph's token buffer,
+        which the next replay rewrites."""
+        self._graph.replay()
+        _add_launches(self.delta)
+        return self._out
 
 
 @dataclass
@@ -152,7 +217,7 @@ class DecodeServer:
         seed: int = 0,
         pipeline_depth: int = 16,
         steps_per_dispatch: int = 1,
-        burst_windows: int = 1,
+        burst_windows: int = 4,
         block_size: int = 32,
         total_blocks: Optional[int] = None,
         spec_k: int = 0,
@@ -188,16 +253,23 @@ class DecodeServer:
         name the first of them.
 
         `steps_per_dispatch` (K) runs K decode steps per macro dispatch;
-        `prefill_budget_tokens` bounds the prompt tokens one tick may
-        dispatch (None = the largest bucket, 0 = unbudgeted);
-        `prefix_cache` maps cached full prompt blocks into a new slot's
-        page table instead of recomputing them. Greedy outputs are
-        identical for any K, budget and prefix-cache setting."""
+        `burst_windows` (N) fuses up to N macro windows into one dispatch
+        while every active slot decodes and nothing waits (`_burst_plan`;
+        1 = every window its own tick); `prefill_budget_tokens` bounds the
+        prompt tokens one tick may dispatch (None = the largest bucket, 0
+        = unbudgeted); `prefix_cache` maps cached full prompt blocks into a
+        new slot's page table instead of recomputing them. Outputs are
+        identical for any K, N, budget and prefix-cache setting.
+
+        On CUDA the constructor captures the K-step window as a CUDA graph
+        (`_WindowGraph`) that every window replays (`graph_replays`
+        counts them). A mesh whose shards all lie on the engine's device
+        is captured whole, every shard in one graph; a mesh over distinct
+        cards (never run yet) runs its windows eagerly, as the CPU does."""
         if kv_dtype not in constants.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
         # (armed?, what it arms, its item in ROADMAP.md queue A)
         armed = [
-            (int(burst_windows) > 1, "fused bursts", "Fused bursts"),
             (int(spec_k) > 0, "speculation", "Speculation"),
             (bool(radix_cache) and bool(prefix_cache), "the radix cache",
              "Radix COW and the spill tier"),
@@ -291,7 +363,10 @@ class DecodeServer:
         self._waiting: Deque[_Request] = deque()
         self._queue: "queue.Queue" = queue.Queue()
         self._slots = [_Slot() for _ in range(n_slots)]
+        # The step-feed vector (each lane's last token) and the burst's eos
+        # carry: fixed buffers the window reads and writes in place.
         self._last_dev = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._finished = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
         self._first_dev = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._inflight: Deque[_TokRef] = deque()
         self._stop = threading.Event()
@@ -303,8 +378,13 @@ class DecodeServer:
         self._accepted: List[Future] = []
         self._thread: Optional[threading.Thread] = None
         self._engine_idle = False
+        #: Dispatches of decode work: macro windows and bursts, one each.
         self.steps_run = 0
         self.macro_dispatches = 0
+        self.burst_windows = max(1, int(burst_windows))
+        self.burst_dispatches = 0
+        #: Macro windows run inside bursts.
+        self.burst_windows_run = 0
         if prefill_budget_tokens is None:
             prefill_budget_tokens = self.prompt_buckets[-1]
         self.prefill_budget_tokens = max(0, int(prefill_budget_tokens))
@@ -328,6 +408,15 @@ class DecodeServer:
         self._slot_serial = np.zeros((n_slots,), dtype=np.int64)
         self._next_serial = 1
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        #: CUDA graphs captured, and windows run as a graph replay.
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._graph: Optional[_WindowGraph] = None
+        shard_devices = (self._tp.devices if self._tp is not None else [self.device])
+        if self.device.type == "cuda" and all(
+                canonical_device(d) == canonical_device(self.device) for d in shard_devices):
+            self._graph = _WindowGraph(self._macro, self.device)
+            self.graph_captures += 1
 
     # -- the programs ----------------------------------------------------------
     def _new_pool(self):
@@ -354,31 +443,56 @@ class DecodeServer:
         keys = prng.fold_in(prng.fold_in(self._base_key, serial), step)
         return prng.categorical(keys, logits / self.temperature).to(torch.int32)
 
-    def _macro(self, token, table, pos0, active, serial, step0, steps_left):
-        """K ragged decode steps (decode_server.py:1067). Per step k a lane
-        takes part iff it is active, still owes tokens (k < steps_left) and
-        stays inside the cache window; lanes that finish mid-window coast
-        (their writes go to the scratch page, token held). Returns the last
-        tokens, the [K, n_slots] token window and the advanced pos / step /
-        steps_left, the same arithmetic the host bookkeeping mirrors."""
+    def _macro(self) -> torch.Tensor:
+        """K ragged decode steps (decode_server.py:1067) over the engine's
+        fixed state, written in place: the body `_WindowGraph` captures,
+        and the window itself on the CPU. Per step k a lane takes part iff
+        it is active, still owes tokens (k < steps_left), stays inside the
+        cache window and, with an eos_id, has not sampled its eos earlier
+        in this dispatch (`_finished`, the burst's carry, zeroed by each
+        dispatch); other lanes coast (their writes go to the scratch page,
+        token held). Returns the [K, n_slots] token window; `_last_dev`
+        takes the last tokens and the TickState's pos / step / steps_left
+        advance by the same min(K, steps_left, max_len - pos) the host
+        bookkeeping mirrors."""
+        st = self._tick_state
         K = self.steps_per_dispatch
+        token = self._last_dev
+        table = self._table()
         toks = []
         for k in range(K):
-            pos_k = pos0 + k
-            mask = active & (k < steps_left) & (pos_k < self.max_len)
+            pos_k = st.pos + k
+            mask = st.mask & (k < st.steps_left) & (pos_k < self.max_len)
+            if self.eos_id is not None:
+                mask = mask & ~self._finished
             logits, _ = paged_decode_step(
                 self.params, token, self.cfg, self.cache, table, pos_k, mask,
                 self.block_size, tp=self._tp,
             )
-            nxt = self._sample(logits, serial, step0 + k)
+            nxt = self._sample(logits, st.serial, st.step + k)
             token = torch.where(mask, nxt, token)
             toks.append(torch.where(mask, nxt, 0))
+            if self.eos_id is not None:
+                self._finished |= mask & (nxt == self.eos_id)
         execd = torch.where(
-            active,
-            torch.clamp(torch.minimum(steps_left, self.max_len - pos0), 0, K),
+            st.mask,
+            torch.clamp(torch.minimum(st.steps_left, self.max_len - st.pos), 0, K),
             0,
-        ).to(pos0.dtype)
-        return token, torch.stack(toks), pos0 + execd, step0 + execd, steps_left - execd
+        ).to(st.pos.dtype)
+        self._last_dev.copy_(token)
+        st.pos.add_(execd)
+        st.step.add_(execd)
+        st.steps_left.sub_(execd)
+        return torch.stack(toks)
+
+    def _window(self) -> torch.Tensor:
+        """Run one K-step window: a replay of the captured graph where there
+        is one, else `_macro` eagerly. Returns its [K, n_slots] tokens."""
+        if self._graph is None:
+            return self._macro()
+        out = self._graph.replay()
+        self.graph_replays += 1
+        return out
 
     def _prefill_chunk(self, tokens, table_row, start: int, length: int) -> None:
         paged_prefill_chunk(
@@ -497,13 +611,18 @@ class DecodeServer:
         self._tick_state.mark_table_dirty()
 
     def _reset_device_state(self) -> None:
-        """After an engine error the pool is untrustworthy: reallocate it."""
-        self.cache = self._new_pool()
+        """After an engine error the pool is untrustworthy: zero it, and the
+        token vectors, in place (the reference reallocates them; the
+        captured window holds their addresses)."""
+        for pool in self.cache if self._tp is not None else [self.cache]:
+            for layer in pool.values():
+                layer["k"].zero_()
+                layer["v"].zero_()
         self._table_np[:] = 0
         self._tick_state.mark_table_dirty()
         self._block_mgr.reset()
-        self._last_dev = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
-        self._first_dev = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
+        self._last_dev.zero_()
+        self._first_dev.zero_()
 
     def _bucket(self, n: int) -> int:
         for b in self.prompt_buckets:
@@ -791,8 +910,9 @@ class DecodeServer:
         """One engine iteration (decode_server.py:3610, :3639): (1)
         admission reserves slots and pages, (2) the prefill budget
         dispatches bounded chunk waves, (3) every decoding slot gets the
-        K-step macro program. All of it is ordered on one stream over
-        disjoint page sets."""
+        K-step macro program, or, in a steady decode state, a burst of up
+        to N of them in one dispatch. All of it is ordered on one stream
+        over disjoint page sets."""
         if self._engine_idle and self._queue.empty():
             # The previous tick proved the engine empty; only a submit can
             # change that.
@@ -815,8 +935,16 @@ class DecodeServer:
             i for i, s in enumerate(self._slots) if s.active and s.phase == "decoding"
         ]
         if macro:
-            with self._phase(constants.TICK_PHASE_DISPATCH_MACRO):
-                self._dispatch_macro(macro)
+            # Steady state? Fuse up to N macro windows into ONE burst
+            # dispatch (the host crosses once per K*N tokens); any host
+            # obligation degrades to the per-tick macro dispatch.
+            n_burst = self._burst_plan(macro, n_prefill)
+            if n_burst:
+                with self._phase(constants.TICK_PHASE_DISPATCH_BURST):
+                    self._dispatch_burst(macro, n_burst)
+            else:
+                with self._phase(constants.TICK_PHASE_DISPATCH_MACRO):
+                    self._dispatch_macro(macro)
         if n_prefill and macro:
             self.ticks_with_prefill_and_macro += 1
 
@@ -842,20 +970,77 @@ class DecodeServer:
             packed[i, P + 4] = s.remaining if s.active else 0
         st.sync(packed)
 
+    def _burst_plan(self, macro: List[int], n_prefill: int) -> int:
+        """How many macro windows to fuse into one burst dispatch this tick
+        (decode_server.py:3827): 0 = stay per-tick. Bursts engage only in a
+        steady decode state: no prefill this tick, every active slot
+        decoding, no queued or waiting request, not stopping or draining,
+        so every host event sees the per-tick engine. The count is capped
+        at the work left (ceil(max remaining / K)), so lanes never coast
+        through whole trailing windows, and a burst has at least 2."""
+        if self.burst_windows <= 1 or n_prefill:
+            return 0
+        # A4 (speculation): drafting slots and pending verifies stay per-tick.
+        if self._closed.is_set() or self._stop.is_set():
+            return 0
+        # A8 (fleet): a scheduled injected fault keeps the tick per-tick.
+        if self._waiting or not self._queue.empty():
+            return 0
+        active = [s for s in self._slots if s.active]
+        if not active or len(macro) != len(active):
+            return 0
+        K = self.steps_per_dispatch
+        max_rem = max(min(s.remaining, self.max_len - s.pos) for s in active)
+        if max_rem <= 0:
+            return 0
+        n = min(self.burst_windows, -(-max_rem // K))
+        # A4: a spec-armed engine caps n at its slots' draft-denial margin.
+        return n if n >= 2 else 0
+
+    def _dispatch_burst(self, idxs: List[int], n_windows: int) -> None:
+        """One burst (decode_server.py:3958): N macro windows, one host
+        crossing. On CUDA each window is a replay of the captured window,
+        on the CPU `_macro`; the eos carry spans the burst, so a lane that
+        samples its eos mid-burst coasts on the scratch page for the rest
+        of it. One `_TokRef` holds the [N*K, n_slots] token matrix (row =
+        window*K + k). A lane executes contiguously from the burst's first
+        row until it runs out, then coasts, so its rows are exactly
+        range(total): one flat extend, the same arithmetic the windows
+        applied on the device. A clean burst uploads nothing and reads
+        nothing back."""
+        self._sync_tick_state()
+        K = self.steps_per_dispatch
+        self._finished.zero_()
+        toks = torch.empty((n_windows * K, self.n_slots), dtype=torch.int32,
+                           device=self.device)
+        for w in range(n_windows):
+            toks[w * K:(w + 1) * K].copy_(self._window())
+        ref = _TokRef(toks, self._syncs)
+        self._inflight.append(ref)
+        self.steps_run += 1
+        self.burst_dispatches += 1
+        self.burst_windows_run += n_windows
+        for idx in idxs:
+            slot = self._slots[idx]
+            total = min(n_windows * K, slot.remaining, self.max_len - slot.pos)
+            slot.refs.extend((ref, idx, r) for r in range(total))
+            slot.pos += total
+            slot.remaining -= total
+        # A8 (fleet): the per-window quota fold and the checkpoint hook at
+        # the burst boundary.
+        for idx in idxs:
+            self._finish_if_done(idx)
+        self._backpressure()
+
     def _dispatch_macro(self, idxs: List[int]) -> None:
         """One K-step macro dispatch for the decoding slots. Inputs come
-        from the device-resident TickState; the program advances pos / step
+        from the device-resident TickState; the window advances pos / step
         / steps_left on the device, so steady-state dispatches upload
         nothing."""
         self._sync_tick_state()
-        st = self._tick_state
         K = self.steps_per_dispatch
-        last, toks, pos, step, steps_left = self._macro(
-            self._last_dev, self._table(), st.pos, st.mask, st.serial, st.step, st.steps_left
-        )
-        self._last_dev = last
-        st.advance(pos, step, steps_left)
-        ref = _TokRef(toks, self._syncs)
+        self._finished.zero_()
+        ref = _TokRef(self._window(), self._syncs)
         self._inflight.append(ref)
         self.steps_run += 1
         self.macro_dispatches += 1
@@ -867,8 +1052,11 @@ class DecodeServer:
             slot.pos += executed
             slot.remaining -= executed
             self._finish_if_done(idx)
-        # Backpressure: bound the dispatch queue; materializing the oldest
-        # in-flight window is (amortized) already-complete work.
+        self._backpressure()
+
+    def _backpressure(self) -> None:
+        """Bound the dispatch queue; materializing the oldest in-flight
+        window is (amortized) already-complete work."""
         while len(self._inflight) > self.pipeline_depth:
             self._inflight.popleft().np()
 

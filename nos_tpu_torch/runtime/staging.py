@@ -9,10 +9,11 @@ and `TickState` (:87, with `mesh` :99-142).
     and copied with ``non_blocking=True``, so an upload never stalls the
     host behind the stream.
   - ``TickState`` holds the per-slot tick metadata on the device: the block
-    table plus pos / mask / serial / step / steps_left. The macro program
-    advances pos / step / steps_left itself; host events mark the state
-    dirty and the next dispatch re-syncs it with ONE packed
-    [n_slots, max_pages + 5] int32 upload.
+    table plus pos / mask / serial / step / steps_left, in buffers
+    allocated once (a captured CUDA graph holds their addresses). The
+    macro program advances pos / step / steps_left in place; host events
+    mark the state dirty and the next dispatch re-syncs it with ONE packed
+    [n_slots, max_pages + 5] int32 upload, copied into the buffers.
   - ``SyncLedger`` counts blocking device->host reads on the tick path
     (every `.item()`, `.cpu()`, `.tolist()`, host materialization or
     synchronize): the ``blocking_syncs`` budget.
@@ -62,22 +63,23 @@ class TickState:
 
     Columns of the packed buffer ([n_slots, max_pages + 5] int32): the
     block-table row, then pos, mask (0/1), serial, step, steps_left.
-    `sync` performs the single counted upload and unpacks it on the
-    device (each field contiguous, as the kernels require); `advance`
-    swaps in the program-advanced pos/step/steps_left.
+    Every field is a contiguous buffer on the stage's device, allocated
+    once (zeros: no lane active) and only ever written in place, so a
+    CUDA graph that reads them stays valid. `sync` performs the single
+    counted upload and copies it into the fields on the device; the
+    engine's window advances pos / step / steps_left in place.
 
     With a tensor-parallel `mesh` the upload stays ONE counted transfer to
     the stage's device, whatever the width; `tables` then holds the table
-    once per shard of `tp_axis`, copied device to device to each distinct
-    shard device (no copy where a shard shares the stage's device, and the
-    copies are not uploads). Only the table is read per shard: pos, mask,
-    serial, step and steps_left feed the macro's arithmetic, which runs
-    once on the stage's device."""
+    once per shard of `tp_axis`: `table` itself where a shard shares the
+    stage's device, else a buffer on the shard's device that `sync` copies
+    into device to device (the copies are not uploads). Only the table is
+    read per shard: pos, mask, serial, step and steps_left feed the
+    macro's arithmetic, which runs once on the stage's device."""
 
     def __init__(self, stage: HostStage, n_slots: int, max_pages: int, mesh=None,
                  tp_axis: str = "tp"):
         self._stage = stage
-        self._devices = mesh.axis_devices(tp_axis) if mesh is not None else None
         self.n_slots = int(n_slots)
         self.max_pages = int(max_pages)
         self.dirty = True
@@ -86,14 +88,19 @@ class TickState:
         self.table_dirty = True
         #: Packed-sync count.
         self.syncs = 0
-        self.table = None
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=stage.device)
+
+        self.table = zeros(self.n_slots, self.max_pages)
         #: The table on every shard's device, in shard order.
-        self.tables = None
-        self.pos = None
-        self.mask = None
-        self.serial = None
-        self.step = None
-        self.steps_left = None
+        self.tables = ([self.table] if mesh is None
+                       else [self.table.to(d) for d in mesh.axis_devices(tp_axis)])
+        self.pos = zeros(self.n_slots)
+        self.mask = zeros(self.n_slots, dtype=torch.bool)
+        self.serial = zeros(self.n_slots)
+        self.step = zeros(self.n_slots)
+        self.steps_left = zeros(self.n_slots)
 
     def mark_dirty(self) -> None:
         """Slot scheduling metadata changed on the host."""
@@ -105,27 +112,21 @@ class TickState:
         self.table_dirty = True
 
     def sync(self, packed: np.ndarray) -> None:
-        """One packed staging upload + the device-side unpack. No-op
-        unless dirty."""
+        """One packed staging upload, copied into the fields on the device.
+        No-op unless dirty."""
         if not self.dirty and not self.table_dirty:
             return
         dev = self._stage.to_device(packed, dtype=torch.int32)
         P = self.max_pages
-        self.table = dev[:, :P].contiguous()
-        self.tables = ([self.table] if self._devices is None
-                       else [self.table.to(d) for d in self._devices])
-        self.pos = dev[:, P].contiguous()
-        self.mask = dev[:, P + 1] > 0
-        self.serial = dev[:, P + 2].contiguous()
-        self.step = dev[:, P + 3].contiguous()
-        self.steps_left = dev[:, P + 4].contiguous()
+        self.table.copy_(dev[:, :P])
+        for t in self.tables:
+            if t is not self.table:
+                t.copy_(self.table)
+        self.pos.copy_(dev[:, P])
+        self.mask.copy_(dev[:, P + 1] > 0)
+        self.serial.copy_(dev[:, P + 2])
+        self.step.copy_(dev[:, P + 3])
+        self.steps_left.copy_(dev[:, P + 4])
         self.syncs += 1
         self.dirty = False
         self.table_dirty = False
-
-    def advance(self, pos, step, steps_left) -> None:
-        """Swap in the post-dispatch metadata the program computed: no
-        host->device traffic."""
-        self.pos = pos
-        self.step = step
-        self.steps_left = steps_left

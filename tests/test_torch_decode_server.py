@@ -3,11 +3,11 @@ the JAX DecodeServer on identical traffic, on the CPU.
 
 Both engines serve the shared float32 test model (the JAX init carried
 across with `from_numpy_params`) and must return IDENTICAL greedy tokens.
-The JAX engine gets the port's "off" values for the features this slice
-defers (radix COW, spill tier, bursts, speculation, surgical recovery);
-its greedy outputs do not depend on them. Where all traffic is queued
-before start(), the two engines' prefill and macro dispatch counts must
-agree too. Also pinned here: the package imports neither jax nor nos_tpu,
+The JAX engine gets the port's "off" values for the features not yet
+ported (radix COW, spill tier, speculation, surgical recovery); its greedy
+outputs do not depend on them. Both engines burst with their shared
+default, burst_windows=4. Where all traffic is queued before start(), the
+two engines' prefill, macro and burst dispatch counts must agree too. Also pinned here: the package imports neither jax nor nos_tpu,
 and the engine refuses to drift to the CPU when no CUDA device exists."""
 
 import dataclasses
@@ -26,8 +26,9 @@ from nos_tpu_torch.models.decode import init_paged_cache
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, burst_windows=1, spec_k=0,
-               surgical_recovery=False)
+JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
+DISPATCH_COUNTERS = ("prefill_dispatches", "macro_dispatches", "burst_dispatches",
+                     "burst_windows_run", "steps_run", "prefill_tokens")
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +63,8 @@ def run_both(model, traffic, **kw):
     jout = serve(jsrv, traffic)
     tout = serve(tsrv, traffic)
     assert tout == jout
-    assert (tsrv.prefill_dispatches, tsrv.macro_dispatches) == (
-        jsrv.prefill_dispatches, jsrv.macro_dispatches)
-    assert tsrv.prefill_tokens == jsrv.prefill_tokens
+    assert ({c: getattr(tsrv, c) for c in DISPATCH_COUNTERS}
+            == {c: getattr(jsrv, c) for c in DISPATCH_COUNTERS})
     return jsrv, tsrv, tout
 
 
@@ -72,7 +72,9 @@ def test_single_request(model):
     (p,) = prompts(0, [5])
     _, tsrv, (out,) = run_both(model, [(p, 8)], n_slots=2, max_len=64)
     assert len(out) == 8
-    assert tsrv.steps_run == tsrv.macro_dispatches == 7
+    # K=1: the prefill tick's window, then bursts of 4 and 2 windows.
+    assert tsrv.steps_run == tsrv.macro_dispatches + tsrv.burst_dispatches == 3
+    assert tsrv.macro_dispatches + tsrv.burst_windows_run == 7
 
 
 def test_concurrent_streams_are_isolated(model):
@@ -119,7 +121,8 @@ def test_steps_per_dispatch_4_matches_1(model):
     _, k4, out4 = run_both(model, traffic, n_slots=2, max_len=64, steps_per_dispatch=4)
     _, k1, out1 = run_both(model, traffic, n_slots=2, max_len=64, steps_per_dispatch=1)
     assert out4 == out1
-    assert k4.macro_dispatches < k1.macro_dispatches
+    windows = [k.macro_dispatches + k.burst_windows_run for k in (k4, k1)]
+    assert windows[0] < windows[1]
 
 
 def test_pool_backpressure_is_fifo(model):
@@ -154,7 +157,7 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    for kw in (dict(quota=object()), dict(burst_windows=4), dict(spec_k=2),
+    for kw in (dict(quota=object()), dict(kv_store=object()), dict(spec_k=2),
                dict(radix_cache=True), dict(spill_blocks=None), dict(spill_blocks=8),
                dict(kv_dtype="int8"), dict(surgical_recovery=True),
                dict(cost_ledger=object())):

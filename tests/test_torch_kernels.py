@@ -17,7 +17,11 @@ max|want|. Flash kernels: each output entry by entry
 (`flash_err`) within FLASH_TOL, chip_smoke.py's bounds. Dense decode
 kernel: entry by entry (`flash_err`) within DECODE_TOL, chip_smoke.py's
 bounds. The sharded paged kernels bit for bit against the unsharded kernel
-on the same heads, and a tp=2 engine on one card against tp=1."""
+on the same heads, and a tp=2 engine on one card against tp=1. The engine's
+captured decode window (a CUDA graph) against its eager `_macro` on one
+state: tokens and the state they advance equal, the pool's written pages
+byte for byte, the launch counts equal; and a capture that copies from
+host memory raises."""
 
 import numpy as np
 import pytest
@@ -549,3 +553,117 @@ def test_tp2_engine_tokens_equal_tp1(cuda_device):
     for name in ("paged_decode_attention_sharded", "paged_window_attention_sharded"):
         assert tpa.LAUNCHES[name] > before[name]
     assert tpa.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"]
+
+
+def _graph_engine(cuda_device, dtype, temperature, mesh=None):
+    """A small engine on the card after one tick (every prompt prefilled
+    unbudgeted, one window run), lane 1 cut to 3 steps so that it ends
+    mid-window, its tick state synced: the state a window runs from."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype=dtype)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    server = DecodeServer(params, cfg, mesh=mesh, device=None if mesh else cuda_device,
+                          n_slots=3, max_len=128, prompt_buckets=(8, 16),
+                          steps_per_dispatch=8, block_size=8, temperature=temperature,
+                          seed=3, eos_id=95, prefill_budget_tokens=0)
+    rng = np.random.RandomState(9)
+    futs = [server.submit(rng.randint(1, 95, size=n).tolist(), max_new=40)
+            for n in (5, 20, 33)]
+    server._tick()
+    assert all(s.active and s.phase == "decoding" for s in server._slots)
+    server._slots[1].remaining = 3
+    server._tick_state.mark_dirty()
+    server._sync_tick_state()
+    return server, futs
+
+
+def _window_tensors(server):
+    st = server._tick_state
+    pools = server.cache if isinstance(server.cache, list) else [server.cache]
+    return ([st.pos, st.step, st.steps_left, server._last_dev, server._finished]
+            + [t for pool in pools for layer in pool.values() for t in layer.values()])
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_replayed_window_equals_eager_macro(cuda_device, dtype, temperature, tp):
+    """From one engine state, the captured window's replay and the eager
+    `_macro` give the same [K, n_slots] tokens, the same advanced pos /
+    step / steps_left / last tokens / eos carry, and byte for byte the same
+    pool outside the scratch page (block 0, which masked lanes write in an
+    unspecified order); the replay adds the eager window's launch counts
+    (at tp=2, through the sharded entry point, both shards in one graph)."""
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    mesh = build_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"]) if tp == 2 else None
+    server, futs = _graph_engine(cuda_device, dtype, temperature, mesh)
+    assert server.graph_captures == 1 and server.graph_replays > 0
+    start = [t.clone() for t in _window_tensors(server)]
+    runs = []
+    for run in (server._macro, server._window):
+        for t, v in zip(_window_tensors(server), start):
+            t.copy_(v)
+        before = ds._launch_counts()
+        toks = run().clone()
+        torch.cuda.synchronize()
+        after = ds._launch_counts()
+        runs.append((toks, [t.clone() for t in _window_tensors(server)],
+                     {k: n - before[k] for k, n in after.items() if n != before[k]}))
+    (toks_e, state_e, launches_e), (toks_g, state_g, launches_g) = runs
+    assert torch.equal(toks_g, toks_e)
+    assert launches_g == launches_e and sum(launches_e.values()) == 8 * 2 * tp
+    for got, want in zip(state_g[:5], state_e[:5]):
+        assert torch.equal(got, want)
+    for got, want in zip(state_g[5:], state_e[5:]):
+        assert torch.equal(got[1:].view(torch.uint8), want[1:].view(torch.uint8))
+    assert not torch.equal(state_e[0], start[0])  # the window advanced
+    for f in futs:
+        f.cancel()
+    server.stop()
+
+
+def test_engine_windows_replay_and_match_eager(cuda_device):
+    """A served f32 greedy run on the card replays the graph for every window
+    (per-tick and burst) and gives the tokens of the same engine run with
+    eager windows."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(4)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), m) for n, m in ((7, 30), (18, 45))]
+
+    def serve(graph):
+        server = DecodeServer(params, cfg, device=cuda_device, n_slots=2, max_len=96,
+                              prompt_buckets=(8, 16), steps_per_dispatch=4, block_size=8)
+        if not graph:
+            server._graph = None
+        futs = [server.submit(p, max_new=m) for p, m in reqs]
+        while not all(f.done() for f in futs):
+            server._tick()
+        return [f.result() for f in futs], server
+
+    want, eager = serve(graph=False)
+    got, server = serve(graph=True)
+    assert got == want and eager.graph_replays == 0
+    assert server.burst_dispatches > 0
+    assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
+
+
+def test_capture_that_copies_from_host_raises(cuda_device):
+    """A window body that builds a tensor from host data cannot be
+    captured: the capture raises (nothing falls back to eager windows)."""
+    from nos_tpu_torch.runtime.decode_server import _WindowGraph
+
+    x = torch.ones(4, device=cuda_device)
+
+    def body():
+        return x + torch.tensor([1.0, 2.0, 3.0, 4.0], device=cuda_device)
+
+    with pytest.raises(RuntimeError):
+        _WindowGraph(body, cuda_device)

@@ -33,8 +33,7 @@ SEEDS = [0, 7, 2**31 - 1]
 # the counters.
 SERIALS = [1, 2, 3, 70000, 2**31 + 5]
 STEPS = [0, 1, 63, 65537]
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, burst_windows=1, spec_k=0,
-               surgical_recovery=False)
+JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
 
 
 def _words(x):
@@ -150,7 +149,8 @@ def _serve(server, traffic):
 @pytest.mark.parametrize("k", [1, 4])
 def test_sampled_engine_matches_jax(serving_model, k):
     """DecodeServer(temperature=0.8, seed=7): the same tokens as the JAX
-    engine, at one and at four steps per macro dispatch."""
+    engine, at one and at four steps per macro dispatch, both engines
+    bursting with their default burst_windows=4."""
     jcfg, jparams, tcfg, tparams = serving_model
     rng = np.random.RandomState(12)
     traffic = [(rng.randint(1, 97, size=n).tolist(), m) for n, m in ((4, 9), (11, 6), (7, 12))]

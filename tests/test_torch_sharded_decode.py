@@ -1,14 +1,14 @@
 """The port's tensor-parallel DecodeServer (nos_tpu_torch/parallel,
 models/decode.py::TPLocal, the sharded paged-attention ops) against its own
-single-device engine and against the JAX engine, on the CPU.
+single-device engine and against the JAX engine, on the CPU, every engine
+with its default bursts (burst_windows=4).
 
 The port's mesh repeats one device (`devices=["cpu", "cpu"]`), as the JAX
 package tests on the virtual CPU devices of tests/conftest.py. Mirrors the
 cases of tests/test_sharded_decode.py that the port covers: construction
 refusals and tp=1 passthrough; greedy and T=0.8 token streams of the port at
-tp=2 equal to the port at tp=1 and to the JAX engine at tp=1 and tp=2 (both
-JAX engines without bursts, like the port), with equal counters; the
-steady-state host-sync budget; the vocab-96 model whose embedding and head
+tp=2 equal to the port at tp=1 and to the JAX engine at tp=1 and tp=2, with
+equal counters; the steady-state host-sync budget; the vocab-96 model whose embedding and head
 shard; the param specs; TPLocal's exact collectives; and the sharded plain
 attention against JAX's interpret-mode sharded kernels."""
 
@@ -36,8 +36,7 @@ from conftest import serving_test_config, serving_test_params
 
 pytestmark = pytest.mark.multidevice
 
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, burst_windows=1, spec_k=0,
-               surgical_recovery=False)
+JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
 
 # tests/test_sharded_decode.py's prompts: budgeted prefill runs multi-chunk.
 PROMPTS = [
@@ -46,7 +45,8 @@ PROMPTS = [
     [55, 1, 2, 3, 70, 70, 12, 39, 80, 10],
 ]
 COUNTERS = ("h2d_uploads", "staging_syncs", "blocking_syncs", "macro_dispatches",
-            "prefill_dispatches", "prefill_window_dispatches", "prefill_tokens")
+            "burst_dispatches", "burst_windows_run", "steps_run", "prefill_dispatches",
+            "prefill_window_dispatches", "prefill_tokens")
 
 
 def bridge(jcfg, jparams):
@@ -121,10 +121,10 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
     assert not sharded._tp.emb_sharded and not sharded._tp.head_sharded
 
 
-@pytest.mark.parametrize("kw", [dict(burst_windows=4), dict(spec_k=2),
+@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(spec_k=2),
                                 dict(radix_cache=True), dict(spill_blocks=8),
                                 dict(kv_dtype="int8"), dict(quota=object())],
-                         ids=["bursts", "speculation", "radix", "spill", "int8", "quota"])
+                         ids=["recovery", "speculation", "radix", "spill", "int8", "quota"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, kw):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
@@ -154,6 +154,7 @@ def test_sharded_outputs_identical_greedy_and_temperature(model, mesh, jmesh, te
                  reqs) == outs_ref
     assert {c: getattr(shd, c) for c in COUNTERS} == {c: getattr(ref, c) for c in COUNTERS}
     assert shd.macro_dispatches > 0 and shd.prefill_dispatches > len(PROMPTS)
+    assert shd.burst_dispatches > 0
 
 
 def test_sharded_prefill_window_and_eos(model, mesh):
@@ -176,10 +177,10 @@ def test_sharded_prefill_window_and_eos(model, mesh):
 
 # -- host-sync budget -------------------------------------------------------------
 def test_steady_state_budget_identical_to_tp1(model, mesh):
-    """The reference's steady-state budget test without bursts: once every
-    slot decodes, the first macro tick costs at most one packed sync (and
-    its one upload), later ticks zero uploads and zero blocking reads, and
-    every delta equals the tp=1 engine's on identical traffic."""
+    """The reference's steady-state budget test: once every slot decodes,
+    the first burst costs at most one packed sync (and its one upload),
+    later bursts zero uploads and zero blocking reads, and every delta
+    equals the tp=1 engine's on identical traffic."""
     _, _, tcfg, tparams = model
 
     def steady_deltas(mesh_arg):
@@ -191,7 +192,7 @@ def test_steady_state_budget_identical_to_tp1(model, mesh):
                     and not server._waiting and server._queue.empty():
                 break
         marks = []
-        names = ("h2d_uploads", "staging_syncs", "blocking_syncs", "macro_dispatches")
+        names = ("h2d_uploads", "staging_syncs", "blocking_syncs", "burst_dispatches")
         for _ in range(3):
             before = [getattr(server, n) for n in names]
             server._tick()
@@ -203,8 +204,8 @@ def test_steady_state_budget_identical_to_tp1(model, mesh):
 
     tp1, tp2 = steady_deltas(None), steady_deltas(mesh)
     assert tp2 == tp1
-    uploads, syncs, blocking, macros = tp2[0]
-    assert macros == 1 and syncs <= 1 and uploads == syncs
+    uploads, syncs, blocking, bursts = tp2[0]
+    assert bursts == 1 and syncs <= 1 and uploads == syncs
     for mark in tp2[1:]:
         assert mark == (0, 0, 0, 1)
 
