@@ -6,6 +6,7 @@ them.
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
     python3 chip_smoke.py --phases build,card,graph
+    python3 chip_smoke.py --phases build,card,radix,spec
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -79,6 +80,22 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            Prints tok/s, long-prompt TTFT, peak memory and a profiled decode
            window at both widths, and the bf16 traffic again at both widths
            with burst_windows=1;
+  radix    the radix cache and the spill tier: the bench GPT (bf16, then f32)
+           serves a multi-turn chat (8 conversations over two 2048-token
+           system prompts, greetings diverging mid-block, 3 turns of
+           200-token messages and 128 new tokens) in four arms: the radix
+           tree, the flat chain, cold, and the tree over a pool that spills
+           to the host tier. Each arm against a teacher-forced plain pass;
+           COW hits, registered outputs, spills and revives engaged; prefill
+           tokens tree < chain < cold; the first copy-ins and COW copies
+           read back byte for byte; a tp=2 payload equal to tp=1's; the ms
+           of one copy-out and one copy-in;
+  spec     speculative decoding (spec_k 8, W 9): the window kernel at the
+           verify width against its plain version and beside SDPA, then
+           bench.py's decode:1k_repetitive and decode:8stream_mixed cells
+           and a templated regeneration, spec on against off (bf16 and
+           f32), spec-on at tp=2 in bf16: agreement, rounds and tree drafts
+           engaged, every verify round's window launches by route;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -1068,8 +1085,10 @@ def agreement(torch, kern, plain, served, dtype):
     mant = 7 if dtype == "bfloat16" else 23  # explicit mantissa bits of the head's output
     step = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30))) - mant)
     gap = (top - served_logit) / step
-    miss = gap[greedy(torch, plain) != served]
+    wrong = greedy(torch, plain) != served
+    miss = gap[wrong]
     return {
+        "disagreements_at": wrong.nonzero()[:16].tolist(),
         "top1_agreement": (greedy(torch, plain) == served).float().mean().item(),
         "top1_agreement_ties": (served_logit == top).float().mean().item(),
         "top1_agreement_1ulp": (gap <= 1.0).float().mean().item(),
@@ -1083,10 +1102,22 @@ def agreement(torch, kern, plain, served, dtype):
     }
 
 
-def check_logits(stats, what):
+# float32 in the radix and spec phases: a served token that is not the
+# plain pass's pick must lie within this many f32 steps of its maximum, at
+# no more than 1% of positions. The oracle prefills each prompt alone; the
+# engine batches 8 prompts' chunks in one window (and serves cache hits and
+# verify windows), programs of other shapes whose products round
+# otherwise. Measured on an H100: 2 steps at 1 of 1024 positions (spec
+# 8stream_mixed f32, spec off).
+F32_CROSS_SHAPE_STEPS = 4
+
+
+def check_logits(stats, what, f32_steps=0):
     """The teacher-forced oracle's bounds (runtime/divergence.py:43,48:
     max|dlogit| <= 0.5, top-1 agreement >= 0.98). In float32 the served
-    tokens must be the plain programs' greedy picks at every position. In
+    tokens must be the plain programs' greedy picks at every position (with
+    `f32_steps`, at 99% of them and within that many f32 steps of the
+    plain maximum at the rest). In
     bf16 the strict rate is printed, not gated: a random model's flat
     32000-token logits put the plain top two within one bf16 step at a
     few percent of positions, where the lowest-index pick turns on
@@ -1099,8 +1130,11 @@ def check_logits(stats, what):
     check(stats["max_abs_dlogit"] <= 0.5,
           f"{what} {dtype}: max|dlogit| {stats['max_abs_dlogit']} > 0.5")
     if dtype == "float32":
-        check(stats["top1_agreement"] == 1.0,
-              f"{what} float32: top-1 agreement {stats['top1_agreement']} < 1.0")
+        gaps = stats["disagreement_gap_steps"]
+        check(stats["top1_agreement"] == 1.0 or (
+            f32_steps and stats["top1_agreement"] >= 0.99 and max(gaps) <= f32_steps),
+              f"{what} float32: top-1 agreement {stats['top1_agreement']} < 1.0, "
+              f"gaps {gaps} (f32 steps allowed {f32_steps})")
         return
     check(stats["top1_agreement_1ulp"] >= 0.98,
           f"{what} {dtype}: top-1 agreement within a step "
@@ -1609,6 +1643,520 @@ def phase_tp(torch, device, small=False):
             "engine_token_match", "top1_agreement", "max_abs_dlogit", "mean_abs_dlogit")}
     summary["phase_s"] = stats["phase_s"] = time.perf_counter() - t0
     log("tp: " + json.dumps(summary))
+    return stats
+
+
+# -- phase: radix ------------------------------------------------------------------
+CHAT = {"n_convs": 8, "sys": 2048, "shared": 16, "greet": 64, "user": 200, "gen": 128,
+        "turns": 3}
+CHAT_SMALL = {"n_convs": 4, "sys": 128, "shared": 16, "greet": 24, "user": 20, "gen": 12,
+              "turns": 3}
+COPY_CHECKS = 4  # copy-ins and COW copies read back and held, per arm
+
+
+def chat_traffic(cfg, small):
+    """Multi-turn chat, the shape of bench.py::_multi_turn_chat at full width:
+    conversations over two system prompts (three quarters on the first), each
+    greeting a shared head of `shared` tokens inside one block, then its own
+    tokens (so COW serves the head), and a user message per later turn. From
+    a numpy seed."""
+    c = CHAT_SMALL if small else CHAT
+    rng = np.random.default_rng(13)
+    sys_prompts = [rng.integers(1, cfg.vocab, c["sys"]).tolist() for _ in range(2)]
+    head = rng.integers(1, cfg.vocab, c["shared"]).tolist()
+    first = [sys_prompts[0 if i < 3 * c["n_convs"] // 4 else 1] + head
+             + rng.integers(1, cfg.vocab, c["greet"] - c["shared"]).tolist()
+             for i in range(c["n_convs"])]
+    users = [[rng.integers(1, cfg.vocab, c["user"]).tolist() for _ in range(c["n_convs"])]
+             for _ in range(c["turns"] - 1)]
+    return dict(c, first=first, users=users)
+
+
+def spill_pool_blocks(chat, block_size=32):
+    """A pool two last-turn requests fill: each turn evicts other
+    conversations' paths to the host tier, and their next turn revives
+    them."""
+    longest = (len(chat["first"][0]) + (chat["turns"] - 1) * (chat["user"] + chat["gen"])
+               + chat["gen"])
+    return 1 + 2 * -(-longest // block_size)
+
+
+def checked_copies(torch, server, seen):
+    """Wrap the engine's copy-in (`_revive`) and COW copy (`_cow_copy`): the
+    first COPY_CHECKS of each read the block back at once (full width) and
+    hold it byte for byte against the payload, or the COW destination's
+    first `length` rows against its source's. Instrumentation only: the
+    package has no such hook."""
+    revive, cow = server._revive, server._cow_copy
+
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+
+    def checked_revive(k, v, block):
+        revive(k, v, block)
+        if seen["revive"] < COPY_CHECKS:
+            got_k, got_v = server._extract(block)
+            check(torch.equal(raw(got_k), raw(k)) and torch.equal(raw(got_v), raw(v)),
+                  f"radix: block {block} differs from the payload revived into it")
+            seen["revive"] += 1
+
+    def checked_cow(src, dst, length):
+        cow(src, dst, length)
+        if seen["cow"] < COPY_CHECKS:
+            (sk, sv), (dk, dv) = server._extract(src), server._extract(dst)
+            check(torch.equal(raw(dk[:, :, :length]), raw(sk[:, :, :length]))
+                  and torch.equal(raw(dv[:, :, :length]), raw(sv[:, :, :length])),
+                  f"radix: COW block {dst} differs from its source {src} in {length} rows")
+            seen["cow"] += 1
+
+    server._revive, server._cow_copy = checked_revive, checked_cow
+
+
+def chat_run(torch, cfg, params, device, chat, buckets, max_len, **engine_kw):
+    """Serve the chat on the threaded engine, turn by turn: conversation 0's
+    first turn alone (its prefix is what the others' greetings diverge from,
+    mid-block), then the rest of the turn together; each later turn
+    re-submits every history grown by its output and a user message. Launch
+    counts are zeroed just before the run and read just after. Returns
+    (prompts, outputs, stats, the stopped server)."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    server = DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
+                          steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
+                          device=device, **engine_kw)
+    seen = {"revive": 0, "cow": 0}
+    checked_copies(torch, server, seen)
+    n, gen = chat["n_convs"], chat["gen"]
+    histories = [list(h) for h in chat["first"]]
+    prompts, outs = [], []
+    sync(torch, device)
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        for turn in range(chat["turns"]):
+            got = [server.generate(histories[0], gen, timeout=900)] if turn == 0 else []
+            futs = [server.submit(h, gen) for h in histories[len(got):]]
+            got += [f.result(timeout=900) for f in futs]
+            if turn == 0:
+                n_first = len(server.ttft_s)
+            prompts += [list(h) for h in histories]
+            outs += got
+            if turn + 1 < chat["turns"]:
+                histories = [h + o + u for h, o, u in zip(histories, got, chat["users"][turn])]
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    later = sorted(server.ttft_s[n_first:])
+    stats = {
+        "wall_s": wall, "decode_tok_per_s": n * chat["turns"] * gen / wall,
+        "ttft_first_turn_s": server.ttft_s[:n_first],
+        "ttft_later_p50_s": later[len(later) // 2], "ttft_later_max_s": later[-1],
+        "copies_checked": dict(seen),
+        **{c: getattr(server, c) for c in RADIX_COUNTERS},
+        "tick_phase_s": server.tick_phase_s,
+        "launches": dict(pa.LAUNCHES),
+        "routes": {k: dict(r) for k, r in pa.ROUTE_LAUNCHES.items()},
+    }
+    return prompts, outs, stats, server
+
+
+RADIX_COUNTERS = ("prefill_tokens", "prefix_hit_tokens", "prefix_cow_hits", "prefix_cow_tokens",
+                  "output_blocks_registered", "radix_nodes", "prefix_evictions", "spills",
+                  "revives", "spill_drops", "spill_host_bytes", "macro_dispatches",
+                  "burst_windows_run", "graph_captures", "graph_replays", "burst_dispatches",
+                  "blocking_syncs")
+
+
+class TeacherForced:
+    """Teacher-forced agreement of served tokens, one pass per distinct
+    (prompts, outputs): arms that served the same tokens share it."""
+
+    def __init__(self, torch, params, cfg, buckets, device):
+        self.args = (torch, params, cfg)
+        self.buckets, self.device = buckets, device
+        self.done = {}
+
+    def __call__(self, prompts, outs, dtype):
+        key = (tuple(map(tuple, prompts)), tuple(map(tuple, outs)))
+        if key not in self.done:
+            torch, params, cfg = self.args
+            kern = teacher_forced(torch, params, cfg, prompts, outs, self.buckets, 32,
+                                  self.device)
+            with plain_attention():
+                plain = teacher_forced(torch, params, cfg, prompts, outs, self.buckets, 32,
+                                       self.device)
+            served = torch.tensor(outs, device=self.device)
+            self.done[key] = dict(agreement(torch, kern, plain, served, dtype), dtype=dtype)
+            del kern, plain
+        return self.done[key]
+
+
+def check_main_routes(stats, what, dtype, window="paged_window_attention",
+                      decode="paged_decode_attention"):
+    """An engine run launched both paged kernels, the decode kernel on
+    "split" and the window on "mma" in bf16 ("simt" in f32)."""
+    check_routes(stats["routes"], window, "mma" if dtype == "bfloat16" else "simt", what)
+    check_routes(stats["routes"], decode, "split", what)
+
+
+def payload_across_widths(torch, server, cfg, params, device):
+    """A block of the served pool, placed in a tp=2 engine (two shards on the
+    card) by its KV-head halves: the tp=2 copy-out equals the tp=1 payload
+    byte for byte, and the tp=2 copy-in of the tp=1 payload writes each
+    shard its half."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.parallel import build_mesh
+
+    block = next(b for b in range(1, server.total_blocks)
+                 if server._extract(b)[0].abs().sum().item() > 0)
+    (k, v), nbytes = server._extract_block(block)
+    mesh = build_mesh({"tp": 2}, devices=[device, device])
+    two = DecodeServer(params, cfg, n_slots=1, max_len=64, prompt_buckets=(8,),
+                       total_blocks=4, mesh=mesh, spill_blocks=0)
+    width = cfg.n_kv // 2
+    for s, pool in enumerate(two.cache):
+        for i, layer in pool.items():
+            layer["k"][1].copy_(k[int(i), s * width:(s + 1) * width])
+            layer["v"][1].copy_(v[int(i), s * width:(s + 1) * width])
+    (k2, v2), nbytes2 = two._extract_block(1)
+    raw = lambda t: t.view(torch.uint8)  # noqa: E731
+    check(nbytes2 == nbytes and torch.equal(raw(k2), raw(k)) and torch.equal(raw(v2), raw(v)),
+          "radix: the tp=2 payload differs from the tp=1 payload of the same block")
+    two._dispatch_revive((k, v), 2)
+    for s, pool in enumerate(two.cache):
+        for i, layer in pool.items():
+            check(torch.equal(raw(layer["k"][2].cpu()), raw(k[int(i), s * width:(s + 1) * width]))
+                  and torch.equal(raw(layer["v"][2].cpu()),
+                                  raw(v[int(i), s * width:(s + 1) * width])),
+                  "radix: the tp=2 copy-in wrote a shard other than its half")
+    two.stop()
+    return {"block": block, "nbytes": nbytes}
+
+
+def copy_ms(torch, server):
+    """CUDA-event ms of one block's copy-out (`_extract_block`: the stacked
+    gather and the blocking copy to host) and one copy-in
+    (`_dispatch_revive`: two uploads and the in-place copy) at the served
+    pool's shape; the copy-in writes block 0, the scratch page."""
+    (payload, _) = server._extract_block(1)
+    return {"extract_ms": time_cuda(torch, lambda: server._extract_block(1)),
+            "revive_ms": time_cuda(torch, lambda: server._dispatch_revive(payload, 0))}
+
+
+def phase_radix(torch, device, small=False):
+    """The radix cache and the spill tier at the serving cell's width. The
+    bench GPT (bf16, the main path, then f32) on the engine's defaults
+    serves the multi-turn chat in four arms: the radix tree, the flat chain
+    (`radix_cache=False`), cold (`prefix_cache=False`), and the tree over a
+    pool small enough that later turns spill other conversations' paths to
+    the host tier and revive them. Gates: every arm's tokens against a
+    teacher-forced plain pass (check_logits); COW hits and registered output
+    blocks in the tree arm, spills and revives in the spill arm; prefill
+    tokens tree < chain < cold; the first copy-ins and COW copies of the
+    tree and spill arms read back byte for byte; a payload at tp=2 equal to
+    tp=1's; every window a graph replay. Prints tok/s, TTFT and prefill
+    tokens per arm, arm-against-arm token equality and the ms of one
+    copy-out and one copy-in."""
+    from nos_tpu_torch import init_gpt
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    buckets, max_len = engine_sizes(small)
+    stats = {}
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        chat = chat_traffic(cfg, small)
+        tf = TeacherForced(torch, params, cfg, buckets, device)
+        arms = {"tree": {}, "chain": {"radix_cache": False}, "cold": {"prefix_cache": False},
+                "spill": {"total_blocks": spill_pool_blocks(chat)}}
+        run, outs = {}, {}
+        for arm, kw in arms.items():
+            prompts, outs[arm], st, server = chat_run(torch, cfg, params, device, chat, buckets,
+                                                      max_len, **kw)
+            st.update(tf(prompts, outs[arm], dtype))
+            log(f"radix {dtype} {arm}: " + json.dumps(st))
+            check_logits(st, f"radix {arm}", F32_CROSS_SHAPE_STEPS)
+            check(all(len(o) == chat["gen"] for o in outs[arm]), f"radix {arm}: short output")
+            if cuda:
+                check_replays(st, f"radix {dtype} {arm}", bursts=False)
+                check_main_routes(st, f"radix {dtype} {arm}", dtype)
+            if arm == "tree":
+                copies = copy_ms(torch, server) if cuda else {}
+                copies["tp2_payload"] = payload_across_widths(torch, server, cfg, params,
+                                                              device)
+                log(f"radix {dtype} copies: " + json.dumps(copies))
+                st.update(copies)
+            del server
+            run[arm] = st
+        tree, chain, cold, spill = (run[a] for a in arms)
+        check(tree["prefix_cow_hits"] > 0 and tree["output_blocks_registered"] > 0,
+              f"radix {dtype}: the tree arm staged no COW or registered no output")
+        check(spill["spills"] > 0 and spill["revives"] > 0,
+              f"radix {dtype}: the spill arm spilled {spill['spills']}, revived "
+              f"{spill['revives']}")
+        check(tree["prefill_tokens"] < chain["prefill_tokens"] < cold["prefill_tokens"],
+              f"radix {dtype}: prefill tokens tree {tree['prefill_tokens']}, chain "
+              f"{chain['prefill_tokens']}, cold {cold['prefill_tokens']}")
+        check(tree["copies_checked"]["cow"] > 0 and spill["copies_checked"]["revive"] > 0,
+              f"radix {dtype}: copies checked {tree['copies_checked']}, "
+              f"{spill['copies_checked']}")
+        run["tokens_equal_to_tree"] = {a: outs[a] == outs["tree"] for a in arms}
+        run["summary"] = {a: {k: run[a][k] for k in (
+            "decode_tok_per_s", "ttft_later_p50_s", "prefill_tokens", "prefix_hit_tokens",
+            "prefix_cow_tokens", "spills", "revives", "top1_agreement", "wall_s")}
+            for a in arms}
+        log(f"radix {dtype} summary: " + json.dumps(
+            {k: run[k] for k in ("tokens_equal_to_tree", "summary")}))
+        stats[dtype] = run
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"radix phase_s={stats['phase_s']:.1f}")
+    return stats
+
+
+# -- phase: spec -------------------------------------------------------------------
+SPEC_K = 8
+# (name, streams, prompt tokens, new tokens, max_len, repetitive streams,
+# spec_sync): bench.py:2341-2380's two decode cells.
+SPEC_CASES = (("1k_repetitive", 1, 1024, 128, 8192, 1, True),
+              ("8stream_mixed", 8, 128, 128, 512, 1, False))
+SPEC_CASES_SMALL = (("1k_repetitive", 1, 96, 24, 512, 1, True),
+                    ("8stream_mixed", 8, 24, 24, 128, 1, False))
+TEMPLATED = {"n": 3, "phrase": 8, "prompt": 256, "gen": 64}
+TEMPLATED_SMALL = {"n": 3, "phrase": 8, "prompt": 56, "gen": 40}
+VERIFY_POS = 1143  # W = 9 rows at 1143..1151: limits near 1152
+
+
+def spec_prompts(cfg, n, prompt_len, max_new, repetitive):
+    """bench.py::measure's prompts: the first `repetitive` loop a 16-token
+    pattern, the rest random, seeded by the cell's shape."""
+    rng = np.random.default_rng([n, prompt_len, max_new, repetitive])
+    pattern = rng.integers(1, cfg.vocab, 16).tolist()
+    return [(pattern * (prompt_len // 16 + 1))[:prompt_len] if i < repetitive
+            else rng.integers(1, cfg.vocab, prompt_len).tolist() for i in range(n)]
+
+
+def templated_prompts(cfg, t):
+    """bench.py::_templated_output's prompts: each a distinct phrase looped."""
+    rng = np.random.default_rng([2026, 19, t["n"]])
+    phrases = [rng.integers(1, cfg.vocab, t["phrase"]).tolist() for _ in range(t["n"])]
+    return [(p * (t["prompt"] // t["phrase"] + 1))[: t["prompt"]] for p in phrases]
+
+
+@contextlib.contextmanager
+def verify_launches():
+    """Count, by entry point and route, the window launches made inside the
+    engine's verify rounds (`paged_verify_window`): the package counts
+    launches per entry point only; this splits off the verify share."""
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    counts = {n: dict.fromkeys(r, 0) for n, r in pa.ROUTE_LAUNCHES.items()}
+    real = ds.paged_verify_window
+
+    def counted(*args, **kw):
+        before = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+        out = real(*args, **kw)
+        for n, r in pa.ROUTE_LAUNCHES.items():
+            for route, c in r.items():
+                counts[n][route] += c - before[n][route]
+        return out
+
+    ds.paged_verify_window = counted
+    try:
+        yield counts
+    finally:
+        ds.paged_verify_window = real
+
+
+def spec_run(torch, cfg, params, device, rounds, max_len, n_slots, mesh=None, **engine_kw):
+    """Serve `rounds` (lists of (prompt, max_new), each round's requests
+    submitted together after the previous round) on the threaded engine,
+    after a warm-up request of the first prompt (bench.py::measure's; with
+    the radix cache on, its output is in the tree). Launch counts are
+    zeroed just before the timed rounds and read just after."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    server = DecodeServer(params, cfg, n_slots=n_slots, max_len=max_len,
+                          prompt_buckets=(16, 32, 64, 128, 256), steps_per_dispatch=16,
+                          mesh=mesh, device=None if mesh is not None else device, **engine_kw)
+    server.start()
+    try:
+        server.generate(rounds[0][0][0], rounds[0][0][1], timeout=900)
+        warm = {c: getattr(server, c) for c in SPEC_COUNTERS}
+        sync(torch, device)
+        pa.reset_launch_counts()
+        with verify_launches() as verify:
+            t0 = time.perf_counter()
+            outs = []
+            for reqs in rounds:
+                futs = [server.submit(p, m) for p, m in reqs]
+                outs.append([f.result(timeout=900) for f in futs])
+            sync(torch, device)
+            wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    n_tok = sum(m for reqs in rounds for _, m in reqs)
+    stats = {"wall_s": wall, "decode_tok_per_s": n_tok / wall,
+             **{c: getattr(server, c) - warm[c] for c in SPEC_COUNTERS},
+             "graph_replays_total": server.graph_replays,
+             "windows_total": server.macro_dispatches + server.burst_windows_run,
+             "launches": dict(pa.LAUNCHES),
+             "routes": {k: dict(r) for k, r in pa.ROUTE_LAUNCHES.items()},
+             "verify_routes": verify, "tp": server.tp}
+    rounds_n = stats["spec_rounds"]
+    stats["accepted_per_round"] = stats["spec_tokens_accepted"] / rounds_n if rounds_n else 0.0
+    return outs, stats
+
+
+SPEC_COUNTERS = ("spec_rounds", "spec_tokens_accepted", "spec_tree_rounds",
+                 "spec_history_rounds", "spec_tree_tokens_accepted",
+                 "spec_history_tokens_accepted", "spec_demotions", "both_dispatch_ticks",
+                 "macro_dispatches", "burst_dispatches", "burst_windows_run", "graph_replays",
+                 "prefill_tokens")
+
+
+def verify_window_case(torch):
+    """The window kernel at the verify width: W = spec_k + 1 = 9 rows for
+    each of B = 8 lanes at positions 1143..1151 (limits up to 1152), bf16,
+    against its plain version, and timed beside the plain version and SDPA
+    on the same gathered cache."""
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    B, NH, NKV, HD, BS, W = 8, 8, 2, 64, 32, SPEC_K + 1
+    P = -(-(VERIFY_POS + W) // BS)
+    T = 1 + B * P
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k, v, _, _, dt = _pools(torch, gen, "bfloat16", T, NKV, BS, HD)
+    table = _table(torch, gen, B, P, T)
+    q = torch.randn((B, NH, W, HD), generator=gen, device="cuda").to(dt)
+    pos = torch.full((B,), VERIFY_POS, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([W, W, 5, W, 1, W, 7, W], dtype=torch.int32, device="cuda")
+    mask = torch.ones((B,), dtype=torch.bool, device="cuda")
+    before = dict(pa.ROUTE_LAUNCHES["paged_window_attention"])
+    got = pa.paged_window_attention(q, k, v, table, pos, lengths, mask)
+    want = pa._window_reference(q, k, v, table, pos, lengths, mask)
+    check(pa.ROUTE_LAUNCHES["paged_window_attention"]["mma"] == before["mma"] + 1,
+          "spec: the W = 9 window did not take the mma route")
+    worst = {"paged_window_attention": 0.0, "paged_window_attention_rel": 0.0}
+    live = (torch.arange(W, device="cuda")[None, :] < lengths[:, None])[:, None, :, None]
+    held(torch, torch.where(live, got, 0), torch.where(live, want, 0), "bfloat16",
+         "paged_window_attention W=9", worst)
+    kd = pa._gather_pool(k, table, None, dt).repeat_interleave(NH // NKV, dim=1)
+    vd = pa._gather_pool(v, table, None, dt).repeat_interleave(NH // NKV, dim=1)
+    lim = pos[:, None] + torch.arange(W, device="cuda")[None, :] + 1  # [B, W]
+    causal = (torch.arange(kd.shape[2], device="cuda")[None, None, :]
+              < lim[:, :, None])[:, None]
+    out = {"max_abs_err": worst["paged_window_attention"],
+           "ms": time_cuda(torch, lambda: pa.paged_window_attention(q, k, v, table, pos,
+                                                                     lengths, mask)),
+           "plain_ms": time_cuda(torch, lambda: pa._window_reference(q, k, v, table, pos,
+                                                                     lengths, mask)),
+           "library_ms": time_cuda(torch, lambda: _sdpa_decode(torch, q, kd, vd, causal))}
+    pages = B * P
+    nbytes = pages * NKV * BS * HD * 2 * 2 + 2 * B * NH * W * HD * 2 + 4 * pages + 9 * B
+    flops = 4.0 * NH * HD * float(lim.sum().item())
+    out["bound_ms"] = 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS)
+    out["bound_by"] = ("bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_BF16_PEAK_FLOPS
+                       else "operations")
+    log("spec verify_window_W9: " + json.dumps(out))
+    return out
+
+
+def phase_spec(torch, device, small=False):
+    """Speculative decoding at the serving cell's width: the bench GPT,
+    greedy, spec_k = 8 (verify windows of W = 9), bf16 (the main path) and
+    f32, on bench.py's `decode:1k_repetitive` (spec_sync) and
+    `decode:8stream_mixed` (pipelined) cells and a templated regeneration
+    round (bench.py::_templated_output's shape: each prompt served, then
+    served again, so the radix tree drafts the second round), spec on
+    against spec off; then the three spec-on at tp=2 with both shards on
+    the card, bf16. Gates: every arm's tokens against a teacher-forced plain
+    pass; spec rounds and accepted tokens > 0; tree drafts > 0 on the
+    regeneration; every verify window's kernel launches on the window
+    kernel (8 a round per shard; "mma" in bf16), at tp=2 through the
+    sharded entry point; every window a graph replay; and the window kernel
+    at W = 9 against its plain version. Prints spec-on against spec-off
+    tok/s, accepted tokens a round, and that window's ms beside SDPA."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.parallel import build_mesh
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    cases = SPEC_CASES_SMALL if small else SPEC_CASES
+    tmpl = TEMPLATED_SMALL if small else TEMPLATED
+    stats = {"verify_window_W9": verify_window_case(torch)} if cuda else {}
+    mesh = build_mesh({"tp": 2}, devices=[device, device])
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        buckets = (16, 32, 64, 128, 256)
+        tf = TeacherForced(torch, params, cfg, buckets, device)
+        traffic = {name: ([[(p, new) for p in spec_prompts(cfg, n, plen, new, rep)]],
+                          max_len, n, sync_)
+                   for name, n, plen, new, max_len, rep, sync_ in cases}
+        templ = [(p, tmpl["gen"]) for p in templated_prompts(cfg, tmpl)]
+        traffic["templated"] = ([templ, templ], 512 if small else 1024, tmpl["n"], True)
+        run = {}
+        for name, (rounds, max_len, n_slots, spec_sync) in traffic.items():
+            widths = ((1, None), (2, mesh)) if dtype == ("float32" if small else "bfloat16") \
+                else ((1, None),)
+            arms = [("off", 1, None, {})] + [
+                (f"on_tp{w}", w, m, dict(spec_k=SPEC_K, spec_sync=spec_sync))
+                for w, m in widths]
+            outs = {}
+            for arm, width, m, kw in arms:
+                outs[arm], st = spec_run(torch, cfg, params, device, rounds, max_len, n_slots,
+                                         mesh=m, **kw)
+                prompts = [p for reqs in rounds for p, _ in reqs]
+                flat = [o for r in outs[arm] for o in r]
+                st.update(tf(prompts, flat, dtype))
+                what = f"spec {dtype} {name} {arm}"
+                log(f"{what}: " + json.dumps(st))
+                check_logits(st, f"spec {name} {arm}", F32_CROSS_SHAPE_STEPS)
+                if kw:
+                    check(st["spec_rounds"] > 0 and st["spec_tokens_accepted"] > 0,
+                          f"{what}: {st['spec_rounds']} rounds, "
+                          f"{st['spec_tokens_accepted']} accepted")
+                    if cuda:  # every verify round: one window launch a layer a shard
+                        entry = "paged_window_attention" + ("_sharded" if width == 2 else "")
+                        other = "paged_window_attention" + ("" if width == 2 else "_sharded")
+                        route = "mma" if dtype == "bfloat16" else "simt"
+                        got = st["verify_routes"][entry]
+                        check(got[route] == sum(got.values())
+                              == width * cfg.layers * st["spec_rounds"]
+                              and sum(st["verify_routes"][other].values()) == 0,
+                              f"{what}: verify launches {st['verify_routes']} for "
+                              f"{st['spec_rounds']} rounds")
+                    if name == "templated":
+                        check(st["spec_tree_rounds"] > 0 and st["spec_tree_tokens_accepted"] > 0,
+                              f"{what}: {st['spec_tree_rounds']} tree rounds, "
+                              f"{st['spec_tree_tokens_accepted']} tree tokens accepted")
+                if cuda:
+                    check(st["graph_replays_total"] == st["windows_total"],
+                          f"{what}: {st['graph_replays_total']} replays for "
+                          f"{st['windows_total']} windows")
+                    suffix = "_sharded" if width == 2 else ""
+                    check_routes(st["routes"], "paged_window_attention" + suffix,
+                                 "mma" if dtype == "bfloat16" else "simt", what)
+                    decode = st["routes"]["paged_decode_attention" + suffix]
+                    check(decode["split"] == sum(decode.values()),
+                          f"{what}: decode launches by route {decode}")
+                run[f"{name}_{arm}"] = st
+            run[f"{name}_summary"] = {
+                "tok_per_s": {a: run[f"{name}_{a}"]["decode_tok_per_s"] for a, *_ in arms},
+                "accepted_per_round": {a: run[f"{name}_{a}"]["accepted_per_round"]
+                                       for a, *_ in arms[1:]},
+                "tokens_equal_to_off": {a: outs[a] == outs["off"] for a, *_ in arms[1:]}}
+            log(f"spec {dtype} {name} summary: " + json.dumps(run[f"{name}_summary"]))
+        stats[dtype] = run
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"spec phase_s={stats['phase_s']:.1f}")
     return stats
 
 
@@ -2128,7 +2676,8 @@ def phase_train(torch, device, full=True):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,card,kernels,engine,graph,tp,dense,train")
+    ap.add_argument("--phases",
+                    default="build,card,kernels,engine,graph,tp,radix,spec,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -2147,6 +2696,8 @@ def main(argv=None):
         check_logits(phase_engine(torch, torch.device("cpu"), "float32", small=True), "engine")
         phase_graph(torch, torch.device("cpu"), small=True)
         phase_tp(torch, torch.device("cpu"), small=True)
+        phase_radix(torch, torch.device("cpu"), small=True)
+        phase_spec(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -2176,6 +2727,11 @@ def main(argv=None):
     tp = None
     if "tp" in phases:
         tp = phase_tp(torch, torch.device("cuda"))
+    radix = spec = None
+    if "radix" in phases:
+        radix = phase_radix(torch, torch.device("cuda"))
+    if "spec" in phases:
+        spec = phase_spec(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -2183,7 +2739,7 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if None in (worst, engine, graph, tp, dense, train):
+    if None in (worst, engine, graph, tp, radix, spec, dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

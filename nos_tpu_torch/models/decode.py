@@ -6,7 +6,8 @@ Port of `nos_tpu/models/decode.py`: the dense programs `init_cache` (:21),
 `_attend_cache` (:33), `TPLocal` (:54), `_embed` / `_lm_logits` (:113,
 :117), `_block_core` (:123); and the paged ones, `init_paged_cache` (:242,
 native pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393),
-`_paged_window_core` (:469) and `paged_prefill_window` (:603).
+`_paged_window_core` (:469), `paged_verify_window` (:545) and
+`paged_prefill_window` (:603).
 
 Tensor parallelism (docs/sharded-decode.md) runs under one controller: where
 JAX runs a `shard_map`'d body once per device, the paged programs here take
@@ -522,6 +523,28 @@ def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengt
 
         x = _block_core(x, params["layers"][str(i)], cfg, positions, attend)
     return x, pcache
+
+
+def paged_verify_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths, mask,
+                        block_size: int, tp: Optional[TPLocal] = None):
+    """Batched speculative-verify window (decode.py:545): tokens [B, W] are
+    per-slot draft windows (window[0] = the slot's last accepted token),
+    each slot writing K/V at pos[b]..pos[b]+lengths[b]-1 into its own pages
+    and attending causally over its confirmed prefix plus the window. Rows
+    past lengths[b] and lanes with mask[b]=False write the scratch page and
+    yield logits the caller ignores. Returns (logits [B, W, vocab] f32,
+    pool). Rejected rows leave stale K/V past the accepted position; the
+    next round's window starts there and overwrites it before anything
+    attends that far. Within a tick this program, the prefill waves and
+    the decode window write disjoint page sets (masked lanes write only
+    the scratch page), as `paged_decode_step` does."""
+    x, pcache = _paged_window_core(
+        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp
+    )
+    if tp is not None:
+        return _lm_logits(x, params, tp), pcache
+    x = _rmsnorm(x, params["ln_f"])
+    return _lm_logits(x, params), pcache
 
 
 def paged_prefill_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,

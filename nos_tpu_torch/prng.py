@@ -32,16 +32,18 @@ uniforms are exact.
 
 Nothing on a draw's path copies from host memory, so a CUDA graph can
 capture it (the engine's decode window, `runtime/decode_server.py`): the
-float constants of `uniform` are 0-d tensors made once per device and
-value and kept (`_f32`). `fold_in` with a Python int still builds its
-datum on the host; the engine folds tensors.
+float constants of `uniform` enter as Python scalars (kernel arguments, no
+copy), rounded to float32 on the host first, so the arithmetic is JAX's
+float32 arithmetic. A draw keeps no state between calls. `fold_in` with a
+Python int still builds its datum on the host; the engine folds tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple, Union
+from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -51,19 +53,6 @@ _F32_TINY = torch.finfo(torch.float32).tiny
 _F32_ONE_BITS = 0x3F800000  # 1.0f: exponent 0, mantissa filled from the bits
 
 IntOrTensor = Union[int, torch.Tensor]
-
-_F32: Dict[Tuple[torch.device, float], torch.Tensor] = {}
-
-
-def _f32(value: float, device: torch.device) -> torch.Tensor:
-    """The 0-d float32 tensor `value` on `device`, made on first use and
-    kept: the same bits as a fresh `torch.tensor(value)`, without a host
-    copy on every draw."""
-    key = (device, float(value))
-    t = _F32.get(key)
-    if t is None:
-        t = _F32[key] = torch.tensor(value, dtype=torch.float32, device=device)
-    return t
 
 
 def _rotl(x, r: int):
@@ -140,12 +129,13 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """`jax.random.uniform` in float32: the high 23 bits as the mantissa of
     a float in [1, 2), minus 1, scaled into [minval, maxval) and raised to
-    at least minval."""
+    at least minval. minval, maxval and their difference are float32
+    values, as JAX's are; a float32 tensor times a Python float is float32
+    arithmetic."""
+    lo, hi = np.float32(minval), np.float32(maxval)
     bits = random_bits(key, shape)
-    floats = (((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
-              - _f32(1.0, key.device))
-    lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    floats = ((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

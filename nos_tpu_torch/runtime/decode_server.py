@@ -13,11 +13,15 @@ sampling (the threefry keys of `nos_tpu_torch/prng.py`, bit for bit JAX's),
 one device or a tensor-parallel mesh, the budgeted chunked prefill
 (including the multi-slot `paged_prefill_window` wave), the K-step macro
 decode, fused bursts of N macro windows in one dispatch (`burst_windows`,
-4 by default as in the reference), the flat chain-key prefix cache of
-`BlockManager`, and eos handling. The constructor keeps the reference's
-signature; every argument that would arm a feature not yet ported (radix
-COW, the spill tier, speculation, the int8 pool, quotas, fault injection
-and recovery, tracing, the cost ledger, the fleet KV store) raises
+4 by default as in the reference), the prefix cache as the radix tree
+(`radix_cache=True`, the default: mid-block copy-on-write and multi-turn
+registration of finished outputs) or as the flat chain index, the
+host-RAM spill tier under it (`spill_blocks=None`, the default, sizes it
+at one pool), speculative decoding (`spec_k > 0`: tree and prompt-lookup
+drafts verified through `paged_verify_window`), and eos handling. The
+constructor keeps the reference's signature; every argument that would
+arm a feature not yet ported (the int8 pool, quotas, fault injection and
+recovery, tracing, the cost ledger, the fleet KV store) raises
 NotImplementedError naming its ROADMAP item, with a mesh or without. An
 exception on the tick path fails every outstanding request and resets the
 pool (the reference's `surgical_recovery=False` behaviour).
@@ -28,7 +32,10 @@ its K-step window (`_macro`); here, on CUDA, the constructor captures the
 window once as a CUDA graph (`_WindowGraph`) over fixed device state (the
 pool, the TickState buffers, the last-token and eos-carry vectors), and
 every macro dispatch and every window of a burst replays it. Prefill runs
-eagerly. On the CPU the same `_macro` runs eagerly as the window.
+eagerly, and so do verify rounds and the spill tier's copies, which write
+the pool in place: a verify round moves a drafting slot's `pos` on the
+host, and the next packed sync carries it into the TickState buffers the
+graph reads. On the CPU the same `_macro` runs eagerly as the window.
 Tensor parallelism (`mesh` with a `tp_axis` wider than 1,
 docs/sharded-decode.md) keeps one controller: params are placed per shard by
 `decode_param_rules`, the pool is partitioned on KV heads, and the programs
@@ -47,6 +54,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future
 from contextlib import contextmanager
@@ -64,12 +72,21 @@ from nos_tpu_torch.models.decode import (
     paged_decode_step,
     paged_prefill_chunk,
     paged_prefill_window,
+    paged_verify_window,
     place_tp,
 )
 from nos_tpu_torch.models.gpt import GPTConfig
+from nos_tpu_torch.models.speculative import (
+    SOURCE_HISTORY,
+    SOURCE_TREE,
+    AdaptiveSpec,
+    _LookupIndex,
+    accept_prefix,
+)
 from nos_tpu_torch.ops import decode_attention, flash_attention, paged_attention
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
+from nos_tpu_torch.runtime.spill import SpillTier
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
 
 logger = logging.getLogger(__name__)
@@ -198,10 +215,41 @@ class _Slot:
     remaining: int = 0  # generated tokens still to dispatch
     # Token sources in generation order: (ref, lane, row) — row None = the
     # admission wave's first-token vector (indexed by lane); otherwise the
-    # step's row of its macro window [K, n_slots].
+    # step's row of its macro window [K, n_slots] (or a verify round's
+    # host-side accepted-token column [m, 1], lane 0).
     refs: List[Tuple[_TokRef, int, Optional[int]]] = field(default_factory=list)
     eos_scanned: int = 0
     future: Optional[Future] = None
+    # The client's prompt: what a finished request registers its output
+    # blocks under (radix mode).
+    request_prompt: Optional[list] = None
+    # Host-tier prefix blocks still to copy in, (token offset, block, chain
+    # key) in prefix order, and the staged copy-on-write, (token offset,
+    # destination block, pinned source block or None for a host source,
+    # source chain key, tokens to copy): both consumed by the prefill pump
+    # ahead of recompute chunks.
+    pending_revives: List[Tuple[int, int, str]] = field(default_factory=list)
+    pending_cow: Optional[Tuple[int, int, Optional[int], str, int]] = None
+    # Speculation (spec_k > 0): the prompt, the host-side history (prompt +
+    # generated, synced from refs) and its lookup index; `verifying` keeps
+    # the slot out of every dispatch while its verify round is unresolved;
+    # `adapt` is the per-source acceptance controller.
+    prompt: Optional[list] = None
+    history: Optional[list] = None
+    lookup: Optional[_LookupIndex] = None
+    verifying: bool = False
+    adapt: Optional[AdaptiveSpec] = None
+
+
+@dataclass
+class _PendingVerify:
+    """One in-flight verify dispatch: the device-held argmax predictions
+    [n_slots, spec_k + 1], each drafting slot's dispatched window, and the
+    source that drafted it."""
+
+    preds: _TokRef
+    windows: Dict[int, list]
+    sources: Dict[int, str]
 
 
 class DecodeServer:
@@ -226,8 +274,8 @@ class DecodeServer:
         spec_tree_drafts: bool = True,
         prefill_budget_tokens: Optional[int] = None,
         prefix_cache: bool = True,
-        radix_cache: bool = False,
-        spill_blocks: Optional[int] = 0,
+        radix_cache: bool = True,
+        spill_blocks: Optional[int] = None,
         kv_store=None,
         quota=None,
         mesh=None,
@@ -258,8 +306,21 @@ class DecodeServer:
         1 = every window its own tick); `prefill_budget_tokens` bounds the
         prompt tokens one tick may dispatch (None = the largest bucket, 0
         = unbudgeted); `prefix_cache` maps cached full prompt blocks into a
-        new slot's page table instead of recomputing them. Outputs are
-        identical for any K, N, budget and prefix-cache setting.
+        new slot's page table instead of recomputing them; `radix_cache`
+        (effective with `prefix_cache`) makes that index a radix tree:
+        a prompt diverging mid-block from a cached path copies the shared
+        head (copy-on-write) and a finished request registers its output
+        blocks, so a follow-up turn is charged about its new suffix.
+        `spill_blocks` sizes the host-RAM tier a cached block about to be
+        evicted spills to, revived by a copy-in charged against the
+        prefill budget (None: one pool's worth; 0: off). `spec_k` > 0
+        drafts up to spec_k tokens per slot (the radix tree's stored
+        continuation when `spec_tree_drafts`, else the slot's own
+        prompt-lookup n-gram index of `spec_ngram`) and verifies them in
+        one `paged_verify_window` over the drafting slots; greedy only.
+        `spec_sync` syncs histories (blocking) before every draft probe.
+        Outputs are identical for any K, N, budget, prefix, radix, spill
+        and speculation setting.
 
         On CUDA the constructor captures the K-step window as a CUDA graph
         (`_WindowGraph`) that every window replays (`graph_replays`
@@ -270,11 +331,6 @@ class DecodeServer:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
         # (armed?, what it arms, its item in ROADMAP.md queue A)
         armed = [
-            (int(spec_k) > 0, "speculation", "Speculation"),
-            (bool(radix_cache) and bool(prefix_cache), "the radix cache",
-             "Radix COW and the spill tier"),
-            (spill_blocks is None or int(spill_blocks) > 0, "the spill tier",
-             "Radix COW and the spill tier"),
             (kv_dtype == constants.KV_DTYPE_INT8, "the int8 pool", "The int8 engine"),
             (quota is not None, "tenant quotas", "Fleet"),
             (fault_injector is not None or bool(surgical_recovery),
@@ -359,7 +415,27 @@ class DecodeServer:
                                      mesh=self._mesh, tp_axis=tp_axis)
         self._table_np = np.zeros((n_slots, self.max_pages), dtype=np.int32)
         self.prefix_cache = bool(prefix_cache)
-        self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots)
+        self.radix_cache = bool(radix_cache) and self.prefix_cache
+        self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots,
+                                       radix=self.radix_cache)
+        # The host-RAM spill tier (decode_server.py:775-812), attached with
+        # this engine's copy-out: the engine owns the pool, the manager
+        # decides when content moves.
+        if spill_blocks is None:
+            spill_blocks = self.total_blocks
+        self.spill_tier: Optional[SpillTier] = None
+        itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+        #: Bytes of one full-width spilled block (every layer's K and V).
+        self._bytes_per_block = (cfg.layers * 2 * cfg.n_kv * self.block_size
+                                 * cfg.head_dim * itemsize)
+        if int(spill_blocks) > 0:
+            self.spill_tier = SpillTier(int(spill_blocks) * self._bytes_per_block)
+            # A weak reader: the manager must not keep the engine, and with
+            # it the pool's device memory, alive in a reference cycle.
+            reader = weakref.WeakMethod(self._extract_block)
+            self._block_mgr.attach_spill(self.spill_tier, lambda block: reader()(block))
+        #: Tier payloads refused for a wire format this pool cannot take.
+        self.kv_quant_payload_rejected = 0
         self._waiting: Deque[_Request] = deque()
         self._queue: "queue.Queue" = queue.Queue()
         self._slots = [_Slot() for _ in range(n_slots)]
@@ -402,12 +478,42 @@ class DecodeServer:
         self.ttft_s: List[float] = []
         #: Host wall seconds per tick phase (constants.TICK_PHASES).
         self.tick_phase_s: Dict[str, float] = {p: 0.0 for p in constants.TICK_PHASES}
+        self._phase_nested: List[float] = []
         # Per-slot sampling identity: (serial of the request in the slot,
         # step within the request), riding in the packed tick state. Serials
         # make streams independent of slot reuse order.
         self._slot_serial = np.zeros((n_slots,), dtype=np.int64)
         self._next_serial = 1
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        # Speculation (decode_server.py:974-989, :887-923).
+        self.spec_k = max(0, int(spec_k))
+        self.spec_ngram = int(spec_ngram)
+        self.spec_sync = bool(spec_sync)
+        self.spec_tree_drafts = bool(spec_tree_drafts)
+        if self.spec_k > 0 and self.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) is greedy-exact: "
+                "temperature must be 0"
+            )
+        if self.spec_k > 0:
+            # Drafts come from materialized tokens: a deep pipeline would
+            # keep refs in flight and starve the lookup.
+            self.pipeline_depth = min(self.pipeline_depth, 2)
+        self._pending_verifies: Deque[_PendingVerify] = deque()
+        #: Verify dispatches, tokens they accepted, and source demotions;
+        #: by draft source too (tree + history rounds = verify windows
+        #: drafted, tree + history accepted = spec_tokens_accepted).
+        self.spec_rounds = 0
+        self.spec_tokens_accepted = 0
+        self.spec_demotions = 0
+        self.spec_tree_rounds = 0
+        self.spec_history_rounds = 0
+        self.spec_tree_tokens_accepted = 0
+        self.spec_history_tokens_accepted = 0
+        self.spec_tree_demotions = 0
+        self.spec_history_demotions = 0
+        #: Ticks that dispatched both a verify round and a macro window.
+        self.both_dispatch_ticks = 0
         #: CUDA graphs captured, and windows run as a graph replay.
         self.graph_captures = 0
         self.graph_replays = 0
@@ -424,6 +530,76 @@ class DecodeServer:
         mesh's shards."""
         return init_paged_cache(self.cfg, self.total_blocks, self.block_size,
                                 device=self.device, mesh=self._mesh, tp_axis=self._tp_axis)
+
+    def _pools(self) -> list:
+        """The pool's per-layer dicts, one per shard in shard order."""
+        return self.cache if self._tp is not None else [self.cache]
+
+    # -- the spill tier's and the radix tree's copies (decode_server.py:1210-1299)
+    # Plain PyTorch, native pool, on the engine's stream: they write the
+    # pool's tensors in place and never rebind them (the captured window
+    # holds their addresses). A payload is the block's K and V over every
+    # layer at full width, [layers, n_kv, block_size, head_dim] each: under
+    # a mesh the copy-out gathers the shards' KV-head slices and the
+    # copy-in slices them back, so a payload is the same bytes at any tp.
+    def _extract(self, block: int):
+        """One block's (k, v) payload, on the engine's device."""
+        L = self.cfg.layers
+        out = []
+        for name in ("k", "v"):
+            parts = [torch.stack([pool[str(i)][name][block] for i in range(L)])
+                     for pool in self._pools()]
+            out.append(parts[0] if len(parts) == 1
+                       else torch.cat([p.to(self.device) for p in parts], dim=1))
+        return tuple(out)
+
+    def _revive(self, k: torch.Tensor, v: torch.Tensor, block: int) -> None:
+        """Copy a full-width payload on the engine's device into `block`."""
+        pools = self._pools()
+        width = k.shape[1] // len(pools)
+        for s, pool in enumerate(pools):
+            dev = pool["0"]["k"].device
+            ks = k[:, s * width:(s + 1) * width].to(dev)
+            vs = v[:, s * width:(s + 1) * width].to(dev)
+            for i in range(self.cfg.layers):
+                pool[str(i)]["k"][block].copy_(ks[i])
+                pool[str(i)]["v"][block].copy_(vs[i])
+
+    def _cow_copy(self, src: int, dst: int, length: int) -> None:
+        """The first `length` rows of block `src` into block `dst`, every
+        layer, each shard its own head slices. `src` is only read."""
+        for pool in self._pools():
+            for layer in pool.values():
+                for t in (layer["k"], layer["v"]):
+                    t[dst, :, :length].copy_(t[src, :, :length])
+
+    def _extract_block(self, block: int):
+        """The spill tier's reader: one block's payload copied to host
+        memory, (payload, nbytes). One counted blocking read per block: it
+        waits behind everything queued on the stream that may still write
+        the block. Spilling is the slow path by definition (allocation
+        pressure), and the bytes moved are the point."""
+        k, v = self._extract(block)
+        self._syncs.note()
+        k, v = k.cpu(), v.cpu()
+        return (k, v), k.numel() * k.element_size() + v.numel() * v.element_size()
+
+    def _payload_matches(self, payload) -> bool:
+        """A native engine takes (k, v) pairs; anything else (a tagged int8
+        payload) is refused and recomputed instead."""
+        return (isinstance(payload, (tuple, list)) and len(payload) == 2
+                and not isinstance(payload[0], str))
+
+    def _dispatch_revive(self, payload, block: int) -> bool:
+        """Copy one tier payload into device `block`: two counted uploads,
+        then the in-place copy-in. False (counted) for a payload of
+        another wire format; the caller recomputes the range."""
+        if not self._payload_matches(payload):
+            self.kv_quant_payload_rejected += 1
+            return False
+        kx, vx = payload
+        self._revive(self._stage.to_device(kx), self._stage.to_device(vx), block)
+        return True
 
     def _table(self):
         """The tick state's block table as the programs take it: one tensor,
@@ -590,6 +766,8 @@ class DecodeServer:
                 slot.future.set_exception(exc)
             self._release_slot(idx)
         self._inflight.clear()
+        # Unresolved verify rounds refer to slots that no longer exist.
+        self._pending_verifies.clear()
         while self._waiting:
             req = self._waiting.popleft()
             if not req.future.done():
@@ -605,7 +783,10 @@ class DecodeServer:
     def _release_slot(self, idx: int) -> None:
         """Return the slot's page references to the pool (shared blocks only
         decrement; refcount-0 indexed blocks retire to the cached-free LRU)
-        and clear its lane."""
+        and clear its lane. Claimed revives not yet copied die with it."""
+        slot = self._slots[idx]
+        if slot.pending_revives and self.spill_tier is not None:
+            self.spill_tier.unstage([k for _, _, k in slot.pending_revives])
         self._block_mgr.release(idx)
         self._slots[idx] = _Slot()
         self._tick_state.mark_table_dirty()
@@ -614,12 +795,13 @@ class DecodeServer:
         """After an engine error the pool is untrustworthy: zero it, and the
         token vectors, in place (the reference reallocates them; the
         captured window holds their addresses)."""
-        for pool in self.cache if self._tp is not None else [self.cache]:
+        for pool in self._pools():
             for layer in pool.values():
                 layer["k"].zero_()
                 layer["v"].zero_()
         self._table_np[:] = 0
         self._tick_state.mark_table_dirty()
+        # The device index dies with the pool; host payloads survive.
         self._block_mgr.reset()
         self._last_dev.zero_()
         self._first_dev.zero_()
@@ -700,15 +882,24 @@ class DecodeServer:
             self._next_serial += 1
             slot.phase = "reserved"
             slot.future = req.future
+            slot.request_prompt = prompt
             slot.pending_prompt = prompt
             # Prefix hits are already in the page table: the cursor starts
             # at the first miss (always below the last-token block).
             slot.prefill_cursor = n_hit * self.block_size
+            # Host-tier hits right behind the device run, to copy in
+            # (_pump_revives), then the diverging block's shared head, to
+            # copy (_pump_cow), both instead of recomputing them.
+            slot.pending_revives = self._block_mgr.claim_revives(idx)
+            slot.pending_cow = self._block_mgr.claim_cow(idx)
             slot.t_submit = req.t_submit
             slot.pos = slot.prefill_cursor
             slot.remaining = req.max_new - 1
             slot.refs = []
             slot.eos_scanned = 0
+            if self.spec_k > 0:
+                slot.prompt = list(prompt)
+                slot.adapt = AdaptiveSpec()
             slot.active = True
             self.queue_wait_s.append(time.monotonic() - req.t_submit)
 
@@ -736,10 +927,29 @@ class DecodeServer:
         exhausted = False
         while not exhausted:
             wave: List[Tuple[int, int, list]] = []
+            revived = 0
             for idx in order:
                 slot = self._slots[idx]
                 if slot.phase not in ("reserved", "prefilling"):
                     continue  # finished in an earlier wave of this tick
+                if slot.pending_revives or slot.pending_cow is not None:
+                    # This wave's visit goes to the copies, charged like
+                    # the recompute they replace; if the budget closes
+                    # before they are done, the rest waits a tick.
+                    with self._phase(constants.TICK_PHASE_PUMP_REVIVES):
+                        if slot.pending_revives:
+                            n_copies, used = self._pump_revives(idx, budget, spent)
+                            left = bool(slot.pending_revives)
+                        else:
+                            n_copies, used = self._pump_cow(idx, budget, spent)
+                            left = slot.pending_cow is not None
+                    revived += n_copies
+                    dispatches += n_copies
+                    spent += used
+                    if left:
+                        exhausted = True
+                        break
+                    continue
                 start = slot.prefill_cursor
                 piece = slot.pending_prompt[start : start + chunk]
                 if budget and spent and spent + len(piece) > budget:
@@ -747,12 +957,80 @@ class DecodeServer:
                     break
                 wave.append((idx, start, piece))
                 spent += len(piece)
-            if not wave:
+            if not wave and not revived:
                 break
-            dispatches += self._dispatch_prefill_wave(wave)
+            if wave:
+                dispatches += self._dispatch_prefill_wave(wave)
             if budget and spent >= budget:
                 break
         return dispatches
+
+    def _pump_revives(self, idx: int, budget: int, spent: int) -> Tuple[int, int]:
+        """Copy slot `idx`'s host-spilled prefix blocks into its fresh
+        pages, front first, `block_size` budget tokens a block
+        (decode_server.py:2368). Returns (copy-ins, budget used). A payload
+        the tier dropped meanwhile sends the rest of the run to recompute:
+        the same output, paid in forward passes."""
+        slot = self._slots[idx]
+        copies = used = 0
+        while slot.pending_revives:
+            start, block, key = slot.pending_revives[0]
+            if start != slot.prefill_cursor:
+                # The compute path already owns this range: recompute.
+                self.spill_tier.unstage([k for _, _, k in slot.pending_revives])
+                slot.pending_revives = []
+                break
+            cost = self.block_size
+            if budget and (spent + used) and spent + used + cost > budget:
+                break
+            payload = self.spill_tier.take(key)
+            if payload is None or not self._dispatch_revive(payload, block):
+                self.spill_tier.unstage([k for _, _, k in slot.pending_revives[1:]])
+                slot.pending_revives = []
+                break
+            self._tick_state.mark_dirty()
+            slot.pending_revives.pop(0)
+            slot.prefill_cursor = start + cost
+            slot.pos = slot.prefill_cursor
+            if slot.phase == "reserved":
+                slot.phase = "prefilling"
+            copies += 1
+            used += cost
+            # Device-resident again: re-index it for same-prefix arrivals.
+            self._block_mgr.note_progress(idx, slot.prefill_cursor)
+        return copies, used
+
+    def _pump_cow(self, idx: int, budget: int, spent: int) -> Tuple[int, int]:
+        """Slot `idx`'s staged copy-on-write, charging its `length` budget
+        tokens (decode_server.py:2459): a device source is one `_cow_copy`
+        (its pin released after), a host source a full-payload revive into
+        the private block, of which only the matched head counts (the slot's
+        own chunks overwrite the tail before anything attends it). A
+        dropped payload means recompute. Returns (copies, budget used);
+        `pending_cow` still set means the budget closed first."""
+        slot = self._slots[idx]
+        offset, dst, src, key, n = slot.pending_cow
+        if offset != slot.prefill_cursor:
+            slot.pending_cow = None
+            self._block_mgr.cow_done(idx)
+            return 0, 0
+        if budget and spent and spent + n > budget:
+            return 0, 0
+        if src is not None:
+            self._cow_copy(src, dst, n)
+            self._block_mgr.cow_done(idx)
+        else:
+            payload = self.spill_tier.get(key) if self.spill_tier is not None else None
+            if payload is None or not self._dispatch_revive(payload, dst):
+                slot.pending_cow = None
+                return 0, 0
+        slot.pending_cow = None
+        slot.prefill_cursor = offset + n
+        slot.pos = slot.prefill_cursor
+        if slot.phase == "reserved":
+            slot.phase = "prefilling"
+        self._tick_state.mark_dirty()
+        return 1, n
 
     def _dispatch_prefill_wave(self, wave: List[Tuple[int, int, list]]) -> int:
         """Dispatch one wave. Mid-prompt chunks sharing a bucket go through
@@ -864,8 +1142,17 @@ class DecodeServer:
             return
         if slot.remaining <= 0 or slot.pos >= self.max_len:
             out = self._finalize(slot)
+            self._register_output(idx, slot, out)
             slot.future.set_result(out)
             self._release_slot(idx)
+
+    def _register_output(self, idx: int, slot: _Slot, out: List[int]) -> None:
+        """Radix mode (decode_server.py:2942): key the finished request's
+        generated-token blocks, so a follow-up turn re-submitting `history
+        + new tokens` walks the tree to the end of the history. Runs just
+        before the release, so those blocks retire to the cached LRU."""
+        if self.radix_cache:
+            self._block_mgr.register_output(idx, list(slot.request_prompt or []) + out)
 
     def _scan_eos(self) -> None:
         """With an eos_id, termination depends on token values: scan refs
@@ -884,9 +1171,172 @@ class DecodeServer:
                 slot.eos_scanned += 1
                 if token == self.eos_id:
                     slot.refs = slot.refs[: slot.eos_scanned]
-                    slot.future.set_result(self._finalize(slot))
+                    out = self._finalize(slot)
+                    self._register_output(idx, slot, out)
+                    slot.future.set_result(out)
                     self._release_slot(idx)
                     break
+
+    # -- speculative rounds (decode_server.py:2991-3259) -------------------------
+    def _sync_spec_history(self, idx: int, blocking: bool) -> bool:
+        """Bring the slot's host history up to date with its refs (only
+        refs already materialized unless `blocking`). True when every
+        dispatched token is in it: the verify round needs window[0] to be
+        the true last token, at slot.pos == len(history) - 1."""
+        slot = self._slots[idx]
+        if slot.history is None:
+            if not slot.refs:
+                return False  # prefill not dispatched yet
+            if not blocking and not slot.refs[0][0].is_ready():
+                return False
+            slot.history = list(slot.prompt)
+            slot.lookup = _LookupIndex(slot.history, self.spec_ngram)
+        known = len(slot.history) - len(slot.prompt)
+        new = []
+        for ref, lane, row in slot.refs[known:]:
+            if not blocking and not ref.is_ready():
+                break
+            new.append(self._token_at(ref, lane, row))
+        if new:
+            slot.lookup.extend(new)  # appends to slot.history (shared alias)
+        return len(slot.history) - len(slot.prompt) == len(slot.refs)
+
+    def _spec_sources(self) -> List[str]:
+        """Draft sources in probe order: the radix tree's stored
+        continuation (tree armed and `spec_tree_drafts`), then the slot's
+        own prompt lookup, always last."""
+        if self.spec_tree_drafts and self._block_mgr.has_tree():
+            return [SOURCE_TREE, SOURCE_HISTORY]
+        return [SOURCE_HISTORY]
+
+    def _spec_drafts(self) -> dict:
+        """Non-blocking draft probe: {slot idx -> (draft tokens, source)}
+        for decoding slots with no verify in flight, more than one token
+        left, a source their controller allows, a fully synced history,
+        and a continuation from a source. The tree probe
+        (`BlockManager.draft_continuation`) reads without touching
+        refcounts or the LRU."""
+        drafts = {}
+        sources = self._spec_sources()
+        for idx, slot in enumerate(self._slots):
+            if not slot.active or slot.phase != "decoding":
+                continue
+            if slot.verifying or slot.remaining <= 1:
+                continue
+            if not any(slot.adapt.allowed(len(slot.refs), s) for s in sources):
+                continue
+            if not self._sync_spec_history(idx, blocking=self.spec_sync):
+                continue
+            # At most `remaining` tokens a round, and the window's last row
+            # inside the slot's blocks (positions 0..prompt+max_new-2).
+            base = min(self.spec_k, slot.remaining - 1)
+            for source in sources:
+                if not slot.adapt.allowed(len(slot.refs), source):
+                    continue
+                cap = min(base, slot.adapt.cap(self.spec_k, source))
+                if source == SOURCE_TREE:
+                    d = self._block_mgr.draft_continuation(slot.history, cap)
+                else:
+                    d = slot.lookup.draft(cap)
+                if d:
+                    drafts[idx] = (d, source)
+                    break
+        return drafts
+
+    def _dispatch_verify(self, drafts: dict) -> None:
+        """One `paged_verify_window` over ONLY the drafting slots (the
+        other lanes write the scratch page), W = spec_k + 1 rows each. The
+        [n_slots, W] greedy predictions stay on the device as a `_TokRef`;
+        acceptance resolves on a later tick while macro windows go on."""
+        W = self.spec_k + 1
+        tokens = np.zeros((self.n_slots, W), dtype=np.int32)
+        lengths = np.zeros((self.n_slots,), dtype=np.int32)
+        active = np.zeros((self.n_slots,), dtype=bool)
+        windows: Dict[int, list] = {}
+        sources: Dict[int, str] = {}
+        for idx, (draft, source) in drafts.items():
+            slot = self._slots[idx]
+            window = [slot.history[-1]] + draft[: max(0, slot.remaining - 1)]
+            windows[idx] = window
+            sources[idx] = source
+            tokens[idx, : len(window)] = window
+            lengths[idx] = len(window)
+            active[idx] = True
+            slot.verifying = True
+            if source == SOURCE_TREE:
+                self.spec_tree_rounds += 1
+            else:
+                self.spec_history_rounds += 1
+        # The drafting flags changed the macro mask: the verify's read of
+        # `pos` and this tick's window consume one freshly packed state.
+        self._tick_state.mark_dirty()
+        self._sync_tick_state()
+        logits, _ = paged_verify_window(
+            self.params, self._stage.to_device(tokens), self.cfg, self.cache, self._table(),
+            self._tick_state.pos, self._stage.to_device(lengths),
+            self._stage.to_device(active), self.block_size, tp=self._tp,
+        )
+        self.steps_run += 1
+        self.spec_rounds += 1
+        self._pending_verifies.append(
+            _PendingVerify(_TokRef(greedy(logits), self._syncs), windows, sources))
+
+    def _resolve_verifies(self, block: bool) -> None:
+        """Fold completed verify rounds into slot state, oldest first: only
+        rounds whose predictions are ready, or with `block` the oldest one
+        (used only when the drafting slots are the engine's sole possible
+        progress; at most one blocking read a call)."""
+        while self._pending_verifies:
+            entry = self._pending_verifies[0]
+            if not block and not entry.preds.is_ready():
+                return
+            self._pending_verifies.popleft()
+            block = False
+            self._apply_verify(entry)
+
+    def _apply_verify(self, entry: _PendingVerify) -> None:
+        """Resolve one verify round: one host read of the [n_slots, W]
+        predictions, then per slot the accepted prefix, its controller's
+        update, and an in-place scatter of each slot's new last token into
+        the step-feed vector."""
+        preds = entry.preds.np()
+        self._tick_state.mark_dirty()
+        rows: List[int] = []
+        vals: List[int] = []
+        for idx, window in entry.windows.items():
+            slot = self._slots[idx]
+            if not slot.active or not slot.verifying:
+                continue  # released meanwhile
+            slot.verifying = False
+            accepted = accept_prefix(window, preds[idx, : len(window)])
+            # A host-backed ref: it materializes without a device read.
+            ref = _TokRef(torch.tensor(accepted, dtype=torch.int32).reshape(-1, 1))
+            slot.refs.extend((ref, 0, j) for j in range(len(accepted)))
+            slot.pos += len(accepted)
+            slot.remaining -= len(accepted)
+            slot.lookup.extend(accepted)
+            self.spec_tokens_accepted += len(accepted)
+            source = entry.sources.get(idx, SOURCE_HISTORY)
+            if source == SOURCE_TREE:
+                self.spec_tree_tokens_accepted += len(accepted)
+            else:
+                self.spec_history_tokens_accepted += len(accepted)
+            if len(window) > 1 and slot.adapt.observe(
+                    len(window) - 1, len(accepted) - 1, len(slot.refs), source):
+                self.spec_demotions += 1
+                if source == SOURCE_TREE:
+                    self.spec_tree_demotions += 1
+                else:
+                    self.spec_history_demotions += 1
+            rows.append(idx)
+            vals.append(accepted[-1])
+            if self.eos_id is not None and self.eos_id in accepted:
+                slot.remaining = 0  # _finalize truncates at the eos
+            self._finish_if_done(idx)
+        if rows:
+            with self._phase(constants.TICK_PHASE_SAMPLE_SCATTER):
+                self._last_dev[self._stage.to_device(rows, dtype=torch.long)] = (
+                    self._stage.to_device(vals, dtype=torch.int32))
 
     # -- the tick ----------------------------------------------------------------
     def _run(self) -> None:
@@ -900,19 +1350,27 @@ class DecodeServer:
 
     @contextmanager
     def _phase(self, name: str):
+        """Time a tick phase, exclusive of the phases nested in it."""
         t0 = time.perf_counter()
+        self._phase_nested.append(0.0)
         try:
             yield
         finally:
-            self.tick_phase_s[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.tick_phase_s[name] += dt - self._phase_nested.pop()
+            if self._phase_nested:
+                self._phase_nested[-1] += dt
 
     def _tick(self) -> None:
         """One engine iteration (decode_server.py:3610, :3639): (1)
         admission reserves slots and pages, (2) the prefill budget
-        dispatches bounded chunk waves, (3) every decoding slot gets the
-        K-step macro program, or, in a steady decode state, a burst of up
-        to N of them in one dispatch. All of it is ordered on one stream
-        over disjoint page sets."""
+        dispatches bounded chunk waves (and the copy-ins and COW copies
+        ahead of them), (3) drafting slots get one verify dispatch, (4)
+        every other decoding slot gets the K-step macro program, or, in a
+        steady decode state, a burst of up to N of them in one dispatch.
+        All of it is ordered on one stream over disjoint page sets. The
+        only blocking read is the oldest verify round's, when the drafting
+        slots are the engine's sole possible progress."""
         if self._engine_idle and self._queue.empty():
             # The previous tick proved the engine empty; only a submit can
             # change that.
@@ -922,6 +1380,9 @@ class DecodeServer:
         self._engine_idle = False
         with self._phase(constants.TICK_PHASE_ADMIT):
             self._admit()
+        if self._pending_verifies:
+            with self._phase(constants.TICK_PHASE_RESOLVE):
+                self._resolve_verifies(block=False)
         with self._phase(constants.TICK_PHASE_EOS_SCAN):
             self._scan_eos()
         if not any(s.active for s in self._slots):
@@ -931,22 +1392,42 @@ class DecodeServer:
             return
         with self._phase(constants.TICK_PHASE_PUMP_PREFILL):
             n_prefill = self._pump_prefill()
+        n_drafting = 0
+        if self.spec_k > 0:
+            with self._phase(constants.TICK_PHASE_DISPATCH_VERIFY):
+                drafts = self._spec_drafts()
+                if drafts:
+                    # A blocking (spec_sync) history pass may have
+                    # materialized a late eos: never verify a dead slot.
+                    self._scan_eos()
+                    drafts = {i: d for i, d in drafts.items() if self._slots[i].active}
+                if drafts:
+                    self._dispatch_verify(drafts)
+                    n_drafting = len(drafts)
         macro = [
-            i for i, s in enumerate(self._slots) if s.active and s.phase == "decoding"
+            i for i, s in enumerate(self._slots)
+            if s.active and s.phase == "decoding" and not s.verifying
         ]
         if macro:
             # Steady state? Fuse up to N macro windows into ONE burst
             # dispatch (the host crosses once per K*N tokens); any host
             # obligation degrades to the per-tick macro dispatch.
-            n_burst = self._burst_plan(macro, n_prefill)
+            n_burst = self._burst_plan(macro, n_prefill, n_drafting)
             if n_burst:
                 with self._phase(constants.TICK_PHASE_DISPATCH_BURST):
                     self._dispatch_burst(macro, n_burst)
             else:
                 with self._phase(constants.TICK_PHASE_DISPATCH_MACRO):
                     self._dispatch_macro(macro)
+        if n_drafting and macro:
+            self.both_dispatch_ticks += 1
         if n_prefill and macro:
             self.ticks_with_prefill_and_macro += 1
+        if not n_drafting and not macro and not n_prefill:
+            # Every active slot awaits its verify outcome: the one
+            # blocking read.
+            with self._phase(constants.TICK_PHASE_RESOLVE):
+                self._resolve_verifies(block=True)
 
     def _sync_tick_state(self, for_table_only: bool = False) -> None:
         """Re-sync the device-resident tick metadata from the host mirrors:
@@ -964,23 +1445,26 @@ class DecodeServer:
         packed[:, :P] = self._table_np
         for i, s in enumerate(self._slots):
             packed[i, P] = s.pos
-            packed[i, P + 1] = int(s.active and s.phase == "decoding")
+            packed[i, P + 1] = int(s.active and s.phase == "decoding" and not s.verifying)
             packed[i, P + 2] = self._slot_serial[i]
             packed[i, P + 3] = len(s.refs)
             packed[i, P + 4] = s.remaining if s.active else 0
         st.sync(packed)
 
-    def _burst_plan(self, macro: List[int], n_prefill: int) -> int:
+    def _burst_plan(self, macro: List[int], n_prefill: int, n_drafting: int = 0) -> int:
         """How many macro windows to fuse into one burst dispatch this tick
         (decode_server.py:3827): 0 = stay per-tick. Bursts engage only in a
-        steady decode state: no prefill this tick, every active slot
-        decoding, no queued or waiting request, not stopping or draining,
-        so every host event sees the per-tick engine. The count is capped
-        at the work left (ceil(max remaining / K)), so lanes never coast
-        through whole trailing windows, and a burst has at least 2."""
-        if self.burst_windows <= 1 or n_prefill:
+        steady decode state: no prefill this tick, no slot drafting or
+        awaiting a verify, every active slot decoding, no queued or
+        waiting request, not stopping or draining, so every host event
+        sees the per-tick engine. The count is capped at the work left
+        (ceil(max remaining / K)), so lanes never coast through whole
+        trailing windows, and a burst has at least 2. A spec-armed engine
+        bursts only while every active slot holds every draft source in
+        demotion cooldown, and then ends the burst by the earliest expiry
+        (`AdaptiveSpec.denial_margin`)."""
+        if self.burst_windows <= 1 or n_prefill or n_drafting or self._pending_verifies:
             return 0
-        # A4 (speculation): drafting slots and pending verifies stay per-tick.
         if self._closed.is_set() or self._stop.is_set():
             return 0
         # A8 (fleet): a scheduled injected fault keeps the tick per-tick.
@@ -994,7 +1478,12 @@ class DecodeServer:
         if max_rem <= 0:
             return 0
         n = min(self.burst_windows, -(-max_rem // K))
-        # A4: a spec-armed engine caps n at its slots' draft-denial margin.
+        if self.spec_k > 0:
+            sources = self._spec_sources()
+            margin = min(s.adapt.denial_margin(len(s.refs), sources) for s in active)
+            if not margin:
+                return 0  # some slot could draft right now
+            n = min(n, margin // K)
         return n if n >= 2 else 0
 
     def _dispatch_burst(self, idxs: List[int], n_windows: int) -> None:
@@ -1060,11 +1549,67 @@ class DecodeServer:
         while len(self._inflight) > self.pipeline_depth:
             self._inflight.popleft().np()
 
-    # -- counters ----------------------------------------------------------------
+    # -- counters (read through to the BlockManager and the spill tier) ---------
+    @property
+    def prefix_lookups(self) -> int:
+        return self._block_mgr.lookups
+
+    @property
+    def prefix_hit_blocks(self) -> int:
+        return self._block_mgr.hit_blocks
+
     @property
     def prefix_hit_tokens(self) -> int:
         """Prompt tokens served from cached blocks instead of prefill."""
         return self._block_mgr.hit_tokens
+
+    @property
+    def prefix_evictions(self) -> int:
+        return self._block_mgr.evictions
+
+    @property
+    def prefix_cow_hits(self) -> int:
+        """Admissions that staged a mid-block copy-on-write."""
+        return self._block_mgr.cow_hits
+
+    @property
+    def prefix_cow_tokens(self) -> int:
+        """Prompt tokens served by COW copies instead of recompute."""
+        return self._block_mgr.cow_hit_tokens
+
+    @property
+    def output_blocks_registered(self) -> int:
+        """Generated-token blocks keyed at request completion."""
+        return self._block_mgr.output_blocks
+
+    @property
+    def radix_nodes(self) -> int:
+        """Radix-tree size (0 in flat-chain mode), a gauge."""
+        return self._block_mgr.radix_nodes()
+
+    def prefix_keys(self) -> frozenset:
+        """Chain keys resident in the prefix cache: device index and host
+        tier."""
+        return self._block_mgr.index_keys()
+
+    @property
+    def spills(self) -> int:
+        """Blocks whose KV moved to the host tier instead of being lost."""
+        return self.spill_tier.spills if self.spill_tier is not None else 0
+
+    @property
+    def revives(self) -> int:
+        """Host-tier blocks copied back into device pages."""
+        return self.spill_tier.revives if self.spill_tier is not None else 0
+
+    @property
+    def spill_drops(self) -> int:
+        """Host-tier entries dropped under host-capacity pressure."""
+        return self.spill_tier.drops if self.spill_tier is not None else 0
+
+    @property
+    def spill_host_bytes(self) -> int:
+        return self.spill_tier.host_bytes if self.spill_tier is not None else 0
 
     @property
     def h2d_uploads(self) -> int:

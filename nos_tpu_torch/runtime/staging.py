@@ -47,10 +47,11 @@ class HostStage:
         self.device = torch.device(device)
 
     def to_device(self, value, dtype: torch.dtype = None) -> torch.Tensor:
-        """One counted host->device transfer of a numpy array or list. The
-        result never aliases `value`: later host edits do not reach it."""
+        """One counted host->device transfer of a numpy array, a list or a
+        CPU tensor (a spill payload). The result never aliases `value`:
+        later host edits do not reach it."""
         self.uploads += 1
-        host = torch.as_tensor(np.asarray(value))
+        host = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
         if dtype is not None:
             host = host.to(dtype)
         if self.device.type == "cuda":

@@ -36,7 +36,7 @@ from nos_tpu_torch.runtime import decode_server as ds
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
+JAX_OFF = dict(surgical_recovery=False)
 
 # tests/test_burst_decode.py's prompts. Its eos, 5, is in none of the
 # tiny model's greedy streams; 13 is, at output 8 of the first stream

@@ -3,9 +3,9 @@ the JAX DecodeServer on identical traffic, on the CPU.
 
 Both engines serve the shared float32 test model (the JAX init carried
 across with `from_numpy_params`) and must return IDENTICAL greedy tokens.
-The JAX engine gets the port's "off" values for the features not yet
-ported (radix COW, spill tier, speculation, surgical recovery); its greedy
-outputs do not depend on them. Both engines burst with their shared
+Both run their defaults (the radix cache and the spill tier on), except
+surgical recovery, not ported yet, which the JAX engine gets off; its
+greedy outputs do not depend on it. Both engines burst with their shared
 default, burst_windows=4. Where all traffic is queued before start(), the
 two engines' prefill, macro and burst dispatch counts must agree too. Also pinned here: the package imports neither jax nor nos_tpu,
 and the engine refuses to drift to the CPU when no CUDA device exists."""
@@ -26,7 +26,7 @@ from nos_tpu_torch.models.decode import init_paged_cache
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
+JAX_OFF = dict(surgical_recovery=False)
 DISPATCH_COUNTERS = ("prefill_dispatches", "macro_dispatches", "burst_dispatches",
                      "burst_windows_run", "steps_run", "prefill_tokens")
 
@@ -157,14 +157,13 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    for kw in (dict(quota=object()), dict(kv_store=object()), dict(spec_k=2),
-               dict(radix_cache=True), dict(spill_blocks=None), dict(spill_blocks=8),
+    for kw in (dict(quota=object()), dict(kv_store=object()),
                dict(kv_dtype="int8"), dict(surgical_recovery=True),
                dict(cost_ledger=object())):
         with pytest.raises(NotImplementedError):
             DecodeServer(tparams, tcfg, device="cpu", **kw)
     # radix_cache is inert without the prefix cache, as in the reference.
-    DecodeServer(tparams, tcfg, device="cpu", radix_cache=True, prefix_cache=False)
+    assert not DecodeServer(tparams, tcfg, device="cpu", prefix_cache=False).radix_cache
 
 
 def test_no_device_and_no_cuda_raises(model, monkeypatch):

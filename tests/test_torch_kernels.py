@@ -21,7 +21,10 @@ on the same heads, and a tp=2 engine on one card against tp=1. The engine's
 captured decode window (a CUDA graph) against its eager `_macro` on one
 state: tokens and the state they advance equal, the pool's written pages
 byte for byte, the launch counts equal; and a capture that copies from
-host memory raises."""
+host memory raises. The spill tier's and the radix tree's block copies
+byte for byte on the card (tp=1 and tp=2), a verify window (W = 9) on the
+mma route against the plain version, and a spec-armed engine with the
+radix cache on the card against spec-off."""
 
 import numpy as np
 import pytest
@@ -667,3 +670,141 @@ def test_capture_that_copies_from_host_raises(cuda_device):
 
     with pytest.raises(RuntimeError):
         _WindowGraph(body, cuda_device)
+
+
+# -- the spill tier's and the radix tree's copies, and verify windows -----------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_block_copies_byte_for_byte(cuda_device, dtype, tp):
+    """On the card, `_extract_block` then `_dispatch_revive` writes a block
+    byte for byte its payload, `_cow_copy` copies exactly the first `length`
+    rows of its source, nothing else in the pool moves, and a payload at
+    tp=2 (two shards on one card) is byte for byte the tp=1 payload."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+    from nos_tpu_torch.parallel import build_mesh
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype=dtype)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+
+    def engine(width):
+        mesh = build_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"]) if width == 2 else None
+        server = DecodeServer(params, cfg, mesh=mesh, device=None if mesh else cuda_device,
+                              n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8,
+                              total_blocks=10)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        pools = server.cache if width == 2 else [server.cache]
+        for pool in pools:
+            for layer in pool.values():
+                for t in layer.values():
+                    t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        return server, pools
+
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+
+    server, pools = engine(tp)
+    before = [[t.clone() for layer in pool.values() for t in layer.values()] for pool in pools]
+    (k, v), nbytes = server._extract_block(3)
+    assert k.device.type == "cpu" and nbytes == server._bytes_per_block
+    assert server._dispatch_revive((k, v), 5)
+    server._cow_copy(2, 6, 5)
+    torch.cuda.synchronize()
+    width = cfg.n_kv // tp
+    for s, pool in enumerate(pools):
+        tensors = [t for layer in pool.values() for t in layer.values()]
+        for j, (t, old) in enumerate(zip(tensors, before[s])):
+            layer, which = divmod(j, 2)
+            payload = (k, v)[which][layer, s * width:(s + 1) * width]
+            assert torch.equal(raw(t[5].cpu()), raw(payload))
+            assert torch.equal(raw(t[5]), raw(old[3]))
+            assert torch.equal(raw(t[6, :, :5]), raw(old[2, :, :5]))
+            assert torch.equal(raw(t[6, :, 5:]), raw(old[6, :, 5:]))
+            rest = [b for b in range(10) if b not in (5, 6)]
+            assert torch.equal(raw(t[rest]), raw(old[rest]))
+    if tp == 2:
+        # The tp=1 pool holding the two shards' heads side by side.
+        one, _ = engine(1)
+        for name, layer in one.cache.items():
+            for n, t in layer.items():
+                t.copy_(torch.cat([pool[name][n] for pool in pools], dim=1))
+        (k1, v1), _ = one._extract_block(4)
+        (k2, v2), _ = server._extract_block(4)
+        assert torch.equal(raw(k1), raw(k2)) and torch.equal(raw(v1), raw(v2))
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_verify_window_route_and_plain(cuda_device, tp):
+    """A verify window (W = 9, bf16, head_dim 64) takes the window kernel's
+    mma route (at tp=2 through the sharded entry point, once per shard) and
+    is held to the plain version within chip_smoke.py's bf16 bounds."""
+    rng = np.random.RandomState(3)
+    b, nh, nkv, hd, bs, total, w = 8, 8, 2, 64, 32, 400, 9
+    k = torch.from_numpy(rng.randn(total, nkv, bs, hd).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    v = torch.from_numpy(rng.randn(total, nkv, bs, hd).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * 40]
+                             .reshape(b, 40).astype(np.int32)).to(cuda_device)
+    q = torch.from_numpy(rng.randn(b, nh, w, hd).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    pos = torch.tensor(rng.randint(1100, 1150, b), dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(rng.randint(1, w + 1, b), dtype=torch.int32, device=cuda_device)
+    mask = torch.tensor([True] * (b - 1) + [False], device=cuda_device)
+    want = tpa._window_reference(q, k, v, table, pos, lengths, mask)
+    if tp == 1:
+        name = "paged_window_attention"
+        before = dict(tpa.ROUTE_LAUNCHES[name])
+        got = tpa.paged_window_attention(q, k, v, table, pos, lengths, mask)
+    else:
+        name = "paged_window_attention_sharded"
+        before = dict(tpa.ROUTE_LAUNCHES[name])
+        half = nh // 2
+        parts = tpa.paged_window_attention_sharded(
+            [q[:, :half].contiguous(), q[:, half:].contiguous()],
+            [k[:, :1].contiguous(), k[:, 1:].contiguous()],
+            [v[:, :1].contiguous(), v[:, 1:].contiguous()],
+            [table, table], [pos, pos], [lengths, lengths], [mask, mask])
+        got = torch.cat(parts, dim=1)
+    torch.cuda.synchronize()
+    assert tpa.ROUTE_LAUNCHES[name]["mma"] - before["mma"] == tp
+    live = (torch.arange(w, device=cuda_device)[None, :] < lengths[:, None]) & mask[:, None]
+    err = (got.float() - want.float()).abs()[live[:, None, :, None].expand_as(got)]
+    scale = want.float().abs()[live[:, None, :, None].expand_as(want)].max()
+    assert err.max() <= 5e-3 and err.max() <= 2e-2 * scale, (err.max(), scale)
+
+
+def test_engine_speculation_and_radix_on_card(cuda_device):
+    """A small f32 engine on the card with its defaults (radix cache, spill
+    tier) and spec_k=4: a regenerated request drafts from the tree and a
+    repetitive one from its history, verify windows run the window kernel,
+    every decode window is a graph replay, and the tokens equal spec-off's
+    (f32 on a random model: cross-program rounding never flips a pick)."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    donor = [((i * 5) % 91) + 1 for i in range(24)]
+    reqs = [(donor, 16), (donor, 16), ([3, 1, 4, 1, 5, 9, 2, 6] * 3, 24)]
+
+    def serve(**kw):
+        server = DecodeServer(params, cfg, device=cuda_device, n_slots=2, max_len=96,
+                              prompt_buckets=(8, 16), steps_per_dispatch=4, block_size=8,
+                              **kw)
+        outs = []
+        for p, m in reqs:
+            fut = server.submit(p, max_new=m)
+            while not fut.done():
+                server._tick()
+            outs.append(fut.result())
+        return outs, server
+
+    want, _ = serve()
+    before = dict(tpa.ROUTE_LAUNCHES["paged_window_attention"])
+    got, server = serve(spec_k=4, spec_sync=True)
+    assert got == want
+    assert server.spec_tree_rounds > 0 and server.spec_tree_tokens_accepted > 0
+    assert server.spec_history_rounds > 0
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["simt"] > before["simt"]
+    assert server.graph_replays == server.macro_dispatches + server.burst_windows_run

@@ -36,7 +36,7 @@ from conftest import serving_test_config, serving_test_params
 
 pytestmark = pytest.mark.multidevice
 
-JAX_OFF = dict(radix_cache=False, spill_blocks=0, spec_k=0, surgical_recovery=False)
+JAX_OFF = dict(surgical_recovery=False)
 
 # tests/test_sharded_decode.py's prompts: budgeted prefill runs multi-chunk.
 PROMPTS = [
@@ -121,10 +121,9 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
     assert not sharded._tp.emb_sharded and not sharded._tp.head_sharded
 
 
-@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(spec_k=2),
-                                dict(radix_cache=True), dict(spill_blocks=8),
-                                dict(kv_dtype="int8"), dict(quota=object())],
-                         ids=["recovery", "speculation", "radix", "spill", "int8", "quota"])
+@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(kv_dtype="int8"),
+                                dict(quota=object())],
+                         ids=["recovery", "int8", "quota"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, kw):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
