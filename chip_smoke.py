@@ -7,6 +7,7 @@ them.
     python3 chip_smoke.py --phases build,card,kernels,dense
     python3 chip_smoke.py --phases build,card,graph
     python3 chip_smoke.py --phases build,card,radix,spec
+    python3 chip_smoke.py --phases build,card,quant
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -96,6 +97,25 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            and a templated regeneration, spec on against off (bf16 and
            f32), spec-on at tp=2 in bf16: agreement, rounds and tree drafts
            engaged, every verify round's window launches by route;
+  quant    the int8 engine (`kv_dtype="int8"`) on the engine phase's model and
+           settings, bf16 (the main path) then f32: the int8 routes of the
+           four paged kernels held against their plain versions (the
+           sharded ones also bit for bit against the unsharded kernel) and
+           timed at the serving shapes (decode, the W 256 wave, the W 9
+           verify window) beside SDPA on the dequantized gather; the engine
+           phase's traffic on a native and an int8 engine (blocks per pool
+           byte >= 1.9x native; tokens against a teacher-forced pass of the
+           plain int8 programs, f32 exact and bf16 within one step; every
+           window a replay; decode on "split", windows on "simt"); replay
+           against eager on one int8 state, codes and scales byte for byte;
+           the radix phase's chat over an undersized int8 pool (spills and
+           revives, the first copies byte for byte, host bytes per block
+           <= 0.55x native); the bounded-divergence oracle over two serving
+           prompts and 12 steps (max|dlogit| <= 0.5; top-1 agreement and
+           the native arm's near-ties reported); in f32, tp=2 against tp=1
+           tick by tick (equal tokens and counters, the shards' scale copies
+           equal); the decode step and a prefill chunk profiled over an int8
+           and a native pool;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -129,7 +149,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
-which run the paged kernel once per shard), each entry with the route its
+which run the paged kernel once per shard, then the four paged entry
+points again over an int8 pool, marked `"pool": "int8"`, with the
+launches of the int8 engine's runs), each entry with the route its
 main-path launches took (`kernel_route`: "split", the split-KV decode
 kernels, paged and dense; "mma", the tensor-core kernels of the bf16 window
 and the three bf16 flash kernels; or "simt"; the engine, tp, dense and
@@ -852,13 +874,14 @@ def plain_attention():
 
 
 def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, device,
-                   mesh=None):
+                   mesh=None, kv_dtype=None):
     """Logits of a teacher-forced greedy pass over prompt+output, shaped as
     the engine's own programs: each prompt in chunks of the largest bucket
     (the final one padded to its bucket, batch 1), then the outputs fed
     back through batched single-token decode steps. Returns [n, max_new,
     vocab] f32 logits; row t predicts output token t. With a `mesh` the
-    programs run tensor-parallel over its "tp" shards."""
+    programs run tensor-parallel over its "tp" shards; `kv_dtype` "int8"
+    runs them over an int8 pool."""
     from nos_tpu_torch.models import decode as D
 
     tp = None
@@ -870,7 +893,8 @@ def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, de
     pages_per = [-(-(len(p) + max_new) // block_size) for p in prompts]
     width = max(pages_per)
     total = 1 + sum(pages_per)
-    cache = D.init_paged_cache(cfg, total, block_size, device=device, mesh=mesh)
+    cache = D.init_paged_cache(cfg, total, block_size, kv_dtype=kv_dtype, device=device,
+                               mesh=mesh)
     table = torch.zeros((n, width), dtype=torch.int32, device=device)
     nxt = 1
     for i, n_p in enumerate(pages_per):
@@ -976,6 +1000,7 @@ def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
         "graph_captures": server.graph_captures,
         "ticks_with_prefill_and_macro": server.ticks_with_prefill_and_macro,
         "prefix_hit_tokens": server.prefix_hit_tokens,
+        "kv_pool_bytes": server.kv_pool_bytes,
         "tick_phase_s": server.tick_phase_s,
         "launches": dict(pa.LAUNCHES),
         "routes": {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()},
@@ -1179,10 +1204,10 @@ def profile_steps(torch, run, steps, kernel_tag):
     }
 
 
-def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
+def profile_decode_step(torch, cfg, params, steps=16, mesh=None, kv_dtype=None):
     """One macro window of the paged engine: 16 decode steps at the main
     path's B=8 lanes (MAIN_DECODE_LIMITS); tensor-parallel over a mesh's
-    "tp" shards when one is given."""
+    "tp" shards when one is given; over an int8 pool with `kv_dtype`."""
     from nos_tpu_torch.models import decode as D
 
     tp = None
@@ -1190,7 +1215,7 @@ def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
         params, _, tp = D.place_tp(params, cfg, mesh)
     B, BS = 8, 32
     P = -(-max(MAIN_DECODE_LIMITS) // BS) + 1
-    cache = D.init_paged_cache(cfg, 1 + B * P, BS, device="cuda", mesh=mesh)
+    cache = D.init_paged_cache(cfg, 1 + B * P, BS, kv_dtype=kv_dtype, device="cuda", mesh=mesh)
     table = (torch.arange(B * P, dtype=torch.int32, device="cuda") + 1).reshape(B, P)
     pos0 = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda") - 1
     token = torch.ones((B,), dtype=torch.int32, device="cuda")
@@ -1209,16 +1234,18 @@ def profile_decode_step(torch, cfg, params, steps=16, mesh=None):
 GRAPH_SMALL_LIMITS = [9, 11, 13, 15, 19, 21, 260, 260]
 
 
-def graph_engine(torch, cfg, params, device, small):
+def graph_engine(torch, cfg, params, device, small, **engine_kw):
     """An engine at the serving settings (8 slots, K 16, default bursts)
     whose 8 lanes decode from the main path's positions (prompts one token
     shorter than MAIN_DECODE_LIMITS, prefilled unbudgeted in one tick,
-    which also runs the first window), its tick state synced."""
+    which also runs the first window), its tick state synced. `engine_kw`
+    (`kv_dtype`) goes to the engine."""
     from nos_tpu_torch import DecodeServer
 
     buckets, max_len = engine_sizes(small)
     server = DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
-                          steps_per_dispatch=16, prefill_budget_tokens=0, device=device)
+                          steps_per_dispatch=16, prefill_budget_tokens=0, device=device,
+                          **engine_kw)
     rng = np.random.default_rng(5)
     limits = GRAPH_SMALL_LIMITS if small else MAIN_DECODE_LIMITS
     max_new = 128 if small else 1024  # more than the phase's ~37 windows of 16
@@ -1233,7 +1260,8 @@ def graph_engine(torch, cfg, params, device, small):
 
 def window_tensors(server):
     """What a window reads and writes in place: pos, step, steps_left, the
-    last tokens, the eos carry, then every pool tensor."""
+    last tokens, the eos carry, then every pool tensor (an int8 pool's
+    scales too)."""
     st = server._tick_state
     pools = server.cache if isinstance(server.cache, list) else [server.cache]
     return ([st.pos, st.step, st.steps_left, server._last_dev, server._finished]
@@ -1548,6 +1576,11 @@ def tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts, max_new, b
     stats = serve_stats(torch, server, device, t0, t_long, len(futs), max_new,
                         len(long_prompts))
     stats["tp"] = server.tp
+    if server.tp > 1 and server.kv_quant_enabled:
+        stats["scale_copies_equal"] = all(
+            torch.equal(a[n], b[n].to(a[n].device))
+            for a, b in zip(server.cache[0].values(), server.cache[1].values())
+            for n in ("k_scale", "v_scale"))
     server.stop()
     return outs, stats
 
@@ -1684,29 +1717,34 @@ def spill_pool_blocks(chat, block_size=32):
 def checked_copies(torch, server, seen):
     """Wrap the engine's copy-in (`_revive`) and COW copy (`_cow_copy`): the
     first COPY_CHECKS of each read the block back at once (full width) and
-    hold it byte for byte against the payload, or the COW destination's
-    first `length` rows against its source's. Instrumentation only: the
-    package has no such hook."""
+    hold it byte for byte against the payload (codes and scales for an int8
+    pool), or the COW destination's first `length` rows against its
+    source's (an int8 pool: the scales equal too, the tail zeroed).
+    Instrumentation only: the package has no such hook."""
     revive, cow = server._revive, server._cow_copy
 
     def raw(t):
         return t.contiguous().view(torch.uint8)
 
-    def checked_revive(k, v, block):
-        revive(k, v, block)
+    def checked_revive(tensors, block):
+        revive(tensors, block)
         if seen["revive"] < COPY_CHECKS:
-            got_k, got_v = server._extract(block)
-            check(torch.equal(raw(got_k), raw(k)) and torch.equal(raw(got_v), raw(v)),
+            got = server._extract(block)
+            check(len(got) == len(tensors)
+                  and all(torch.equal(raw(g), raw(t)) for g, t in zip(got, tensors)),
                   f"radix: block {block} differs from the payload revived into it")
             seen["revive"] += 1
 
     def checked_cow(src, dst, length):
         cow(src, dst, length)
         if seen["cow"] < COPY_CHECKS:
-            (sk, sv), (dk, dv) = server._extract(src), server._extract(dst)
-            check(torch.equal(raw(dk[:, :, :length]), raw(sk[:, :, :length]))
-                  and torch.equal(raw(dv[:, :, :length]), raw(sv[:, :, :length])),
-                  f"radix: COW block {dst} differs from its source {src} in {length} rows")
+            s, d = server._extract(src), server._extract(dst)
+            ok = all(torch.equal(raw(dt[:, :, :length]), raw(st[:, :, :length]))
+                     for st, dt in zip(s[:2], d[:2]))
+            if len(s) == 4:
+                ok = ok and all(torch.equal(raw(dt), raw(st)) for st, dt in zip(s[2:], d[2:]))
+                ok = ok and not any(dt[:, :, length:].any().item() for dt in d[:2])
+            check(ok, f"radix: COW block {dst} differs from its source {src} in {length} rows")
             seen["cow"] += 1
 
     server._revive, server._cow_copy = checked_revive, checked_cow
@@ -2157,6 +2195,374 @@ def phase_spec(torch, device, small=False):
         stats[dtype] = run
     stats["phase_s"] = time.perf_counter() - t0
     log(f"spec phase_s={stats['phase_s']:.1f}")
+    return stats
+
+
+# -- phase: quant ------------------------------------------------------------------
+QUANT_ORACLE_STEPS = 12
+# The int8 pool's routes: decode on the split kernel, every window on simt.
+QUANT_ROUTES = {"paged_decode_attention": "split", "paged_window_attention": "simt"}
+QUANT_NAMES = ("paged_decode_attention", "paged_window_attention") + SHARDED
+
+
+def int8_bound(nbytes, flops):
+    """The least time of an int8-pool launch: its bytes (int8 codes, one f32
+    scale per page for K and for V, the bf16 q and output, the table and
+    the per-lane scalars) at the HBM rate, or its operations at the bf16
+    tensor-core rate (the codes are exact in bf16), whichever is larger."""
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def int8_timed(torch, kernel, plain, library, nbytes, flops):
+    return {"ms": time_cuda(torch, kernel), "device_ms": device_ms(torch, kernel),
+            "plain_ms": time_cuda(torch, plain), "library_ms": time_cuda(torch, library),
+            "library_device_ms": device_ms(torch, library), **int8_bound(nbytes, flops)}
+
+
+def int8_kernels(torch):
+    """The int8 routes of the four paged kernels of the serving path at its
+    shapes (bf16 q over an int8 pool with per-block scales; B 8, nh 8, nkv
+    2, hd 64, block 32): decode at MAIN_DECODE_LIMITS, the 256-token
+    two-lane window wave at position 2048, the W = 9 verify window at
+    VERIFY_POS, and the two sharded entry points over two shards (nh 4, nkv
+    1 each, each shard its own copy of the scales). Each held against its
+    plain version (`held`, the int8 bounds), the sharded ones also against
+    the unsharded kernel bit for bit per head, then timed beside the plain
+    version and SDPA on the dequantized gather (the library call the port
+    never makes). Returns (worst max|err| per kernel, times per case)."""
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    B, NH, NKV, HD, BS = 8, 8, 2, 64, 32
+    P = 8192 // BS
+    T = 1 + B * P
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k, v, ks, vs, dt = _pools(torch, gen, "int8", T, NKV, BS, HD)
+    table = _table(torch, gen, B, P, T)
+    table[1, :8] = torch.arange(9, 17, device="cuda", dtype=torch.int32)  # no sharing
+    shards = range(2)
+    kh, vh = _heads(k), _heads(v)
+    kss, vss = [ks, ks.clone()], [vs, vs.clone()]
+    worst = {n + sfx: 0.0 for n in QUANT_NAMES for sfx in ("", "_rel")}
+    out = {}
+
+    def dense(pool, scale, tab):
+        return pa._gather_pool(pool, tab, scale, dt).repeat_interleave(NH // NKV, dim=1)
+
+    def nbytes(pages, b, rows, shards=1):
+        """K and V codes under `pages` pages with one f32 scale each, the
+        bf16 q and output of b lanes x rows, the table entries and the
+        per-lane scalars (decode: the limit; a window: pos, length and
+        mask); split over `shards` on the KV heads (every shard reads the
+        scales, the table and the scalars)."""
+        codes, qo = pages * NKV * BS * HD * 2, 2 * b * NH * rows * HD * 2
+        scalars = 4 * b if rows == 1 else 9 * b
+        return codes + qo + shards * (pages * 2 * 4 + 4 * pages + scalars)
+
+    # Decode at the main path's limits, unsharded and over two shards.
+    lim = torch.tensor(MAIN_DECODE_LIMITS, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, NH, HD), generator=gen, device="cuda").to(dt)
+    tab = table[:, :-(-max(MAIN_DECODE_LIMITS) // BS)].contiguous()
+    got = pa.paged_decode_attention(q, k, v, tab, lim, ks, vs)
+    held(torch, got, pa._reference(q, k, v, tab, lim, ks, vs), "int8",
+         "paged_decode_attention int8 decode_main", worst)
+    qs = _heads(q)
+    shard_out = pa.paged_decode_attention_sharded(qs, kh, vh, tab, lim, kss, vss)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat(shard_out, 1), got),
+          "quant: the sharded int8 decode differs from the unsharded kernel")
+    held(torch, torch.cat(shard_out, 1), pa._reference(q, k, v, tab, lim, ks, vs), "int8",
+         "paged_decode_attention_sharded int8 decode_main", worst)
+    mask = (torch.arange(tab.shape[1] * BS, device="cuda")[None, :] < lim[:, None])[:, None,
+                                                                                     None, :]
+    kd, vd = dense(k, ks, tab), dense(v, vs, tab)
+    kdh, vdh = _heads(kd), _heads(vd)
+    pages = sum(-(-int(x) // BS) for x in MAIN_DECODE_LIMITS)
+    flops = 4.0 * NH * HD * sum(MAIN_DECODE_LIMITS)
+    out["decode_main"] = int8_timed(
+        torch, lambda: pa.paged_decode_attention(q, k, v, tab, lim, ks, vs),
+        lambda: pa._reference(q, k, v, tab, lim, ks, vs),
+        lambda: _sdpa_decode(torch, q[:, :, None, :], kd, vd, mask), nbytes(pages, B, 1), flops)
+    out["decode_sharded"] = int8_timed(
+        torch, lambda: pa.paged_decode_attention_sharded(qs, kh, vh, tab, lim, kss, vss),
+        lambda: [pa._reference(qs[s], kh[s], vh[s], tab, lim, ks, vs) for s in shards],
+        lambda: [_sdpa_decode(torch, qs[s][:, :, None, :], kdh[s], vdh[s], mask)
+                 for s in shards],
+        nbytes(pages, B, 1, shards=2), flops)
+    del kd, vd, kdh, vdh
+
+    def window(w, pos0, lengths, active, name):
+        b = len(active)
+        qw = torch.randn((b, NH, w, HD), generator=gen, device="cuda").to(dt)
+        tabw = table[:b, :-(-(pos0 + w) // BS)].contiguous()
+        pos = torch.full((b,), pos0, dtype=torch.int32, device="cuda")
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        act = torch.tensor(active, device="cuda")
+        args = (tabw, pos, lens, act, ks, vs)
+        live = ((torch.arange(w, device="cuda")[None, :] < lens[:, None])
+                & act[:, None])[:, None, :, None]
+        got = pa.paged_window_attention(qw, k, v, *args)
+        want = pa._window_reference(qw, k, v, *args)
+        held(torch, torch.where(live, got, 0), torch.where(live, want, 0), "int8",
+             f"paged_window_attention int8 {name}", worst)
+        wlim = torch.where(live[:, 0, :, 0], pos0 + torch.arange(w, device="cuda")[None, :] + 1,
+                           1)
+        causal = (torch.arange(tabw.shape[1] * BS, device="cuda")[None, None, :]
+                  < wlim[:, :, None])[:, None]
+        pages = sum(-(-int(x) // BS) for x in wlim.max(dim=1).values.tolist())
+        flops = 4.0 * NH * HD * float(wlim.sum().item())
+        kd, vd = dense(k, ks, tabw), dense(v, vs, tabw)
+        out[name] = int8_timed(
+            torch, lambda: pa.paged_window_attention(qw, k, v, *args),
+            lambda: pa._window_reference(qw, k, v, *args),
+            lambda: _sdpa_decode(torch, qw, kd, vd, causal), nbytes(pages, b, w), flops)
+        out[name]["route"] = pa._window_route(qw, k, ks)
+        if name != "window_main":
+            return
+        qwh = _heads(qw)
+        shard_out = pa.paged_window_attention_sharded(qwh, kh, vh, tabw, pos, lens, act, kss,
+                                                      vss)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(shard_out, 1), got),
+              "quant: the sharded int8 window differs from the unsharded kernel")
+        held(torch, torch.where(live, torch.cat(shard_out, 1), 0), torch.where(live, want, 0),
+             "int8", "paged_window_attention_sharded int8 window_main", worst)
+        kdh, vdh = _heads(kd), _heads(vd)
+        out["window_sharded"] = int8_timed(
+            torch, lambda: pa.paged_window_attention_sharded(qwh, kh, vh, tabw, pos, lens, act,
+                                                             kss, vss),
+            lambda: [pa._window_reference(qwh[s], kh[s], vh[s], tabw, pos, lens, act, ks, vs)
+                     for s in shards],
+            lambda: [_sdpa_decode(torch, qwh[s], kdh[s], vdh[s], causal) for s in shards],
+            nbytes(pages, b, w, shards=2), flops)
+
+    window(256, 2048, [256] * B, [False] * 6 + [True, True], "window_main")
+    W = SPEC_K + 1
+    window(W, VERIFY_POS, [W, W, 5, W, 1, W, 7, W], [True] * B, "window_verify")
+    log("quant kernels: " + json.dumps({"worst": worst, "times": out}))
+    return worst, out
+
+
+def profile_prefill_chunk(torch, cfg, params, kv_dtype, tag):
+    """One 256-token prefill chunk at position 2048 (the long prompts' 9th)
+    under torch.profiler, over a pool the first 8 chunks filled: device ms
+    and the share of the window kernel (name holding `tag`)."""
+    from nos_tpu_torch.models import decode as D
+
+    BS, C, POS = 32, 256, 2048
+    pages = (POS + C) // BS
+    cache = D.init_paged_cache(cfg, 1 + pages, BS, kv_dtype=kv_dtype, device="cuda")
+    row = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(1, cfg.vocab, (1, POS + C), generator=gen).to("cuda", torch.int32)
+    for start in range(0, POS, C):
+        D.paged_prefill_chunk(params, toks[:, start:start + C], cfg, cache, row, start, C, BS,
+                              with_logits=False)
+
+    def run():
+        D.paged_prefill_chunk(params, toks[:, POS:], cfg, cache, row, POS, C, BS,
+                              with_logits=False)
+
+    return profile_steps(torch, run, 1, tag)
+
+
+def oracle_near_ties(torch, params, cfg, prompt, steps, block_size, device, deltas):
+    """The native arm of `measure_divergence` again (the same programs and
+    teacher-forced greedy picks): its top-2 logit gap at each position, and
+    at how many positions that gap is within twice the oracle's max|dlogit|
+    there (`deltas`, its per-token deltas): where a top-1 flip between the
+    arms is possible at all."""
+    from nos_tpu_torch.models import decode as D
+
+    n = len(prompt)
+    n_pages = -(-(n + steps) // block_size)
+    cache = D.init_paged_cache(cfg, 2 + n_pages, block_size, device=device)
+    table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=device)[None, :]
+    lg, _ = D.paged_prefill_chunk(params, torch.tensor([prompt], dtype=torch.int32,
+                                                       device=device),
+                                  cfg, cache, table[0], 0, n, block_size)
+    lg = lg[n - 1][None, :]
+    mask = torch.ones((1,), dtype=torch.bool, device=device)
+    gaps = []
+    for step in range(steps + 1):
+        top2 = lg.topk(2, dim=-1).values[0]
+        gaps.append((top2[0] - top2[1]).item())
+        if step == steps:
+            break
+        lg, _ = D.paged_decode_step(params, D.greedy(lg), cfg, cache, table,
+                                    torch.tensor([n + step], dtype=torch.int32, device=device),
+                                    mask, block_size)
+    return sum(g <= 2 * d for g, d in zip(gaps, deltas)), gaps
+
+
+def phase_quant(torch, device, small=False):
+    """The int8 engine (`kv_dtype="int8"`) at the serving cell's width: the
+    bench GPT and engine settings of the engine phase, bf16 (the main path)
+    then f32, on the engine's defaults. Per dtype: (1) the engine phase's
+    traffic on a native and an int8 engine: tok/s, long-prompt TTFT, peak
+    memory, tick phases, pool bytes; gates: blocks per pool byte >= 1.9x
+    native, the int8 tokens against a teacher-forced pass of the plain int8
+    programs (check_logits: f32 exact, bf16 within one step), every window a
+    replay, decode launches on "split" and window launches on "simt"; (2)
+    the captured window replayed against the eager `_macro` on one int8
+    engine state, codes and scales byte for byte; (3) the radix phase's chat
+    over an undersized int8 pool: spills and revives, the first copies byte
+    for byte (codes and scales), spill host bytes per block <= 0.55x
+    native; (4) the oracle (`runtime/divergence.py`) over two serving
+    prompts, 12 steps: max|dlogit| <= MAX_ABS_LOGIT_DELTA, top-1 agreement
+    and the native arm's near-ties reported. f32 only: (5) tp=2 (both
+    shards on the card) against tp=1 on the int8 pool, tick by tick: equal
+    tokens and counters, the shards' scale copies equal. bf16 only, on the
+    card: the int8 kernels held and timed (`int8_kernels`), and the decode
+    step and a prefill chunk profiled over an int8 and a native pool."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.runtime.divergence import MAX_ABS_LOGIT_DELTA, MIN_TOP1_AGREEMENT
+    from nos_tpu_torch.runtime.divergence import measure_divergence
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    buckets, max_len = engine_sizes(small)
+    main = "float32" if small else "bfloat16"
+    stats = {}
+    if cuda:
+        stats["kernels"], stats["times"] = int8_kernels(torch)
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        max_new, prompts, long_prompts = engine_traffic(cfg, small)
+        run = {}
+        # (1) serving, native then int8.
+        _, native = serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets,
+                          max_len, kv_dtype="fp16")
+        outs, st = serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets,
+                         max_len, kv_dtype="int8")
+        check(all(len(o) == max_new for o in outs), f"quant {dtype}: short output")
+        if cuda:
+            check_replays(st, f"quant {dtype}")
+            for name, route in QUANT_ROUTES.items():
+                check_routes(st["routes"], name, route, f"quant {dtype}")
+        all_prompts = prompts + long_prompts
+        kern = teacher_forced(torch, params, cfg, all_prompts, outs, buckets, 32, device,
+                              kv_dtype="int8")
+        with plain_attention():
+            plain = teacher_forced(torch, params, cfg, all_prompts, outs, buckets, 32, device,
+                                   kv_dtype="int8")
+        st.update(agreement(torch, kern, plain, torch.tensor(outs, device=device), dtype))
+        del kern, plain
+        st["dtype"] = dtype
+        check_logits(st, f"quant {dtype} serving")
+        st["pool_bytes_ratio"] = native["kv_pool_bytes"] / st["kv_pool_bytes"]
+        check(st["pool_bytes_ratio"] >= 1.9,
+              f"quant {dtype}: blocks per pool byte {st['pool_bytes_ratio']}x native < 1.9x")
+        for arm, s in (("native", native), ("int8", st)):
+            log(f"quant {dtype} serving {arm}: " + json.dumps(
+                {k: s.get(k) for k in ("decode_tok_per_s", "long_prompt_ttft_s", "wall_s",
+                                       "peak_mem_bytes", "kv_pool_bytes", "tick_phase_s",
+                                       "graph_replays", "launches", "routes",
+                                       "top1_agreement", "top1_agreement_1ulp",
+                                       "max_abs_dlogit", "mean_abs_dlogit",
+                                       "pool_bytes_ratio")}))
+        run["serving"], run["native"] = st, native
+        # (2) the captured window over an int8 pool, replay against eager.
+        server, futs = graph_engine(torch, cfg, params, device, small, kv_dtype="int8")
+        rep = replay_against_eager(torch, server)
+        check(rep["tokens_equal"] and rep["state_equal"] and rep["advanced"]
+              and rep["pool_bytes_equal"] and rep["launches_eager"] == rep["launches_replay"],
+              f"quant {dtype}: the replayed int8 window differs from the eager one: {rep}")
+        if cuda:
+            check(server.graph_captures == 1 and rep["launches_replay"] > 0,
+                  f"quant {dtype}: no captured int8 window: {rep}")
+        if cuda and dtype == main:
+            rep["window_replay"] = profile_steps(torch, server._window, 16,
+                                                 "split_decode_kernel")
+            rep["window_event_ms_replay"] = window_ms(torch, server._window)
+        for f in futs:
+            f.cancel()
+        server.stop()
+        del server
+        log(f"quant {dtype} replay: " + json.dumps(rep))
+        run["replay"] = rep
+        # (3) the chat over an undersized int8 pool.
+        chat = chat_traffic(cfg, small)
+        _, _, sp, server = chat_run(torch, cfg, params, device, chat, buckets, max_len,
+                                    kv_dtype="int8", total_blocks=spill_pool_blocks(chat))
+        entries = len(server.spill_tier)
+        check(sp["spills"] > 0 and sp["revives"] > 0 and sp["copies_checked"]["revive"] > 0
+              and entries > 0,
+              f"quant {dtype} spill: spills {sp['spills']}, revives {sp['revives']}, "
+              f"copies checked {sp['copies_checked']}, {entries} host entries")
+        native_block = (cfg.layers * 2 * cfg.n_kv * 32 * cfg.head_dim
+                        * torch.empty((), dtype=cfg.torch_dtype).element_size())
+        sp["host_bytes_per_block"] = sp["spill_host_bytes"] / entries
+        sp["host_bytes_ratio"] = sp["host_bytes_per_block"] / native_block
+        check(sp["host_bytes_per_block"] == server._bytes_per_block
+              and sp["host_bytes_ratio"] <= 0.55,
+              f"quant {dtype} spill: {sp['host_bytes_per_block']} host bytes per block, "
+              f"{sp['host_bytes_ratio']}x native")
+        if cuda:
+            check_replays(sp, f"quant {dtype} spill", bursts=False)
+            for name, route in QUANT_ROUTES.items():
+                check_routes(sp["routes"], name, route, f"quant {dtype} spill")
+        del server
+        log(f"quant {dtype} spill: " + json.dumps(sp))
+        run["spill"] = sp
+        # (4) the bounded-divergence oracle.
+        reports = []
+        for prompt in prompts[:2]:
+            r = measure_divergence(params, cfg, prompt, QUANT_ORACLE_STEPS, block_size=32,
+                                   device=device)
+            ties, gaps = oracle_near_ties(torch, params, cfg, prompt, QUANT_ORACLE_STEPS, 32,
+                                          device, r.per_token_delta)
+            reports.append({"summary": r.summary(), "max_abs_logit_delta": r.max_abs_logit_delta,
+                            "mean_abs_logit_delta": r.mean_abs_logit_delta,
+                            "top1_agreement": r.top1_agreement,
+                            "within_pinned_bounds": r.within(),
+                            "below_min_top1_agreement": r.top1_agreement < MIN_TOP1_AGREEMENT,
+                            "per_token_delta": r.per_token_delta, "near_ties": ties,
+                            "native_top2_gaps": gaps})
+            check(r.max_abs_logit_delta <= MAX_ABS_LOGIT_DELTA,
+                  f"quant {dtype} oracle: {r.summary()} (bound {MAX_ABS_LOGIT_DELTA})")
+        log(f"quant {dtype} oracle: " + json.dumps(reports))
+        run["oracle"] = reports
+        # (5) tp=2 against tp=1 on the int8 pool.
+        if dtype == "float32":
+            mesh = build_mesh({"tp": 2}, devices=[device, device])
+            outs1, tp1 = tp_serve(torch, cfg, params, device, None, prompts, long_prompts,
+                                  max_new, buckets, max_len, kv_dtype="int8")
+            outs2, tp2 = tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts,
+                                  max_new, buckets, max_len, kv_dtype="int8")
+            check(outs2 == outs1, f"quant tp: {float(np.mean(np.array(outs1) == np.array(outs2)))}"
+                  " of the tp=2 int8 tokens equal tp=1's")
+            for c in BUDGET_COUNTERS:
+                check(tp2[c] == tp1[c], f"quant tp: {c} {tp2[c]} at tp=2, {tp1[c]} at tp=1")
+            check(tp2["scale_copies_equal"], "quant tp: the shards' scale copies differ")
+            if cuda:
+                for name, sharded in zip(QUANT_ROUTES, SHARDED):
+                    check(tp2["launches"][sharded] == 2 * tp1["launches"][name] > 0,
+                          f"quant tp: launches {tp2['launches']} at tp=2, {tp1['launches']}")
+                    check_routes(tp2["routes"], sharded, QUANT_ROUTES[name], "quant tp=2")
+            log("quant float32 tp: " + json.dumps({w: {k: s[k] for k in (
+                "decode_tok_per_s", "long_prompt_ttft_s", "wall_s", "kv_pool_bytes", "launches",
+                "routes", "graph_replays")} for w, s in (("tp1", tp1), ("tp2", tp2))}))
+            run["tp1"], run["tp2"] = tp1, tp2
+        if cuda and dtype == main:
+            run["step_profile"] = {kv: profile_decode_step(torch, cfg, params, kv_dtype=kv)
+                                   for kv in ("fp16", "int8")}
+            run["prefill_profile"] = {
+                "fp16": profile_prefill_chunk(torch, cfg, params, "fp16", "window_mma_kernel"),
+                "int8": profile_prefill_chunk(torch, cfg, params, "int8",
+                                              "paged_attention_kernel")}
+            log(f"quant {dtype} profiles: " + json.dumps(
+                {k: run[k] for k in ("step_profile", "prefill_profile")}))
+        stats[dtype] = run
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"quant phase_s={stats['phase_s']:.1f}")
     return stats
 
 
@@ -2677,7 +3083,7 @@ def phase_train(torch, device, full=True):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,card,kernels,engine,graph,tp,radix,spec,dense,train")
+                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -2698,6 +3104,7 @@ def main(argv=None):
         phase_tp(torch, torch.device("cpu"), small=True)
         phase_radix(torch, torch.device("cpu"), small=True)
         phase_spec(torch, torch.device("cpu"), small=True)
+        phase_quant(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -2732,6 +3139,9 @@ def main(argv=None):
         radix = phase_radix(torch, torch.device("cuda"))
     if "spec" in phases:
         spec = phase_spec(torch, torch.device("cuda"))
+    quant = None
+    if "quant" in phases:
+        quant = phase_quant(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -2739,7 +3149,7 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if None in (worst, engine, graph, tp, radix, spec, dense, train):
+    if None in (worst, engine, graph, tp, radix, spec, quant, dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -2806,6 +3216,31 @@ def main(argv=None):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # The int8 routes: launches from the int8 engine's bf16 serving run (the
+    # tp=2 int8 run in f32 for the sharded entry points), the route each
+    # took, and the int8 kernels' checks and times at the same shapes.
+    q_launches = dict(quant["bfloat16"]["serving"]["launches"])
+    q_routes = dict(quant["bfloat16"]["serving"]["routes"])
+    q_launches.update({n: quant["float32"]["tp2"]["launches"][n] for n in SHARDED})
+    q_routes.update({n: quant["float32"]["tp2"]["routes"][n] for n in SHARDED})
+    for name, key in zip(QUANT_NAMES, ("decode_main", "window_main", "decode_sharded",
+                                       "window_sharded")):
+        t = quant["times"][key]
+        used = [r for r, n in q_routes[name].items() if n > 0]
+        check(q_launches[name] > 0 and len(used) == 1,
+              f"{name} int8: launches {q_launches[name]} by route {q_routes[name]}")
+        entry = {
+            "name": name, "pool": "int8", "route": "cuda", "kernel_route": used[0],
+            "source": "nos_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": dict(replaces, **SHARDED_REPLACES)[name],
+            "launches": q_launches[name], "max_abs_err": quant["kernels"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        }
+        if name == "paged_window_attention":
+            entry["verify_w9"] = {k: quant["times"]["window_verify"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ tensor per shard (the same tensor where shards share a device). `tp=None`
 is the single-device path, unchanged.
 
 The JAX programs return a new cache; these write K/V IN PLACE (`index_copy_`
-or advanced-index assignment, i.e. `index_put_`) and return the same tensors.
+or advanced-index assignment, i.e. `index_put_`; over an int8 pool, the
+`ops/quantized_kv.py` funnel, `_write_kv`) and return the same tensors.
 Ordering on the one CUDA stream takes the place of JAX's donation chain,
 which keeps the composition contract of decode.py:574-593: the programs of
 one tick write disjoint page sets, and masked-off lanes and padding write
@@ -354,11 +355,16 @@ def init_paged_cache(cfg: GPTConfig, total_blocks: int, block_size: int,
                      tp_axis: str = "tp"):
     """A shared pool of fixed-size KV blocks [total_blocks, n_kv, block,
     head_dim] per layer in `cfg.dtype` on `device` (None: CUDA); block 0 is
-    the scratch page. On a `mesh` whose `tp_axis` is wider than 1 the pool
+    the scratch page. `kv_dtype` "int8" (decode.py:282-320) stores the K/V
+    leaves as int8 codes and adds `k_scale`/`v_scale` [total_blocks] f32
+    per layer, one scale per (block, layer, k|v); None or "fp16" is the
+    native pool. On a `mesh` whose `tp_axis` is wider than 1 the pool
     is partitioned on KV heads: a list in shard order of per-layer pools
     [total_blocks, n_kv/tp, block, head_dim], each on its shard's device
-    (`device` is not used). Block ids and page tables mean the same at
-    every width; only a block's bytes per shard shrink."""
+    (`device` is not used), and every shard holds its own copy of the
+    scales (the reference's replicated `P(None)`), which the funnel keeps
+    equal. Block ids and page tables mean the same at every width; only a
+    block's bytes per shard shrink."""
     from nos_tpu_torch.ops.paged_attention import _tp_width
 
     width = _tp_width(mesh, tp_axis)
@@ -373,18 +379,21 @@ def init_paged_cache(cfg: GPTConfig, total_blocks: int, block_size: int,
         raise ValueError(
             f"unknown kv_dtype {kv_dtype!r}; expected one of {constants.KV_DTYPES}"
         )
-    if kv_dtype == constants.KV_DTYPE_INT8:
-        raise NotImplementedError(
-            "the int8 paged pool is not ported yet (ROADMAP: the int8 engine)"
-        )
+    quant = kv_dtype == constants.KV_DTYPE_INT8
     shape = (total_blocks, cfg.n_kv, block_size, cfg.head_dim)
-    return {
+    dtype = torch.int8 if quant else cfg.torch_dtype
+    pool = {
         str(i): {
-            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
         }
         for i in range(cfg.layers)
     }
+    if quant:
+        for lc in pool.values():
+            lc["k_scale"] = torch.zeros((total_blocks,), dtype=torch.float32, device=device)
+            lc["v_scale"] = torch.zeros((total_blocks,), dtype=torch.float32, device=device)
+    return pool
 
 
 def _page_of(table, positions, block_size: int):
@@ -392,6 +401,28 @@ def _page_of(table, positions, block_size: int):
     (JAX clamps its gathers; the callers mask those lanes to scratch)."""
     idx = torch.clamp(positions // block_size, 0, table.shape[1] - 1)
     return torch.gather(table, 1, idx.long())
+
+
+def _write_kv(lc, pages, offs, k_rows, v_rows, amax=(None, None)) -> dict:
+    """Write token rows k_rows/v_rows [..., nkv, hd] at block pages[...],
+    offset offs[...] of one layer's pool `lc`, in place: a native pool by
+    indexed assignment, an int8 pool (`"k_scale" in lc`) through the
+    `ops/quantized_kv.py` funnel, flattened to rows, with `amax` the (K, V)
+    row maxima [...] when taken across tensor-parallel shards. Returns the
+    keyword arguments that hand the scales to the attention op (none for a
+    native pool)."""
+    if "k_scale" not in lc:
+        lc["k"][pages, :, offs, :] = k_rows
+        lc["v"][pages, :, offs, :] = v_rows
+        return {}
+    from nos_tpu_torch.ops.quantized_kv import scatter_tokens
+
+    pages, offs = pages.reshape(-1), offs.reshape(-1)
+    for name, rows, m in (("k", k_rows, amax[0]), ("v", v_rows, amax[1])):
+        scatter_tokens(lc[name], lc[name + "_scale"], pages, offs,
+                       rows.reshape(-1, *rows.shape[-2:]),
+                       amax=None if m is None else m.reshape(-1))
+    return {"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
 
 
 def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
@@ -414,9 +445,10 @@ def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
         page = torch.where(mask[:, None], page, torch.zeros_like(page)).long()
         limits = tp.replicate((pos + 1).to(torch.int32))
 
-        def read(qs, pool_k, pool_v):
+        def read(qs, pool_k, pool_v, **scales):
             out = paged_decode_attention_sharded(
-                [q[:, :, 0, :].contiguous() for q in qs], pool_k, pool_v, tables, limits)
+                [q[:, :, 0, :].contiguous() for q in qs], pool_k, pool_v, tables, limits,
+                **scales)
             return [o[:, :, None, :] for o in out]
 
         xs = _tp_forward(params, token[:, None], pcache, pos[:, None].to(torch.int32),
@@ -432,10 +464,9 @@ def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
         lc = pcache[str(i)]
 
         def attend(q, k_new, v_new, lc=lc):
-            lc["k"][page, :, off, :] = k_new[:, :, 0, :]
-            lc["v"][page, :, off, :] = v_new[:, :, 0, :]
+            scales = _write_kv(lc, page, off, k_new[:, :, 0, :], v_new[:, :, 0, :])
             return paged_decode_attention(
-                q[:, :, 0, :].contiguous(), lc["k"], lc["v"], table, limit
+                q[:, :, 0, :].contiguous(), lc["k"], lc["v"], table, limit, **scales
             )[:, :, None, :]
 
         x = _block_core(x, params["layers"][str(i)], cfg, positions, attend)
@@ -477,10 +508,10 @@ def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start
         lc = pcache[str(i)]
 
         def attend(q, k_new, v_new, lc=lc):
-            lc["k"][pages, :, offs, :] = k_new[0].transpose(0, 1)
-            lc["v"][pages, :, offs, :] = v_new[0].transpose(0, 1)
+            scales = _write_kv(lc, pages, offs, k_new[0].transpose(0, 1),
+                               v_new[0].transpose(0, 1))
             return paged_window_attention(
-                q.contiguous(), lc["k"], lc["v"], table, w_pos, w_len, w_mask
+                q.contiguous(), lc["k"], lc["v"], table, w_pos, w_len, w_mask, **scales
             )
 
         x = _block_core(x, params["layers"][str(i)], cfg, positions[None, :], attend)
@@ -515,10 +546,9 @@ def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengt
         lc = pcache[str(i)]
 
         def attend(q, k_new, v_new, lc=lc):
-            lc["k"][pages, :, offs, :] = k_new.transpose(1, 2)
-            lc["v"][pages, :, offs, :] = v_new.transpose(1, 2)
+            scales = _write_kv(lc, pages, offs, k_new.transpose(1, 2), v_new.transpose(1, 2))
             return paged_window_attention(
-                q.contiguous(), lc["k"], lc["v"], table, pos, lengths, mask
+                q.contiguous(), lc["k"], lc["v"], table, pos, lengths, mask, **scales
             )
 
         x = _block_core(x, params["layers"][str(i)], cfg, positions, attend)
@@ -565,18 +595,31 @@ def _tp_forward(params, tokens, pcache, positions, pages, offs, read, tp: TPLoca
     """The layers of a tensor-parallel paged program: tokens [B, T] at
     positions [B, T], whose K/V rows go to pool page pages[b, t] at offset
     offs[b, t] (scratch page 0 for masked rows), on every shard's own head
-    slices; `read(qs, pool_k, pool_v)` is the sharded attention over the
-    written pools. Returns the per-shard pre-final-norm activations."""
+    slices; `read(qs, pool_k, pool_v, **scales)` is the sharded attention
+    over the written pools. Over an int8 pool each shard takes its rows'
+    max|value| over its heads, the max over the shards is taken on the
+    first shard's device and handed back to every shard's funnel (the
+    reference's `pmax`), so the shards' scale copies stay equal. Returns
+    the per-shard pre-final-norm activations."""
+    from nos_tpu_torch.ops.quantized_kv import row_amax
+
     xs = _embed(params, tokens, tp)
     pages, offs = tp.replicate(pages), tp.replicate(offs)
     for i in range(tp.cfg.layers):
         lcs = [pc[str(i)] for pc in pcache]
 
         def attend(qs, ks, vs, lcs=lcs):
-            for s, lc in enumerate(lcs):
-                lc["k"][pages[s], :, offs[s], :] = ks[s].transpose(1, 2)
-                lc["v"][pages[s], :, offs[s], :] = vs[s].transpose(1, 2)
-            return read(qs, [lc["k"] for lc in lcs], [lc["v"] for lc in lcs])
+            k_rows = [k.transpose(1, 2) for k in ks]  # [B, T, nkv/tp, hd]
+            v_rows = [v.transpose(1, 2) for v in vs]
+            amax = [None] * tp.tp, [None] * tp.tp
+            if "k_scale" in lcs[0]:
+                amax = tuple(tp.replicate(torch.stack([row_amax(r).to(tp.devices[0])
+                                                       for r in rows]).amax(dim=0))
+                             for rows in (k_rows, v_rows))
+            writes = [_write_kv(lc, pages[s], offs[s], k_rows[s], v_rows[s],
+                                (amax[0][s], amax[1][s])) for s, lc in enumerate(lcs)]
+            scales = {name: [w[name] for w in writes] for name in writes[0]}
+            return read(qs, [lc["k"] for lc in lcs], [lc["v"] for lc in lcs], **scales)
 
         xs = _block_core(xs, [p["layers"][str(i)] for p in params], tp.lcfg, positions,
                          attend, tp=tp)
@@ -598,9 +641,10 @@ def _paged_window_tp(params, tokens, pcache, table, pos, lengths, mask, block_si
     pages = torch.where(valid, pages, torch.zeros_like(pages)).long()
     pos_s, len_s, mask_s = tp.replicate(pos), tp.replicate(lengths), tp.replicate(mask)
 
-    def read(qs, pool_k, pool_v):
+    def read(qs, pool_k, pool_v, **scales):
         return paged_window_attention_sharded(
-            [q.contiguous() for q in qs], pool_k, pool_v, tables, pos_s, len_s, mask_s)
+            [q.contiguous() for q in qs], pool_k, pool_v, tables, pos_s, len_s, mask_s,
+            **scales)
 
     return _tp_forward(params, tokens, pcache, positions, pages,
                        (positions % block_size).long(), read, tp)

@@ -286,8 +286,9 @@ def paged_decode_attention_sharded(q, pool_k, pool_v, table, limit,
     (`nos_tpu/ops/paged_attention.py::_pallas_sharded`, :193). `q`,
     `pool_k` and `pool_v` are per-shard lists in shard order: shard s holds
     q [B, nh/tp, hd] and its pools [T, nkv/tp, bs, hd], head slices of every
-    block. The table, the limits and the int8 scales are replicated (a
-    tensor, or one per shard). Each shard runs the unchanged kernel over its
+    block. The table and the limits are replicated (a tensor, or one per
+    shard); the int8 scales [T] likewise, and the engine hands each shard
+    its own copy (a list, as for the pools). Each shard runs the unchanged kernel over its
     own nkv/tp groups (its plain version on a CPU shard); the
     per-(sequence, group) math never crosses heads, so every head's output
     is bit for bit the unsharded kernel's. No collective runs: the result
@@ -310,8 +311,8 @@ def paged_window_attention_sharded(q, pool_k, pool_v, table, pos, lengths, mask,
     """`paged_window_attention` on a tensor-parallel mesh
     (`_window_pallas_sharded`, :226), the same way as
     `paged_decode_attention_sharded`: q [B, nh/tp, W, hd] and the pools per
-    shard; the table, pos, lengths, mask and scales replicated. Returns the
-    per-shard outputs [B, nh/tp, W, hd]."""
+    shard; the table, pos, lengths, mask and scales replicated (a tensor,
+    or one per shard). Returns the per-shard outputs [B, nh/tp, W, hd]."""
     devices = [x.device for x in q]
     table, pos = _replicated(table, devices), _replicated(pos, devices)
     lengths, mask = _replicated(lengths, devices), _replicated(mask, devices)

@@ -8,7 +8,11 @@ through a K-step macro program, one token per sequence per step, each at its
 own position in a block-paged KV pool. Sequences finish and free their slot
 independently.
 
-What this port carries over: the native pool, greedy and temperature
+What this port carries over: the native pool and the int8 pool
+(`kv_dtype="int8"`: codes with per-block scales, written through the
+`ops/quantized_kv.py` funnel and read by the paged kernels' int8 routes;
+its spill payloads are tagged 5-tuples and its chain keys salted), greedy
+and temperature
 sampling (the threefry keys of `nos_tpu_torch/prng.py`, bit for bit JAX's),
 one device or a tensor-parallel mesh, the budgeted chunked prefill
 (including the multi-slot `paged_prefill_window` wave), the K-step macro
@@ -20,8 +24,8 @@ host-RAM spill tier under it (`spill_blocks=None`, the default, sizes it
 at one pool), speculative decoding (`spec_k > 0`: tree and prompt-lookup
 drafts verified through `paged_verify_window`), and eos handling. The
 constructor keeps the reference's signature; every argument that would
-arm a feature not yet ported (the int8 pool, quotas, fault injection and
-recovery, tracing, the cost ledger, the fleet KV store) raises
+arm a feature not yet ported (quotas, fault injection and recovery,
+tracing, the cost ledger, the fleet KV store) raises
 NotImplementedError naming its ROADMAP item, with a mesh or without. An
 exception on the tick path fails every outstanding request and resets the
 pool (the reference's `surgical_recovery=False` behaviour).
@@ -50,6 +54,7 @@ need, so neither admission nor steady decode blocks on a host round trip.
 
 from __future__ import annotations
 
+import gc
 import logging
 import queue
 import threading
@@ -84,6 +89,7 @@ from nos_tpu_torch.models.speculative import (
     accept_prefix,
 )
 from nos_tpu_torch.ops import decode_attention, flash_attention, paged_attention
+from nos_tpu_torch.ops import quantized_kv as qkv
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
 from nos_tpu_torch.runtime.spill import SpillTier
@@ -162,6 +168,11 @@ class _WindowGraph:
     side stream in "thread_local" mode, so client threads may submit
     meanwhile. A capture or replay failure raises.
 
+    Before the capture the cyclic collector runs, and it stays off while
+    the capture lasts: a dead engine in a reference cycle still holds its
+    own graph, pool and pinned buffers, and freeing those inside a capture
+    invalidates it (torch's capture no longer collects first).
+
     A kernel wrapper counts its launch when its Python runs, so the
     capture's counts are taken back and kept as the graph's `delta`, and
     each replay adds the delta: launch counts stay true under replay."""
@@ -174,8 +185,16 @@ class _WindowGraph:
             # A side stream of this card (torch's shared capture stream
             # lives on whichever card first made it).
             side = torch.cuda.Stream(device)
-            with torch.cuda.graph(self._graph, stream=side, capture_error_mode="thread_local"):
-                self._out = body()
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self._graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self._out = body()
+            finally:
+                if collecting:
+                    gc.enable()
         after = _launch_counts()
         self.delta = {k: n - before[k] for k, n in after.items() if n != before[k]}
         _add_launches({k: -n for k, n in self.delta.items()})
@@ -320,7 +339,10 @@ class DecodeServer:
         one `paged_verify_window` over the drafting slots; greedy only.
         `spec_sync` syncs histories (blocking) before every draft probe.
         Outputs are identical for any K, N, budget, prefix, radix, spill
-        and speculation setting.
+        and speculation setting. `kv_dtype="int8"` stores the pool as int8
+        codes with one f32 scale per (block, layer, k|v): about half the
+        pool's and every spill payload's bytes, its divergence from the
+        native pool bounded by `runtime/divergence.py`.
 
         On CUDA the constructor captures the K-step window as a CUDA graph
         (`_WindowGraph`) that every window replays (`graph_replays`
@@ -331,7 +353,6 @@ class DecodeServer:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
         # (armed?, what it arms, its item in ROADMAP.md queue A)
         armed = [
-            (kv_dtype == constants.KV_DTYPE_INT8, "the int8 pool", "The int8 engine"),
             (quota is not None, "tenant quotas", "Fleet"),
             (fault_injector is not None or bool(surgical_recovery),
              "fault injection and surgical recovery", "Fleet"),
@@ -408,6 +429,8 @@ class DecodeServer:
         )
         if self.total_blocks < 2:
             raise ValueError("total_blocks must be >= 2 (scratch + 1)")
+        self.kv_dtype = kv_dtype
+        self._kv_quant = kv_dtype == constants.KV_DTYPE_INT8
         self.cache = self._new_pool()
         self._stage = HostStage(self.device)
         self._syncs = SyncLedger()
@@ -416,18 +439,26 @@ class DecodeServer:
         self._table_np = np.zeros((n_slots, self.max_pages), dtype=np.int32)
         self.prefix_cache = bool(prefix_cache)
         self.radix_cache = bool(radix_cache) and self.prefix_cache
+        # An int8 pool salts the chain keys with its payload dtype, so the
+        # two formats never alias each other's blocks (decode_server.py:768).
         self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots,
-                                       radix=self.radix_cache)
+                                       radix=self.radix_cache,
+                                       key_salt=kv_dtype + ":" if self._kv_quant else "")
         # The host-RAM spill tier (decode_server.py:775-812), attached with
         # this engine's copy-out: the engine owns the pool, the manager
         # decides when content moves.
         if spill_blocks is None:
             spill_blocks = self.total_blocks
         self.spill_tier: Optional[SpillTier] = None
-        itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
-        #: Bytes of one full-width spilled block (every layer's K and V).
-        self._bytes_per_block = (cfg.layers * 2 * cfg.n_kv * self.block_size
-                                 * cfg.head_dim * itemsize)
+        #: Bytes of one full-width spilled block (every layer's K and V;
+        #: int8: one byte a code plus one f32 scale per layer and k|v, the
+        #: nbytes of the payload `_extract_block` ships).
+        elems = cfg.n_kv * self.block_size * cfg.head_dim
+        if self._kv_quant:
+            self._bytes_per_block = cfg.layers * 2 * (elems + 4)
+        else:
+            itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+            self._bytes_per_block = cfg.layers * 2 * elems * itemsize
         if int(spill_blocks) > 0:
             self.spill_tier = SpillTier(int(spill_blocks) * self._bytes_per_block)
             # A weak reader: the manager must not keep the engine, and with
@@ -529,46 +560,63 @@ class DecodeServer:
         """The paged pool: one device, or partitioned on KV heads across the
         mesh's shards."""
         return init_paged_cache(self.cfg, self.total_blocks, self.block_size,
-                                device=self.device, mesh=self._mesh, tp_axis=self._tp_axis)
+                                kv_dtype=self.kv_dtype, device=self.device, mesh=self._mesh,
+                                tp_axis=self._tp_axis)
 
     def _pools(self) -> list:
         """The pool's per-layer dicts, one per shard in shard order."""
         return self.cache if self._tp is not None else [self.cache]
 
     # -- the spill tier's and the radix tree's copies (decode_server.py:1210-1299)
-    # Plain PyTorch, native pool, on the engine's stream: they write the
-    # pool's tensors in place and never rebind them (the captured window
-    # holds their addresses). A payload is the block's K and V over every
-    # layer at full width, [layers, n_kv, block_size, head_dim] each: under
-    # a mesh the copy-out gathers the shards' KV-head slices and the
-    # copy-in slices them back, so a payload is the same bytes at any tp.
-    def _extract(self, block: int):
-        """One block's (k, v) payload, on the engine's device."""
+    # Plain PyTorch on the engine's stream: they write the pool's tensors
+    # (and an int8 pool's scales) in place and never rebind them (the
+    # captured window holds their addresses). A block's tensors are its K
+    # and V over every layer at full width, [layers, n_kv, block_size,
+    # head_dim] each, and for an int8 pool its K and V scales [layers]:
+    # under a mesh the copy-out gathers the shards' KV-head slices (and
+    # takes the scales once: the shards' copies are equal) and the copy-in
+    # slices them back, so a payload is the same bytes at any tp.
+    def _extract(self, block: int) -> tuple:
+        """One block's tensors on the engine's device: (k, v), or for an
+        int8 pool (k, v, k_scale, v_scale) through the funnel module."""
         L = self.cfg.layers
-        out = []
-        for name in ("k", "v"):
-            parts = [torch.stack([pool[str(i)][name][block] for i in range(L)])
-                     for pool in self._pools()]
-            out.append(parts[0] if len(parts) == 1
-                       else torch.cat([p.to(self.device) for p in parts], dim=1))
-        return tuple(out)
+        if self._kv_quant:
+            parts = [qkv.extract_block(pool, block, L) for pool in self._pools()]
+        else:
+            parts = [tuple(torch.stack([pool[str(i)][name][block] for i in range(L)])
+                           for name in ("k", "v")) for pool in self._pools()]
+        if len(parts) == 1:
+            return parts[0]
+        codes = tuple(torch.cat([p[j].to(self.device) for p in parts], dim=1)
+                      for j in range(2))
+        return codes + parts[0][2:]
 
-    def _revive(self, k: torch.Tensor, v: torch.Tensor, block: int) -> None:
-        """Copy a full-width payload on the engine's device into `block`."""
+    def _revive(self, tensors: tuple, block: int) -> None:
+        """Copy a block's full-width tensors (as `_extract` returns them, on
+        the engine's device) into `block`."""
         pools = self._pools()
+        k, v = tensors[:2]
         width = k.shape[1] // len(pools)
         for s, pool in enumerate(pools):
             dev = pool["0"]["k"].device
             ks = k[:, s * width:(s + 1) * width].to(dev)
             vs = v[:, s * width:(s + 1) * width].to(dev)
+            if self._kv_quant:
+                qkv.revive_block(pool, ks, vs, tensors[2].to(dev), tensors[3].to(dev), block)
+                continue
             for i in range(self.cfg.layers):
                 pool[str(i)]["k"][block].copy_(ks[i])
                 pool[str(i)]["v"][block].copy_(vs[i])
 
     def _cow_copy(self, src: int, dst: int, length: int) -> None:
         """The first `length` rows of block `src` into block `dst`, every
-        layer, each shard its own head slices. `src` is only read."""
+        layer, each shard its own head slices. `src` is only read. The
+        native copy keeps `dst`'s tail; the int8 copy zeroes it and takes
+        the source's scales (`quantized_kv.cow_copy_block`)."""
         for pool in self._pools():
+            if self._kv_quant:
+                qkv.cow_copy_block(pool, src, dst, length)
+                continue
             for layer in pool.values():
                 for t in (layer["k"], layer["v"]):
                     t[dst, :, :length].copy_(t[src, :, :length])
@@ -578,27 +626,37 @@ class DecodeServer:
         memory, (payload, nbytes). One counted blocking read per block: it
         waits behind everything queued on the stream that may still write
         the block. Spilling is the slow path by definition (allocation
-        pressure), and the bytes moved are the point."""
-        k, v = self._extract(block)
+        pressure), and the bytes moved are the point. A native payload is
+        (k, v); an int8 payload is the tagged ("int8", k, v, k_scale,
+        v_scale), its nbytes with the scales (decode_server.py:1306-1329)."""
+        tensors = self._extract(block)
         self._syncs.note()
-        k, v = k.cpu(), v.cpu()
-        return (k, v), k.numel() * k.element_size() + v.numel() * v.element_size()
+        tensors = tuple(t.cpu() for t in tensors)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        if self._kv_quant:
+            return (constants.KV_DTYPE_INT8,) + tensors, nbytes
+        return tensors, nbytes
 
     def _payload_matches(self, payload) -> bool:
-        """A native engine takes (k, v) pairs; anything else (a tagged int8
-        payload) is refused and recomputed instead."""
-        return (isinstance(payload, (tuple, list)) and len(payload) == 2
-                and not isinstance(payload[0], str))
+        """Whether a tier payload's wire format is this pool's: a native
+        engine takes (k, v) pairs, an int8 engine ("int8", k, v, k_scale,
+        v_scale); the other format is refused and recomputed instead."""
+        if not isinstance(payload, (tuple, list)):
+            return False
+        if self._kv_quant:
+            return len(payload) == 5 and payload[0] == constants.KV_DTYPE_INT8
+        return len(payload) == 2 and not isinstance(payload[0], str)
 
     def _dispatch_revive(self, payload, block: int) -> bool:
-        """Copy one tier payload into device `block`: two counted uploads,
-        then the in-place copy-in. False (counted) for a payload of
-        another wire format; the caller recomputes the range."""
+        """Copy one tier payload into device `block`: one counted upload a
+        tensor (two native, four int8), then the in-place copy-in. False
+        (counted) for a payload of another wire format; the caller
+        recomputes the range."""
         if not self._payload_matches(payload):
             self.kv_quant_payload_rejected += 1
             return False
-        kx, vx = payload
-        self._revive(self._stage.to_device(kx), self._stage.to_device(vx), block)
+        tensors = payload[1:] if self._kv_quant else payload
+        self._revive(tuple(self._stage.to_device(t) for t in tensors), block)
         return True
 
     def _table(self):
@@ -792,13 +850,13 @@ class DecodeServer:
         self._tick_state.mark_table_dirty()
 
     def _reset_device_state(self) -> None:
-        """After an engine error the pool is untrustworthy: zero it, and the
-        token vectors, in place (the reference reallocates them; the
-        captured window holds their addresses)."""
+        """After an engine error the pool is untrustworthy: zero it (an int8
+        pool's scales too), and the token vectors, in place (the reference
+        reallocates them; the captured window holds their addresses)."""
         for pool in self._pools():
             for layer in pool.values():
-                layer["k"].zero_()
-                layer["v"].zero_()
+                for t in layer.values():
+                    t.zero_()
         self._table_np[:] = 0
         self._tick_state.mark_table_dirty()
         # The device index dies with the pool; host payloads survive.
@@ -1610,6 +1668,25 @@ class DecodeServer:
     @property
     def spill_host_bytes(self) -> int:
         return self.spill_tier.host_bytes if self.spill_tier is not None else 0
+
+    @property
+    def kv_quant_enabled(self) -> int:
+        """1 when the pool stores int8 codes and per-block scales."""
+        return int(self._kv_quant)
+
+    @property
+    def kv_pool_bytes(self) -> int:
+        """Bytes of the logical paged pool (decode_server.py:4198-4213):
+        every shard's K/V codes, and the scales once (each shard holds a
+        copy of them). Shapes only, no device sync."""
+        pools = self._pools()
+        total = 0
+        for s, pool in enumerate(pools):
+            for layer in pool.values():
+                for name, t in layer.items():
+                    if name in ("k", "v") or s == 0:
+                        total += t.numel() * t.element_size()
+        return total
 
     @property
     def h2d_uploads(self) -> int:

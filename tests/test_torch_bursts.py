@@ -258,10 +258,13 @@ def _addresses(server):
     return [t.data_ptr() for t in fixed]
 
 
-def test_window_state_stays_at_fixed_addresses(model):
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+def test_window_state_stays_at_fixed_addresses(model, kv_dtype):
     """Syncs, windows, bursts and an error reset write the window's state in
-    place: every buffer keeps its address, as a captured graph requires."""
-    server = engine(model, 4, steps_per_dispatch=2)
+    place: every buffer keeps its address, as a captured graph requires (an
+    int8 pool's scale leaves too)."""
+    server = engine(model, 4, steps_per_dispatch=2, kv_dtype=kv_dtype)
+    assert len(server.cache["0"]) == (4 if kv_dtype == "int8" else 2)
     before = _addresses(server)
     drive(server, [(p, 12 + 5 * i) for i, p in enumerate(PROMPTS)])
     assert server.burst_dispatches > 0 and server.macro_dispatches > 0
@@ -271,17 +274,19 @@ def test_window_state_stays_at_fixed_addresses(model):
     assert not server._last_dev.any()
     assert all(not t.any() for layer in server.cache.values() for t in layer.values())
     # After the reset the engine serves the same tokens as a fresh one.
-    assert drive(server, [(PROMPTS[1], 9)]) == drive(engine(model, 4, steps_per_dispatch=2),
-                                                     [(PROMPTS[1], 9)])
+    assert drive(server, [(PROMPTS[1], 9)]) == drive(
+        engine(model, 4, steps_per_dispatch=2, kv_dtype=kv_dtype), [(PROMPTS[1], 9)])
 
 
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-def test_window_makes_no_host_copy(model, monkeypatch, temperature):
+def test_window_makes_no_host_copy(model, monkeypatch, temperature, kv_dtype):
     """A window builds no tensor from host data (stream capture refuses a
     copy from pageable memory): with torch.tensor and torch.as_tensor
-    refusing, a window still runs and gives the same tokens."""
+    refusing, a window still runs and gives the same tokens (over an int8
+    pool, with the write funnel inside)."""
     # An eos id, so the carry's ops run too (96: not reached before the check).
-    server = engine(model, 1, temperature=temperature, eos_id=96)
+    server = engine(model, 1, temperature=temperature, eos_id=96, kv_dtype=kv_dtype)
     futs = steady(server, [(p, 40) for p in PROMPTS])
     server._sync_tick_state()
     saved = [t.clone() for t in _window_state(server)]

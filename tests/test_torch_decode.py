@@ -80,14 +80,21 @@ def table_for(b, n_pages, seed):
     return table
 
 
-def test_init_paged_cache_shapes_and_int8_deferred(model):
+def test_init_paged_cache_shapes_and_int8_leaves(model):
     _, _, tcfg, _ = model
     pool = td.init_paged_cache(tcfg, TOTAL, BS, device="cpu")
     assert set(pool) == {str(i) for i in range(tcfg.layers)}
     assert tuple(pool["0"]["k"].shape) == (TOTAL, tcfg.n_kv, BS, tcfg.head_dim)
     assert pool["0"]["v"].dtype == torch.float32 and not pool["1"]["k"].any()
-    with pytest.raises(NotImplementedError):
-        td.init_paged_cache(tcfg, TOTAL, BS, kv_dtype="int8", device="cpu")
+    assert set(pool["0"]) == {"k", "v"}
+    quant = td.init_paged_cache(tcfg, TOTAL, BS, kv_dtype="int8", device="cpu")
+    for lc in quant.values():
+        assert set(lc) == {"k", "v", "k_scale", "v_scale"}
+        assert lc["k"].dtype == lc["v"].dtype == torch.int8
+        assert tuple(lc["k"].shape) == (TOTAL, tcfg.n_kv, BS, tcfg.head_dim)
+        assert lc["k_scale"].dtype == lc["v_scale"].dtype == torch.float32
+        assert tuple(lc["k_scale"].shape) == tuple(lc["v_scale"].shape) == (TOTAL,)
+        assert not any(t.any() for t in lc.values())
     with pytest.raises(ValueError):
         td.init_paged_cache(tcfg, TOTAL, BS, kv_dtype="fp8", device="cpu")
 

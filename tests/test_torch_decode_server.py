@@ -158,8 +158,7 @@ def test_shared_prefix_hit(model):
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
     for kw in (dict(quota=object()), dict(kv_store=object()),
-               dict(kv_dtype="int8"), dict(surgical_recovery=True),
-               dict(cost_ledger=object())):
+               dict(surgical_recovery=True), dict(cost_ledger=object())):
         with pytest.raises(NotImplementedError):
             DecodeServer(tparams, tcfg, device="cpu", **kw)
     # radix_cache is inert without the prefix cache, as in the reference.

@@ -20,11 +20,12 @@ bounds. The sharded paged kernels bit for bit against the unsharded kernel
 on the same heads, and a tp=2 engine on one card against tp=1. The engine's
 captured decode window (a CUDA graph) against its eager `_macro` on one
 state: tokens and the state they advance equal, the pool's written pages
-byte for byte, the launch counts equal; and a capture that copies from
-host memory raises. The spill tier's and the radix tree's block copies
-byte for byte on the card (tp=1 and tp=2), a verify window (W = 9) on the
-mma route against the plain version, and a spec-armed engine with the
-radix cache on the card against spec-off."""
+byte for byte, the launch counts equal; a capture that copies from host
+memory raises, and a dead engine's graph in a reference cycle is
+collected before a capture, never inside it. The spill tier's and the
+radix tree's block copies byte for byte on the card (tp=1 and tp=2), a
+verify window (W = 9) on the mma route against the plain version, and a
+spec-armed engine with the radix cache on the card against spec-off."""
 
 import numpy as np
 import pytest
@@ -558,7 +559,7 @@ def test_tp2_engine_tokens_equal_tp1(cuda_device):
     assert tpa.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"]
 
 
-def _graph_engine(cuda_device, dtype, temperature, mesh=None):
+def _graph_engine(cuda_device, dtype, temperature, mesh=None, kv_dtype="fp16"):
     """A small engine on the card after one tick (every prompt prefilled
     unbudgeted, one window run), lane 1 cut to 3 steps so that it ends
     mid-window, its tick state synced: the state a window runs from."""
@@ -570,7 +571,7 @@ def _graph_engine(cuda_device, dtype, temperature, mesh=None):
     server = DecodeServer(params, cfg, mesh=mesh, device=None if mesh else cuda_device,
                           n_slots=3, max_len=128, prompt_buckets=(8, 16),
                           steps_per_dispatch=8, block_size=8, temperature=temperature,
-                          seed=3, eos_id=95, prefill_budget_tokens=0)
+                          seed=3, eos_id=95, prefill_budget_tokens=0, kv_dtype=kv_dtype)
     rng = np.random.RandomState(9)
     futs = [server.submit(rng.randint(1, 95, size=n).tolist(), max_new=40)
             for n in (5, 20, 33)]
@@ -670,6 +671,44 @@ def test_capture_that_copies_from_host_raises(cuda_device):
 
     with pytest.raises(RuntimeError):
         _WindowGraph(body, cuda_device)
+
+
+@pytest.mark.parametrize("dead", ["graph", "engine"])
+def test_capture_survives_a_dead_cycle_collected_mid_capture(cuda_device, dead):
+    """A dead engine left in a reference cycle still holds its captured
+    graph, its pool and its pinned token buffers until the cyclic collector
+    runs. A collection during another window's capture would free them
+    there and invalidate that capture, so the capture collects them first:
+    a collection inside the capture then finds nothing of them, and the
+    new window captures and replays."""
+    import gc
+
+    from nos_tpu_torch.runtime.decode_server import _WindowGraph
+
+    x = torch.ones(4, device=cuda_device)
+
+    class Cycle:
+        pass
+
+    held = Cycle()
+    held.cycle = held
+    if dead == "graph":
+        held.graph = _WindowGraph(lambda: x * 2, cuda_device)
+        held.pinned = torch.empty(4, pin_memory=True).copy_(x, non_blocking=True)
+    else:
+        held.server, held.futs = _graph_engine(cuda_device, "float32", 0.0)
+        for f in held.futs:
+            f.cancel()
+        held.server.stop()
+    del held
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return x + 1
+
+    graph = _WindowGraph(body, cuda_device)
+    assert torch.equal(graph.replay(), x + 1)
 
 
 # -- the spill tier's and the radix tree's copies, and verify windows -----------
@@ -808,3 +847,94 @@ def test_engine_speculation_and_radix_on_card(cuda_device):
     assert server.spec_history_rounds > 0
     assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["simt"] > before["simt"]
     assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
+
+
+# -- the int8 pool ---------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_replayed_int8_window_equals_eager_macro(cuda_device, dtype, tp):
+    """Over an int8 pool (the write funnel inside the captured window), the
+    replay and the eager `_macro` from one engine state give the same
+    tokens and state, and byte for byte the same codes and scales outside
+    the scratch page; at tp=2 the shards' scale copies stay equal."""
+    from nos_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"]) if tp == 2 else None
+    server, futs = _graph_engine(cuda_device, dtype, 0.0, mesh, kv_dtype="int8")
+    assert server.graph_captures == 1 and server.kv_quant_enabled == 1
+    start = [t.clone() for t in _window_tensors(server)]
+    runs = []
+    for run in (server._macro, server._window):
+        for t, v in zip(_window_tensors(server), start):
+            t.copy_(v)
+        toks = run().clone()
+        torch.cuda.synchronize()
+        runs.append((toks, [t.clone() for t in _window_tensors(server)]))
+    (toks_e, state_e), (toks_g, state_g) = runs
+    assert torch.equal(toks_g, toks_e)
+    for got, want in zip(state_g[:5], state_e[:5]):
+        assert torch.equal(got, want)
+    for got, want in zip(state_g[5:], state_e[5:]):
+        assert torch.equal(got[1:].view(torch.uint8), want[1:].view(torch.uint8))
+    assert not torch.equal(state_e[0], start[0])
+    if tp == 2:
+        for a, b in zip(server.cache[0].values(), server.cache[1].values()):
+            assert torch.equal(a["k_scale"], b["k_scale"])
+            assert torch.equal(a["v_scale"], b["v_scale"])
+    for f in futs:
+        f.cancel()
+    server.stop()
+
+
+def test_int8_engine_matches_its_plain_programs(cuda_device, monkeypatch):
+    """A small f32 int8 engine on the card (its defaults, every window a
+    replay): each served token is the greedy pick of a teacher-forced pass
+    of the same programs over an int8 pool with the kernels' plain
+    versions, chunked as the engine chunks (16-token chunks, 8-token
+    blocks), and the engine launched the split decode kernel and the
+    window's simt route."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+    from nos_tpu_torch.models import decode as D
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(4)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), m) for n, m in ((7, 30), (18, 45), (33, 20))]
+    server = DecodeServer(params, cfg, device=cuda_device, n_slots=2, max_len=96,
+                          prompt_buckets=(8, 16), steps_per_dispatch=4, block_size=8,
+                          kv_dtype="int8")
+    before = {n: dict(r) for n, r in tpa.ROUTE_LAUNCHES.items()}
+    futs = [server.submit(p, max_new=m) for p, m in reqs]
+    while not all(f.done() for f in futs):
+        server._tick()
+    outs = [f.result() for f in futs]
+    assert server.graph_replays == server.macro_dispatches + server.burst_windows_run > 0
+    assert tpa.ROUTE_LAUNCHES["paged_decode_attention"]["split"] > before[
+        "paged_decode_attention"]["split"]
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["simt"] > before[
+        "paged_window_attention"]["simt"]
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["mma"] == before[
+        "paged_window_attention"]["mma"]
+    monkeypatch.setattr(tpa, "paged_decode_attention", tpa._reference)
+    monkeypatch.setattr(tpa, "paged_window_attention", tpa._window_reference)
+    for (prompt, m), out in zip(reqs, outs):
+        n_pages = -(-(len(prompt) + m) // 8)
+        cache = D.init_paged_cache(cfg, 1 + n_pages, 8, kv_dtype="int8", device=cuda_device)
+        row = torch.arange(1, n_pages + 1, dtype=torch.int32, device=cuda_device)
+        picks = []
+        for start in range(0, len(prompt), 16):
+            piece = prompt[start:start + 16]
+            toks = torch.zeros((1, 8 if len(piece) <= 8 else 16), dtype=torch.int32,
+                               device=cuda_device)
+            toks[0, :len(piece)] = torch.tensor(piece, dtype=torch.int32)
+            lg, _ = D.paged_prefill_chunk(params, toks, cfg, cache, row, start, len(piece), 8)
+        picks.append(int(D.greedy(lg[len(piece) - 1][None, :])[0]))
+        mask = torch.ones((1,), dtype=torch.bool, device=cuda_device)
+        for t in range(m - 1):
+            lg, _ = D.paged_decode_step(
+                params, torch.tensor([out[t]], dtype=torch.int32, device=cuda_device), cfg,
+                cache, row[None, :], torch.tensor([len(prompt) + t], dtype=torch.int32,
+                                                  device=cuda_device), mask, 8)
+            picks.append(int(D.greedy(lg)[0]))
+        assert picks == out

@@ -121,9 +121,8 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
     assert not sharded._tp.emb_sharded and not sharded._tp.head_sharded
 
 
-@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(kv_dtype="int8"),
-                                dict(quota=object())],
-                         ids=["recovery", "int8", "quota"])
+@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(quota=object())],
+                         ids=["recovery", "quota"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, kw):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
