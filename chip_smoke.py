@@ -8,6 +8,7 @@ them.
     python3 chip_smoke.py --phases build,card,graph
     python3 chip_smoke.py --phases build,card,radix,spec
     python3 chip_smoke.py --phases build,card,quant
+    python3 chip_smoke.py --phases build,card,faults
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -106,7 +107,8 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            phase's traffic on a native and an int8 engine (blocks per pool
            byte >= 1.9x native; tokens against a teacher-forced pass of the
            plain int8 programs, f32 exact and bf16 within one step; every
-           window a replay; decode on "split", windows on "simt"); replay
+           window a replay; decode on "split", windows with a bf16 q on
+           "mma" and with an f32 q on "simt", QUANT_ROUTES); replay
            against eager on one int8 state, codes and scales byte for byte;
            the radix phase's chat over an undersized int8 pool (spills and
            revives, the first copies byte for byte, host bytes per block
@@ -116,6 +118,23 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            tick by tick (equal tokens and counters, the shards' scale copies
            equal); the decode step and a prefill chunk profiled over an int8
            and a native pool;
+  faults   surgical recovery on the engine phase's model, settings and
+           traffic (queued at once, so that `_run` runs one schedule), the
+           engine at its defaults: bf16 native under the seeded schedule
+           (FAULT_SEED: a transient, a device-lost at admission, a poison in
+           a prefill wave), a device-lost at the third macro window and a
+           poison at the fourth prefill wave; bf16 int8 under the seeded
+           schedule; f32 under the device-lost; each beside its fault-free
+           run. Gates (check_fault_run, fault_tokens): every non-poisoned
+           future resolves with its max_new tokens, every failed one with a
+           PoisonRequestError; every scheduled fault fired; the pool drains
+           to the fault-free run's free and cached count; one capture and
+           every window a replay of it; the resolved tokens against a
+           teacher-forced pass of the plain programs (check_logits, f32
+           within F32_CROSS_SHAPE_STEPS). Then, from one engine state after
+           a forced device-lost, the replayed window against the eager
+           `_macro` byte for byte. Prints recoveries by kind, slots
+           restored, replay tokens and restore latency (p50, max);
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -151,10 +170,11 @@ The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
 which run the paged kernel once per shard, then the four paged entry
 points again over an int8 pool, marked `"pool": "int8"`, with the
-launches of the int8 engine's runs), each entry with the route its
-main-path launches took (`kernel_route`: "split", the split-KV decode
-kernels, paged and dense; "mma", the tensor-core kernels of the bf16 window
-and the three bf16 flash kernels; or "simt"; the engine, tp, dense and
+launches of the int8 engine's runs and `timed_route`, the route of the
+timed launches), each entry with the route its main-path launches took
+(`kernel_route`: "split", the split-KV decode kernels, paged and dense;
+"mma", the tensor-core kernels of the bf16-q window over either pool and
+the three bf16 flash kernels; or "simt"; the engine, tp, quant, dense and
 train phases check that every decode launch took "split" and every bf16
 window and flash launch "mma");
 the last line is {"ok": true, "device": {...}}, printed only when every
@@ -2200,8 +2220,11 @@ def phase_spec(torch, device, small=False):
 
 # -- phase: quant ------------------------------------------------------------------
 QUANT_ORACLE_STEPS = 12
-# The int8 pool's routes: decode on the split kernel, every window on simt.
-QUANT_ROUTES = {"paged_decode_attention": "split", "paged_window_attention": "simt"}
+# The int8 pool's routes by q's dtype: decode on the split kernel; a window
+# with a bf16 q on the tensor cores, with an f32 q on simt.
+QUANT_ROUTES = {"bfloat16": {"paged_decode_attention": "split", "paged_window_attention": "mma"},
+                "float32": {"paged_decode_attention": "split",
+                            "paged_window_attention": "simt"}}
 QUANT_NAMES = ("paged_decode_attention", "paged_window_attention") + SHARDED
 
 
@@ -2339,6 +2362,7 @@ def int8_kernels(torch):
                      for s in shards],
             lambda: [_sdpa_decode(torch, qwh[s], kdh[s], vdh[s], causal) for s in shards],
             nbytes(pages, b, w, shards=2), flops)
+        out["window_sharded"]["route"] = pa._window_route(qwh[0], kh[0], ks)
 
     window(256, 2048, [256] * B, [False] * 6 + [True, True], "window_main")
     W = SPEC_K + 1
@@ -2445,7 +2469,7 @@ def phase_quant(torch, device, small=False):
         check(all(len(o) == max_new for o in outs), f"quant {dtype}: short output")
         if cuda:
             check_replays(st, f"quant {dtype}")
-            for name, route in QUANT_ROUTES.items():
+            for name, route in QUANT_ROUTES[dtype].items():
                 check_routes(st["routes"], name, route, f"quant {dtype}")
         all_prompts = prompts + long_prompts
         kern = teacher_forced(torch, params, cfg, all_prompts, outs, buckets, 32, device,
@@ -2507,7 +2531,7 @@ def phase_quant(torch, device, small=False):
               f"{sp['host_bytes_ratio']}x native")
         if cuda:
             check_replays(sp, f"quant {dtype} spill", bursts=False)
-            for name, route in QUANT_ROUTES.items():
+            for name, route in QUANT_ROUTES[dtype].items():
                 check_routes(sp["routes"], name, route, f"quant {dtype} spill")
         del server
         log(f"quant {dtype} spill: " + json.dumps(sp))
@@ -2543,10 +2567,11 @@ def phase_quant(torch, device, small=False):
                 check(tp2[c] == tp1[c], f"quant tp: {c} {tp2[c]} at tp=2, {tp1[c]} at tp=1")
             check(tp2["scale_copies_equal"], "quant tp: the shards' scale copies differ")
             if cuda:
-                for name, sharded in zip(QUANT_ROUTES, SHARDED):
+                for name, sharded in zip(QUANT_ROUTES[dtype], SHARDED):
                     check(tp2["launches"][sharded] == 2 * tp1["launches"][name] > 0,
                           f"quant tp: launches {tp2['launches']} at tp=2, {tp1['launches']}")
-                    check_routes(tp2["routes"], sharded, QUANT_ROUTES[name], "quant tp=2")
+                    check_routes(tp2["routes"], sharded, QUANT_ROUTES[dtype][name],
+                                 "quant tp=2")
             log("quant float32 tp: " + json.dumps({w: {k: s[k] for k in (
                 "decode_tok_per_s", "long_prompt_ttft_s", "wall_s", "kv_pool_bytes", "launches",
                 "routes", "graph_replays")} for w, s in (("tp1", tp1), ("tp2", tp2))}))
@@ -2556,13 +2581,229 @@ def phase_quant(torch, device, small=False):
                                    for kv in ("fp16", "int8")}
             run["prefill_profile"] = {
                 "fp16": profile_prefill_chunk(torch, cfg, params, "fp16", "window_mma_kernel"),
-                "int8": profile_prefill_chunk(torch, cfg, params, "int8",
-                                              "paged_attention_kernel")}
+                "int8": profile_prefill_chunk(torch, cfg, params, "int8", "window_mma_kernel")}
             log(f"quant {dtype} profiles: " + json.dumps(
                 {k: run[k] for k in ("step_profile", "prefill_profile")}))
         stats[dtype] = run
     stats["phase_s"] = time.perf_counter() - t0
     log(f"quant phase_s={stats['phase_s']:.1f}")
+    return stats
+
+
+# -- phase: faults -----------------------------------------------------------------
+# The seeded schedule of the faults phase: a transient at admit#1, a
+# device-lost at admit#8 and a poison at dispatch_prefill_wave#6
+# (FaultInjector.seeded(6, n_faults=3, sites=FAULT_SITES, max_occurrence=8)),
+# over sites the serving traffic visits more than 8 times.
+FAULT_SEED = 6
+FAULT_SITES = ("admit", "block_admit", "dispatch_prefill_wave", "dispatch_macro")
+FAULT_COUNTERS = ("recoveries", "slots_restored", "replay_tokens", "requests_poisoned",
+                  "transient_retries", "fail_all_recoveries")
+
+
+def fault_run(torch, cfg, params, device, prompts, max_new, buckets, max_len, injector=None,
+              **engine_kw):
+    """The engine phase's model, settings and traffic on an engine at its
+    defaults (surgical recovery, bursts, the captured window, radix and
+    spill) with `injector` (None: the fault-free run), every request
+    queued before start() so that the engine loop (`_run`, which routes
+    each fault through `_recover`) runs one deterministic schedule.
+    Returns (outcomes in submit order: tokens or the exception, stats)."""
+    from nos_tpu_torch import DecodeServer
+
+    server = DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
+                          steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
+                          device=device, fault_injector=injector, transient_backoff_s=0.001,
+                          **engine_kw)
+    futs = [server.submit(p, max_new) for p in prompts]
+    t0 = time.perf_counter()
+    server.start()
+    outcomes = []
+    try:
+        for f in futs:
+            try:
+                outcomes.append(f.result(timeout=600))
+            except Exception as exc:  # noqa: BLE001 — the outcome the gates read
+                outcomes.append(exc)
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    lat = sorted(server.restore_latency_s)
+    counts = server._block_mgr.counts()
+    stats = {
+        "wall_s": wall,
+        **{c: getattr(server, c) for c in FAULT_COUNTERS},
+        "restore_latency_s": {"n": len(lat), "p50": lat[len(lat) // 2] if lat else None,
+                              "max": lat[-1] if lat else None},
+        "pool": counts, "conserved": server._block_mgr.conserved(),
+        "graph_captures": server.graph_captures, "graph_replays": server.graph_replays,
+        "windows": server.macro_dispatches + server.burst_windows_run,
+        "burst_dispatches": server.burst_dispatches,
+        "schedule": [list(map(str, (s.site, s.occurrence, s.kind)))
+                     for s in (injector.schedule if injector else ())],
+        "fired": [[s.site, s.occurrence, s.kind, slot]
+                  for s, slot in (injector.fired if injector else ())],
+        "pending": bool(injector and injector.has_pending()),
+    }
+    if injector is not None:
+        stats["fired_by_kind"] = {k: sum(1 for s, _ in injector.fired if s.kind == k)
+                                  for k in ("transient", "poison", "device-lost")}
+    return outcomes, stats
+
+
+def check_fault_run(torch, st, outcomes, base, what, max_new, cuda):
+    """The faults phase's gates on one run against its fault-free run
+    `base`: every non-poisoned future resolved with its max_new tokens,
+    every failed one with a PoisonRequestError, as many as the engine
+    counted; every scheduled fault fired; the legacy sweep never ran; the
+    pool conserved, nothing in use and as many blocks free or cached as
+    after the fault-free run; on the card one capture and every window a
+    replay of it, across the recoveries."""
+    from nos_tpu_torch.runtime.faults import PoisonRequestError
+
+    poisoned = [o for o in outcomes if isinstance(o, Exception)]
+    for o in outcomes:
+        check(isinstance(o, PoisonRequestError) or (isinstance(o, list) and len(o) == max_new),
+              f"{what}: an outcome is neither {max_new} tokens nor a poison: {o!r}")
+    check(len(poisoned) == st["requests_poisoned"],
+          f"{what}: {len(poisoned)} poisoned futures, {st['requests_poisoned']} counted")
+    check(not st["pending"] and len(st["fired"]) == len(st["schedule"]),
+          f"{what}: scheduled faults that never fired: {st['schedule']} fired {st['fired']}")
+    check(st["fail_all_recoveries"] == 0, f"{what}: the fail-all sweep ran")
+    free = st["pool"]["free"] + st["pool"]["cached"]
+    check(st["conserved"] and st["pool"]["in_use"] == 0
+          and free == base["pool"]["free"] + base["pool"]["cached"],
+          f"{what}: pool {st['pool']} after the drain, fault-free {base['pool']}")
+    if cuda:
+        check(st["graph_captures"] == 1 and st["graph_replays"] == st["windows"] > 0,
+              f"{what}: {st['graph_replays']} replays for {st['windows']} windows "
+              f"({st['graph_captures']} captures)")
+
+
+def fault_tokens(torch, cfg, params, device, prompts, outcomes, base_outs, buckets, dtype,
+                 kv_dtype=None):
+    """The resolved streams against the fault-free run (equal streams and
+    positionwise agreement, reported) and against a teacher-forced pass of
+    the plain programs (`agreement`, gated by check_logits: bf16 within
+    one step; f32 exact or within F32_CROSS_SHAPE_STEPS at under 1% of
+    positions, since a restore re-derives decode-written KV through the
+    prefill window)."""
+    live = [i for i, o in enumerate(outcomes) if isinstance(o, list)]
+    outs = [outcomes[i] for i in live]
+    same = [outcomes[i] == base_outs[i] for i in live]
+    pos = float(np.mean([a == b for i in live for a, b in zip(outcomes[i], base_outs[i])]))
+    ps = [prompts[i] for i in live]
+    kern = teacher_forced(torch, params, cfg, ps, outs, buckets, 32, device, kv_dtype=kv_dtype)
+    with plain_attention():
+        plain = teacher_forced(torch, params, cfg, ps, outs, buckets, 32, device,
+                               kv_dtype=kv_dtype)
+    st = agreement(torch, kern, plain, torch.tensor(outs, device=device), dtype)
+    st.update(dtype=dtype, streams_equal_to_fault_free=sum(same), streams=len(live),
+              positions_equal_to_fault_free=pos)
+    return st
+
+
+def replay_after_recovery(torch, cfg, params, device, small):
+    """From one engine state after a device-lost recovery (graph_engine's 8
+    lanes checkpointed, the pool zeroed in place, the restores replayed
+    through the prefill programs and one window run), the captured
+    window's replay against the eager `_macro`, byte for byte
+    (replay_against_eager)."""
+    from nos_tpu_torch.runtime.faults import DeviceLostError
+
+    server, futs = graph_engine(torch, cfg, params, device, small)
+    server._recover(DeviceLostError("forced device-lost"))
+    check(server.recoveries == 1 and server.slots_restored == len(futs),
+          f"faults replay: {server.recoveries} recoveries, {server.slots_restored} restored")
+    server._tick()
+    check(all(s.active and s.phase == "decoding" for s in server._slots),
+          "faults replay: the restored lanes are not decoding after one tick")
+    server._sync_tick_state()
+    rep = replay_against_eager(torch, server)
+    rep["graph_captures"] = server.graph_captures
+    for f in futs:
+        f.cancel()
+    server.stop()
+    check(rep["tokens_equal"] and rep["state_equal"] and rep["advanced"]
+          and rep["pool_bytes_equal"] and rep["launches_eager"] == rep["launches_replay"],
+          f"faults: after a device-lost recovery the replayed window differs from the eager "
+          f"one: {rep}")
+    if device.type == "cuda":
+        check(rep["graph_captures"] == 1, f"faults replay: {rep['graph_captures']} captures")
+    return rep
+
+
+def phase_faults(torch, device, small=False):
+    """Surgical recovery at the serving cell's width (the bench GPT, the
+    engine phase's settings, its traffic queued at once), the engine at its
+    defaults. bf16, native pool: the fault-free run, the seeded schedule
+    (FAULT_SEED: a transient, a device-lost at admission, a poison in a
+    prefill wave), a device-lost at the third macro window (mid-decode)
+    and a poison at the fourth prefill wave (mid-prefill). bf16, int8 pool:
+    the fault-free run and the seeded schedule. f32: the fault-free run and
+    the mid-decode device-lost. Each fault run is held to check_fault_run
+    and its resolved tokens to fault_tokens; then, from one engine state
+    after a forced device-lost, the replay against the eager window byte
+    for byte. Prints the recoveries by kind, slots restored, replay tokens
+    and the restore latency (p50, max) of every run."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.runtime.faults import FaultInjector, FaultSpec
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    buckets, max_len = engine_sizes(small)
+    stats = {}
+    cases = [("bfloat16", "fp16", ("seeded", "device_lost", "poison")),
+             ("bfloat16", "int8", ("seeded",)),
+             ("float32", "fp16", ("device_lost",))]
+    injectors = {
+        "seeded": lambda: FaultInjector.seeded(FAULT_SEED, n_faults=3, sites=FAULT_SITES,
+                                               max_occurrence=8),
+        "device_lost": lambda: FaultInjector([FaultSpec("dispatch_macro", 3, "device-lost")]),
+        "poison": lambda: FaultInjector([FaultSpec("dispatch_prefill_wave", 4, "poison")])}
+    params_by = {}
+    for dtype, kv, runs in cases:
+        cfg = bench_gpt(dtype, small)
+        if dtype not in params_by:
+            params_by[dtype] = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        params = params_by[dtype]
+        max_new, prompts, long_prompts = engine_traffic(cfg, small)
+        prompts = prompts + long_prompts
+        base_outs, base = fault_run(torch, cfg, params, device, prompts, max_new, buckets,
+                                    max_len, kv_dtype=kv)
+        check(all(isinstance(o, list) and len(o) == max_new for o in base_outs),
+              f"faults {dtype} {kv}: the fault-free run failed a request")
+        arm = {"fault_free": base}
+        for name in runs:
+            what = f"faults {dtype} {kv} {name}"
+            outcomes, st = fault_run(torch, cfg, params, device, prompts, max_new, buckets,
+                                     max_len, injectors[name](), kv_dtype=kv)
+            check_fault_run(torch, st, outcomes, base, what, max_new, cuda)
+            if name != "seeded":
+                check(st["recoveries"] == 1 and st["slots_restored"] > 0,
+                      f"{what}: {st['recoveries']} recoveries, {st['slots_restored']} restored")
+            if name == "poison":
+                check(st["requests_poisoned"] == 1, f"{what}: no request poisoned")
+            st["tokens"] = fault_tokens(torch, cfg, params, device, prompts, outcomes,
+                                        base_outs, buckets, dtype,
+                                        kv_dtype="int8" if kv == "int8" else None)
+            check_logits(st["tokens"], what, F32_CROSS_SHAPE_STEPS)
+            log(f"{what}: " + json.dumps({k: st[k] for k in (
+                "recoveries", "fired_by_kind", "slots_restored", "replay_tokens",
+                "requests_poisoned", "transient_retries", "restore_latency_s", "fired",
+                "graph_replays", "windows", "burst_dispatches", "pool", "wall_s")}
+                | {"tokens": {k: st["tokens"][k] for k in (
+                    "streams_equal_to_fault_free", "streams", "positions_equal_to_fault_free",
+                    "top1_agreement", "top1_agreement_1ulp", "max_abs_dlogit",
+                    "disagreement_gap_steps")}}))
+            arm[name] = st
+        stats[f"{dtype}_{kv}"] = arm
+    cfg = bench_gpt("bfloat16", small)
+    stats["replay"] = replay_after_recovery(torch, cfg, params_by["bfloat16"], device, small)
+    log("faults replay after recovery: " + json.dumps(stats["replay"]))
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"faults phase_s={stats['phase_s']:.1f}")
     return stats
 
 
@@ -3083,7 +3324,8 @@ def phase_train(torch, device, full=True):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,dense,train")
+                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,dense,"
+                            "train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -3105,6 +3347,7 @@ def main(argv=None):
         phase_radix(torch, torch.device("cpu"), small=True)
         phase_spec(torch, torch.device("cpu"), small=True)
         phase_quant(torch, torch.device("cpu"), small=True)
+        phase_faults(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -3142,6 +3385,9 @@ def main(argv=None):
     quant = None
     if "quant" in phases:
         quant = phase_quant(torch, torch.device("cuda"))
+    faults = None
+    if "faults" in phases:
+        faults = phase_faults(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -3149,7 +3395,7 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if None in (worst, engine, graph, tp, radix, spec, quant, dense, train):
+    if None in (worst, engine, graph, tp, radix, spec, quant, faults, dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -3218,7 +3464,9 @@ def main(argv=None):
         })
     # The int8 routes: launches from the int8 engine's bf16 serving run (the
     # tp=2 int8 run in f32 for the sharded entry points), the route each
-    # took, and the int8 kernels' checks and times at the same shapes.
+    # took, and the int8 kernels' checks and times at the same shapes, with
+    # a bf16 q (`timed_route`: the sharded window's timed launches take
+    # "mma", its f32 engine launches "simt").
     q_launches = dict(quant["bfloat16"]["serving"]["launches"])
     q_routes = dict(quant["bfloat16"]["serving"]["routes"])
     q_launches.update({n: quant["float32"]["tp2"]["launches"][n] for n in SHARDED})
@@ -3236,6 +3484,7 @@ def main(argv=None):
             "launches": q_launches[name], "max_abs_err": quant["kernels"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "timed_route": t.get("route", "split"),
         }
         if name == "paged_window_attention":
             entry["verify_w9"] = {k: quant["times"]["window_verify"][k] for k in (

@@ -7,11 +7,16 @@
 //                                   dtype;
 //   nos_paged_window_attention      replaces nos_tpu/ops/paged_attention.py::_window_pallas
 //                                   (W query tokens per sequence, per-row causal
-//                                   limit): the simt route, for f32, int8 pools and
-//                                   head dims outside 64/128/256;
+//                                   limit): the simt route, for an f32 q (over an
+//                                   f32 or an int8 pool) and head dims outside
+//                                   64/128/256;
 //   nos_paged_window_attention_mma  the same contract on tensor cores: the mma
-//                                   route, bf16 q over a bf16 pool at head_dim 64,
-//                                   128 or 256 (the serving main path).
+//                                   route, a bf16 q over a bf16 pool or over an
+//                                   int8 pool with its scales, at head_dim 64,
+//                                   128 or 256 (the serving main path on either
+//                                   pool). One launcher for both pools: it takes
+//                                   the two scale pointers and the pool's dtype
+//                                   code, as the simt launcher does.
 // The wrapper (ops/paged_attention.py::_window_route) picks the window's
 // route from dtypes and shapes alone.
 //
@@ -21,13 +26,15 @@
 // [T, nkv, bs, hd] up to a per-row limit, with an online f32 softmax across
 // pages. Masked lanes are zeroed explicitly (never exp(-1e30 - m)), the
 // output is divided by max(l, 1e-30), and an int8 pool is dequantized by its
-// per-block scale right after each block load.
+// per-block scale (the simt and split bodies multiply each code by it right
+// after the block load; the mma body keeps the codes and scales the scores
+// and the weights, below).
 //
 // The decode kernel splits each lane's keys into fixed 128-key splits
 // spread over the card and combines them in split order (flash-decoding);
 // split_decode.cuh holds its design, shared with the dense decode kernel.
 //
-// The simt body (the window's route for f32 and int8). One CUDA block per
+// The simt body (the window's route for an f32 q). One CUDA block per
 // (b, g, row tile) keeps the row tile's queries, running max / normalizer
 // and f32 accumulator in shared memory, streams one page at a time (16-byte
 // vector loads, converted to f32 on the way into shared memory) and never
@@ -51,6 +58,21 @@
 // still bounds it is latency: the serving wave has 256 warp tiles of work
 // for the card's 528 schedulers, so two warps split each tile's keys and
 // merge at the end (window_mma_kernel below).
+//
+// The mma route over an int8 pool. A code in [-127, 127] is exact in bf16,
+// so the products run on the codes, unchanged, and the per-block scales are
+// applied in f32 where a column of S or P is one key: S's column j times
+// k_scale[page of j] (with the softmax scale) before the mask, P's column j
+// times v_scale[page of j] after the softmax update (the normalizer l sums
+// the unscaled weights) and before P splits into its bf16 terms. S and PV
+// are then q . (code * scale) and P . (code * scale) up to f32 summation
+// order, as in the Pallas kernel. The two-stage cp.async ring carries the
+// codes (half a bf16 tile's bytes: one 16-byte copy, 16 codes) and each
+// key's two scales, looked up per key (a warp's keys may span several
+// pages); after the wait, the block widens the tile's codes into one bf16
+// K tile and one bf16 V tile in the swizzled layout the fragment loads
+// read, while the next tile's codes are in flight. A key past the stream
+// reads nothing: zero codes, zero scales.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -280,7 +302,7 @@ int launch(Params p, int batch, int q_dtype, int kv_dtype, void* stream) {
   return static_cast<int>(err);
 }
 
-// -- the mma route: bf16 q over a bf16 pool, head_dim 64, 128 or 256 ------------
+// -- the mma route: bf16 q over a bf16 or int8 pool, head_dim 64, 128 or 256 --
 //
 // One CUDA block per (sequence b, KV group g) and kWinUnits consecutive
 // warp units of the group's (window tile, head) grid, unit u = the 16
@@ -308,8 +330,10 @@ constexpr int kPTerms = 3;
 
 struct WindowMmaParams {
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const void* k;           // bf16, or int8 codes (kQuant)
+  const void* v;
+  const float* k_scale;    // [T] f32, int8 pools only
+  const float* v_scale;
   const int32_t* table;
   const int32_t* pos;
   const int32_t* lengths;
@@ -325,22 +349,47 @@ struct WindowMmaParams {
   float scale;
 };
 
-// Q, the K/V ring and the staged page table.
-template <int D>
+// Q, the K/V tiles and the staged page table. A bf16 pool: a two-stage
+// bf16 ring. An int8 pool: one bf16 K and V tile (the widened codes), a
+// two-stage ring of codes and of each key's two scales. Either way the
+// region from the K tile on holds the warps' end-of-loop exchange
+// (kWinUnits * 32 threads x (D / 8 + 1) float4s).
+template <int D, bool kQuant>
 size_t window_mma_smem(int n_pages) {
-  return sizeof(__nv_bfloat16) * (kWinUnits * 16 * D + 2 * 2 * kWinKeys * D) +
+  const size_t bf16_tiles = kQuant ? 2 * kWinKeys * D : 2 * 2 * kWinKeys * D;
+  const size_t quant_ring = kQuant ? 2 * 2 * kWinKeys * (D + sizeof(float)) : 0;
+  return sizeof(__nv_bfloat16) * (kWinUnits * 16 * D + bf16_tiles) + quant_ring +
          sizeof(int) * static_cast<size_t>(n_pages);
 }
 
-template <int D>
+// Eight int8 codes (the bytes of w0, then of w1, low first) as eight bf16,
+// exactly.
+__device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
+  using nos::mma::pack_bf16;
+  auto code = [](uint32_t w, int byte) {
+    return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * byte))));
+  };
+  return make_uint4(pack_bf16(code(w0, 0), code(w0, 1)), pack_bf16(code(w0, 2), code(w0, 3)),
+                    pack_bf16(code(w1, 0), code(w1, 1)), pack_bf16(code(w1, 2), code(w1, 3)));
+}
+
+template <int D, bool kQuant>
 __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams p) {
   using namespace nos::mma;
   using bf16 = __nv_bfloat16;
   constexpr int kN = kWarpKeys / 8;  // 8-key accumulator blocks of a warp's S
+  constexpr int kStages = kQuant ? 1 : 2;  // bf16 K/V tiles
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kWinUnits * 16][D]
-  bf16* k_s = q_s + kWinUnits * 16 * D;            // [2][kWinKeys][D]
-  bf16* v_s = k_s + 2 * kWinKeys * D;              // [2][kWinKeys][D]
+  bf16* k_s = q_s + kWinUnits * 16 * D;            // [kStages][kWinKeys][D]
+  bf16* v_s = k_s + kStages * kWinKeys * D;        // [kStages][kWinKeys][D]
+  // int8 pools: the codes' ring [2][kWinKeys][D] each, then the scales'
+  // [2][kWinKeys] each.
+  int8_t* k8_s = reinterpret_cast<int8_t*>(v_s + kStages * kWinKeys * D);
+  int8_t* v8_s = k8_s + (kQuant ? 2 * kWinKeys * D : 0);
+  float* ks_s = reinterpret_cast<float*>(v8_s + (kQuant ? 2 * kWinKeys * D : 0));
+  float* vs_s = ks_s + (kQuant ? 2 * kWinKeys : 0);
+  int* table_s = reinterpret_cast<int*>(vs_s + (kQuant ? 2 * kWinKeys : 0));  // [n_pages]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int slot = (tid >> 5) % kWinUnits;  // the warp's unit in the block
@@ -378,7 +427,6 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   });
   // The pages the stream spans, staged once: each key's page id is then a
   // shared-memory read, not a dependent global load ahead of its copy.
-  int* table_s = reinterpret_cast<int*>(v_s + 2 * kWinKeys * D);  // [n_pages]
   {
     const int n_used = min(p.n_pages, (n_keys + p.block_size - 1) / p.block_size);
     const int32_t* table = p.table + static_cast<size_t>(b) * p.n_pages;
@@ -387,27 +435,75 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   }
   const bool bs_pow2 = (p.block_size & (p.block_size - 1)) == 0;
   const int bs_shift = __ffs(p.block_size) - 1;
+  // Key j's pool block (j < n_keys) and the element offset of its row.
+  auto key_row = [&](int j, int& block) -> size_t {
+    const int page = bs_pow2 ? j >> bs_shift : j / p.block_size;
+    const int row = j - page * p.block_size;
+    block = table_s[page];
+    return ((static_cast<size_t>(block) * p.n_kv + g) * p.block_size + row) * D;
+  };
+  // A bf16 pool: tile kt's key rows into ring stage `stage`.
   auto load_kv = [&](int kt, int stage) {
     constexpr int kC = D / 8;  // as copy_rows: a fixed chunk, every (threads / kC)-th key
     bf16* kd = k_s + stage * kWinKeys * D;
     bf16* vd = v_s + stage * kWinKeys * D;
+    const bf16* kp = static_cast<const bf16*>(p.k);
+    const bf16* vp = static_cast<const bf16*>(p.v);
     const int c = tid % kC;
     for (int r = tid / kC; r < kWinKeys; r += kWinThreads / kC) {
       const int j = kt * kWinKeys + r;
       const bool in = j < n_keys;  // past every row's limit: zeros, nothing read
-      size_t off = 0;
-      if (in) {
-        const int page = bs_pow2 ? j >> bs_shift : j / p.block_size;
-        const int row = j - page * p.block_size;
-        off = ((static_cast<size_t>(table_s[page]) * p.n_kv + g) * p.block_size + row) * D +
-              c * 8;
-      }
+      int block = 0;
+      const size_t off = in ? key_row(j, block) + c * 8 : 0;
       const int at = Swizzled<D>::at(r, c);
-      cp_async16(smem_addr(kd + at), p.k + off, in);
-      cp_async16(smem_addr(vd + at), p.v + off, in);
+      cp_async16(smem_addr(kd + at), kp + off, in);
+      cp_async16(smem_addr(vd + at), vp + off, in);
     }
   };
-  load_kv(0, 0);
+  // An int8 pool: tile kt's codes (16 a copy) and each key's two scales
+  // into ring stage `stage`.
+  constexpr int kC8 = D / 16;  // 16-byte chunks of a row of codes
+  auto load_codes = [&](int kt, int stage) {
+    int8_t* kd = k8_s + stage * kWinKeys * D;
+    int8_t* vd = v8_s + stage * kWinKeys * D;
+    const int8_t* kp = static_cast<const int8_t*>(p.k);
+    const int8_t* vp = static_cast<const int8_t*>(p.v);
+    for (int i = tid; i < kWinKeys * kC8; i += kWinThreads) {
+      const int r = i / kC8;
+      const int c = i - r * kC8;
+      const int j = kt * kWinKeys + r;
+      const bool in = j < n_keys;
+      int block = 0;
+      const size_t off = in ? key_row(j, block) + c * 16 : 0;
+      cp_async16(smem_addr(kd + r * D + c * 16), kp + off, in);
+      cp_async16(smem_addr(vd + r * D + c * 16), vp + off, in);
+      if (c == 0) {
+        cp_async4(smem_addr(ks_s + stage * kWinKeys + r), p.k_scale + block, in);
+        cp_async4(smem_addr(vs_s + stage * kWinKeys + r), p.v_scale + block, in);
+      }
+    }
+  };
+  // An int8 pool: ring stage `stage`'s codes widened into the bf16 K and V
+  // tiles, swizzled as load_kv lays them out.
+  auto widen = [&](int stage) {
+    const int8_t* kc = k8_s + stage * kWinKeys * D;
+    const int8_t* vc = v8_s + stage * kWinKeys * D;
+    for (int i = tid; i < kWinKeys * kC8; i += kWinThreads) {
+      const int r = i / kC8;
+      const int c = i - r * kC8;
+      const uint4 kw = *reinterpret_cast<const uint4*>(kc + r * D + c * 16);
+      const uint4 vw = *reinterpret_cast<const uint4*>(vc + r * D + c * 16);
+      *reinterpret_cast<uint4*>(k_s + Swizzled<D>::at(r, 2 * c)) = widen8(kw.x, kw.y);
+      *reinterpret_cast<uint4*>(k_s + Swizzled<D>::at(r, 2 * c + 1)) = widen8(kw.z, kw.w);
+      *reinterpret_cast<uint4*>(v_s + Swizzled<D>::at(r, 2 * c)) = widen8(vw.x, vw.y);
+      *reinterpret_cast<uint4*>(v_s + Swizzled<D>::at(r, 2 * c + 1)) = widen8(vw.z, vw.w);
+    }
+  };
+  if constexpr (kQuant) {
+    load_codes(0, 0);
+  } else {
+    load_kv(0, 0);
+  }
   cp_async_commit();  // Q and the first K/V tile
 
   const int unit = unit0 + slot;
@@ -430,22 +526,43 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
-    if (kt + 1 < n_tiles) load_kv(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
+    if constexpr (kQuant) {
+      if (kt + 1 < n_tiles) load_codes(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+      widen(kt & 1);
+      __syncthreads();  // the bf16 tiles hold tile kt
+    } else {
+      if (kt + 1 < n_tiles) load_kv(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+    }
     const int j0 = kt * kWinKeys + key0;
     if (j0 >= warp_max) continue;  // every key from here is past the warp's limits
-    const bf16* kt_s = k_s + (kt & 1) * kWinKeys * D;
-    const bf16* vt_s = v_s + (kt & 1) * kWinKeys * D;
+    const bf16* kt_s = k_s + (kQuant ? 0 : (kt & 1) * kWinKeys * D);
+    const bf16* vt_s = v_s + (kQuant ? 0 : (kt & 1) * kWinKeys * D);
     float s[kN][4];
     mma_abt<D>(s, q_s, slot * 16, kt_s, key0, lane);
+    // Column (n, e) of the warp's S is key key0 + 8 n + 2 tq + (e & 1).
+    const float* ksc = ks_s + (kt & 1) * kWinKeys + key0 + 2 * tq;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= p.scale;  // the unscaled product, then scale
+      for (int e = 0; e < 4; ++e) {
+        // The unscaled product (times the key's block scale), then scale.
+        if constexpr (kQuant) s[n][e] *= ksc[8 * n + (e & 1)];
+        s[n][e] *= p.scale;
+      }
     float alpha[2];
     sm.update(s, [&](int n, int e) { return j0 + 8 * n + 2 * tq + (e & 1) < lim[e >> 1]; },
               alpha);
     rescale(acc, alpha);
+    if constexpr (kQuant) {
+      // The weights times each key's V scale, after l took them unscaled.
+      const float* vsc = vs_s + (kt & 1) * kWinKeys + key0 + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= vsc[8 * n + (e & 1)];
+    }
 #pragma unroll
     for (int kk = 0; kk < kWarpKeys / 16; ++kk) {
       uint32_t pa[kPTerms][4];
@@ -456,7 +573,7 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   cp_async_wait<0>();
   sm.finish();
   // The second warp of each unit hands (acc, m, l) to the first through
-  // the K/V ring, which no warp reads any more; the first merges them.
+  // the K/V tiles, which no warp reads any more; the first merges them.
   constexpr int kSlots = D / 8 + 1;  // float4s per thread: acc blocks, then m and l
   float4* xchg = reinterpret_cast<float4*>(k_s) + (slot * 32 + lane) * kSlots;
   __syncthreads();
@@ -504,16 +621,32 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   }
 }
 
-template <int D>
+template <int D, bool kQuant>
 cudaError_t launch_window_mma(const WindowMmaParams& p, int groups, cudaStream_t stream) {
-  auto kernel = window_mma_kernel<D>;
+  // The exchange after the loop fits in the region from the K tile on.
+  static_assert(sizeof(__nv_bfloat16) * (kQuant ? 2 : 4) * kWinKeys * D +
+                        (kQuant ? 2 * 2 * kWinKeys * (D + sizeof(float)) : 0) >=
+                    sizeof(float4) * kWinUnits * 32 * (D / 8 + 1),
+                "the warps' exchange overruns shared memory");
+  auto kernel = window_mma_kernel<D, kQuant>;
   static size_t granted[kMaxDevices] = {};
-  const size_t smem = window_mma_smem<D>(p.n_pages);
+  const size_t smem = window_mma_smem<D, kQuant>(p.n_pages);
   const cudaError_t err = opt_in_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.units + kWinUnits - 1) / kWinUnits, groups);
   kernel<<<grid, kWinThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kQuant>
+cudaError_t launch_window_mma(const WindowMmaParams& p, int head_dim, int groups,
+                              cudaStream_t s) {
+  switch (head_dim) {
+    case 64: return launch_window_mma<64, kQuant>(p, groups, s);
+    case 128: return launch_window_mma<128, kQuant>(p, groups, s);
+    case 256: return launch_window_mma<256, kQuant>(p, groups, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The decode kernel (split_decode.cuh) for each (q, pool) dtype pair.
@@ -586,22 +719,29 @@ int nos_paged_window_attention(const void* q, const void* k, const void* v,
   return launch(p, batch, q_dtype, kv_dtype, stream);
 }
 
-// The window's mma route: bf16 q [B, nh, W, hd] over bf16 pools, head_dim
-// 64, 128 or 256; the other arguments as nos_paged_window_attention's.
+// The window's mma route: bf16 q [B, nh, W, hd] over bf16 pools
+// (kv_dtype kBF16, scales null) or int8 pools with their [T] f32 scales
+// (kv_dtype kI8), head_dim 64, 128 or 256; the other arguments as
+// nos_paged_window_attention's.
 int nos_paged_window_attention_mma(const void* q, const void* k, const void* v,
+                                   const float* k_scale, const float* v_scale,
                                    const int32_t* table, const int32_t* pos,
                                    const int32_t* lengths, const uint8_t* mask, void* out,
                                    int batch, int n_heads, int n_kv, int window, int head_dim,
-                                   int block_size, int n_pages, float scale, void* stream) {
+                                   int block_size, int n_pages, int kv_dtype, float scale,
+                                   void* stream) {
+  const bool quant = kv_dtype == kI8;
   if (n_kv <= 0 || n_heads % n_kv != 0 || window <= 0 || block_size <= 0 || n_pages <= 0 ||
-      batch < 0 || batch * n_kv > 65535) {
+      batch < 0 || batch * n_kv > 65535 || (kv_dtype != kBF16 && !quant) ||
+      (quant && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return static_cast<int>(cudaSuccess);
   WindowMmaParams p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.k = k;
+  p.v = v;
+  p.k_scale = k_scale; p.v_scale = v_scale;
   p.table = table; p.pos = pos; p.lengths = lengths; p.mask = mask;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.n_heads = n_heads; p.n_kv = n_kv; p.rep = n_heads / n_kv; p.window = window;
@@ -610,12 +750,8 @@ int nos_paged_window_attention_mma(const void* q, const void* k, const void* v,
   p.scale = scale;
   const int groups = batch * n_kv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 64: err = launch_window_mma<64>(p, groups, s); break;
-    case 128: err = launch_window_mma<128>(p, groups, s); break;
-    case 256: err = launch_window_mma<256>(p, groups, s); break;
-  }
+  const cudaError_t err = quant ? launch_window_mma<true>(p, head_dim, groups, s)
+                                : launch_window_mma<false>(p, head_dim, groups, s);
   return static_cast<int>(err);
 }
 

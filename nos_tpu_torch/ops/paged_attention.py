@@ -7,9 +7,9 @@ scalar-prefetch operand (`_pallas` :62, `_window_pallas` :288); here the
 same contract is carried by `csrc/paged_attention.cu` (see its header for
 the design), built with nvcc and bound with ctypes (`ops/_build.py`). The
 window kernel has two routes, chosen by `_window_route` from dtypes and
-shapes alone: "mma", a tensor-core kernel for a bf16 q over a bf16 pool at
-head_dim 64, 128 or 256, and "simt" for everything else (f32, int8 pools,
-other head dims). The decode kernel has one route, "split": each lane's
+shapes alone: "mma", a tensor-core kernel for a bf16 q over a bf16 pool or
+over an int8 pool with its scales at head_dim 64, 128 or 256, and "simt"
+for everything else (an f32 q over any pool, other head dims). The decode kernel has one route, "split": each lane's
 keys in fixed splits over the card, combined in split order
 (`csrc/split_decode.cuh`), for every dtype.
 
@@ -63,10 +63,11 @@ def reset_launch_counts() -> None:
 def _window_route(q, pool_k, k_scale) -> str:
     """The window kernel's route, a pure function of dtypes and shapes:
     "mma" (csrc/paged_attention.cu's tensor-core kernel) for a bf16 q over a
-    bf16 pool at head_dim 64, 128 or 256; "simt" for f32, an int8 pool with
-    scales, or any other head_dim."""
-    if (q.dtype == torch.bfloat16 and pool_k.dtype == torch.bfloat16 and k_scale is None
-            and pool_k.shape[-1] in _MMA_HEAD_DIMS):
+    bf16 pool, or over an int8 pool with its scales, at head_dim 64, 128 or
+    256; "simt" for an f32 q over any pool, or any other head_dim."""
+    native = pool_k.dtype == torch.bfloat16 and k_scale is None
+    quant = pool_k.dtype == torch.int8 and k_scale is not None
+    if q.dtype == torch.bfloat16 and (native or quant) and pool_k.shape[-1] in _MMA_HEAD_DIMS:
         return "mma"
     return "simt"
 
@@ -127,7 +128,7 @@ _SIGNATURES = {
     "nos_paged_decode_attention": [_VP] * 10 + [_I] * 8 + [_build.F, _build.LL, _build.LL,
                                                           _VP],
     "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _VP],
-    "nos_paged_window_attention_mma": [_VP] * 8 + [_I] * 7 + [_build.F, _VP],
+    "nos_paged_window_attention_mma": [_VP] * 10 + [_I] * 8 + [_build.F, _VP],
 }
 
 
@@ -216,7 +217,7 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
     rows = [_VP(x.data_ptr()) for x in (table, pos, lengths, mask, out)]
     dims = (b, nh, nkv, w, hd, pool_k.shape[2], table.shape[1])
     if route == "mma":
-        rc = lib.nos_paged_window_attention_mma(*ptrs, *rows, *dims, hd ** -0.5,
+        rc = lib.nos_paged_window_attention_mma(*ptrs, ks, vs, *rows, *dims, kc, hd ** -0.5,
                                                 _build.stream(q))
     else:
         rc = lib.nos_paged_window_attention(*ptrs, ks, vs, *rows, *dims, qc, kc, hd ** -0.5,

@@ -22,13 +22,41 @@ decode, fused bursts of N macro windows in one dispatch (`burst_windows`,
 registration of finished outputs) or as the flat chain index, the
 host-RAM spill tier under it (`spill_blocks=None`, the default, sizes it
 at one pool), speculative decoding (`spec_k > 0`: tree and prompt-lookup
-drafts verified through `paged_verify_window`), and eos handling. The
-constructor keeps the reference's signature; every argument that would
-arm a feature not yet ported (quotas, fault injection and recovery,
-tracing, the cost ledger, the fleet KV store) raises
-NotImplementedError naming its ROADMAP item, with a mesh or without. An
-exception on the tick path fails every outstanding request and resets the
-pool (the reference's `surgical_recovery=False` behaviour).
+drafts verified through `paged_verify_window`), eos handling, and the
+reference's failure model (decode_server.py:3261-3497, its default):
+`surgical_recovery=True` classifies a tick-path exception through the
+fault taxonomy (`runtime/faults.py`): a transient fault retries the tick
+after a capped exponential backoff and escalates past
+`max_transient_retries`; a poison fault fails only the culpable slot and
+checkpoints and restores the rest; a device-lost fault (and anything
+unclassifiable) checkpoints every slot (`runtime/checkpoint.py`), resets
+the pool and re-admits the checkpoints at the head of the line, where a
+replay of prompt + generated tokens through the budgeted prefill
+re-derives their KV (a sampled stream keeps its serial and continues its
+threefry draws at the replayed step). A recovery that itself raises falls
+back to failing every request, and so does `surgical_recovery=False`. A
+seeded `FaultInjector` fires at the reference's sites, in the
+reference's tick order: `admit`, `block_admit`, `revive`, `cow`,
+`spill`, `dispatch_prefill_wave`, `dispatch_verify`, `resolve_verifies`,
+`dispatch_burst` and `dispatch_macro`. `checkpoint_hook` receives
+`checkpoint_snapshot()` at every burst boundary. The constructor keeps
+the reference's signature; every argument that would arm a feature not
+yet ported (quotas, tracing and metrics, the cost ledger, the fleet KV
+store) raises NotImplementedError naming its ROADMAP item, with a mesh or
+without.
+
+Recovery on the card. The captured window replays over fixed buffers, so
+recovery never reallocates a tensor the graph reads: `_reset_device_state`
+zeroes the pool (and an int8 pool's scales) and the token vectors in
+place, the TickState buffers stay, and the page table goes up again
+through the dirty flag with the next packed sync. An injected fault
+raises before its site does any work, so no capture, replay or copy is
+ever cut in half, and the window needs no new capture after a recovery.
+The model covers faults that leave the CUDA context usable: a real
+`cudaError` that poisons the context (an illegal address, a device
+assert) fails every later call on it, recovery itself raises, and the
+engine falls back to failing every request; it cannot be recovered
+in-process.
 
 PyTorch in place of JAX: the programs write the pool in place on one CUDA
 stream, whose ordering replaces JAX's donation chain. The reference jits
@@ -92,6 +120,14 @@ from nos_tpu_torch.ops import decode_attention, flash_attention, paged_attention
 from nos_tpu_torch.ops import quantized_kv as qkv
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
+from nos_tpu_torch.runtime.checkpoint import SlotCheckpoint
+from nos_tpu_torch.runtime.faults import (
+    FAULT_DEVICE_LOST,
+    FAULT_POISON,
+    FAULT_TRANSIENT,
+    classify_fault,
+    poison_slot_of,
+)
 from nos_tpu_torch.runtime.spill import SpillTier
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
 
@@ -209,12 +245,21 @@ class _WindowGraph:
 
 @dataclass
 class _Request:
-    """One queued/waiting request."""
+    """One queued/waiting request (decode_server.py:180). `replay` is
+    non-empty only for checkpoint restores: tokens the request had already
+    produced before a fault, replayed through prefill and prepended to the
+    final result. A restore also carries the original sampling `serial`,
+    the recovery timestamp (`t_restore`, feeding the restore-latency
+    samples instead of TTFT) and the speculative controller's snapshot."""
 
     prompt: list
     max_new: int
     future: Future
     t_submit: float
+    replay: List[int] = field(default_factory=list)
+    serial: Optional[int] = None
+    t_restore: float = 0.0
+    spec: Optional[dict] = None
 
 
 @dataclass
@@ -239,9 +284,15 @@ class _Slot:
     refs: List[Tuple[_TokRef, int, Optional[int]]] = field(default_factory=list)
     eos_scanned: int = 0
     future: Optional[Future] = None
-    # The client's prompt: what a finished request registers its output
-    # blocks under (radix mode).
+    # The client's prompt (what a finished request registers its output
+    # blocks under, and a checkpoint's identity with `max_new`), the
+    # replayed tokens prepended to the result, the PRNG step offset they
+    # occupy, and the recovery timestamp (0.0 = never restored).
     request_prompt: Optional[list] = None
+    max_new: int = 0
+    replay: List[int] = field(default_factory=list)
+    step_base: int = 0
+    t_restore: float = 0.0
     # Host-tier prefix blocks still to copy in, (token offset, block, chain
     # key) in prefix order, and the staged copy-on-write, (token offset,
     # destination block, pinned source block or None for a host source,
@@ -302,7 +353,7 @@ class DecodeServer:
         metrics=None,
         tracing=None,
         fault_injector=None,
-        surgical_recovery: bool = False,
+        surgical_recovery: bool = True,
         max_transient_retries: int = 4,
         transient_backoff_s: float = 0.02,
         checkpoint_hook=None,
@@ -338,8 +389,28 @@ class DecodeServer:
         prompt-lookup n-gram index of `spec_ngram`) and verifies them in
         one `paged_verify_window` over the drafting slots; greedy only.
         `spec_sync` syncs histories (blocking) before every draft probe.
+        `surgical_recovery` (default True) selects the failure model of
+        the module docstring (False: every outstanding request fails and
+        the pool resets); `max_transient_retries` and
+        `transient_backoff_s` (doubling, capped at 0.5 s) bound the
+        transient retries; `fault_injector` (`runtime/faults.py`) threads
+        a deterministic chaos schedule through the named sites, and
+        `checkpoint_hook` (or `set_checkpoint_hook`) is called with
+        `checkpoint_snapshot()` at every burst boundary and only reads it.
         Outputs are identical for any K, N, budget, prefix, radix, spill
-        and speculation setting. `kv_dtype="int8"` stores the pool as int8
+        and speculation setting on the CPU, and a replayed window is
+        identical to the eager one on the card. On CUDA in float32 those
+        settings change which programs of which shapes compute a token
+        (a decode step, a verify window, a prefill chunk or wave, a
+        restore's replay), and two products round by shape there: the f32
+        projections (cuBLAS picks its kernel by the row count, M = 8
+        against 72 or 256: up to 5.3 f32 steps on an H100) and the
+        attention (the split decode kernel against the window kernel's simt
+        route: up to 20 steps; tests/test_torch_kernels.py::
+        test_f32_rows_across_program_shapes). So a token may differ where
+        the top two logits lie that close (chip_smoke.py's
+        F32_CROSS_SHAPE_STEPS); bf16 is held to its oracle in any case.
+        `kv_dtype="int8"` stores the pool as int8
         codes with one f32 scale per (block, layer, k|v): about half the
         pool's and every spill payload's bytes, its divergence from the
         native pool bounded by `runtime/divergence.py`.
@@ -354,9 +425,6 @@ class DecodeServer:
         # (armed?, what it arms, its item in ROADMAP.md queue A)
         armed = [
             (quota is not None, "tenant quotas", "Fleet"),
-            (fault_injector is not None or bool(surgical_recovery),
-             "fault injection and surgical recovery", "Fleet"),
-            (checkpoint_hook is not None, "the checkpoint hook", "Fleet"),
             (metrics is not None or tracing is not None, "metrics and tracing", "Fleet"),
             (cost_ledger is not None, "the cost ledger", "Fleet"),
             (kv_store is not None, "the fleet KV store", "Fleet"),
@@ -441,8 +509,10 @@ class DecodeServer:
         self.radix_cache = bool(radix_cache) and self.prefix_cache
         # An int8 pool salts the chain keys with its payload dtype, so the
         # two formats never alias each other's blocks (decode_server.py:768).
+        self._fault_injector = fault_injector
+        self._checkpoint_hook = checkpoint_hook
         self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots,
-                                       radix=self.radix_cache,
+                                       fault_injector=fault_injector, radix=self.radix_cache,
                                        key_salt=kv_dtype + ":" if self._kv_quant else "")
         # The host-RAM spill tier (decode_server.py:775-812), attached with
         # this engine's copy-out: the engine owns the pool, the manager
@@ -516,6 +586,20 @@ class DecodeServer:
         self._slot_serial = np.zeros((n_slots,), dtype=np.int64)
         self._next_serial = 1
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        # The failure model (decode_server.py:957-971): recovery counters
+        # and the restore-latency samples (fault detection -> the restored
+        # slot's replayed final chunk dispatched).
+        self.surgical_recovery = bool(surgical_recovery)
+        self.max_transient_retries = int(max_transient_retries)
+        self.transient_backoff_s = float(transient_backoff_s)
+        self._transient_streak = 0
+        self.recoveries = 0
+        self.slots_restored = 0
+        self.replay_tokens = 0
+        self.requests_poisoned = 0
+        self.transient_retries = 0
+        self.fail_all_recoveries = 0
+        self.restore_latency_s: List[float] = []
         # Speculation (decode_server.py:974-989, :887-923).
         self.spec_k = max(0, int(spec_k))
         self.spec_ngram = int(spec_ngram)
@@ -734,11 +818,14 @@ class DecodeServer:
             self.block_size, with_logits=False, tp=self._tp,
         )
 
-    def _prefill_last(self, tokens, table_row, start: int, length: int, slot: int) -> None:
+    def _prefill_last(self, tokens, table_row, start: int, length: int, slot: int,
+                      step0: int = 0) -> None:
         """The final chunk: sample the first token at the true last prompt
         position and scatter it into the step-feed vector and into this
         wave's first-token vector (cloned per wave by the caller: earlier
-        waves' refs still hold the previous one)."""
+        waves' refs still hold the previous one). `step0` is 0 for a fresh
+        request; a restore passes its replayed-token count, so a sampled
+        stream continues its PRNG draws where the fault interrupted it."""
         logits, _ = paged_prefill_chunk(
             self.params, tokens, self.cfg, self.cache, table_row, start, length,
             self.block_size, tp=self._tp,
@@ -746,7 +833,7 @@ class DecodeServer:
         serial = torch.full((1,), int(self._slot_serial[slot]), dtype=torch.int64,
                             device=self.device)
         first = self._sample(logits[length - 1][None, :], serial,
-                             torch.zeros_like(serial))[0]
+                             torch.full_like(serial, step0))[0]
         self._last_dev[slot] = first
         self._first_dev[slot] = first
 
@@ -775,6 +862,40 @@ class DecodeServer:
 
     def generate(self, prompt: Sequence[int], max_new: int = 16, timeout=None):
         return self.submit(prompt, max_new).result(timeout=timeout)
+
+    def checkpoint_snapshot(self) -> List[SlotCheckpoint]:
+        """A passive checkpoint of every active, unresolved slot
+        (decode_server.py:1760): never blocks and never resolves a future.
+        Only refs already materializable are read (the first unready one
+        ends the run), and the capture stops strictly before an eos or the
+        budget's last token, so a restore always replays and regenerates
+        the end itself. Any prefix of a stream is a valid checkpoint. The
+        checkpoints alias the live client futures."""
+        out: List[SlotCheckpoint] = []
+        for idx, slot in enumerate(self._slots):
+            if not slot.active or slot.future is None or slot.future.done():
+                continue
+            if slot.request_prompt is None:
+                continue
+            tokens: List[int] = list(slot.replay)
+            for ref, lane, row in slot.refs:
+                if not ref.is_ready():
+                    break
+                tokens.append(self._token_at(ref, lane, row))
+            if self.eos_id is not None and self.eos_id in tokens:
+                tokens = tokens[: tokens.index(self.eos_id)]
+            tokens = tokens[: max(0, slot.max_new - 1)]
+            spec = slot.adapt.snapshot(len(tokens)) if slot.adapt is not None else None
+            out.append(SlotCheckpoint(
+                prompt=list(slot.request_prompt), generated=tokens, max_new=slot.max_new,
+                serial=int(self._slot_serial[idx]), t_submit=slot.t_submit,
+                prefill_cursor=slot.prefill_cursor, spec=spec, future=slot.future))
+        return out
+
+    def set_checkpoint_hook(self, hook) -> None:
+        """Arm (or, with None, disarm) the burst-boundary checkpoint hook
+        after construction; the hook only reads the checkpoints."""
+        self._checkpoint_hook = hook
 
     # -- engine ----------------------------------------------------------------
     def start(self) -> "DecodeServer":
@@ -852,14 +973,16 @@ class DecodeServer:
     def _reset_device_state(self) -> None:
         """After an engine error the pool is untrustworthy: zero it (an int8
         pool's scales too), and the token vectors, in place (the reference
-        reallocates them; the captured window holds their addresses)."""
+        reallocates them; the captured window holds their addresses, and
+        keeps them across every recovery). The page table goes up again
+        with the next packed sync, and the prefix index dies with the
+        pool; host-tier payloads survive."""
         for pool in self._pools():
             for layer in pool.values():
                 for t in layer.values():
                     t.zero_()
         self._table_np[:] = 0
         self._tick_state.mark_table_dirty()
-        # The device index dies with the pool; host payloads survive.
         self._block_mgr.reset()
         self._last_dev.zero_()
         self._first_dev.zero_()
@@ -889,7 +1012,12 @@ class DecodeServer:
         its serial, its KV blocks and a prefill cursor; the per-tick budget
         scheduler (_pump_prefill) spends the prompt tokens. A rejected
         request does not burn its slot: the same slot pulls the next queued
-        request."""
+        request. Checkpoint restores re-enter here at the head of the line:
+        their effective prompt is prompt + replay, their client validation
+        is skipped (their first admission passed it), and they keep their
+        sampling serial. A fault between block assignment and binding
+        undoes the partial admission and puts the request back at the
+        head of the line before it propagates."""
         for idx, slot in enumerate(self._slots):
             if slot.active:
                 continue
@@ -897,69 +1025,102 @@ class DecodeServer:
                 req = self._next_request()
                 if req is None:
                     return
-                prompt = req.prompt
-                if len(prompt) >= self.max_len:
-                    req.future.set_exception(
-                        ValueError(f"prompt length {len(prompt)} >= max_len {self.max_len}")
-                    )
-                    continue
-                if len(prompt) + req.max_new - 1 > self.max_len:
-                    # The request cannot complete inside the per-sequence
-                    # window: reject rather than resolve with fewer tokens.
-                    req.future.set_exception(
-                        ValueError(
-                            f"prompt length {len(prompt)} + max_new {req.max_new} "
-                            f"exceeds max_len {self.max_len}: output would be truncated"
-                        )
-                    )
-                    continue
+                full_prompt = list(req.prompt) + list(req.replay)
+                eff_new = req.max_new - len(req.replay)
+                if not req.replay:
+                    if len(full_prompt) >= self.max_len:
+                        req.future.set_exception(ValueError(
+                            f"prompt length {len(full_prompt)} >= max_len {self.max_len}"))
+                        continue
+                    if len(full_prompt) + eff_new - 1 > self.max_len:
+                        # The request cannot complete inside the
+                        # per-sequence window: reject rather than resolve
+                        # with fewer tokens.
+                        req.future.set_exception(ValueError(
+                            f"prompt length {len(full_prompt)} + max_new {eff_new} "
+                            f"exceeds max_len {self.max_len}: output would be truncated"))
+                        continue
                 # The cache holds positions 0..len+max_new-2 (the final
-                # sampled token is never re-attended).
-                n_blocks = max(1, -(-(len(prompt) + req.max_new - 1) // self.block_size))
+                # sampled token is never re-attended); a restore moves
+                # tokens from max_new into the prompt, never their sum.
+                n_blocks = max(1, -(-(len(full_prompt) + eff_new - 1) // self.block_size))
                 if n_blocks > self.total_blocks - 1:
-                    req.future.set_exception(
-                        ValueError(
-                            f"request needs {n_blocks} KV blocks; the pool has "
-                            f"{self.total_blocks - 1}"
-                        )
-                    )
+                    req.future.set_exception(ValueError(
+                        f"request needs {n_blocks} KV blocks; the pool has "
+                        f"{self.total_blocks - 1}"))
                     continue
-                admitted = self._block_mgr.admit(
-                    idx, prompt, n_blocks, use_cache=self.prefix_cache
-                )
+                try:
+                    admitted = self._block_mgr.admit(
+                        idx, full_prompt, n_blocks, use_cache=self.prefix_cache)
+                except Exception:
+                    # The `block_admit` site (or a bookkeeping error) fires
+                    # before the request is bound: re-queue it at the head,
+                    # then let the engine's fault handling see the fault.
+                    self._waiting.appendleft(req)
+                    raise
                 if admitted is None:
                     # Pool exhausted: wait, FIFO head-of-line.
                     self._waiting.appendleft(req)
                     return
                 break
             blocks, n_hit = admitted
-            self._table_np[idx, :] = 0
-            self._table_np[idx, : len(blocks)] = blocks
-            self._tick_state.mark_table_dirty()
-            self._slot_serial[idx] = self._next_serial
-            self._next_serial += 1
-            slot.phase = "reserved"
-            slot.future = req.future
-            slot.request_prompt = prompt
-            slot.pending_prompt = prompt
-            # Prefix hits are already in the page table: the cursor starts
-            # at the first miss (always below the last-token block).
-            slot.prefill_cursor = n_hit * self.block_size
-            # Host-tier hits right behind the device run, to copy in
-            # (_pump_revives), then the diverging block's shared head, to
-            # copy (_pump_cow), both instead of recomputing them.
-            slot.pending_revives = self._block_mgr.claim_revives(idx)
-            slot.pending_cow = self._block_mgr.claim_cow(idx)
-            slot.t_submit = req.t_submit
-            slot.pos = slot.prefill_cursor
-            slot.remaining = req.max_new - 1
-            slot.refs = []
-            slot.eos_scanned = 0
-            if self.spec_k > 0:
-                slot.prompt = list(prompt)
-                slot.adapt = AdaptiveSpec()
-            slot.active = True
-            self.queue_wait_s.append(time.monotonic() - req.t_submit)
+            bound = False
+            try:
+                self._table_np[idx, :] = 0
+                self._table_np[idx, : len(blocks)] = blocks
+                self._tick_state.mark_table_dirty()
+                serial = req.serial if req.serial is not None else self._next_serial
+                if req.serial is None:
+                    self._next_serial += 1
+                self._slot_serial[idx] = serial
+                slot.phase = "reserved"
+                slot.future = req.future
+                slot.request_prompt = list(req.prompt)
+                slot.max_new = req.max_new
+                slot.replay = list(req.replay)
+                slot.step_base = len(req.replay)
+                slot.t_restore = req.t_restore
+                slot.pending_prompt = full_prompt
+                # Prefix hits are already in the page table: the cursor
+                # starts at the first miss (always below the last-token
+                # block).
+                slot.prefill_cursor = n_hit * self.block_size
+                # Host-tier hits right behind the device run, to copy in
+                # (_pump_revives), then the diverging block's shared head,
+                # to copy (_pump_cow), both instead of recomputing them.
+                slot.pending_revives = self._block_mgr.claim_revives(idx)
+                slot.pending_cow = self._block_mgr.claim_cow(idx)
+                slot.t_submit = req.t_submit
+                slot.pos = slot.prefill_cursor
+                slot.remaining = eff_new - 1
+                slot.refs = []
+                slot.eos_scanned = 0
+                if self.spec_k > 0:
+                    slot.prompt = list(full_prompt)
+                    slot.adapt = (AdaptiveSpec.restore(req.spec) if req.spec is not None
+                                  else AdaptiveSpec())
+                # Bind last: from here the recovery sweep finds the future.
+                slot.active = True
+                bound = True
+                if req.t_restore:
+                    # Replay accounting counts only the uncached suffix:
+                    # device hits, staged revives and the COW head serve
+                    # their tokens without recompute.
+                    cached = (n_hit + len(slot.pending_revives)) * self.block_size
+                    if slot.pending_cow is not None:
+                        cached += int(slot.pending_cow[4])
+                    self.replay_tokens += max(0, len(full_prompt) - cached)
+                else:
+                    self.queue_wait_s.append(time.monotonic() - req.t_submit)
+                # A8 step 3 (tracing, metrics, the cost ledger): the
+                # ledger's charges and the admission trace events.
+                self._check_fault("admit", idx)
+            except Exception:
+                if not bound:
+                    self._block_mgr.release(idx)
+                    self._slots[idx] = _Slot()
+                    self._waiting.appendleft(req)
+                raise
 
     # -- budgeted prefill ------------------------------------------------------
     def _pump_prefill(self) -> int:
@@ -1041,6 +1202,7 @@ class DecodeServer:
             cost = self.block_size
             if budget and (spent + used) and spent + used + cost > budget:
                 break
+            self._check_fault("revive", idx)
             payload = self.spill_tier.take(key)
             if payload is None or not self._dispatch_revive(payload, block):
                 self.spill_tier.unstage([k for _, _, k in slot.pending_revives[1:]])
@@ -1074,6 +1236,7 @@ class DecodeServer:
             return 0, 0
         if budget and spent and spent + n > budget:
             return 0, 0
+        self._check_fault("cow", idx)
         if src is not None:
             self._cow_copy(src, dst, n)
             self._block_mgr.cow_done(idx)
@@ -1095,6 +1258,7 @@ class DecodeServer:
         the batched multi-slot window program; a singleton mid chunk keeps
         the batch-1 program. Final chunks always go through the per-slot
         `_prefill_last`, which samples the first token."""
+        self._check_fault("dispatch_prefill_wave", wave[0][0])
         self._sync_tick_state(for_table_only=True)
         table = self._table()
         mids: Dict[int, List[Tuple[int, int, list]]] = {}
@@ -1141,7 +1305,7 @@ class DecodeServer:
             padded[0, : len(piece)] = piece
             self._prefill_last(
                 self._stage.to_device(padded), self._table_row(table, idx), start,
-                len(piece), idx,
+                len(piece), idx, self._slots[idx].step_base,
             )
             dispatches += 1
         # Cursor/phase advances dirty the scheduling metadata (not the table).
@@ -1168,7 +1332,12 @@ class DecodeServer:
                 slot.pos = len(slot.pending_prompt)
                 slot.pending_prompt = None
                 slot.refs.append((ref, idx, None))
-                self.ttft_s.append(now - slot.t_submit)
+                if slot.t_restore:
+                    # A restored slot's first token is its replay coming
+                    # back online: a restore-latency sample, not a TTFT.
+                    self.restore_latency_s.append(now - slot.t_restore)
+                else:
+                    self.ttft_s.append(now - slot.t_submit)
                 self._finish_if_done(idx)
         self.prefill_dispatches += dispatches
         return dispatches
@@ -1186,11 +1355,13 @@ class DecodeServer:
 
     def _finalize(self, slot: _Slot) -> List[int]:
         """Materialize the output, truncated at EOS (the countdown can fire
-        before a late EOS was scanned)."""
+        before a late EOS was scanned). A restored slot prepends its
+        replayed tokens (never holding an eos: such a checkpoint resolves
+        at capture), so the client sees one generation."""
         tokens = self._materialize_tokens(slot)
         if self.eos_id is not None and self.eos_id in tokens:
             tokens = tokens[: tokens.index(self.eos_id) + 1]
-        return tokens
+        return list(slot.replay) + tokens
 
     def _finish_if_done(self, idx: int) -> None:
         """Deterministic completion: the countdown and the cache bound are
@@ -1306,6 +1477,7 @@ class DecodeServer:
         other lanes write the scratch page), W = spec_k + 1 rows each. The
         [n_slots, W] greedy predictions stay on the device as a `_TokRef`;
         acceptance resolves on a later tick while macro windows go on."""
+        self._check_fault("dispatch_verify", next(iter(drafts)))
         W = self.spec_k + 1
         tokens = np.zeros((self.n_slots, W), dtype=np.int32)
         lengths = np.zeros((self.n_slots,), dtype=np.int32)
@@ -1348,6 +1520,8 @@ class DecodeServer:
             entry = self._pending_verifies[0]
             if not block and not entry.preds.is_ready():
                 return
+            # Before the popleft: a transient here retries the same round.
+            self._check_fault("resolve_verifies", next(iter(entry.windows)))
             self._pending_verifies.popleft()
             block = False
             self._apply_verify(entry)
@@ -1398,13 +1572,130 @@ class DecodeServer:
 
     # -- the tick ----------------------------------------------------------------
     def _run(self) -> None:
+        """The engine loop (decode_server.py:3261): a tick-path exception
+        is classified and repaired by `_recover`; without
+        `surgical_recovery`, or when recovery itself raises, every
+        outstanding request fails and the pool resets."""
         while not self._stop.is_set():
             try:
                 self._tick()
-            except Exception as exc:  # noqa: BLE001 — every request fails, the pool resets
+                self._transient_streak = 0
+            except Exception as exc:  # noqa: BLE001 — classified below
                 logger.exception("decode engine step failed")
-                self._fail_outstanding(exc)
-                self._reset_device_state()
+                if not self.surgical_recovery:
+                    self.fail_all_recoveries += 1
+                    self._fail_outstanding(exc)
+                    self._reset_device_state()
+                    continue
+                try:
+                    self._recover(exc)
+                except Exception as rexc:  # noqa: BLE001 — the last-resort backstop
+                    logger.exception("surgical recovery failed; failing all")
+                    self.fail_all_recoveries += 1
+                    self._fail_outstanding(rexc)
+                    self._reset_device_state()
+
+    def _check_fault(self, site: str, slot: Optional[int] = None) -> None:
+        """The chaos hook: raises the injector's scheduled fault for this
+        visit of `site`, if any."""
+        if self._fault_injector is not None:
+            self._fault_injector.check(site, slot=slot)
+
+    def _recover(self, exc: Exception) -> None:
+        """Surgical recovery (decode_server.py:3303): classify, then repair
+        the minimum. TRANSIENT: nothing is torn down (an injected fault
+        raised before its site's work), the next tick is the retry, after
+        a backoff of transient_backoff_s doubling per retry, capped at 0.5
+        s; a streak past `max_transient_retries` escalates to device-lost.
+        POISON: the culpable slot's future fails with the exception and
+        every other active slot is checkpointed and restored; a poison
+        bound to no active slot escalates. DEVICE-LOST: every slot is
+        checkpointed, the pool reset in place (`_reset_device_state`,
+        which also clears the prefix index) and the checkpoints re-admitted
+        at the head of the line in serial order; their replay re-derives
+        the KV."""
+        kind = classify_fault(exc)
+        if kind == FAULT_TRANSIENT:
+            self._transient_streak += 1
+            if self._transient_streak <= self.max_transient_retries:
+                self.transient_retries += 1
+                # A8 step 3: the flight recorder's postmortem and metrics.
+                delay = min(0.5, self.transient_backoff_s * (2 ** (self._transient_streak - 1)))
+                self._stop.wait(delay)
+                return
+            kind = FAULT_DEVICE_LOST  # retries exhausted: stop trusting it
+        poison_slot = None
+        if kind == FAULT_POISON:
+            poison_slot = poison_slot_of(exc)
+            if poison_slot is None or not self._slots[poison_slot].active:
+                kind = FAULT_DEVICE_LOST
+                poison_slot = None
+        t_fault = time.monotonic()
+        self.recoveries += 1
+        checkpoints: List[SlotCheckpoint] = []
+        for idx, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            if idx == poison_slot:
+                if slot.future is not None and not slot.future.done():
+                    slot.future.set_exception(exc)
+                self.requests_poisoned += 1
+                # A8 step 3: the failed receipt and the trace's terminus.
+                self._release_slot(idx)
+                continue
+            ck = self._checkpoint_slot(idx)
+            self._release_slot(idx)
+            if ck is not None:
+                checkpoints.append(ck)
+        self._inflight.clear()
+        self._pending_verifies.clear()
+        self._reset_device_state()
+        self._transient_streak = 0
+        self._enqueue_restores([
+            _Request(prompt=list(ck.prompt), max_new=ck.max_new, future=ck.future,
+                     t_submit=ck.t_submit, replay=list(ck.generated), serial=ck.serial,
+                     t_restore=t_fault, spec=ck.spec)
+            for ck in checkpoints])
+        self.slots_restored += len(checkpoints)
+        # A8 step 3: the flight recorder's postmortem and the metrics.
+        if not self._block_mgr.conserved():
+            # A leaked block would wedge the pool invisibly: fail loudly
+            # (`_run`'s backstop turns this into the fail-all sweep).
+            raise RuntimeError("pool conservation violated after recovery")
+
+    def _checkpoint_slot(self, idx: int) -> Optional[SlotCheckpoint]:
+        """Slot `idx`'s host-recoverable state (decode_server.py:3434): its
+        tokens so far (every ref materializes: a ref's copy to pinned host
+        memory is queued when it is made, and no recovery frees it). None
+        when the tokens already complete the request: its future resolves
+        here, a finished request is never replayed."""
+        slot = self._slots[idx]
+        tokens = list(slot.replay) + self._materialize_tokens(slot)
+        if self.eos_id is not None and self.eos_id in tokens:
+            tokens = tokens[: tokens.index(self.eos_id) + 1]
+            if slot.future is not None and not slot.future.done():
+                slot.future.set_result(tokens)
+            return None
+        if len(tokens) >= slot.max_new:
+            if slot.future is not None and not slot.future.done():
+                slot.future.set_result(tokens[: slot.max_new])
+            return None
+        spec = slot.adapt.snapshot(len(slot.refs)) if slot.adapt is not None else None
+        return SlotCheckpoint(
+            prompt=list(slot.request_prompt or []), generated=tokens, max_new=slot.max_new,
+            serial=int(self._slot_serial[idx]), t_submit=slot.t_submit,
+            prefill_cursor=slot.prefill_cursor, spec=spec, future=slot.future)
+
+    def _enqueue_restores(self, reqs: List[_Request]) -> None:
+        """Restores re-enter at the head of the line (decode_server.py:
+        3482), merged by serial with any restore already waiting there:
+        the head is one serial-sorted restore region, fresh arrivals queue
+        behind it."""
+        head: List[_Request] = []
+        while self._waiting and self._waiting[0].serial is not None:
+            head.append(self._waiting.popleft())
+        for req in sorted(head + list(reqs), key=lambda r: r.serial, reverse=True):
+            self._waiting.appendleft(req)
 
     @contextmanager
     def _phase(self, name: str):
@@ -1505,7 +1796,7 @@ class DecodeServer:
             packed[i, P] = s.pos
             packed[i, P + 1] = int(s.active and s.phase == "decoding" and not s.verifying)
             packed[i, P + 2] = self._slot_serial[i]
-            packed[i, P + 3] = len(s.refs)
+            packed[i, P + 3] = s.step_base + len(s.refs)
             packed[i, P + 4] = s.remaining if s.active else 0
         st.sync(packed)
 
@@ -1525,7 +1816,10 @@ class DecodeServer:
             return 0
         if self._closed.is_set() or self._stop.is_set():
             return 0
-        # A8 (fleet): a scheduled injected fault keeps the tick per-tick.
+        # A scheduled injected fault keeps the engine per-tick, so every
+        # site keeps its per-tick visit cadence.
+        if self._fault_injector is not None and self._fault_injector.has_pending():
+            return 0
         if self._waiting or not self._queue.empty():
             return 0
         active = [s for s in self._slots if s.active]
@@ -1555,6 +1849,7 @@ class DecodeServer:
         range(total): one flat extend, the same arithmetic the windows
         applied on the device. A clean burst uploads nothing and reads
         nothing back."""
+        self._check_fault("dispatch_burst", idxs[0])
         self._sync_tick_state()
         K = self.steps_per_dispatch
         self._finished.zero_()
@@ -1573,17 +1868,22 @@ class DecodeServer:
             slot.refs.extend((ref, idx, r) for r in range(total))
             slot.pos += total
             slot.remaining -= total
-        # A8 (fleet): the per-window quota fold and the checkpoint hook at
-        # the burst boundary.
+        # A8 step 2 (quota): the per-window quota fold.
         for idx in idxs:
             self._finish_if_done(idx)
         self._backpressure()
+        if self._checkpoint_hook is not None:
+            # The burst boundary is the cheap capture cadence: the host is
+            # crossing anyway, and every ref dispatched before this burst
+            # can materialize.
+            self._checkpoint_hook(self.checkpoint_snapshot())
 
     def _dispatch_macro(self, idxs: List[int]) -> None:
         """One K-step macro dispatch for the decoding slots. Inputs come
         from the device-resident TickState; the window advances pos / step
         / steps_left on the device, so steady-state dispatches upload
         nothing."""
+        self._check_fault("dispatch_macro", idxs[0])
         self._sync_tick_state()
         K = self.steps_per_dispatch
         self._finished.zero_()

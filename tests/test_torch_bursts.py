@@ -18,8 +18,9 @@ on the CPU, mirroring the reference's tests/test_burst_decode.py:
     its replay are held against the eager window on the card, in
     tests/test_torch_kernels.py).
 
-The reference file's fault-injection, quota, preemption and drain cases
-arrive with ROADMAP A8 (the port has no fault injector, quotas or drain)."""
+The reference file's fault-injection cases are in tests/test_torch_faults.py;
+its quota, preemption and drain cases arrive with ROADMAP A8 (the port has
+no quotas or drain yet)."""
 
 import dataclasses
 
@@ -36,7 +37,6 @@ from nos_tpu_torch.runtime import decode_server as ds
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(surgical_recovery=False)
 
 # tests/test_burst_decode.py's prompts. Its eos, 5, is in none of the
 # tiny model's greedy streams; 13 is, at output 8 of the first stream
@@ -118,7 +118,7 @@ def test_burst_outputs_identical_greedy_and_temperature(model, temperature):
     assert on.burst_windows_run >= 2 * on.burst_dispatches
     # A burst counts as ONE engine dispatch.
     assert on.steps_run < off.steps_run
-    jsrv = JaxServer(jparams, jcfg, burst_windows=6, temperature=temperature, **JAX_OFF,
+    jsrv = JaxServer(jparams, jcfg, burst_windows=6, temperature=temperature,
                      **_settings())
     assert drive(jsrv, reqs) == outs_off
     assert {c: getattr(on, c) for c in COUNTERS} == {c: getattr(jsrv, c) for c in COUNTERS}
@@ -135,7 +135,7 @@ def test_burst_outputs_identical_with_eos(model):
     assert outs_on == outs_off
     assert on.burst_dispatches > 0
     assert [len(o) for o in outs_on] == [9, 30, 30] and outs_on[0][-1] == EOS
-    jsrv = JaxServer(jparams, jcfg, burst_windows=6, eos_id=EOS, **JAX_OFF, **_settings())
+    jsrv = JaxServer(jparams, jcfg, burst_windows=6, eos_id=EOS, **_settings())
     assert drive(jsrv, reqs) == outs_on
 
 

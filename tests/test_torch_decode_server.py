@@ -3,9 +3,8 @@ the JAX DecodeServer on identical traffic, on the CPU.
 
 Both engines serve the shared float32 test model (the JAX init carried
 across with `from_numpy_params`) and must return IDENTICAL greedy tokens.
-Both run their defaults (the radix cache and the spill tier on), except
-surgical recovery, not ported yet, which the JAX engine gets off; its
-greedy outputs do not depend on it. Both engines burst with their shared
+Both run their defaults (the radix cache, the spill tier and surgical
+recovery on; tests/test_torch_faults.py drives the recovery). Both engines burst with their shared
 default, burst_windows=4. Where all traffic is queued before start(), the
 two engines' prefill, macro and burst dispatch counts must agree too. Also pinned here: the package imports neither jax nor nos_tpu,
 and the engine refuses to drift to the CPU when no CUDA device exists."""
@@ -26,7 +25,6 @@ from nos_tpu_torch.models.decode import init_paged_cache
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(surgical_recovery=False)
 DISPATCH_COUNTERS = ("prefill_dispatches", "macro_dispatches", "burst_dispatches",
                      "burst_windows_run", "steps_run", "prefill_tokens")
 
@@ -58,7 +56,7 @@ def serve(server, traffic):
 
 def run_both(model, traffic, **kw):
     jcfg, jparams, tcfg, tparams = model
-    jsrv = JaxServer(jparams, jcfg, **JAX_OFF, **kw)
+    jsrv = JaxServer(jparams, jcfg, **kw)
     tsrv = DecodeServer(tparams, tcfg, device="cpu", **kw)
     jout = serve(jsrv, traffic)
     tout = serve(tsrv, traffic)
@@ -93,7 +91,7 @@ def test_eos_frees_the_slot_early(model):
     probe = serve(DecodeServer(tparams, tcfg, n_slots=1, max_len=64, device="cpu"),
                   [(p1, 12)])[0]
     eos = probe[3]
-    jsrv = JaxServer(jparams, jcfg, n_slots=1, max_len=64, eos_id=eos, **JAX_OFF)
+    jsrv = JaxServer(jparams, jcfg, n_slots=1, max_len=64, eos_id=eos)
     tsrv = DecodeServer(tparams, tcfg, n_slots=1, max_len=64, eos_id=eos, device="cpu")
     traffic = [(p1, 12), (p2, 5)]
     jout, tout = serve(jsrv, traffic), serve(tsrv, traffic)
@@ -138,7 +136,7 @@ def test_shared_prefix_hit(model):
     jcfg, jparams, tcfg, tparams = model
     prefix, a, b = prompts(7, [24, 5, 6])
     results = []
-    for srv in (JaxServer(jparams, jcfg, n_slots=2, max_len=64, block_size=8, **JAX_OFF),
+    for srv in (JaxServer(jparams, jcfg, n_slots=2, max_len=64, block_size=8),
                 DecodeServer(tparams, tcfg, n_slots=2, max_len=64, block_size=8,
                              device="cpu")):
         srv.start()
@@ -158,9 +156,13 @@ def test_shared_prefix_hit(model):
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
     for kw in (dict(quota=object()), dict(kv_store=object()),
-               dict(surgical_recovery=True), dict(cost_ledger=object())):
+               dict(metrics=object()), dict(cost_ledger=object())):
         with pytest.raises(NotImplementedError):
             DecodeServer(tparams, tcfg, device="cpu", **kw)
+    # Surgical recovery is the default, as in the reference, and the
+    # injector and the checkpoint hook are taken.
+    assert DecodeServer(tparams, tcfg, device="cpu").surgical_recovery
+    DecodeServer(tparams, tcfg, device="cpu", fault_injector=object(), checkpoint_hook=print)
     # radix_cache is inert without the prefix cache, as in the reference.
     assert not DecodeServer(tparams, tcfg, device="cpu", prefix_cache=False).radix_cache
 
@@ -195,6 +197,8 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "import sys, pkgutil, importlib, nos_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(nos_tpu_torch.__path__, 'nos_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'nos_tpu_torch.runtime.faults' in sys.modules\n"
+        "assert 'nos_tpu_torch.runtime.checkpoint' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')]\n"
         "print(len(list(pkgutil.walk_packages(nos_tpu_torch.__path__))), bad)\n"

@@ -13,7 +13,8 @@ held to atol 1e-4 (summation order); bf16 and int8 pools to 2e-2 (one bf16
 rounding of the output, and the plain version's bf16 rounding of the
 dequantized int8 values); the window's mma route (bf16 q over a bf16
 pool) to chip_smoke.py's `held` bounds, max|err| 5e-3 and 2e-2 of
-max|want|. Flash kernels: each output entry by entry
+max|want|, and over an int8 pool to its int8 bounds, 2e-2 and 2e-2 of
+max|want|, with block scales over 2.5 decades. Flash kernels: each output entry by entry
 (`flash_err`) within FLASH_TOL, chip_smoke.py's bounds. Dense decode
 kernel: entry by entry (`flash_err`) within DECODE_TOL, chip_smoke.py's
 bounds. The sharded paged kernels bit for bit against the unsharded kernel
@@ -25,7 +26,9 @@ memory raises, and a dead engine's graph in a reference cycle is
 collected before a capture, never inside it. The spill tier's and the
 radix tree's block copies byte for byte on the card (tp=1 and tp=2), a
 verify window (W = 9) on the mma route against the plain version, and a
-spec-armed engine with the radix cache on the card against spec-off."""
+spec-armed engine with the radix cache on the card against spec-off. And
+the f32 rows the engine's programs of different shapes give for the same
+inputs (ROADMAP C)."""
 
 import numpy as np
 import pytest
@@ -97,7 +100,9 @@ def test_kernels_match_plain(cuda_device, dtype, nh, nkv, hd, bs):
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert tpa.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"] + 1
     assert tpa.LAUNCHES["paged_window_attention"] == before["paged_window_attention"] + 1
-    route = "mma" if dtype == "bfloat16" else "simt"  # every head_dim here is 64/128/256
+    # Every head_dim here is 64/128/256: a bf16 q (over a bf16 or an int8
+    # pool) takes the mma route, an f32 q the simt route.
+    route = "simt" if dtype == "float32" else "mma"
     assert tpa.ROUTE_LAUNCHES["paged_window_attention"][route] == \
         routes["paged_window_attention"][route] + 1
     assert tpa.ROUTE_LAUNCHES["paged_decode_attention"]["split"] == \
@@ -149,6 +154,85 @@ def test_window_mma_route_matches_plain(cuda_device, nh, nkv, hd, bs, w):
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     assert err <= 5e-3 and err / want.float().abs().max().item() <= 2e-2, err
     assert tpa.ROUTE_LAUNCHES["paged_window_attention"]["mma"] == before + 1
+
+
+def _int8_window_case(rng, dev, b, nh, nkv, hd, bs, w, pos):
+    """An int8 pool whose per-block scales spread over 2.5 decades
+    (10^-4.5 to 10^-2, so a scale applied to another page's keys moves the
+    output far past the bound while the dequantized values stay within
+    1.3), disjoint pages per lane, and a bf16 window."""
+    n_pages = -(-(max(pos) + w) // bs) + 1
+    total = 1 + b * n_pages
+    k, v = (torch.from_numpy(rng.randint(-127, 128, (total, nkv, bs, hd)).astype(np.int8))
+            .to(dev) for _ in range(2))
+    ks, vs = (torch.from_numpy((10.0 ** rng.uniform(-4.5, -2.0, total)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32)).to(dev)
+    qw = torch.from_numpy(rng.randn(b, nh, w, hd).astype(np.float32)).to(dev, torch.bfloat16)
+    return qw, k, v, ks, vs, table
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("bs,w", [(8, 9), (32, 9), (8, 256), (32, 256)])
+def test_window_mma_int8_route_matches_plain(cuda_device, hd, bs, w):
+    """The window kernel's mma route over an int8 pool (bf16 q, codes
+    widened to bf16 in shared memory, each key's block scales applied to
+    S's and P's columns in f32) against the plain version (the gather
+    dequantized to bf16): one launch, counted under "mma", over four lanes
+    (a full window crossing pages, a short one, a masked lane, a full one
+    from position 0), held to the int8 bounds of chip_smoke.py's `held`:
+    max|err| 2e-2 and 2e-2 of max|want| on the live rows."""
+    rng = np.random.RandomState(hd + bs + w)
+    nh, nkv = 8, 2
+    pos = [3 * bs + 5, bs - 1, 7, 0]
+    lengths = [w, min(w, 5), w, w]
+    qw, k, v, ks, vs, table = _int8_window_case(rng, cuda_device, len(pos), nh, nkv, hd, bs,
+                                                w, pos)
+    args = (table, torch.tensor(pos, dtype=torch.int32, device=cuda_device),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+            torch.tensor([True, True, False, True], device=cuda_device), ks, vs)
+    assert tpa._window_route(qw, k, ks) == "mma"
+    assert tpa._window_route(qw.float(), k, ks) == "simt"
+    before = dict(tpa.ROUTE_LAUNCHES["paged_window_attention"])
+    got = tpa.paged_window_attention(qw, k, v, *args)
+    torch.cuda.synchronize()
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention"] == dict(before, mma=before["mma"] + 1)
+    want = tpa._window_reference(qw, k, v, *args)
+    live = ((torch.arange(w, device=cuda_device)[None, :] < args[2][:, None])
+            & args[3][:, None])[:, None, :, None].expand_as(got)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()[live].max().item()
+    top = want.float().abs()[live].max().item()
+    assert err <= 2e-2 and err <= 2e-2 * top, (err, top)
+    # The masked lane attends key 0 of its first page only.
+    first = (v[table[2, 0], :].float()[:, 0] * vs[table[2, 0]]).repeat_interleave(nh // nkv, 0)
+    assert (got[2, :, 0].float() - first).abs().max().item() <= 2e-2
+
+
+def test_window_mma_int8_sharded_bit_identical_per_head(cuda_device):
+    """The sharded window over an int8 pool (two shards, one KV head each,
+    each with its own copy of the scales) takes the mma route once per
+    shard, and each shard's output equals the unsharded kernel's on its
+    heads bit for bit."""
+    rng = np.random.RandomState(5)
+    pos = [70, 31, 0, 200]
+    qw, k, v, ks, vs, table = _int8_window_case(rng, cuda_device, 4, 8, 2, 64, 32, 256, pos)
+    rest = (torch.tensor(pos, dtype=torch.int32, device=cuda_device),
+            torch.tensor([256, 40, 256, 1], dtype=torch.int32, device=cuda_device),
+            torch.tensor([True, True, False, True], device=cuda_device))
+
+    def heads(x):
+        return [t.contiguous() for t in x.chunk(2, dim=1)]
+
+    before = dict(tpa.ROUTE_LAUNCHES["paged_window_attention_sharded"])
+    got = tpa.paged_window_attention_sharded(heads(qw), heads(k), heads(v), table, *rest,
+                                             [ks, ks.clone()], [vs, vs.clone()])
+    whole = tpa.paged_window_attention(qw, k, v, table, *rest, ks, vs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, heads(whole)))
+    assert tpa.ROUTE_LAUNCHES["paged_window_attention_sharded"] == dict(
+        before, mma=before["mma"] + 2)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
@@ -938,3 +1022,64 @@ def test_int8_engine_matches_its_plain_programs(cuda_device, monkeypatch):
                                                   device=cuda_device), mask, 8)
             picks.append(int(D.greedy(lg)[0]))
         assert picks == out
+
+
+# -- f32 across program shapes (ROADMAP C) ----------------------------------------
+def _f32_steps(a, b):
+    """|a - b| in f32 steps of each row's magnitude (the ulp of the row's
+    largest |b|, as a logit's step is read at the top logit), entry by
+    entry over the last axis."""
+    a, b = a.double(), b.double()
+    top = b.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(top)) - 23)
+
+
+def test_f32_rows_across_program_shapes(cuda_device):
+    """The engine serves a float32 model through programs of several shapes:
+    a decode step projects its 8 lanes' rows (M = 8), a verify window 8 x 9
+    rows (M = 72), a prefill chunk 256 rows. The same 8 rows through an f32
+    projection at M = 8, 72 and 256, and one position's attention through
+    the split decode kernel and through the window kernel's simt route (W =
+    1 at pos = limit - 1, and as the last row of a 16-row window), in f32
+    steps of each row's magnitude. Both differ by shape on an H100: the
+    projection (cuBLAS picks its kernel, and with it the summation order,
+    by M) by up to 5.3 steps at 89% of the entries, the attention (the split
+    kernel sums 128-key splits and combines them, the window walks a page
+    at a time) by up to 20 steps at 94%. Held here to a bound of three times
+    those: both differ, and neither by more."""
+    rng = np.random.RandomState(7)
+    dev = cuda_device
+    hidden, out = 512, 1536  # the bench GPT's width and its MLP's
+    x = torch.from_numpy(rng.randn(256, hidden).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(hidden, out) / np.sqrt(hidden)).astype(np.float32)).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    at8 = x[:8] @ w
+    proj = {m: _f32_steps((x[:m] @ w)[:8], at8) for m in (72, 256)}
+    # Attention at the serving heads: 8 lanes, limits across pages.
+    b, nh, nkv, hd, bs = 8, 8, 2, 64, 32
+    limits = [128, 160, 192, 224, 288, 320, 1000, 2048]
+    n_pages = -(-max(limits) // bs)
+    total = 1 + b * n_pages
+    k, v = (torch.from_numpy(rng.randn(total, nkv, bs, hd).astype(np.float32)).to(dev)
+            for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, total))[: b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.randn(b, nh, hd).astype(np.float32)).to(dev)
+    lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+    split = tpa.paged_decode_attention(q, k, v, table, lim)
+    ones = torch.ones((b,), dtype=torch.int32, device=dev)
+    live = torch.ones((b,), dtype=torch.bool, device=dev)
+    w1 = tpa.paged_window_attention(q[:, :, None].contiguous(), k, v, table, lim - 1, ones,
+                                    live)[:, :, 0]
+    q16 = torch.from_numpy(rng.randn(b, nh, 16, hd).astype(np.float32)).to(dev)
+    q16[:, :, 15] = q
+    w16 = tpa.paged_window_attention(q16, k, v, table, lim - 16, ones * 16, live)[:, :, 15]
+    torch.cuda.synchronize()
+    attn = {"window_w1": _f32_steps(w1, split), "window_w16": _f32_steps(w16, split)}
+    report = {name: {k: {"max_steps": d.max().item(), "differ": (d > 0).float().mean().item()}
+                     for k, d in part.items()}
+              for name, part in (("projection", proj), ("attention", attn))}
+    print("f32 steps across shapes:", report)
+    for part, bound in (("projection", 16.0), ("attention", 60.0)):
+        for r in report[part].values():
+            assert 0.0 < r["max_steps"] <= bound and r["differ"] > 0.0, (part, report)

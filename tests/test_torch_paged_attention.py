@@ -172,14 +172,18 @@ def test_public_entry_points_take_the_plain_version_on_cpu():
     ("bfloat16", "bfloat16", 256, "mma"),
     ("float32", "float32", 64, "simt"),
     ("float32", "float32", 256, "simt"),
-    ("bfloat16", "int8", 64, "simt"),
+    ("bfloat16", "int8", 64, "mma"),
+    ("bfloat16", "int8", 128, "mma"),
+    ("bfloat16", "int8", 256, "mma"),
+    ("bfloat16", "int8", 96, "simt"),
     ("float32", "int8", 128, "simt"),
     ("bfloat16", "bfloat16", 96, "simt"),
     ("bfloat16", "bfloat16", 32, "simt"),
 ])
 def test_window_route(q_dtype, pool_dtype, hd, route):
     """`_window_route` depends on dtypes and head_dim alone: the tensor-core
-    kernel for a bf16 q over a bf16 pool at head_dim 64, 128 or 256."""
+    kernel for a bf16 q over a bf16 pool, or over an int8 pool with its
+    scales, at head_dim 64, 128 or 256."""
     q = torch.zeros((1, 4, 2, hd), dtype=getattr(torch, q_dtype))
     pool = torch.zeros((3, 2, 8, hd), dtype=getattr(torch, pool_dtype))
     scale = torch.ones(3) if pool_dtype == "int8" else None

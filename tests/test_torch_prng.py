@@ -34,7 +34,6 @@ SEEDS = [0, 7, 2**31 - 1]
 # the counters.
 SERIALS = [1, 2, 3, 70000, 2**31 + 5]
 STEPS = [0, 1, 63, 65537]
-JAX_OFF = dict(surgical_recovery=False)
 
 
 def _words(x):
@@ -173,7 +172,7 @@ def test_sampled_engine_matches_jax(serving_model, k):
     rng = np.random.RandomState(12)
     traffic = [(rng.randint(1, 97, size=n).tolist(), m) for n, m in ((4, 9), (11, 6), (7, 12))]
     kw = dict(n_slots=2, max_len=64, temperature=0.8, seed=7, steps_per_dispatch=k)
-    jout = _serve(JaxServer(jparams, jcfg, **JAX_OFF, **kw), traffic)
+    jout = _serve(JaxServer(jparams, jcfg, **kw), traffic)
     tout = _serve(DecodeServer(tparams, tcfg, device="cpu", **kw), traffic)
     assert tout == jout
     greedy = _serve(DecodeServer(tparams, tcfg, device="cpu", n_slots=2, max_len=64),

@@ -53,7 +53,6 @@ SCALE_RTOL = 1e-6
 # the int8 arm's logits by up to 3.6e-3 and a per-token delta by 6.0e-4.
 # One code step is the resolution of the int8 pool, so the bound is 2e-3.
 ORACLE_ATOL = 2e-3
-JAX_OFF = dict(surgical_recovery=False)
 ENGINE = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8, seed=11)
 COUNTERS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens", "prefix_evictions",
             "prefix_cow_hits", "prefix_cow_tokens", "output_blocks_registered",
@@ -482,7 +481,7 @@ def port(model, mesh=None, **kw):
 
 def ref(model, **kw):
     jcfg, jparams, _, _ = model
-    return JaxServer(jparams, jcfg, **JAX_OFF, **dict(ENGINE, **kw))
+    return JaxServer(jparams, jcfg, **dict(ENGINE, **kw))
 
 
 def drive(server, reqs, idle_ticks=4):

@@ -25,7 +25,6 @@ from nos_tpu_torch.parallel import build_mesh
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(surgical_recovery=False)
 ENGINE = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8, seed=11)
 COUNTERS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens", "prefix_evictions",
             "prefix_cow_hits", "prefix_cow_tokens", "output_blocks_registered",
@@ -63,7 +62,7 @@ def port(model, mesh=None, **kw):
 
 def ref(model, **kw):
     jcfg, jparams, _, _ = model
-    return JaxServer(jparams, jcfg, **JAX_OFF, **dict(ENGINE, **kw))
+    return JaxServer(jparams, jcfg, **dict(ENGINE, **kw))
 
 
 def run_seq(server, reqs):

@@ -36,7 +36,6 @@ from conftest import serving_test_config, serving_test_params
 
 pytestmark = pytest.mark.multidevice
 
-JAX_OFF = dict(surgical_recovery=False)
 
 # tests/test_sharded_decode.py's prompts: budgeted prefill runs multi-chunk.
 PROMPTS = [
@@ -85,7 +84,7 @@ def make_jax(jparams, jcfg, mesh=None, **kw):
     defaults = dict(n_slots=3, max_len=96, prompt_buckets=(8, 16), block_size=8,
                     steps_per_dispatch=4)
     defaults.update(kw)
-    return JaxServer(jparams, jcfg, mesh=mesh, **JAX_OFF, **defaults)
+    return JaxServer(jparams, jcfg, mesh=mesh, **defaults)
 
 
 def drive(server, reqs):
@@ -121,8 +120,8 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
     assert not sharded._tp.emb_sharded and not sharded._tp.head_sharded
 
 
-@pytest.mark.parametrize("kw", [dict(surgical_recovery=True), dict(quota=object())],
-                         ids=["recovery", "quota"])
+@pytest.mark.parametrize("kw", [dict(metrics=object()), dict(quota=object())],
+                         ids=["metrics", "quota"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, kw):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):

@@ -33,7 +33,6 @@ from nos_tpu_torch.runtime import decode_server as tds
 
 from conftest import serving_test_config, serving_test_params
 
-JAX_OFF = dict(surgical_recovery=False)
 ENGINE = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8, seed=11)
 SPEC = dict(spec_k=6, spec_sync=True)
 SPEC_COUNTERS = ("spec_rounds", "spec_tokens_accepted", "spec_demotions", "spec_tree_rounds",
@@ -72,7 +71,7 @@ def port(model, mesh=None, **kw):
 
 def ref(model, **kw):
     jcfg, jparams, _, _ = model
-    return JaxServer(jparams, jcfg, **JAX_OFF, **dict(ENGINE, **kw))
+    return JaxServer(jparams, jcfg, **dict(ENGINE, **kw))
 
 
 def run_seq(server, reqs):
