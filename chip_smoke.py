@@ -9,6 +9,7 @@ them.
     python3 chip_smoke.py --phases build,card,radix,spec
     python3 chip_smoke.py --phases build,card,quant
     python3 chip_smoke.py --phases build,card,faults
+    python3 chip_smoke.py --phases build,card,quota,trace
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -135,6 +136,40 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            a forced device-lost, the replayed window against the eager
            `_macro` byte for byte. Prints recoveries by kind, slots
            restored, replay tokens and restore latency (p50, max);
+  quota    elastic quotas with preemption: bench.py's overload_quota cell
+           on the bench GPT (8 slots, max_len 1024, K 16, a pool of 64
+           blocks that holds four borrowers; shares g 0.5/1.0 and b
+           0.0/1.0 over a 128-tick window; six borrower requests of 256
+           tokens x 256 new from default_rng([2026, 7, 64]), then a closed
+           loop of four g requests of 64 x 32), driven tick by tick. Arms:
+           g solo, quota off, quota on with a CostLedger, Metrics and
+           EngineTracing armed and the same arm untraced, quota on over an
+           int8 pool, quota on in f32. Gates: every future resolves,
+           preemptions and borrowed ticks in the on arms, every
+           quota-armed burst's per-window fold (the counts the captured
+           window wrote, read once a burst) equal to the host's
+           bookkeeping, the pool conserved, one capture and every window a
+           replay, the traced arm's tokens, counters and blocking reads
+           equal to its twin's, the ledger billing every decode token
+           served and conserving slot-seconds, the on arms' streams
+           against the plain programs' oracle (check_logits, f32 within
+           F32_CROSS_SHAPE_STEPS), the traced arm's decode launches on
+           "split" and its bf16 window launches on "mma". Prints g tok/s,
+           g TTFT and latency p95 (solo, off, on), b tok/s, preemptions,
+           spills, revives, the preemptions' spill bytes, restore latency
+           (p50, max) and the cost fields by tenant;
+  trace    the tracing cell (bench.py::_trace_timeline): 8 streams of 128
+           tokens x 64 new, max_len 512, K 16, bf16, tracing off and on in
+           turns (off, on, on, off, off, on), each a warm-up pass and a timed pass
+           ticked on this thread. Gates: tokens and every collect_serving
+           counter equal between the arms, blocking reads included, and
+           the phases attributing >= 0.95 of the profiled tick wall.
+           Prints tok/s of each arm, the overhead, the off arm's own wall
+           noise, per-phase ms and host-overhead ms per engine dispatch.
+           The engine, graph, tp, radix and quant phases arm the tick
+           profiler alone (`profiled`), so their `tick_phase_s` is
+           measured: without a profiler it reads empty, as in the
+           reference;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -176,7 +211,8 @@ timed launches), each entry with the route its main-path launches took
 "mma", the tensor-core kernels of the bf16-q window over either pool and
 the three bf16 flash kernels; or "simt"; the engine, tp, quant, dense and
 train phases check that every decode launch took "split" and every bf16
-window and flash launch "mma");
+window and flash launch "mma"; the two paged entries also carry
+`quota_launches`, the quota phase's own main-path launches by route);
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -963,7 +999,8 @@ def serve(torch, cfg, params, device, prompts, long_prompts, max_new, buckets, m
     def engine():
         return DecodeServer(params, cfg, n_slots=8, max_len=max_len,
                             prompt_buckets=buckets, steps_per_dispatch=16,
-                            prefill_budget_tokens=2 * buckets[-1], device=device, **engine_kw)
+                            prefill_budget_tokens=2 * buckets[-1], device=device,
+                            tracing=profiled(), **engine_kw)
 
     server = engine()
     try:
@@ -1555,6 +1592,12 @@ def time_sharded(torch):
     return out
 
 
+def tick_until(server, done):
+    """Drive an engine on this thread, as its loop would, until `done()`."""
+    while not done():
+        server._tick()
+
+
 def tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts, max_new, buckets,
              max_len, **engine_kw):
     """The engine phase's traffic and settings, at tp=2 over `mesh` or at
@@ -1570,11 +1613,7 @@ def tp_serve(torch, cfg, params, device, mesh, prompts, long_prompts, max_new, b
         return DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
                             steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
                             mesh=mesh, device=None if mesh is not None else device,
-                            **engine_kw)
-
-    def tick_until(server, done):
-        while not done():
-            server._tick()
+                            tracing=profiled(), **engine_kw)
 
     warm = engine()  # warm-up (not counted): one short request through both programs
     fut = warm.submit(prompts[0][:40], 20)
@@ -1782,7 +1821,7 @@ def chat_run(torch, cfg, params, device, chat, buckets, max_len, **engine_kw):
 
     server = DecodeServer(params, cfg, n_slots=8, max_len=max_len, prompt_buckets=buckets,
                           steps_per_dispatch=16, prefill_budget_tokens=2 * buckets[-1],
-                          device=device, **engine_kw)
+                          device=device, tracing=profiled(), **engine_kw)
     seen = {"revive": 0, "cow": 0}
     checked_copies(torch, server, seen)
     n, gen = chat["n_convs"], chat["gen"]
@@ -2807,6 +2846,403 @@ def phase_faults(torch, device, small=False):
     return stats
 
 
+# -- phase: quota ------------------------------------------------------------------
+# bench.py's overload_quota (bench.py:2698): a borrower floods the engine,
+# a guaranteed tenant's closed loop lands through preemption. bench.py lets
+# the borrowers run 4 windows first; at 4 the youngest borrower is still
+# unprefilled (one 256-token chunk a tick), so its preemption spills
+# nothing. At 8 all four decode and the victim's prompt blocks go to the
+# host tier, to be revived by its restore.
+QUOTA = {"n_slots": 8, "max_len": 1024, "buckets": (16, 32, 64, 128, 256), "k": 16,
+         "block_size": 32, "total_blocks": 1 + 64, "window_ticks": 128,
+         "n_b": 6, "b_len": 256, "b_new": 256, "n_g": 4, "g_len": 64, "g_new": 32,
+         "b_lead_windows": 8}
+QUOTA_SMALL = {"n_slots": 2, "max_len": 64, "buckets": (8, 16), "k": 4, "block_size": 8,
+               "total_blocks": 1 + 10, "window_ticks": 64,
+               "n_b": 3, "b_len": 16, "b_new": 24, "n_g": 2, "g_len": 4, "g_new": 8,
+               "b_lead_windows": 2}
+QUOTA_SHARES = {"g": (0.5, 1.0), "b": (0.0, 1.0)}
+# Counters a traced arm and its untraced twin must agree on.
+QUOTA_COUNTERS = ("steps_run", "macro_dispatches", "burst_dispatches", "burst_windows_run",
+                  "prefill_dispatches", "prefill_tokens", "h2d_uploads", "staging_syncs",
+                  "blocking_syncs", "preemptions", "borrowed_ticks", "spills", "revives",
+                  "replay_tokens", "graph_replays")
+
+
+def profiled():
+    """A tracing bundle with only its tick profiler armed: the engine's
+    `tick_phase_s` and the other tick read-throughs are the profiler's, and
+    read zeros without one, as in the reference."""
+    from nos_tpu_torch.tracing import EngineTracing
+
+    bundle = EngineTracing()
+    bundle.tracer = bundle.recorder = None
+    return bundle
+
+
+def quota_traffic(cfg, q):
+    """bench.py's prompts: six borrower prompts, then four of the guaranteed
+    tenant, from default_rng([2026, 7, 64])."""
+    rng = np.random.default_rng([2026, 7, 64])
+    b = [rng.integers(1, cfg.vocab, q["b_len"]).tolist() for _ in range(q["n_b"])]
+    g = [rng.integers(1, cfg.vocab, q["g_len"]).tolist() for _ in range(q["n_g"])]
+    return b, g
+
+
+def quota_run(torch, cfg, params, device, q, quota=True, borrowers=True, traced=False,
+              kv_dtype="fp16"):
+    """One arm of the overload cell on the engine at its defaults (bursts,
+    the captured window, radix and spill), driven tick by tick on this
+    thread so that a traced arm and its untraced twin run one schedule: a
+    warm-up (one g and one b request of 8 tokens), then the borrowers
+    (unless `borrowers` is off: the g-solo arm), and once they have decoded
+    `b_lead_windows` windows, the guaranteed tenant's closed loop (each
+    request submitted when the last resolves). `traced` arms a CostLedger,
+    a Metrics registry and EngineTracing. Every quota-armed burst's
+    per-window fold is held to the host's nominal bookkeeping as it
+    happens. The paged kernels' launch counts are zeroed just before the
+    run and read just after. Returns (b outputs, g outputs, stats)."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.observability import Metrics
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
+    from nos_tpu_torch.serving import CostLedger
+    from nos_tpu_torch.telemetry import percentile
+    from nos_tpu_torch.tracing import EngineTracing
+
+    b_prompts, g_prompts = quota_traffic(cfg, q)
+    policy = None
+    if quota:
+        policy = QuotaPolicy({t: TenantShare(*a) for t, a in QUOTA_SHARES.items()},
+                             window_ticks=q["window_ticks"])
+    server = DecodeServer(
+        params, cfg, n_slots=q["n_slots"], max_len=q["max_len"], prompt_buckets=q["buckets"],
+        steps_per_dispatch=q["k"], block_size=q["block_size"], total_blocks=q["total_blocks"],
+        quota=policy, kv_dtype=kv_dtype, device=device,
+        tracing=EngineTracing() if traced else None, metrics=Metrics() if traced else None,
+        cost_ledger=CostLedger() if traced else None)
+    folds = {"bursts": 0, "windows": 0}
+    burst = server._dispatch_burst
+    K = q["k"]
+
+    def checked_burst(idxs, n):
+        # The host's nominal bookkeeping: a lane runs from the burst's first
+        # step until it runs out, so window w executes min(K, total - w*K).
+        before = [(s.remaining, s.pos, s.tenant or "") for s in server._slots]
+        burst(idxs, n)
+        if server._quota is None:
+            return
+        want = []
+        for w in range(n):
+            entry = {}
+            for i in idxs:
+                rem, pos, tenant = before[i]
+                took = min(K, max(0, min(n * K, rem, server.max_len - pos) - w * K))
+                if took:
+                    entry[tenant] = entry.get(tenant, 0) + took
+            want.append(entry)
+        got = [dict(e) for e in list(server._quota._window)[-n:]]
+        check(got == want, f"quota fold: the burst's windows folded {got}, the host's "
+                           f"bookkeeping says {want}")
+        folds["bursts"] += 1
+        folds["windows"] += n
+
+    server._dispatch_burst = checked_burst
+    preempt = server._preempt_slot
+    moved = {"bytes": 0}
+
+    def counted_preempt(idx):
+        spills0 = server.spills
+        preempt(idx)
+        moved["bytes"] += (server.spills - spills0) * server._bytes_per_block
+
+    server._preempt_slot = counted_preempt
+    for p, t in ((g_prompts[0], "g"), (b_prompts[0], "b")):
+        fut = server.submit(p, max_new=8, tenant=t)
+        tick_until(server, fut.done)
+        fut.result()
+    n_ttft, n_restore = len(server.ttft_s_by_tenant.get("g", [])), len(server.restore_latency_s)
+    warm_windows = server.macro_dispatches + server.burst_windows_run
+    sync(torch, device)
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    fbs = [server.submit(p, max_new=q["b_new"], tenant="b") for p in b_prompts] \
+        if borrowers else []
+    if borrowers:
+        tick_until(server, lambda: server.macro_dispatches + server.burst_windows_run
+                   >= warm_windows + q["b_lead_windows"])
+    lat, g_outs = [], []
+    tg0 = time.perf_counter()
+    for p in g_prompts:
+        tg = time.perf_counter()
+        fut = server.submit(p, max_new=q["g_new"], tenant="g")
+        tick_until(server, fut.done)
+        g_outs.append(fut.result())
+        lat.append(time.perf_counter() - tg)
+    g_wall = time.perf_counter() - tg0
+    tick_until(server, lambda: all(f.done() for f in fbs))
+    b_outs = [f.result() for f in fbs]
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    restore = sorted(server.restore_latency_s[n_restore:])
+    stats = {
+        "quota": quota, "borrowers": borrowers, "traced": traced, "kv_dtype": kv_dtype,
+        "wall_s": wall,
+        "g_tok_s": sum(map(len, g_outs)) / g_wall,
+        "g_ttft_p95_s": percentile(server.ttft_s_by_tenant["g"][n_ttft:], 95),
+        "g_latency_p95_s": percentile(lat, 95),
+        "b_tok_s": sum(map(len, b_outs)) / wall if borrowers else None,
+        **{c: getattr(server, c) for c in QUOTA_COUNTERS},
+        "preempt_spill_bytes": moved["bytes"],
+        "restore_latency_s": {"n": len(restore), "p50": percentile(restore, 50) if restore
+                              else None, "max": restore[-1] if restore else None},
+        "fold_checked": dict(folds),
+        "graph_captures": server.graph_captures,
+        "windows": server.macro_dispatches + server.burst_windows_run,
+        "conserved": server._block_mgr.conserved(),
+        "pool": server._block_mgr.counts(),
+        "launches": dict(pa.LAUNCHES),
+        "routes": {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()},
+    }
+    if traced:
+        totals = server._cost.tenant_totals()
+        billed = sum(a["decode_tokens"] for a in totals.values())
+        served = int(sum(server.macro_tokens_by_slot)) + server.spec_tokens_accepted
+        stats["cost_by_tenant"] = totals
+        stats["ledger"] = {
+            "decode_tokens_billed": billed, "decode_tokens_served": served,
+            "slot_seconds_charged": server._cost.charged_slot_seconds(),
+            "slot_seconds_total": server.slot_seconds_total,
+            "receipts": server.cost_receipts}
+        prof = server.tracing.profiler
+        stats["tracing"] = {"ticks_profiled": prof.ticks,
+                            "coverage": prof.attribution_coverage(),
+                            "trace_events": sum(len(server.tracing.tracer.trace(t))
+                                                for t in server.tracing.tracer.trace_ids()),
+                            "flight_events": server.tracing.recorder.events_recorded,
+                            "metric_preemptions": server.metrics.get(
+                                "nos_tpu_decode_preemptions")}
+    server.stop()
+    return b_outs, g_outs, stats
+
+
+def check_quota_run(st, b_outs, g_outs, q, what, cuda):
+    """Every future resolved with its tokens; with a quota, at least one
+    preemption, borrowed ticks and the fold held at every burst; the pool
+    conserved; on the card one capture and every window a replay of it."""
+    check(all(len(o) == q["b_new"] for o in b_outs) and len(b_outs) == (
+        q["n_b"] if st["borrowers"] else 0), f"{what}: a borrower future came back short")
+    check(len(g_outs) == q["n_g"] and all(len(o) == q["g_new"] for o in g_outs),
+          f"{what}: a guaranteed future came back short")
+    if st["quota"] and st["borrowers"]:
+        check(st["preemptions"] >= 1 and st["borrowed_ticks"] > 0,
+              f"{what}: {st['preemptions']} preemptions, {st['borrowed_ticks']} borrowed ticks")
+        check(st["preempt_spill_bytes"] > 0 and st["revives"] > 0,
+              f"{what}: the preemptions spilled {st['preempt_spill_bytes']} bytes, "
+              f"{st['revives']} revives")
+        check(st["fold_checked"]["bursts"] > 0, f"{what}: no quota-armed burst was checked")
+    check(st["conserved"] and st["pool"]["in_use"] == 0, f"{what}: pool {st['pool']}")
+    if cuda:
+        check(st["graph_captures"] == 1 and st["graph_replays"] == st["windows"] > 0,
+              f"{what}: {st['graph_replays']} replays for {st['windows']} windows "
+              f"({st['graph_captures']} captures)")
+
+
+def quota_tokens(torch, cfg, params, device, q, b_outs, g_outs, dtype, kv_dtype):
+    """The served streams (the preempted and restored borrowers and the
+    guarantee) against a teacher-forced pass of the plain programs, as the
+    faults phase holds restored streams (check_logits; f32 within
+    F32_CROSS_SHAPE_STEPS)."""
+    b_prompts, g_prompts = quota_traffic(cfg, q)
+    kv = "int8" if kv_dtype == "int8" else None
+    out = {}
+    for name, prompts, outs in (("b", b_prompts, b_outs), ("g", g_prompts, g_outs)):
+        kern = teacher_forced(torch, params, cfg, prompts, outs, q["buckets"],
+                              q["block_size"], device, kv_dtype=kv)
+        with plain_attention():
+            plain = teacher_forced(torch, params, cfg, prompts, outs, q["buckets"],
+                                   q["block_size"], device, kv_dtype=kv)
+        st = agreement(torch, kern, plain, torch.tensor(outs, device=device), dtype)
+        del kern, plain
+        st["dtype"] = dtype
+        check_logits(st, f"quota {dtype} {kv_dtype} {name}", F32_CROSS_SHAPE_STEPS)
+        out[name] = {k: st[k] for k in ("top1_agreement", "top1_agreement_1ulp",
+                                         "max_abs_dlogit", "mean_abs_dlogit",
+                                         "disagreement_gap_steps")}
+    return out
+
+
+def phase_quota(torch, device, small=False):
+    """Elastic quotas with preemption at the serving cell's width
+    (bench.py's overload_quota on the bench GPT: 8 slots, max_len 1024, K
+    16, a pool of 64 blocks that holds four borrowers; six borrower
+    requests of 256 tokens x 256 new and a closed loop of four guaranteed
+    requests of 64 x 32). Arms: g solo, quota off, quota on with a
+    CostLedger, Metrics and EngineTracing armed and its untraced twin, quota
+    on over an int8 pool, and quota on in f32. Gates (check_quota_run): every
+    future resolves; preemptions and borrowed ticks in the on arms; every
+    quota-armed burst's per-window fold equals the host's bookkeeping; the
+    pool conserved; one capture, every window a replay; the traced arm's
+    tokens, counters and blocking reads equal its twin's; the ledger bills
+    every decode token served and its slot-seconds conserve; the on arms'
+    streams against the plain programs' oracle. The paged kernels'
+    launches of the traced bf16 arm are the phase's own main path: the
+    split decode kernel and the window kernel's mma route (the restores'
+    prefill tails) launched."""
+    from nos_tpu_torch import init_gpt
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    q = QUOTA_SMALL if small else QUOTA
+    main = "float32" if small else "bfloat16"
+    stats = {}
+    params_by = {}
+    arms = [(main, "fp16", "solo", dict(quota=False, borrowers=False)),
+            (main, "fp16", "off", dict(quota=False)),
+            (main, "fp16", "on_traced", dict(traced=True)),
+            (main, "fp16", "on", {}),
+            (main, "int8", "on", dict(kv_dtype="int8"))]
+    if not small:
+        arms.append(("float32", "fp16", "on", {}))
+    runs = {}
+    for dtype, kv, name, kw in arms:
+        cfg = bench_gpt(dtype, small)
+        if dtype not in params_by:
+            params_by[dtype] = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        what = f"quota {dtype} {kv} {name}"
+        b_outs, g_outs, st = quota_run(torch, cfg, params_by[dtype], device, q, **kw)
+        check_quota_run(st, b_outs, g_outs, q, what, cuda)
+        runs[(dtype, kv, name)] = (b_outs, g_outs, st)
+        if st["quota"] and st["borrowers"] and name != "on_traced":
+            st["tokens"] = quota_tokens(torch, cfg, params_by[dtype], device, q, b_outs,
+                                        g_outs, dtype, kv)
+        log(f"{what}: " + json.dumps({k: st[k] for k in (
+            "g_tok_s", "g_ttft_p95_s", "g_latency_p95_s", "b_tok_s", "preemptions",
+            "borrowed_ticks", "spills", "revives", "preempt_spill_bytes",
+            "restore_latency_s", "fold_checked", "graph_replays", "windows",
+            "burst_dispatches", "blocking_syncs", "wall_s")}
+            | {k: st[k] for k in ("tokens", "ledger", "cost_by_tenant", "tracing")
+               if k in st}))
+        stats[f"{dtype}_{kv}_{name}"] = st
+    traced = runs[(main, "fp16", "on_traced")]
+    twin = runs[(main, "fp16", "on")]
+    check(traced[0] == twin[0] and traced[1] == twin[1],
+          "quota: the traced arm's tokens differ from its untraced twin's")
+    diff = {c: (traced[2][c], twin[2][c]) for c in QUOTA_COUNTERS
+            if traced[2][c] != twin[2][c]}
+    check(not diff, f"quota: counters differ tracing on against off: {diff}")
+    led = traced[2]["ledger"]
+    check(led["decode_tokens_billed"] == led["decode_tokens_served"] > 0,
+          f"quota: the ledger billed {led['decode_tokens_billed']} decode tokens, "
+          f"the engine served {led['decode_tokens_served']}")
+    check(abs(led["slot_seconds_charged"] - led["slot_seconds_total"])
+          <= 1e-9 * max(1.0, led["slot_seconds_total"]),
+          f"quota: slot-seconds charged {led['slot_seconds_charged']}, "
+          f"held {led['slot_seconds_total']}")
+    routes = traced[2]["routes"]
+    if cuda:
+        check_routes(routes, "paged_decode_attention", "split", "quota")
+        check_routes(routes, "paged_window_attention",
+                     "mma" if main == "bfloat16" else "simt", "quota")
+    stats["main"] = {"launches": traced[2]["launches"], "routes": routes}
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"quota phase_s={stats['phase_s']:.1f}")
+    return stats
+
+
+# -- phase: trace ------------------------------------------------------------------
+# bench.py::_trace_timeline (bench.py:252): the tracing bundle's cost.
+TRACE = {"streams": 8, "prompt": 128, "new": 64, "max_len": 512, "k": 16, "block_size": 32,
+         "buckets": (16, 32, 64, 128, 256)}
+TRACE_SMALL = {"streams": 4, "prompt": 20, "new": 12, "max_len": 64, "k": 4, "block_size": 8,
+               "buckets": (8, 16)}
+
+
+def trace_run(torch, cfg, params, device, t, prompts, traced):
+    """One arm: a warm-up pass of the traffic, then the same traffic timed,
+    every stream submitted at once and the engine ticked on this thread
+    until they resolve. Returns (outputs, wall seconds, report, tracing)."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.telemetry import collect_serving
+    from nos_tpu_torch.tracing import EngineTracing
+
+    tracing = EngineTracing() if traced else None
+    server = DecodeServer(params, cfg, n_slots=t["streams"], max_len=t["max_len"],
+                          prompt_buckets=t["buckets"], steps_per_dispatch=t["k"],
+                          block_size=t["block_size"], tracing=tracing, device=device)
+    for _ in range(2):  # warm-up, then the timed pass
+        futs = [server.submit(p, max_new=t["new"]) for p in prompts]
+        sync(torch, device)
+        t0 = time.perf_counter()
+        tick_until(server, lambda: all(f.done() for f in futs))
+        outs = [f.result() for f in futs]
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+    report = collect_serving(server)
+    server.stop()
+    return outs, wall, report, tracing
+
+
+def phase_trace(torch, device, small=False):
+    """The tracing cell (bench.py::_trace_timeline on the bench GPT in
+    bf16: 8 streams, prompts of 128 tokens, 64 new, max_len 512, K 16),
+    tracing off and on in turns (off, on, on, off, off, on). Gates: tokens and every
+    counter of collect_serving (the profiler's own tick count aside) equal
+    between the arms, blocking reads included; the phases attribute >= 0.95
+    of the profiled tick wall. Reports tok/s of each arm (best of three), the
+    overhead, the off arm's own wall noise, per-phase ms, and the host
+    overhead per engine dispatch (the profiler's dispatch windows are host
+    issue time on CUDA)."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.telemetry import report_counter_fields
+
+    t0 = time.perf_counter()
+    t = TRACE_SMALL if small else TRACE
+    dtype = "float32" if small else "bfloat16"
+    cfg = bench_gpt(dtype, small)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    rng = np.random.default_rng([2026, 9, t["streams"], t["prompt"]])
+    prompts = [rng.integers(1, cfg.vocab, t["prompt"]).tolist() for _ in range(t["streams"])]
+    fields = [f for f in report_counter_fields() if f != "ticks_profiled"]
+    walls = {False: [], True: []}
+    runs = []
+    for traced in (False, True, True, False, False, True):
+        o, wall, rep, tr = trace_run(torch, cfg, params, device, t, prompts, traced)
+        walls[traced].append(wall)
+        runs.append((traced, o, {f: getattr(rep, f) for f in fields}))
+        if traced:
+            report, tracing = rep, tr
+    for traced, o, counters in runs[1:]:
+        check(o == runs[0][1], f"trace: tokens differ (tracing {traced}) from the first run's")
+        diff = {f: (counters[f], runs[0][2][f]) for f in fields if counters[f] != runs[0][2][f]}
+        check(not diff, f"trace: counters differ (tracing {traced}) from the first run's: {diff}")
+    coverage = tracing.profiler.attribution_coverage()
+    check(coverage >= 0.95, f"trace: phase attribution covers {coverage} < 0.95 of tick wall")
+    tokens = t["streams"] * t["new"]
+    tok_off, tok_on = tokens / min(walls[False]), tokens / min(walls[True])
+    dispatches = report.steps_run + report.prefill_dispatches
+    stats = {
+        "streams": t["streams"], "max_new": t["new"], "dtype": dtype,
+        "tok_s_tracing_off": tok_off, "tok_s_tracing_on": tok_on,
+        "tracing_overhead_pct": 100.0 * (1.0 - tok_on / tok_off),
+        "wall_noise_pct": 100.0 * (max(walls[False]) / min(walls[False]) - 1.0),
+        "walls_s": {"off": walls[False], "on": walls[True]},
+        "blocking_syncs": runs[0][2]["blocking_syncs"],
+        "ticks_profiled": report.ticks_profiled,
+        "phase_ms": {k: v * 1e3 for k, v in sorted(report.tick_phase_s.items())},
+        "phase_attribution_coverage": coverage,
+        "tick_wall_ms": report.tick_wall_s * 1e3,
+        "dispatch_issue_ms": report.tick_dispatch_s * 1e3,
+        "host_overhead_ms": report.tick_host_overhead_s * 1e3,
+        "engine_dispatches": dispatches,
+        "host_overhead_ms_per_dispatch": 1e3 * report.tick_host_overhead_s / max(1, dispatches),
+        "flight_recorder_events": tracing.recorder.events_recorded,
+        "phase_s": time.perf_counter() - t0,
+    }
+    log("trace: " + json.dumps(stats))
+    return stats
+
+
 # -- phase: dense ------------------------------------------------------------------
 def sync(torch, device):
     if device.type == "cuda":
@@ -3324,8 +3760,8 @@ def phase_train(torch, device, full=True):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,dense,"
-                            "train")
+                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
+                            "trace,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -3348,6 +3784,8 @@ def main(argv=None):
         phase_spec(torch, torch.device("cpu"), small=True)
         phase_quant(torch, torch.device("cpu"), small=True)
         phase_faults(torch, torch.device("cpu"), small=True)
+        phase_quota(torch, torch.device("cpu"), small=True)
+        phase_trace(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -3388,6 +3826,11 @@ def main(argv=None):
     faults = None
     if "faults" in phases:
         faults = phase_faults(torch, torch.device("cuda"))
+    quota = trace = None
+    if "quota" in phases:
+        quota = phase_quota(torch, torch.device("cuda"))
+    if "trace" in phases:
+        trace = phase_trace(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -3395,7 +3838,8 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if None in (worst, engine, graph, tp, radix, spec, quant, faults, dense, train):
+    if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, dense,
+                train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -3428,6 +3872,8 @@ def main(argv=None):
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # The quota phase's own main path (its traced bf16 arm), by route.
+            "quota_launches": quota["main"]["routes"][name],
         })
     flash_replaces = {"flash_fwd": "nos_tpu/ops/flash_attention.py:77",
                       "flash_bwd_dq": "nos_tpu/ops/flash_attention.py:234",

@@ -38,12 +38,31 @@ back to failing every request, and so does `surgical_recovery=False`. A
 seeded `FaultInjector` fires at the reference's sites, in the
 reference's tick order: `admit`, `block_admit`, `revive`, `cow`,
 `spill`, `dispatch_prefill_wave`, `dispatch_verify`, `resolve_verifies`,
-`dispatch_burst` and `dispatch_macro`. `checkpoint_hook` receives
-`checkpoint_snapshot()` at every burst boundary. The constructor keeps
-the reference's signature; every argument that would arm a feature not
-yet ported (quotas, tracing and metrics, the cost ledger, the fleet KV
-store) raises NotImplementedError naming its ROADMAP item, with a mesh or
-without.
+`dispatch_burst`, `dispatch_macro` and `preempt`. `checkpoint_hook`
+receives `checkpoint_snapshot()` at every burst boundary.
+
+The fleet layer (decode_server.py:540-553, :582-599, :630-645): elastic
+tenant quotas (`quota=QuotaPolicy(...)`, `runtime/quota.py`; requests
+carry `submit(..., tenant=)`): admission skips a tenant at its ceiling,
+or a borrower while a starved guaranteed tenant waits, in place, and
+when a starved tenant's request cannot be hosted, `_enforce_quota`
+preempts borrower slots lowest-priority-first (`_preempt_slot`: the
+checkpoint recovery takes, the slot's blocks released to the host tier
+through `_extract_block`, the checkpoint re-queued in the restore
+region, usually revived from the tier on its replay). Tracing
+(`tracing=EngineTracing()`, `nos_tpu_torch/tracing.py`): request spans,
+the flight recorder's postmortem at every recovery, and the tick-phase
+profiler behind `tick_phase_s` and the other tick read-throughs (all
+zeros without it, as in the reference). `metrics=Metrics()`
+(`observability.py`) publishes the engine's `nos_tpu_decode_*` series;
+`cost_ledger=CostLedger()` (`serving/accounting.py`) bills each
+request's tenant. All of it is host bookkeeping, the same with a mesh
+or without; the one device piece is the burst's per-window token
+counts, which the captured window writes into a fixed buffer
+(`_win_counts`) and a quota-armed burst reads once. The constructor
+keeps the reference's signature; only `kv_store=` (the fleet KV store)
+is not ported yet and raises NotImplementedError naming its ROADMAP
+item, with a mesh or without.
 
 Recovery on the card. The captured window replays over fixed buffers, so
 recovery never reallocates a tensor the graph reads: `_reset_device_state`
@@ -90,7 +109,6 @@ import time
 import weakref
 from collections import deque
 from concurrent.futures import Future
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -130,6 +148,7 @@ from nos_tpu_torch.runtime.faults import (
 )
 from nos_tpu_torch.runtime.spill import SpillTier
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
+from nos_tpu_torch.tracing import TickProfiler
 
 logger = logging.getLogger(__name__)
 
@@ -260,6 +279,11 @@ class _Request:
     serial: Optional[int] = None
     t_restore: float = 0.0
     spec: Optional[dict] = None
+    # The quota tenant the request's tokens bill under (None: the default
+    # best-effort tenant) and its trace id; both survive restores and
+    # preemptions.
+    tenant: Optional[str] = None
+    trace_id: Optional[str] = None
 
 
 @dataclass
@@ -309,6 +333,14 @@ class _Slot:
     lookup: Optional[_LookupIndex] = None
     verifying: bool = False
     adapt: Optional[AdaptiveSpec] = None
+    # Fleet identity: the quota tenant, the trace id and whether the
+    # slot's `req.decode` event was recorded (once, on its first decode
+    # dispatch), and when its reservation began (the start of the
+    # slot-seconds a cost ledger charges at release; 0.0 = no ledger).
+    tenant: Optional[str] = None
+    trace_id: Optional[str] = None
+    trace_decoding: bool = False
+    t_reserved: float = 0.0
 
 
 @dataclass
@@ -320,6 +352,21 @@ class _PendingVerify:
     preds: _TokRef
     windows: Dict[int, list]
     sources: Dict[int, str]
+
+
+#: Draft source -> its metric series (rounds, accepted tokens, demotions).
+_DRAFT_SOURCE_METRICS = {
+    SOURCE_TREE: (
+        "nos_tpu_decode_draft_source_tree_rounds",
+        "nos_tpu_decode_draft_source_tree_accepted",
+        "nos_tpu_decode_draft_source_tree_demotions",
+    ),
+    SOURCE_HISTORY: (
+        "nos_tpu_decode_draft_source_history_rounds",
+        "nos_tpu_decode_draft_source_history_accepted",
+        "nos_tpu_decode_draft_source_history_demotions",
+    ),
+}
 
 
 class DecodeServer:
@@ -415,6 +462,17 @@ class DecodeServer:
         pool's and every spill payload's bytes, its divergence from the
         native pool bounded by `runtime/divergence.py`.
 
+        `quota` (a `runtime/quota.py` QuotaPolicy) arms elastic tenant
+        quotas over decode ticks, `tracing` (a `tracing.EngineTracing`)
+        request spans, the flight recorder and the tick-phase profiler,
+        `metrics` (an `observability.Metrics`, duck-typed: inc, set_gauge,
+        observe) the engine's metric series, and `cost_ledger` (a
+        `serving/accounting.py` CostLedger, duck-typed) per-tenant cost
+        attribution; each observes or schedules on the host only, and
+        with quotas off the engine's outputs and counters are the same
+        with any of them armed or not. `kv_store` (the fleet KV store) is
+        not ported yet.
+
         On CUDA the constructor captures the K-step window as a CUDA graph
         (`_WindowGraph`) that every window replays (`graph_replays`
         counts them). A mesh whose shards all lie on the engine's device
@@ -422,19 +480,11 @@ class DecodeServer:
         cards (never run yet) runs its windows eagerly, as the CPU does."""
         if kv_dtype not in constants.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
-        # (armed?, what it arms, its item in ROADMAP.md queue A)
-        armed = [
-            (quota is not None, "tenant quotas", "Fleet"),
-            (metrics is not None or tracing is not None, "metrics and tracing", "Fleet"),
-            (cost_ledger is not None, "the cost ledger", "Fleet"),
-            (kv_store is not None, "the fleet KV store", "Fleet"),
-        ]
-        for on, feature, item in armed:
-            if on:
-                raise NotImplementedError(
-                    f"{feature} is not ported to PyTorch yet "
-                    f"(ROADMAP.md queue A: {item})"
-                )
+        if kv_store is not None:
+            raise NotImplementedError(
+                "the fleet KV store is not ported to PyTorch yet "
+                "(ROADMAP.md queue A: Fleet)"
+            )
         # Tensor-parallel serving (decode_server.py:646-691): a mesh whose
         # tp axis is wider than 1 arms it; tp=1 (or no mesh) is the
         # single-device path, with no placement and no wrapping.
@@ -511,9 +561,19 @@ class DecodeServer:
         # two formats never alias each other's blocks (decode_server.py:768).
         self._fault_injector = fault_injector
         self._checkpoint_hook = checkpoint_hook
+        # Tracing (decode_server.py:752-759): the tracer and recorder hooks
+        # are None-guarded; the profiler is a disabled instance when tracing
+        # is off, so every tick phase costs one flag check.
+        self.tracing = tracing
+        self._tracer = tracing.tracer if tracing is not None else None
+        self._recorder = tracing.recorder if tracing is not None else None
+        self._prof = tracing.profiler if tracing is not None else TickProfiler(enabled=False)
+        self.metrics = metrics
         self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots,
                                        fault_injector=fault_injector, radix=self.radix_cache,
                                        key_salt=kv_dtype + ":" if self._kv_quant else "")
+        if self._recorder is not None:
+            self._block_mgr.attach_recorder(self._recorder)
         # The host-RAM spill tier (decode_server.py:775-812), attached with
         # this engine's copy-out: the engine owns the pool, the manager
         # decides when content moves.
@@ -537,6 +597,25 @@ class DecodeServer:
             self._block_mgr.attach_spill(self.spill_tier, lambda block: reader()(block))
         #: Tier payloads refused for a wire format this pool cannot take.
         self.kv_quant_payload_rejected = 0
+        #: Prompt tokens a restore's replay took from the host tier.
+        self.failover_revive_tokens = 0
+        # Elastic tenant quotas (decode_server.py:835-840): `_tick_tokens`
+        # gathers one tick's decode tokens per tenant for the policy's
+        # window.
+        self._quota = quota
+        self._tick_tokens: Dict[str, int] = {}
+        self.preemptions = 0
+        # The cost ledger (decode_server.py:841-853) and its engine-side
+        # conservation counters: slot-seconds accrue at the release site
+        # the ledger is charged from, so tenant charges sum to the total.
+        self._cost = cost_ledger
+        self._chip_rate = float(self.tp) / float(max(1, n_slots))
+        self.slot_seconds_total = 0.0
+        self.kv_block_ticks = 0
+        self.cost_receipts = 0
+        # Monotonic counters owned by the tier, the manager and the policy,
+        # mirrored into the metrics registry by delta each tick.
+        self._metric_shadow: Dict[str, int] = {}
         self._waiting: Deque[_Request] = deque()
         self._queue: "queue.Queue" = queue.Queue()
         self._slots = [_Slot() for _ in range(n_slots)]
@@ -545,6 +624,12 @@ class DecodeServer:
         self._last_dev = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._finished = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
         self._first_dev = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        # The window's per-lane count of tokens it executed (the burst's
+        # quota fold reads it), written in place by every window, and the
+        # burst's [N, n_slots] copies of it, one row per fused window.
+        self._win_counts = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._burst_counts = torch.zeros((max(1, int(burst_windows)), n_slots),
+                                         dtype=torch.int32, device=self.device)
         self._inflight: Deque[_TokRef] = deque()
         self._stop = threading.Event()
         # Set the moment the engine stops accepting work: a submit() after
@@ -562,6 +647,15 @@ class DecodeServer:
         self.burst_dispatches = 0
         #: Macro windows run inside bursts.
         self.burst_windows_run = 0
+        #: Ticks that found the engine empty.
+        self.idle_ticks = 0
+        # Set by a quota-armed burst that already folded its windows into
+        # the quota window, so the end of the tick does not fold again.
+        self._quota_burst_folded = False
+        #: Per-slot dispatch accounting: tokens from macro windows and
+        #: bursts, and verify rounds.
+        self.macro_tokens_by_slot = np.zeros((n_slots,), dtype=np.int64)
+        self.spec_rounds_by_slot = np.zeros((n_slots,), dtype=np.int64)
         if prefill_budget_tokens is None:
             prefill_budget_tokens = self.prompt_buckets[-1]
         self.prefill_budget_tokens = max(0, int(prefill_budget_tokens))
@@ -577,9 +671,12 @@ class DecodeServer:
         # prefill chunk DISPATCHED (the first token exists on the stream).
         self.queue_wait_s: List[float] = []
         self.ttft_s: List[float] = []
-        #: Host wall seconds per tick phase (constants.TICK_PHASES).
-        self.tick_phase_s: Dict[str, float] = {p: 0.0 for p in constants.TICK_PHASES}
-        self._phase_nested: List[float] = []
+        # Per-tenant samples and counters (key "" = untenanted), kept with
+        # or without a quota (decode_server.py:943-956).
+        self.ttft_s_by_tenant: Dict[str, List[float]] = {}
+        self.queue_wait_s_by_tenant: Dict[str, List[float]] = {}
+        self.admissions_by_tenant: Dict[str, int] = {}
+        self.tokens_by_tenant: Dict[str, int] = {}
         # Per-slot sampling identity: (serial of the request in the slot,
         # step within the request), riding in the packed tick state. Serials
         # make streams independent of slot reuse order.
@@ -738,9 +835,12 @@ class DecodeServer:
         recomputes the range."""
         if not self._payload_matches(payload):
             self.kv_quant_payload_rejected += 1
+            if self.metrics is not None:
+                self.metrics.inc("nos_tpu_decode_kv_quant_payload_rejected")
             return False
         tensors = payload[1:] if self._kv_quant else payload
-        self._revive(tuple(self._stage.to_device(t) for t in tensors), block)
+        with self._prof.dispatch():
+            self._revive(tuple(self._stage.to_device(t) for t in tensors), block)
         return True
 
     def _table(self):
@@ -770,14 +870,17 @@ class DecodeServer:
         in this dispatch (`_finished`, the burst's carry, zeroed by each
         dispatch); other lanes coast (their writes go to the scratch page,
         token held). Returns the [K, n_slots] token window; `_last_dev`
-        takes the last tokens and the TickState's pos / step / steps_left
-        advance by the same min(K, steps_left, max_len - pos) the host
-        bookkeeping mirrors."""
+        takes the last tokens, `_win_counts` each lane's count of steps
+        taken (the burst program's per-window counts,
+        decode_server.py:3918), and the TickState's pos / step /
+        steps_left advance by the same min(K, steps_left, max_len - pos)
+        the host bookkeeping mirrors."""
         st = self._tick_state
         K = self.steps_per_dispatch
         token = self._last_dev
         table = self._table()
         toks = []
+        counts = torch.zeros_like(self._win_counts)
         for k in range(K):
             pos_k = st.pos + k
             mask = st.mask & (k < st.steps_left) & (pos_k < self.max_len)
@@ -790,6 +893,7 @@ class DecodeServer:
             nxt = self._sample(logits, st.serial, st.step + k)
             token = torch.where(mask, nxt, token)
             toks.append(torch.where(mask, nxt, 0))
+            counts += mask.to(counts.dtype)
             if self.eos_id is not None:
                 self._finished |= mask & (nxt == self.eos_id)
         execd = torch.where(
@@ -798,6 +902,7 @@ class DecodeServer:
             0,
         ).to(st.pos.dtype)
         self._last_dev.copy_(token)
+        self._win_counts.copy_(counts)
         st.pos.add_(execd)
         st.step.add_(execd)
         st.steps_left.sub_(execd)
@@ -844,20 +949,40 @@ class DecodeServer:
         )
 
     # -- client side -----------------------------------------------------------
-    def submit(self, prompt: Sequence[int], max_new: int = 16) -> Future:
-        """Queue one request; thread-safe. Raises RuntimeError once the
-        engine has stopped (or begun draining)."""
+    def submit(self, prompt: Sequence[int], max_new: int = 16, tenant: Optional[str] = None,
+               trace_id: Optional[str] = None) -> Future:
+        """Queue one request; thread-safe (decode_server.py:1415, :1433).
+        `tenant` names the quota account its decode tokens bill under
+        (only a QuotaPolicy acts on it); a tenant whose TenantShare pins
+        another `kv_dtype` than this pool's is refused here. `trace_id`
+        continues a trace opened elsewhere; with a tracer armed and none
+        given, the engine mints one. Raises RuntimeError once the engine
+        has stopped (or begun draining)."""
         if self._closed.is_set():
             raise RuntimeError(
                 "DecodeServer is stopped (or draining): submit() after stop() "
                 "would strand the request"
             )
+        if self._quota is not None and tenant:
+            pin = getattr(self._quota.share_of(tenant), "kv_dtype", None)
+            if pin is not None and pin != self.kv_dtype:
+                raise ValueError(
+                    f"tenant {tenant!r} is pinned to kv_dtype={pin!r} but this "
+                    f"engine's pool is {self.kv_dtype!r}: route the request to a "
+                    "matching replica"
+                )
         fut: Future = Future()
         if max_new <= 0:
             fut.set_result([])
             return fut
+        if self._tracer is not None:
+            if trace_id is None:
+                trace_id = self._tracer.new_trace()
+            self._tracer.event(trace_id, constants.TRACE_EV_SUBMIT,
+                               prompt_tokens=len(prompt), max_new=max_new)
         self._note_accepted(fut)
-        self._queue.put(_Request(list(prompt), max_new, fut, time.monotonic()))
+        self._queue.put(_Request(list(prompt), max_new, fut, time.monotonic(), tenant=tenant,
+                                 trace_id=trace_id))
         return fut
 
     def generate(self, prompt: Sequence[int], max_new: int = 16, timeout=None):
@@ -889,8 +1014,40 @@ class DecodeServer:
             out.append(SlotCheckpoint(
                 prompt=list(slot.request_prompt), generated=tokens, max_new=slot.max_new,
                 serial=int(self._slot_serial[idx]), t_submit=slot.t_submit,
-                prefill_cursor=slot.prefill_cursor, spec=spec, future=slot.future))
+                prefill_cursor=slot.prefill_cursor, spec=spec, tenant=slot.tenant,
+                trace_id=slot.trace_id, future=slot.future))
         return out
+
+    def tenant_probe(self) -> Dict[str, Dict[str, object]]:
+        """Per-tenant host-side probe (decode_server.py:1652): cumulative
+        decode tokens and admissions, requests waiting now, and with a
+        QuotaPolicy the policy's own windowed share (usage, min share,
+        starved, borrower). Plain host reads, no locks, no device
+        traffic."""
+        waiting: Dict[str, int] = {}
+        for req in (*list(self._waiting), *list(self._queue.queue)):
+            tname = getattr(req, "tenant", None) or ""
+            waiting[tname] = waiting.get(tname, 0) + 1
+        tenants = set(self.tokens_by_tenant) | set(self.admissions_by_tenant) | set(waiting)
+        for slot in self._slots:
+            if slot.active:
+                tenants.add(slot.tenant or "")
+        if self._quota is not None:
+            tenants |= set(self._quota.tenants)
+        rows: Dict[str, Dict[str, object]] = {}
+        for tname in tenants:
+            row: Dict[str, object] = {
+                constants.TENANT_KEY_TOKENS: self.tokens_by_tenant.get(tname, 0),
+                constants.TENANT_KEY_ADMISSIONS: self.admissions_by_tenant.get(tname, 0),
+                constants.TENANT_KEY_WAITING: waiting.get(tname, 0),
+            }
+            if self._quota is not None:
+                row[constants.TENANT_KEY_USAGE] = self._quota.usage(tname)
+                row[constants.TENANT_KEY_MIN_SHARE] = self._quota.share_of(tname).min_share
+                row[constants.TENANT_KEY_QUOTA_STARVED] = self._quota.is_starved(tname)
+                row[constants.TENANT_KEY_QUOTA_BORROWER] = self._quota.is_borrower(tname)
+            rows[tname] = row
+        return rows
 
     def set_checkpoint_hook(self, hook) -> None:
         """Arm (or, with None, disarm) the burst-boundary checkpoint hook
@@ -943,6 +1100,7 @@ class DecodeServer:
         for idx, slot in enumerate(self._slots):
             if slot.future is not None and not slot.future.done():
                 slot.future.set_exception(exc)
+                self._close_receipt(slot, constants.RECEIPT_STATUS_FAILED, 0)
             self._release_slot(idx)
         self._inflight.clear()
         # Unresolved verify rounds refer to slots that no longer exist.
@@ -959,16 +1117,43 @@ class DecodeServer:
             if not req.future.done():
                 req.future.set_exception(exc)
 
-    def _release_slot(self, idx: int) -> None:
+    def _release_slot(self, idx: int, spill: bool = False) -> None:
         """Return the slot's page references to the pool (shared blocks only
-        decrement; refcount-0 indexed blocks retire to the cached-free LRU)
-        and clear its lane. Claimed revives not yet copied die with it."""
+        decrement; refcount-0 indexed blocks retire to the cached-free LRU,
+        or with `spill` (preemption) to the host tier, freeing the device
+        blocks at once) and clear its lane (decode_server.py:1911). Claimed
+        revives not yet copied die with it. With a cost ledger this is the
+        one slot-seconds charge site, for every kind of release."""
+        if self._cost is not None:
+            self._note_slot_release(idx)
         slot = self._slots[idx]
         if slot.pending_revives and self.spill_tier is not None:
             self.spill_tier.unstage([k for _, _, k in slot.pending_revives])
-        self._block_mgr.release(idx)
+        self._block_mgr.release(idx, spill=spill)
         self._slots[idx] = _Slot()
         self._tick_state.mark_table_dirty()
+
+    def _note_slot_release(self, idx: int) -> None:
+        slot = self._slots[idx]
+        if not slot.active or not slot.t_reserved:
+            return
+        held = max(0.0, time.monotonic() - slot.t_reserved)
+        slot.t_reserved = 0.0
+        self.slot_seconds_total += held
+        self._cost.charge(slot.trace_id, slot.tenant or "", slot_seconds=held,
+                          chip_ms=held * 1000.0 * self._chip_rate)
+
+    def _close_receipt(self, slot: _Slot, status: str,
+                       tokens: Optional[int] = None) -> Optional[dict]:
+        """Close the request's cost receipt at its finish or failure
+        (decode_server.py:1947); a no-op without a ledger or a trace id."""
+        if self._cost is None:
+            return None
+        rec = self._cost.close_request(slot.trace_id, slot.tenant or "", status=status,
+                                       tokens=tokens)
+        if rec is not None:
+            self.cost_receipts += 1
+        return rec
 
     def _reset_device_state(self) -> None:
         """After an engine error the pool is untrustworthy: zero it (an int8
@@ -1017,7 +1202,23 @@ class DecodeServer:
         is skipped (their first admission passed it), and they keep their
         sampling serial. A fault between block assignment and binding
         undoes the partial admission and puts the request back at the
-        head of the line before it propagates."""
+        head of the line before it propagates. With a QuotaPolicy,
+        requests of a tenant at its ceiling, or borrowing while a starved
+        tenant waits, are skipped in place: they keep their position, and
+        a preempted borrower cannot retake what its preemption freed."""
+        skipped: List[_Request] = []
+        starved_waiting = False
+        if self._quota is not None:
+            self._drain_queue()
+            starved_waiting = any(self._quota.is_starved(r.tenant) for r in self._waiting)
+        try:
+            self._admit_scan(skipped, starved_waiting)
+        finally:
+            # Skipped requests go back to the front in their order.
+            for req in reversed(skipped):
+                self._waiting.appendleft(req)
+
+    def _admit_scan(self, skipped: List[_Request], starved_waiting: bool) -> None:
         for idx, slot in enumerate(self._slots):
             if slot.active:
                 continue
@@ -1025,6 +1226,10 @@ class DecodeServer:
                 req = self._next_request()
                 if req is None:
                     return
+                if self._quota is not None and self._quota.admission_blocked(
+                        req.tenant, starved_waiting):
+                    skipped.append(req)
+                    continue
                 full_prompt = list(req.prompt) + list(req.replay)
                 eff_new = req.max_new - len(req.replay)
                 if not req.replay:
@@ -1049,6 +1254,7 @@ class DecodeServer:
                         f"request needs {n_blocks} KV blocks; the pool has "
                         f"{self.total_blocks - 1}"))
                     continue
+                evict0 = self._block_mgr.evictions
                 try:
                     admitted = self._block_mgr.admit(
                         idx, full_prompt, n_blocks, use_cache=self.prefix_cache)
@@ -1066,6 +1272,15 @@ class DecodeServer:
             blocks, n_hit = admitted
             bound = False
             try:
+                if self.metrics is not None and self.prefix_cache:
+                    self.metrics.inc("nos_tpu_decode_prefix_lookups")
+                    if n_hit:
+                        self.metrics.inc("nos_tpu_decode_prefix_hit_blocks", n_hit)
+                        self.metrics.inc("nos_tpu_decode_prefix_hit_tokens",
+                                         n_hit * self.block_size)
+                    evicted = self._block_mgr.evictions - evict0
+                    if evicted:
+                        self.metrics.inc("nos_tpu_decode_prefix_evictions", evicted)
                 self._table_np[idx, :] = 0
                 self._table_np[idx, : len(blocks)] = blocks
                 self._tick_state.mark_table_dirty()
@@ -1080,6 +1295,9 @@ class DecodeServer:
                 slot.replay = list(req.replay)
                 slot.step_base = len(req.replay)
                 slot.t_restore = req.t_restore
+                slot.tenant = req.tenant
+                slot.trace_id = req.trace_id
+                slot.trace_decoding = False
                 slot.pending_prompt = full_prompt
                 # Prefix hits are already in the page table: the cursor
                 # starts at the first miss (always below the last-token
@@ -1090,6 +1308,9 @@ class DecodeServer:
                 # to copy (_pump_cow), both instead of recomputing them.
                 slot.pending_revives = self._block_mgr.claim_revives(idx)
                 slot.pending_cow = self._block_mgr.claim_cow(idx)
+                if self.metrics is not None and slot.pending_cow is not None:
+                    self.metrics.inc("nos_tpu_decode_prefix_cow_hits")
+                    self.metrics.inc("nos_tpu_decode_prefix_cow_tokens", slot.pending_cow[4])
                 slot.t_submit = req.t_submit
                 slot.pos = slot.prefill_cursor
                 slot.remaining = eff_new - 1
@@ -1102,6 +1323,7 @@ class DecodeServer:
                 # Bind last: from here the recovery sweep finds the future.
                 slot.active = True
                 bound = True
+                replayed = 0
                 if req.t_restore:
                     # Replay accounting counts only the uncached suffix:
                     # device hits, staged revives and the COW head serve
@@ -1109,11 +1331,40 @@ class DecodeServer:
                     cached = (n_hit + len(slot.pending_revives)) * self.block_size
                     if slot.pending_cow is not None:
                         cached += int(slot.pending_cow[4])
-                    self.replay_tokens += max(0, len(full_prompt) - cached)
+                    replayed = max(0, len(full_prompt) - cached)
+                    self.replay_tokens += replayed
+                    if self.metrics is not None:
+                        self.metrics.inc("nos_tpu_decode_replay_tokens", replayed)
                 else:
-                    self.queue_wait_s.append(time.monotonic() - req.t_submit)
-                # A8 step 3 (tracing, metrics, the cost ledger): the
-                # ledger's charges and the admission trace events.
+                    wait = time.monotonic() - req.t_submit
+                    tname = req.tenant or ""
+                    self.queue_wait_s.append(wait)
+                    self.queue_wait_s_by_tenant.setdefault(tname, []).append(wait)
+                    self.admissions_by_tenant[tname] = self.admissions_by_tenant.get(tname, 0) + 1
+                if self._cost is not None:
+                    # The slot-seconds interval opens at the reservation;
+                    # cached prefill (device hits and the COW head) and a
+                    # restore's replay are charged here.
+                    slot.t_reserved = time.monotonic()
+                    acct = req.tenant or ""
+                    self._cost.open_request(slot.trace_id, acct)
+                    cached = n_hit * self.block_size
+                    if slot.pending_cow is not None:
+                        cached += int(slot.pending_cow[4])
+                    if cached:
+                        self._cost.charge(slot.trace_id, acct, prefill_tokens_cached=cached)
+                    if req.t_restore and replayed:
+                        self._cost.charge(slot.trace_id, acct, replay_tokens=replayed)
+                if self._tracer is not None:
+                    self._tracer.event(
+                        slot.trace_id,
+                        constants.TRACE_EV_RESTORE if req.t_restore
+                        else constants.TRACE_EV_RESERVED,
+                        slot=idx, serial=serial, hit_blocks=n_hit,
+                        replay_tokens=len(req.replay))
+                if self._recorder is not None:
+                    self._recorder.record(constants.FLIGHT_EV_ADMIT, slot=idx, serial=serial,
+                                          hit_blocks=n_hit, restore=int(bool(req.t_restore)))
                 self._check_fault("admit", idx)
             except Exception:
                 if not bound:
@@ -1155,7 +1406,7 @@ class DecodeServer:
                     # This wave's visit goes to the copies, charged like
                     # the recompute they replace; if the budget closes
                     # before they are done, the rest waits a tick.
-                    with self._phase(constants.TICK_PHASE_PUMP_REVIVES):
+                    with self._prof.phase(constants.TICK_PHASE_PUMP_REVIVES):
                         if slot.pending_revives:
                             n_copies, used = self._pump_revives(idx, budget, spent)
                             left = bool(slot.pending_revives)
@@ -1209,6 +1460,11 @@ class DecodeServer:
                 slot.pending_revives = []
                 break
             self._tick_state.mark_dirty()
+            if self._tracer is not None:
+                self._tracer.event(slot.trace_id, constants.TRACE_EV_REVIVE, slot=idx,
+                                   block=block, offset=start)
+            if self._recorder is not None:
+                self._recorder.record(constants.FLIGHT_EV_REVIVE, slot=idx, block=block)
             slot.pending_revives.pop(0)
             slot.prefill_cursor = start + cost
             slot.pos = slot.prefill_cursor
@@ -1216,6 +1472,15 @@ class DecodeServer:
                 slot.phase = "prefilling"
             copies += 1
             used += cost
+            if slot.t_restore:
+                # A restore (after a fault or a preemption) took these
+                # replay tokens from host bytes instead of recompute.
+                self.failover_revive_tokens += cost
+            if self._cost is not None:
+                # Cached service of `block_size` prompt tokens, at the
+                # price of one full-width payload copy-in.
+                self._cost.charge(slot.trace_id, slot.tenant or "", prefill_tokens_cached=cost,
+                                  spill_bytes=self._bytes_per_block)
             # Device-resident again: re-index it for same-prefix arrivals.
             self._block_mgr.note_progress(idx, slot.prefill_cursor)
         return copies, used
@@ -1238,7 +1503,8 @@ class DecodeServer:
             return 0, 0
         self._check_fault("cow", idx)
         if src is not None:
-            self._cow_copy(src, dst, n)
+            with self._prof.dispatch():
+                self._cow_copy(src, dst, n)
             self._block_mgr.cow_done(idx)
         else:
             payload = self.spill_tier.get(key) if self.spill_tier is not None else None
@@ -1251,13 +1517,19 @@ class DecodeServer:
         if slot.phase == "reserved":
             slot.phase = "prefilling"
         self._tick_state.mark_dirty()
+        if self._tracer is not None:
+            self._tracer.event(slot.trace_id, constants.TRACE_EV_COW, slot=idx, block=dst,
+                               offset=offset, tokens=n)
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_COW, slot=idx, block=dst, tokens=n)
         return 1, n
 
     def _dispatch_prefill_wave(self, wave: List[Tuple[int, int, list]]) -> int:
-        """Dispatch one wave. Mid-prompt chunks sharing a bucket go through
-        the batched multi-slot window program; a singleton mid chunk keeps
-        the batch-1 program. Final chunks always go through the per-slot
-        `_prefill_last`, which samples the first token."""
+        """Dispatch one wave (decode_server.py:2644). Mid-prompt chunks
+        sharing a bucket go through the batched multi-slot window program;
+        a singleton mid chunk keeps the batch-1 program. Final chunks
+        always go through the per-slot `_prefill_last`, which samples the
+        first token."""
         self._check_fault("dispatch_prefill_wave", wave[0][0])
         self._sync_tick_state(for_table_only=True)
         table = self._table()
@@ -1275,10 +1547,11 @@ class DecodeServer:
                 idx, start, piece = entries[0]
                 padded = np.zeros((1, bucket), dtype=np.int32)
                 padded[0, : len(piece)] = piece
-                self._prefill_chunk(
-                    self._stage.to_device(padded), self._table_row(table, idx), start,
-                    len(piece),
-                )
+                with self._prof.dispatch():
+                    self._prefill_chunk(
+                        self._stage.to_device(padded), self._table_row(table, idx), start,
+                        len(piece),
+                    )
             else:
                 tokens = np.zeros((self.n_slots, bucket), dtype=np.int32)
                 pos = np.zeros((self.n_slots,), dtype=np.int32)
@@ -1289,13 +1562,14 @@ class DecodeServer:
                     pos[idx] = start
                     lengths[idx] = len(piece)
                     active[idx] = True
-                self._prefill_window(
-                    self._stage.to_device(tokens),
-                    table,
-                    self._stage.to_device(pos),
-                    self._stage.to_device(lengths),
-                    self._stage.to_device(active),
-                )
+                with self._prof.dispatch():
+                    self._prefill_window(
+                        self._stage.to_device(tokens),
+                        table,
+                        self._stage.to_device(pos),
+                        self._stage.to_device(lengths),
+                        self._stage.to_device(active),
+                    )
                 self.prefill_window_dispatches += 1
             dispatches += 1
         if finals:
@@ -1303,10 +1577,11 @@ class DecodeServer:
         for idx, start, piece in finals:
             padded = np.zeros((1, self._bucket(len(piece))), dtype=np.int32)
             padded[0, : len(piece)] = piece
-            self._prefill_last(
-                self._stage.to_device(padded), self._table_row(table, idx), start,
-                len(piece), idx, self._slots[idx].step_base,
-            )
+            with self._prof.dispatch():
+                self._prefill_last(
+                    self._stage.to_device(padded), self._table_row(table, idx), start,
+                    len(piece), idx, self._slots[idx].step_base,
+                )
             dispatches += 1
         # Cursor/phase advances dirty the scheduling metadata (not the table).
         self._tick_state.mark_dirty()
@@ -1317,6 +1592,12 @@ class DecodeServer:
             if slot.phase == "reserved":
                 slot.phase = "prefilling"
             self.prefill_tokens += len(piece)
+            if self._cost is not None:
+                self._cost.charge(slot.trace_id, slot.tenant or "",
+                                  prefill_tokens_charged=len(piece))
+            if self._tracer is not None:
+                self._tracer.event(slot.trace_id, constants.TRACE_EV_PREFILL_CHUNK, slot=idx,
+                                   start=start, tokens=len(piece))
             # Full prompt blocks behind the dispatched cursor become
             # shareable; a later same-prefix chunk runs after this wave on
             # the same stream, so its reads see these writes.
@@ -1338,8 +1619,20 @@ class DecodeServer:
                     self.restore_latency_s.append(now - slot.t_restore)
                 else:
                     self.ttft_s.append(now - slot.t_submit)
+                    self.ttft_s_by_tenant.setdefault(slot.tenant or "", []).append(
+                        now - slot.t_submit)
+                if self._tracer is not None:
+                    self._tracer.event(slot.trace_id, constants.TRACE_EV_FIRST_TOKEN, slot=idx,
+                                       pos=slot.pos)
                 self._finish_if_done(idx)
         self.prefill_dispatches += dispatches
+        n_tokens = sum(len(piece) for _, _, piece in wave)
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_PREFILL_WAVE, dispatches=dispatches,
+                                  tokens=n_tokens, finals=len(finals))
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_prefill_dispatches", dispatches)
+            self.metrics.inc("nos_tpu_decode_prefill_tokens", n_tokens)
         return dispatches
 
     # -- completion ------------------------------------------------------------
@@ -1363,6 +1656,23 @@ class DecodeServer:
             tokens = tokens[: tokens.index(self.eos_id) + 1]
         return list(slot.replay) + tokens
 
+    def _trace_finish(self, idx: int, slot: _Slot, n_tokens: int,
+                      receipt: Optional[dict] = None) -> None:
+        """The lifecycle terminus (decode_server.py:2890): one span event
+        and one recorder event per completed request, the receipt's
+        numeric fields riding the span as attrs."""
+        if self._tracer is not None:
+            attrs = {}
+            if receipt is not None:
+                attrs = {k: round(v, 6) if isinstance(v, float) else v
+                         for k, v in receipt.items()
+                         if isinstance(v, (int, float)) and not isinstance(v, bool)
+                         and k not in ("tokens", "slot")}
+            self._tracer.event(slot.trace_id, constants.TRACE_EV_FINISH, slot=idx,
+                               tokens=n_tokens, **attrs)
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_FINISH, slot=idx, tokens=n_tokens)
+
     def _finish_if_done(self, idx: int) -> None:
         """Deterministic completion: the countdown and the cache bound are
         known at dispatch time (slot.pos is the NEXT write index)."""
@@ -1373,15 +1683,24 @@ class DecodeServer:
             out = self._finalize(slot)
             self._register_output(idx, slot, out)
             slot.future.set_result(out)
+            # Release before the terminus, so the receipt closed there
+            # holds the final slot-seconds.
             self._release_slot(idx)
+            receipt = self._close_receipt(slot, constants.RECEIPT_STATUS_OK, len(out))
+            self._trace_finish(idx, slot, len(out), receipt)
 
     def _register_output(self, idx: int, slot: _Slot, out: List[int]) -> None:
         """Radix mode (decode_server.py:2942): key the finished request's
         generated-token blocks, so a follow-up turn re-submitting `history
         + new tokens` walks the tree to the end of the history. Runs just
         before the release, so those blocks retire to the cached LRU."""
-        if self.radix_cache:
-            self._block_mgr.register_output(idx, list(slot.request_prompt or []) + out)
+        if not self.radix_cache:
+            return
+        before = self._block_mgr.output_blocks
+        self._block_mgr.register_output(idx, list(slot.request_prompt or []) + out)
+        registered = self._block_mgr.output_blocks - before
+        if self.metrics is not None and registered:
+            self.metrics.inc("nos_tpu_decode_output_blocks_registered", registered)
 
     def _scan_eos(self) -> None:
         """With an eos_id, termination depends on token values: scan refs
@@ -1404,6 +1723,8 @@ class DecodeServer:
                     self._register_output(idx, slot, out)
                     slot.future.set_result(out)
                     self._release_slot(idx)
+                    receipt = self._close_receipt(slot, constants.RECEIPT_STATUS_OK, len(out))
+                    self._trace_finish(idx, slot, len(out), receipt)
                     break
 
     # -- speculative rounds (decode_server.py:2991-3259) -------------------------
@@ -1493,23 +1814,35 @@ class DecodeServer:
             lengths[idx] = len(window)
             active[idx] = True
             slot.verifying = True
+            self.spec_rounds_by_slot[idx] += 1
             if source == SOURCE_TREE:
                 self.spec_tree_rounds += 1
             else:
                 self.spec_history_rounds += 1
+            if self.metrics is not None:
+                self.metrics.inc(_DRAFT_SOURCE_METRICS[source][0])
+            if self._tracer is not None and not slot.trace_decoding:
+                slot.trace_decoding = True
+                self._tracer.event(slot.trace_id, constants.TRACE_EV_DECODE, slot=idx)
         # The drafting flags changed the macro mask: the verify's read of
         # `pos` and this tick's window consume one freshly packed state.
         self._tick_state.mark_dirty()
         self._sync_tick_state()
-        logits, _ = paged_verify_window(
-            self.params, self._stage.to_device(tokens), self.cfg, self.cache, self._table(),
-            self._tick_state.pos, self._stage.to_device(lengths),
-            self._stage.to_device(active), self.block_size, tp=self._tp,
-        )
+        with self._prof.dispatch():
+            logits, _ = paged_verify_window(
+                self.params, self._stage.to_device(tokens), self.cfg, self.cache,
+                self._table(), self._tick_state.pos, self._stage.to_device(lengths),
+                self._stage.to_device(active), self.block_size, tp=self._tp,
+            )
+            preds = greedy(logits)
         self.steps_run += 1
         self.spec_rounds += 1
-        self._pending_verifies.append(
-            _PendingVerify(_TokRef(greedy(logits), self._syncs), windows, sources))
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_VERIFY, slots=len(drafts), window=W)
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_steps")
+            self.metrics.inc("nos_tpu_decode_spec_rounds")
+        self._pending_verifies.append(_PendingVerify(_TokRef(preds, self._syncs), windows, sources))
 
     def _resolve_verifies(self, block: bool) -> None:
         """Fold completed verify rounds into slot state, oldest first: only
@@ -1553,6 +1886,16 @@ class DecodeServer:
                 self.spec_tree_tokens_accepted += len(accepted)
             else:
                 self.spec_history_tokens_accepted += len(accepted)
+            if accepted:
+                tname = slot.tenant or ""
+                self.tokens_by_tenant[tname] = self.tokens_by_tenant.get(tname, 0) + len(accepted)
+                if self._cost is not None:
+                    self._cost.charge(slot.trace_id, tname, decode_tokens=len(accepted))
+                if self._quota is not None:
+                    self._tick_tokens[tname] = self._tick_tokens.get(tname, 0) + len(accepted)
+            if self.metrics is not None:
+                self.metrics.inc("nos_tpu_decode_spec_tokens_accepted", len(accepted))
+                self.metrics.inc(_DRAFT_SOURCE_METRICS[source][1], len(accepted))
             if len(window) > 1 and slot.adapt.observe(
                     len(window) - 1, len(accepted) - 1, len(slot.refs), source):
                 self.spec_demotions += 1
@@ -1560,13 +1903,18 @@ class DecodeServer:
                     self.spec_tree_demotions += 1
                 else:
                     self.spec_history_demotions += 1
+                if self.metrics is not None:
+                    self.metrics.inc(_DRAFT_SOURCE_METRICS[source][2])
             rows.append(idx)
             vals.append(accepted[-1])
             if self.eos_id is not None and self.eos_id in accepted:
                 slot.remaining = 0  # _finalize truncates at the eos
             self._finish_if_done(idx)
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_RESOLVE, slots=len(entry.windows),
+                                  scattered=len(rows))
         if rows:
-            with self._phase(constants.TICK_PHASE_SAMPLE_SCATTER):
+            with self._prof.phase(constants.TICK_PHASE_SAMPLE_SCATTER), self._prof.dispatch():
                 self._last_dev[self._stage.to_device(rows, dtype=torch.long)] = (
                     self._stage.to_device(vals, dtype=torch.int32))
 
@@ -1583,17 +1931,24 @@ class DecodeServer:
             except Exception as exc:  # noqa: BLE001 — classified below
                 logger.exception("decode engine step failed")
                 if not self.surgical_recovery:
-                    self.fail_all_recoveries += 1
-                    self._fail_outstanding(exc)
-                    self._reset_device_state()
+                    self._fail_all(exc)
                     continue
                 try:
                     self._recover(exc)
                 except Exception as rexc:  # noqa: BLE001 — the last-resort backstop
                     logger.exception("surgical recovery failed; failing all")
-                    self.fail_all_recoveries += 1
-                    self._fail_outstanding(rexc)
-                    self._reset_device_state()
+                    self._fail_all(rexc)
+
+    def _fail_all(self, exc: Exception) -> None:
+        """The fail-all sweep (without surgical recovery, or when recovery
+        itself raised): every outstanding request fails, the pool resets,
+        and the flight recorder dumps a postmortem."""
+        self.fail_all_recoveries += 1
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_FAIL_ALL)
+            self._recorder.dump(constants.FLIGHT_EV_FAIL_ALL)
+        self._fail_outstanding(exc)
+        self._reset_device_state()
 
     def _check_fault(self, site: str, slot: Optional[int] = None) -> None:
         """The chaos hook: raises the injector's scheduled fault for this
@@ -1619,7 +1974,14 @@ class DecodeServer:
             self._transient_streak += 1
             if self._transient_streak <= self.max_transient_retries:
                 self.transient_retries += 1
-                # A8 step 3: the flight recorder's postmortem and metrics.
+                if self._recorder is not None:
+                    # Every recovery, a retry included, leaves a postmortem
+                    # of the events leading up to the fault.
+                    self._recorder.record(constants.FLIGHT_EV_TRANSIENT_RETRY,
+                                          streak=self._transient_streak)
+                    self._recorder.dump(FAULT_TRANSIENT)
+                if self.metrics is not None:
+                    self.metrics.inc("nos_tpu_decode_transient_retries")
                 delay = min(0.5, self.transient_backoff_s * (2 ** (self._transient_streak - 1)))
                 self._stop.wait(delay)
                 return
@@ -1640,7 +2002,14 @@ class DecodeServer:
                 if slot.future is not None and not slot.future.done():
                     slot.future.set_exception(exc)
                 self.requests_poisoned += 1
-                # A8 step 3: the failed receipt and the trace's terminus.
+                # The failed receipt and the trace's terminus (the release
+                # folds its trailing slot-seconds into the closed receipt).
+                self._close_receipt(slot, constants.RECEIPT_STATUS_FAILED, 0)
+                if self._tracer is not None:
+                    self._tracer.event(slot.trace_id, constants.TRACE_EV_FINISH, slot=idx,
+                                       tokens=0, poisoned=1)
+                if self.metrics is not None:
+                    self.metrics.inc("nos_tpu_decode_requests_poisoned")
                 self._release_slot(idx)
                 continue
             ck = self._checkpoint_slot(idx)
@@ -1654,10 +2023,20 @@ class DecodeServer:
         self._enqueue_restores([
             _Request(prompt=list(ck.prompt), max_new=ck.max_new, future=ck.future,
                      t_submit=ck.t_submit, replay=list(ck.generated), serial=ck.serial,
-                     t_restore=t_fault, spec=ck.spec)
+                     t_restore=t_fault, spec=ck.spec, tenant=ck.tenant, trace_id=ck.trace_id)
             for ck in checkpoints])
         self.slots_restored += len(checkpoints)
-        # A8 step 3: the flight recorder's postmortem and the metrics.
+        if self._recorder is not None:
+            # The postmortem: the ring's events leading up to this fault,
+            # frozen per recovery under the classified kind.
+            self._recorder.record(constants.FLIGHT_EV_RECOVERY, kind=kind,
+                                  checkpoints=len(checkpoints),
+                                  poison_slot=-1 if poison_slot is None else poison_slot)
+            self._recorder.dump(kind)
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_recoveries", kind=kind)
+            if checkpoints:
+                self.metrics.inc("nos_tpu_decode_slots_restored", len(checkpoints))
         if not self._block_mgr.conserved():
             # A leaked block would wedge the pool invisibly: fail loudly
             # (`_run`'s backstop turns this into the fail-all sweep).
@@ -1675,16 +2054,21 @@ class DecodeServer:
             tokens = tokens[: tokens.index(self.eos_id) + 1]
             if slot.future is not None and not slot.future.done():
                 slot.future.set_result(tokens)
+                receipt = self._close_receipt(slot, constants.RECEIPT_STATUS_OK, len(tokens))
+                self._trace_finish(idx, slot, len(tokens), receipt)
             return None
         if len(tokens) >= slot.max_new:
             if slot.future is not None and not slot.future.done():
                 slot.future.set_result(tokens[: slot.max_new])
+                receipt = self._close_receipt(slot, constants.RECEIPT_STATUS_OK, slot.max_new)
+                self._trace_finish(idx, slot, slot.max_new, receipt)
             return None
         spec = slot.adapt.snapshot(len(slot.refs)) if slot.adapt is not None else None
         return SlotCheckpoint(
             prompt=list(slot.request_prompt or []), generated=tokens, max_new=slot.max_new,
             serial=int(self._slot_serial[idx]), t_submit=slot.t_submit,
-            prefill_cursor=slot.prefill_cursor, spec=spec, future=slot.future)
+            prefill_cursor=slot.prefill_cursor, spec=spec, tenant=slot.tenant,
+            trace_id=slot.trace_id, future=slot.future)
 
     def _enqueue_restores(self, reqs: List[_Request]) -> None:
         """Restores re-enter at the head of the line (decode_server.py:
@@ -1697,53 +2081,134 @@ class DecodeServer:
         for req in sorted(head + list(reqs), key=lambda r: r.serial, reverse=True):
             self._waiting.appendleft(req)
 
-    @contextmanager
-    def _phase(self, name: str):
-        """Time a tick phase, exclusive of the phases nested in it."""
-        t0 = time.perf_counter()
-        self._phase_nested.append(0.0)
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.tick_phase_s[name] += dt - self._phase_nested.pop()
-            if self._phase_nested:
-                self._phase_nested[-1] += dt
+    # -- elastic quotas (decode_server.py:3497-3608) ------------------------------
+    def _preempt_slot(self, idx: int) -> None:
+        """Quota-driven preemption (decode_server.py:3498): checkpoint the
+        slot (the capture recovery takes; its refs, a burst's in flight
+        too, materialize through their events), release its blocks to the
+        host tier (one counted blocking copy-out per block, queued on the
+        stream behind every window that wrote it), and re-queue the
+        checkpoint in the restore region. The replay re-derives the KV
+        through the budgeted prefill, usually from a revive of what was
+        just spilled, and the client sees one uninterrupted stream."""
+        slot = self._slots[idx]
+        if not slot.active:
+            return
+        self._check_fault("preempt", idx)
+        t0 = time.monotonic()
+        if self._tracer is not None:
+            self._tracer.event(slot.trace_id, constants.TRACE_EV_PREEMPT, slot=idx,
+                               serial=int(self._slot_serial[idx]))
+            self._tracer.event(slot.trace_id, constants.TRACE_EV_SPILL, slot=idx,
+                               blocks=len(self._block_mgr.slot_blocks(idx)))
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_PREEMPT, slot=idx)
+        ck = self._checkpoint_slot(idx)
+        spills0 = self.spill_tier.spills if self.spill_tier is not None else 0
+        self._release_slot(idx, spill=True)
+        if self._cost is not None and self.spill_tier is not None:
+            # The preemption's device->host bytes, billed to the preempted
+            # stream: this engine's puts times the full-width payload size.
+            moved = max(0, (self.spill_tier.spills - spills0) * self._bytes_per_block)
+            if moved:
+                self._cost.charge(slot.trace_id, slot.tenant or "", spill_bytes=moved)
+        self.preemptions += 1
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_preemptions")
+        if ck is None:
+            return  # the capture already resolved the request
+        self._enqueue_restores([
+            _Request(prompt=list(ck.prompt), max_new=ck.max_new, future=ck.future,
+                     t_submit=ck.t_submit, replay=list(ck.generated), serial=ck.serial,
+                     t_restore=t0, spec=ck.spec, tenant=ck.tenant, trace_id=ck.trace_id)])
+
+    def _enforce_quota(self) -> None:
+        """The preemption side of elastic quotas, once a tick
+        (decode_server.py:3566): if a starved tenant (observed share below
+        its guaranteed min, not over its ceiling) has a request waiting
+        that the engine cannot host now (no idle slot, or too few pool
+        blocks), preempt borrower slots lowest-priority-first until it
+        fits or no borrower is left."""
+        if self._quota is None:
+            return
+        self._drain_queue()
+        target = None
+        for req in self._waiting:
+            if self._quota.is_starved(req.tenant) and not self._quota.over_ceiling(req.tenant):
+                target = req
+                break
+        if target is None:
+            return
+        full = len(target.prompt) + len(target.replay)
+        eff_new = target.max_new - len(target.replay)
+        needed = max(1, -(-(full + eff_new - 1) // self.block_size))
+        if needed > self.total_blocks - 1:
+            return  # unservable anyway; admission rejects it
+        for _ in range(self.n_slots):
+            if any(not s.active for s in self._slots) and self._block_mgr.available() >= needed:
+                return
+            victim = self._quota.select_victim(
+                [(idx, s.tenant, int(self._slot_serial[idx]))
+                 for idx, s in enumerate(self._slots) if s.active],
+                target.tenant)
+            if victim is None:
+                return
+            self._preempt_slot(victim)
 
     def _tick(self) -> None:
-        """One engine iteration (decode_server.py:3610, :3639): (1)
+        """One engine iteration (decode_server.py:3610, :3639): (0) with a
+        QuotaPolicy, quota enforcement may preempt borrower slots, (1)
         admission reserves slots and pages, (2) the prefill budget
         dispatches bounded chunk waves (and the copy-ins and COW copies
         ahead of them), (3) drafting slots get one verify dispatch, (4)
         every other decoding slot gets the K-step macro program, or, in a
         steady decode state, a burst of up to N of them in one dispatch.
         All of it is ordered on one stream over disjoint page sets. The
-        only blocking read is the oldest verify round's, when the drafting
-        slots are the engine's sole possible progress."""
+        only blocking reads are the oldest verify round's, when the
+        drafting slots are the engine's sole possible progress, and a
+        quota-armed burst's counts. With tracing armed every phase runs
+        inside the TickProfiler (host clock reads only, never a device
+        sync)."""
+        prof = self._prof
+        prof.begin_tick()
+        try:
+            self._tick_phases(prof)
+        finally:
+            prof.end_tick(self.metrics)
+
+    def _tick_phases(self, prof) -> None:
         if self._engine_idle and self._queue.empty():
-            # The previous tick proved the engine empty; only a submit can
-            # change that.
-            with self._phase(constants.TICK_PHASE_IDLE):
+            # The idle fast path: the previous tick proved the engine empty
+            # and only a submit can change that. O(1): the quota folds its
+            # shared empty entry, nothing is published.
+            self.idle_ticks += 1
+            if self._quota is not None:
+                self._quota.observe_idle_tick()
+            with prof.phase(constants.TICK_PHASE_IDLE):
                 self._stop.wait(0.005)
             return
         self._engine_idle = False
-        with self._phase(constants.TICK_PHASE_ADMIT):
+        with prof.phase(constants.TICK_PHASE_QUOTA_ENFORCE):
+            self._enforce_quota()
+        with prof.phase(constants.TICK_PHASE_ADMIT):
             self._admit()
         if self._pending_verifies:
-            with self._phase(constants.TICK_PHASE_RESOLVE):
+            with prof.phase(constants.TICK_PHASE_RESOLVE):
                 self._resolve_verifies(block=False)
-        with self._phase(constants.TICK_PHASE_EOS_SCAN):
+        with prof.phase(constants.TICK_PHASE_EOS_SCAN):
             self._scan_eos()
         if not any(s.active for s in self._slots):
+            self._note_quota_tick()
+            self.idle_ticks += 1
             self._engine_idle = not self._waiting and self._queue.empty()
-            with self._phase(constants.TICK_PHASE_IDLE):
+            with prof.phase(constants.TICK_PHASE_IDLE):
                 self._stop.wait(0.005)
             return
-        with self._phase(constants.TICK_PHASE_PUMP_PREFILL):
+        with prof.phase(constants.TICK_PHASE_PUMP_PREFILL):
             n_prefill = self._pump_prefill()
         n_drafting = 0
         if self.spec_k > 0:
-            with self._phase(constants.TICK_PHASE_DISPATCH_VERIFY):
+            with prof.phase(constants.TICK_PHASE_DISPATCH_VERIFY):
                 drafts = self._spec_drafts()
                 if drafts:
                     # A blocking (spec_sync) history pass may have
@@ -1757,26 +2222,64 @@ class DecodeServer:
             i for i, s in enumerate(self._slots)
             if s.active and s.phase == "decoding" and not s.verifying
         ]
+        n_burst = 0
         if macro:
             # Steady state? Fuse up to N macro windows into ONE burst
             # dispatch (the host crosses once per K*N tokens); any host
             # obligation degrades to the per-tick macro dispatch.
             n_burst = self._burst_plan(macro, n_prefill, n_drafting)
             if n_burst:
-                with self._phase(constants.TICK_PHASE_DISPATCH_BURST):
+                with prof.phase(constants.TICK_PHASE_DISPATCH_BURST):
                     self._dispatch_burst(macro, n_burst)
             else:
-                with self._phase(constants.TICK_PHASE_DISPATCH_MACRO):
+                with prof.phase(constants.TICK_PHASE_DISPATCH_MACRO):
                     self._dispatch_macro(macro)
         if n_drafting and macro:
             self.both_dispatch_ticks += 1
         if n_prefill and macro:
             self.ticks_with_prefill_and_macro += 1
+            if self.metrics is not None:
+                self.metrics.inc("nos_tpu_decode_ticks_with_prefill_and_macro")
         if not n_drafting and not macro and not n_prefill:
             # Every active slot awaits its verify outcome: the one
             # blocking read.
-            with self._phase(constants.TICK_PHASE_RESOLVE):
+            with prof.phase(constants.TICK_PHASE_RESOLVE):
                 self._resolve_verifies(block=True)
+        self._note_quota_tick()
+        if self._cost is not None:
+            self._note_cost_tick(n_burst if n_burst else 1)
+        if self.metrics is not None:
+            with prof.phase(constants.TICK_PHASE_PUBLISH):
+                self._publish_gauges(n_drafting, len(macro))
+
+    def _note_quota_tick(self) -> None:
+        """Fold this tick's per-tenant decode tokens into the quota window
+        (decode_server.py:3756), on every tick, idle ones included, so a
+        ceiling-blocked tenant's share decays. A quota-armed burst folded
+        its windows already, one tick each."""
+        if self._quota is None:
+            return
+        if self._quota_burst_folded:
+            self._quota_burst_folded = False
+            self._tick_tokens = {}
+            return
+        self._quota.observe_tick(self._tick_tokens)
+        self._tick_tokens = {}
+
+    def _note_cost_tick(self, weight: int) -> None:
+        """Charge each active slot's tenant `blocks held x weight`
+        KV-block-ticks (decode_server.py:3773; `weight` = a burst's fused
+        windows, else 1), an int8 pool under its own field."""
+        w = max(1, int(weight))
+        name = (constants.COST_KV_BLOCK_TICKS_INT8 if self._kv_quant
+                else constants.COST_KV_BLOCK_TICKS)
+        for idx, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            held = len(self._block_mgr.slot_blocks(idx)) * w
+            if held:
+                self.kv_block_ticks += held
+                self._cost.charge(slot.trace_id, slot.tenant or "", **{name: held})
 
     def _sync_tick_state(self, for_table_only: bool = False) -> None:
         """Re-sync the device-resident tick metadata from the host mirrors:
@@ -1847,28 +2350,61 @@ class DecodeServer:
         window*K + k). A lane executes contiguously from the burst's first
         row until it runs out, then coasts, so its rows are exactly
         range(total): one flat extend, the same arithmetic the windows
-        applied on the device. A clean burst uploads nothing and reads
-        nothing back."""
+        applied on the device. With a QuotaPolicy each window's per-lane
+        counts (`_win_counts`) are copied on the device into row w of
+        `_burst_counts`, and after the burst the [N, n_slots] counts are
+        read back in one counted blocking read and folded, one
+        `observe_tick` per window (decode_server.py:4034-4049). A clean
+        burst without a quota uploads nothing and reads nothing back."""
         self._check_fault("dispatch_burst", idxs[0])
         self._sync_tick_state()
         K = self.steps_per_dispatch
         self._finished.zero_()
-        toks = torch.empty((n_windows * K, self.n_slots), dtype=torch.int32,
-                           device=self.device)
-        for w in range(n_windows):
-            toks[w * K:(w + 1) * K].copy_(self._window())
+        with self._prof.dispatch():
+            toks = torch.empty((n_windows * K, self.n_slots), dtype=torch.int32,
+                               device=self.device)
+            for w in range(n_windows):
+                toks[w * K:(w + 1) * K].copy_(self._window())
+                if self._quota is not None:
+                    self._burst_counts[w].copy_(self._win_counts)
         ref = _TokRef(toks, self._syncs)
         self._inflight.append(ref)
         self.steps_run += 1
         self.burst_dispatches += 1
         self.burst_windows_run += n_windows
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_BURST, slots=len(idxs), windows=n_windows,
+                                  k=K)
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_steps")
+            self.metrics.inc("nos_tpu_decode_burst_dispatches")
+            self.metrics.inc("nos_tpu_decode_burst_windows", n_windows)
         for idx in idxs:
             slot = self._slots[idx]
+            if self._tracer is not None and not slot.trace_decoding:
+                slot.trace_decoding = True
+                self._tracer.event(slot.trace_id, constants.TRACE_EV_DECODE, slot=idx)
             total = min(n_windows * K, slot.remaining, self.max_len - slot.pos)
             slot.refs.extend((ref, idx, r) for r in range(total))
             slot.pos += total
             slot.remaining -= total
-        # A8 step 2 (quota): the per-window quota fold.
+            self.macro_tokens_by_slot[idx] += total
+            if total:
+                tname = slot.tenant or ""
+                self.tokens_by_tenant[tname] = self.tokens_by_tenant.get(tname, 0) + total
+                if self._cost is not None:
+                    self._cost.charge(slot.trace_id, tname, decode_tokens=total)
+        if self._quota is not None:
+            counts = _TokRef(self._burst_counts[:n_windows], self._syncs).np()
+            for w in range(n_windows):
+                tick_tokens: Dict[str, int] = {}
+                for idx in idxs:
+                    n = int(counts[w, idx])
+                    if n:
+                        tenant = self._slots[idx].tenant or ""
+                        tick_tokens[tenant] = tick_tokens.get(tenant, 0) + n
+                self._quota.observe_tick(tick_tokens)
+            self._quota_burst_folded = True
         for idx in idxs:
             self._finish_if_done(idx)
         self._backpressure()
@@ -1887,17 +2423,34 @@ class DecodeServer:
         self._sync_tick_state()
         K = self.steps_per_dispatch
         self._finished.zero_()
-        ref = _TokRef(self._window(), self._syncs)
+        with self._prof.dispatch():
+            ref = _TokRef(self._window(), self._syncs)
         self._inflight.append(ref)
         self.steps_run += 1
         self.macro_dispatches += 1
+        if self._recorder is not None:
+            self._recorder.record(constants.FLIGHT_EV_MACRO, slots=len(idxs), k=K)
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_decode_steps")
+            self.metrics.inc("nos_tpu_decode_macro_dispatches")
         for idx in idxs:
             slot = self._slots[idx]
+            if self._tracer is not None and not slot.trace_decoding:
+                slot.trace_decoding = True
+                self._tracer.event(slot.trace_id, constants.TRACE_EV_DECODE, slot=idx)
             executed = min(K, slot.remaining, self.max_len - slot.pos)
             for k in range(executed):
                 slot.refs.append((ref, idx, k))
             slot.pos += executed
             slot.remaining -= executed
+            self.macro_tokens_by_slot[idx] += executed
+            if executed:
+                tname = slot.tenant or ""
+                self.tokens_by_tenant[tname] = self.tokens_by_tenant.get(tname, 0) + executed
+                if self._cost is not None:
+                    self._cost.charge(slot.trace_id, tname, decode_tokens=executed)
+                if self._quota is not None:
+                    self._tick_tokens[tname] = self._tick_tokens.get(tname, 0) + executed
             self._finish_if_done(idx)
         self._backpressure()
 
@@ -1989,6 +2542,12 @@ class DecodeServer:
         return total
 
     @property
+    def borrowed_ticks(self) -> int:
+        """Ticks where a tenant ran above its guaranteed share
+        (decode_server.py:4254)."""
+        return self._quota.borrowed_ticks if self._quota is not None else 0
+
+    @property
     def h2d_uploads(self) -> int:
         """Host->device transfers on the tick path (HostStage)."""
         return self._stage.uploads
@@ -2002,6 +2561,80 @@ class DecodeServer:
     def staging_syncs(self) -> int:
         """Packed TickState uploads."""
         return self._tick_state.syncs
+
+    # -- the tick profiler's read-throughs (decode_server.py:4283-4318): zeros
+    # and empty without tracing, as in the reference -----------------------------
+    @property
+    def ticks_profiled(self) -> int:
+        return self._prof.ticks
+
+    @property
+    def tick_wall_s(self) -> float:
+        """Total measured wall time across profiled ticks."""
+        return self._prof.tick_wall_s
+
+    @property
+    def tick_dispatch_s(self) -> float:
+        """Host wall time inside program invocations. On CUDA that is
+        issue time (a launch returns before its kernel runs), not device
+        time."""
+        return self._prof.dispatch_s
+
+    @property
+    def tick_host_overhead_s(self) -> float:
+        """Tick wall minus dispatch time: the host's own scheduling."""
+        return self._prof.host_overhead_s
+
+    @property
+    def tick_phase_s(self) -> Dict[str, float]:
+        """Per-phase exclusive wall totals (constants.TICK_PHASES)."""
+        return dict(self._prof.phase_s)
+
+    @property
+    def host_overhead_samples(self) -> List[float]:
+        return list(self._prof.host_overhead_samples)
+
+    @property
+    def dispatch_samples(self) -> List[float]:
+        return list(self._prof.dispatch_samples)
+
+    def _publish_gauges(self, n_drafting: int, n_macro: int) -> None:
+        """Per-tick split, queue-depth and pool-state gauges, and the
+        delta-mirrored counters of the spill tier, the policy and the
+        staging ledgers (decode_server.py:4320; metrics registry only)."""
+        m = self.metrics
+        m.set_gauge("nos_tpu_decode_slots_drafting", n_drafting)
+        m.set_gauge("nos_tpu_decode_slots_macro", n_macro)
+        m.set_gauge("nos_tpu_decode_slots_prefilling",
+                    sum(1 for s in self._slots if s.active and s.phase != "decoding"))
+        m.set_gauge("nos_tpu_decode_inflight_dispatches", len(self._inflight))
+        m.set_gauge("nos_tpu_decode_pending_verifies", len(self._pending_verifies))
+        m.set_gauge("nos_tpu_decode_waiting_requests", len(self._waiting))
+        m.set_gauge("nos_tpu_decode_tp_devices", self.tp)
+        pool = self._block_mgr.counts()
+        m.set_gauge("nos_tpu_decode_kv_blocks_free", pool["free"])
+        m.set_gauge("nos_tpu_decode_kv_blocks_cached", pool["cached"])
+        m.set_gauge("nos_tpu_decode_kv_blocks_shared", pool["shared"])
+        m.set_gauge("nos_tpu_decode_kv_blocks_spilled", pool["spilled"])
+        m.set_gauge("nos_tpu_decode_spill_host_bytes", self.spill_host_bytes)
+        m.set_gauge("nos_tpu_decode_radix_nodes", self.radix_nodes)
+        m.set_gauge("nos_tpu_decode_kv_quant_enabled", self.kv_quant_enabled)
+        m.set_gauge("nos_tpu_decode_kv_quant_pool_bytes", self.kv_pool_bytes)
+        for name, cur in (
+            ("nos_tpu_decode_spills", self.spills),
+            ("nos_tpu_decode_revives", self.revives),
+            ("nos_tpu_decode_spill_drops", self.spill_drops),
+            ("nos_tpu_fleet_kv_failover_revive_tokens", self.failover_revive_tokens),
+            ("nos_tpu_decode_borrowed_ticks", self.borrowed_ticks),
+            ("nos_tpu_decode_h2d_uploads", self.h2d_uploads),
+            ("nos_tpu_decode_blocking_syncs", self.blocking_syncs),
+            ("nos_tpu_decode_staging_syncs", self.staging_syncs),
+            ("nos_tpu_decode_idle_ticks", self.idle_ticks),
+        ):
+            prev = self._metric_shadow.get(name, 0)
+            if cur > prev:
+                m.inc(name, cur - prev)
+                self._metric_shadow[name] = cur
 
 
 def _params_to(tree, device: torch.device):

@@ -4,8 +4,8 @@ the port imports nothing of the JAX package, so it keeps its own copy). `FaultIn
 same seed: the same `random.Random` calls in the same order over the same
 `FAULT_KINDS` and `SITES`, which the port's chaos parity tests depend on.
 The sites the port's engine visits are listed in
-`nos_tpu_torch/runtime/decode_server.py`'s docstring; `preempt` arrives
-with quotas (ROADMAP A8 step 2).
+`nos_tpu_torch/runtime/decode_server.py`'s docstring; `preempt` fires in
+quota preemption (`DecodeServer._preempt_slot`).
 
 Fault taxonomy + deterministic fault injection for the serving runtime.
 

@@ -18,9 +18,10 @@ on the CPU, mirroring the reference's tests/test_burst_decode.py:
     its replay are held against the eager window on the card, in
     tests/test_torch_kernels.py).
 
-The reference file's fault-injection cases are in tests/test_torch_faults.py;
-its quota, preemption and drain cases arrive with ROADMAP A8 (the port has
-no quotas or drain yet)."""
+The reference file's fault-injection cases are in tests/test_torch_faults.py,
+its quota and preemption cases (the per-window quota fold, a preemption
+mid-burst, the idle fast path) in tests/test_torch_quota.py; its drain case
+arrives with ROADMAP A8 (the port has no drain yet)."""
 
 import dataclasses
 
@@ -34,6 +35,7 @@ from nos_tpu_torch import DecodeServer, GPTConfig, from_numpy_params
 from nos_tpu_torch.ops import paged_attention as tpa
 from nos_tpu_torch.parallel import build_mesh
 from nos_tpu_torch.runtime import decode_server as ds
+from nos_tpu_torch.tracing import EngineTracing
 
 from conftest import serving_test_config, serving_test_params
 
@@ -229,7 +231,9 @@ def test_burst_plan_degrades_and_caps(model):
 
 def test_default_engine_bursts_with_four_windows(model):
     _, _, tcfg, tparams = model
-    server = DecodeServer(tparams, tcfg, device="cpu", n_slots=2, max_len=64)
+    # The tick phases are timed by the profiler a tracing bundle arms.
+    server = DecodeServer(tparams, tcfg, device="cpu", n_slots=2, max_len=64,
+                          tracing=EngineTracing())
     assert server.burst_windows == 4
     out = drive(server, [(PROMPTS[0], 30)])[0]
     assert len(out) == 30

@@ -22,6 +22,10 @@ import torch
 from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu_torch import DecodeServer, GPTConfig, from_numpy_params, init_gpt
 from nos_tpu_torch.models.decode import init_paged_cache
+from nos_tpu_torch.observability import Metrics
+from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
+from nos_tpu_torch.serving import CostLedger
+from nos_tpu_torch.tracing import EngineTracing
 
 from conftest import serving_test_config, serving_test_params
 
@@ -155,10 +159,13 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    for kw in (dict(quota=object()), dict(kv_store=object()),
-               dict(metrics=object()), dict(cost_ledger=object())):
-        with pytest.raises(NotImplementedError):
-            DecodeServer(tparams, tcfg, device="cpu", **kw)
+    # The fleet KV store is the one argument still refused.
+    with pytest.raises(NotImplementedError, match="Fleet"):
+        DecodeServer(tparams, tcfg, device="cpu", kv_store=object())
+    # Quotas, metrics, tracing and the cost ledger construct.
+    for kw in (dict(quota=QuotaPolicy({"g": TenantShare(0.5, 1.0)})), dict(metrics=Metrics()),
+               dict(tracing=EngineTracing()), dict(cost_ledger=CostLedger())):
+        DecodeServer(tparams, tcfg, device="cpu", **kw)
     # Surgical recovery is the default, as in the reference, and the
     # injector and the checkpoint hook are taken.
     assert DecodeServer(tparams, tcfg, device="cpu").surgical_recovery
@@ -199,6 +206,9 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "    importlib.import_module(m.name)\n"
         "assert 'nos_tpu_torch.runtime.faults' in sys.modules\n"
         "assert 'nos_tpu_torch.runtime.checkpoint' in sys.modules\n"
+        "for m in ('runtime.quota', 'tracing', 'observability', 'telemetry',\n"
+        "          'serving.accounting'):\n"
+        "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')]\n"
         "print(len(list(pkgutil.walk_packages(nos_tpu_torch.__path__))), bad)\n"

@@ -1083,3 +1083,121 @@ def test_f32_rows_across_program_shapes(cuda_device):
     for part, bound in (("projection", 16.0), ("attention", 60.0)):
         for r in report[part].values():
             assert 0.0 < r["max_steps"] <= bound and r["differ"] > 0.0, (part, report)
+
+
+def _quota_engine(cuda_device, quota, **kw):
+    """A small f32 engine on the card, with a QuotaPolicy from `quota`
+    shares (None: no quota)."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+    from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    policy = None
+    if quota is not None:
+        policy = QuotaPolicy({t: TenantShare(*a) for t, a in quota.items()}, window_ticks=64)
+    return DecodeServer(params, cfg, device=cuda_device, quota=policy, **kw)
+
+
+def test_burst_counts_on_card_equal_host_bookkeeping(cuda_device):
+    """The window writes each lane's executed steps into `_win_counts`
+    inside the captured graph; a quota-armed burst copies them row by row
+    and reads the [N, n_slots] counts back in exactly one blocking read,
+    and they equal the host's nominal bookkeeping (a lane runs
+    contiguously from the burst's first step until it runs out), as do
+    the quota window's per-window entries. The same traffic without a
+    quota reads nothing more back."""
+    kw = dict(n_slots=3, max_len=128, prompt_buckets=(8, 16), steps_per_dispatch=4,
+              block_size=8, burst_windows=4)
+    on = _quota_engine(cuda_device, {"t": (0.2, 1.0)}, **kw)
+    off = _quota_engine(cuda_device, None, **kw)
+    rng = np.random.RandomState(6)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), m) for n, m in ((6, 13), (17, 30), (9, 45))]
+    futs = {id(s): [s.submit(p, max_new=m, tenant="t") for p, m in reqs] for s in (on, off)}
+    K, checked = 4, 0
+    while not all(f.done() for f in futs[id(on)]):
+        before = [(s.remaining, s.pos, s.active) for s in on._slots]
+        b0, ob0, w0 = on.burst_dispatches, off.burst_dispatches, on.burst_windows_run
+        s_on, s_off = on.blocking_syncs, off.blocking_syncs
+        on._tick()
+        off._tick()
+        burst = on.burst_dispatches - b0
+        assert burst == off.burst_dispatches - ob0
+        assert (on.blocking_syncs - s_on) - (off.blocking_syncs - s_off) == burst
+        if not burst:
+            continue
+        n = on.burst_windows_run - w0
+        counts = on._burst_counts[:n].cpu().numpy()
+        want = np.zeros_like(counts)
+        for idx, (rem, pos, active) in enumerate(before):
+            if active:
+                total = min(n * K, rem, on.max_len - pos)
+                want[:, idx] = [min(K, max(0, total - w * K)) for w in range(n)]
+        assert np.array_equal(counts, want)
+        entries = [dict(e) for e in list(on._quota._window)[-n:]]
+        assert [e.get("t", 0) for e in entries] == want.sum(axis=1).tolist()
+        checked += 1
+    assert checked > 0
+    assert [f.result() for f in futs[id(on)]] == [f.result() for f in futs[id(off)]]
+    for s in (on, off):
+        assert s.graph_captures == 1
+        assert s.graph_replays == s.macro_dispatches + s.burst_windows_run
+
+
+def test_preemption_mid_burst_keeps_one_capture_and_revives_bytes(cuda_device, monkeypatch):
+    """A guaranteed tenant's arrival preempts the borrower while its first
+    burst's refs are in flight: the checkpoint materializes through them,
+    the spill copies follow the replays on the stream (each spilled
+    payload is byte for byte the block as the windows left it), every
+    revive writes its payload back byte for byte, and the engine keeps its
+    one capture, every window a replay of it."""
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    server = _quota_engine(cuda_device, {"gold": (0.6, 1.0), "free": (0.0, 1.0)}, n_slots=2,
+                           total_blocks=8, max_len=48, prompt_buckets=(8, 16), block_size=8,
+                           steps_per_dispatch=4, burst_windows=6)
+    revived = []
+    original = ds.DecodeServer._dispatch_revive
+
+    def revive(self, payload, block):
+        ok = original(self, payload, block)
+        revived.append((block, [t.clone() for t in payload],
+                        [t.cpu() for t in self._extract(block)]))
+        return ok
+
+    monkeypatch.setattr(ds.DecodeServer, "_dispatch_revive", revive)
+    rng = np.random.RandomState(8)
+    free = server.submit(rng.randint(1, 96, size=10).tolist(), max_new=36, tenant="free")
+    server._tick()
+    server._tick()
+    assert server.burst_dispatches > 0 and server._inflight
+    idx = next(i for i, s in enumerate(server._slots) if s.active)
+    held = {b: [t.clone() for t in server._extract(b)]
+            for b in server._block_mgr.slot_blocks(idx)}
+    gold = server.submit(rng.randint(1, 96, size=8).tolist(), max_new=6, tenant="gold")
+    spilled = []
+    reader = server._block_mgr._spill_reader
+
+    def spy(block):
+        payload = reader(block)
+        spilled.append((block, payload))
+        return payload
+
+    server._block_mgr._spill_reader = spy
+    server._tick()  # quota enforcement preempts the borrower, its burst in flight
+    assert server.preemptions == 1 and spilled
+    for block, (payload, _) in spilled:
+        assert block in held
+        for got, want in zip(payload, held[block]):
+            assert torch.equal(got.view(torch.uint8), want.cpu().view(torch.uint8))
+    while not (free.done() and gold.done()):
+        server._tick()
+    assert revived
+    for _, payload, written in revived:
+        for got, want in zip(written, payload):
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert len(free.result()) == 36 and len(gold.result()) == 6
+    assert server.graph_captures == 1
+    assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
+    assert server._block_mgr.conserved()

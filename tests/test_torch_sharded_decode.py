@@ -30,6 +30,8 @@ from nos_tpu_torch.models.decode import TPLocal, init_paged_cache
 from nos_tpu_torch.ops import paged_attention as tpa
 from nos_tpu_torch.parallel import (build_mesh, decode_param_rules, param_partition_specs,
                                     shard_params)
+from nos_tpu_torch.observability import Metrics
+from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
 from nos_tpu_torch.runtime.staging import HostStage, TickState
 
 from conftest import serving_test_config, serving_test_params
@@ -120,12 +122,27 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
     assert not sharded._tp.emb_sharded and not sharded._tp.head_sharded
 
 
-@pytest.mark.parametrize("kw", [dict(metrics=object()), dict(quota=object())],
-                         ids=["metrics", "quota"])
-def test_deferred_features_with_a_mesh_raise(model, mesh, kw):
+@pytest.mark.parametrize("case", ["kv_store", "quota+metrics"])
+def test_deferred_features_with_a_mesh_raise(model, mesh, case):
+    """At tp=2 the fleet KV store is still refused; quotas and metrics
+    construct and serve."""
     _, _, tcfg, tparams = model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        make(tparams, tcfg, mesh=mesh, **kw)
+    if case == "kv_store":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: Fleet"):
+            make(tparams, tcfg, mesh=mesh, kv_store=object())
+        return
+    registry = Metrics()
+    server = make(tparams, tcfg, mesh=mesh, metrics=registry,
+                  quota=QuotaPolicy({"g": TenantShare(0.5, 1.0)}, window_ticks=16))
+    fut = server.submit(PROMPTS[0], max_new=8, tenant="g")
+    for _ in range(400):
+        if fut.done():
+            break
+        server._tick()
+    assert len(fut.result(timeout=5)) == 8
+    assert server.tokens_by_tenant["g"] == 7  # the first token is the prefill's
+    assert registry.get("nos_tpu_decode_tp_devices") == 2
+    assert server._quota.ticks > 0
 
 
 def test_device_must_be_the_first_shard(model, mesh):
