@@ -10,6 +10,7 @@ them.
     python3 chip_smoke.py --phases build,card,quant
     python3 chip_smoke.py --phases build,card,faults
     python3 chip_smoke.py --phases build,card,quota,trace
+    python3 chip_smoke.py --phases build,card,fleet
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -170,6 +171,41 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            profiler alone (`profiled`), so their `tick_phase_s` is
            measured: without a profiler it reads empty, as in the
            reference;
+  fleet    the serving plane (nos_tpu_torch/serving/): bench.py's three fleet
+           cells on the bench GPT, each at its own engine settings, seeds
+           and traffic, bf16 (the main path) then f32. multi_replica
+           (:125): 3 replicas x 4 slots, max_len 1024, K 16, block 32, one
+           engine thread each (ReplicaSet(start=True)), 6 tenants' 256-token
+           system prompts, 18 requests of 32 new, round_robin against
+           prefix; then on each fleet 20 requests of 64 tokens x 384 new
+           submitted to the replicas directly (12 on replica-0), and on the
+           prefix fleet, once replica-0 decodes, a new replica is built (its
+           window captured while the other engines serve) and
+           migrate_replica moves replica-0's streams onto the fleet.
+           fleet_failover (:1488): 3 replicas of the cell's tiny engine,
+           replica-0's host killed at wave 5 once its streams hold
+           checkpoints, the supervisor against a fault-free reference.
+           shared_kv_fleet (:1701): dedup over 3 replicas, a store each
+           against one shared store; turn 2 on a fresh replica, cold
+           against prewarmed; failover with the store against without. In
+           f32 also a cross-width drain, tp=2 on [cuda:0, cuda:0] -> tp=1 ->
+           tp=2. Gates: every future resolves (ReplicaLostErrors
+           classified), every pool and store conserved with no pin left,
+           shared entries <= 1/2 of the summed private ones, prewarmed turn
+           2 charged less prefill than cold, the store failover reviving
+           tokens and replaying fewer than without, one capture per engine
+           and every window a replay, every stream against the plain
+           programs' teacher-forced oracle (check_logits, f32 within
+           F32_CROSS_SHAPE_STEPS), decode launches on "split" and bf16
+           window launches on "mma"; streams equal across placements
+           reported, and gated in f32 (a divergence must be a near-tie
+           within F32_CROSS_SHAPE_STEPS). Prints, with the card's name and
+           power limit, tok/s and pooled TTFT p50/p95 per policy, the
+           prefix hit rate, store entries and bytes private against shared,
+           turn-2 prefill tokens and TTFT cold against prewarmed, failover
+           latency p50/p95 with replay and revive tokens, the drain's wall
+           time and slots migrated, the build time of a replica added under
+           load against idle ones, and the phase's seconds;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -212,7 +248,8 @@ timed launches), each entry with the route its main-path launches took
 the three bf16 flash kernels; or "simt"; the engine, tp, quant, dense and
 train phases check that every decode launch took "split" and every bf16
 window and flash launch "mma"; the two paged entries also carry
-`quota_launches`, the quota phase's own main-path launches by route);
+`quota_launches` and `fleet_launches`, the quota phase's and the fleet
+phase's bf16 serving launches by route);
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -3243,6 +3280,675 @@ def phase_trace(torch, device, small=False):
     return stats
 
 
+# -- phase: fleet ------------------------------------------------------------------
+# bench.py's three fleet cells on the bench GPT, each at its own engine
+# settings, seeds and traffic: _multi_replica (:125; with a migrate under
+# live engine threads added), _fleet_failover (:1488) and _shared_kv_fleet
+# (:1701); then a cross-width drain (tests/test_sharded_decode.py:254).
+MULTI = {"replicas": 3, "n_slots": 4, "max_len": 1024, "buckets": (16, 32, 64, 128, 256),
+         "k": 16, "block_size": 32, "sys": 256, "suffix": 32, "counts": (6, 4, 3, 2, 2, 1),
+         "max_new": 32, "warm": 288,
+         # The migrate arm: prompts of mig_prompt tokens and mig_new new ones,
+         # mig_src of them on the migrated replica and mig_other on each other.
+         "mig_prompt": 64, "mig_new": 384, "mig_src": 12, "mig_other": 4}
+MULTI_SMALL = {"replicas": 3, "n_slots": 2, "max_len": 128, "buckets": (8, 16), "k": 4,
+               "block_size": 8, "sys": 24, "suffix": 8, "counts": (3, 2, 2, 1, 1, 1),
+               "max_new": 8, "warm": 30, "mig_prompt": 10, "mig_new": 40, "mig_src": 6,
+               "mig_other": 2}
+# The failover and shared-KV cells' engine (bench.py:1546, :1770): tiny by
+# design, the bench GPT's width.
+TINY_ENGINE = {"n_slots": 2, "max_len": 64, "prompt_buckets": (8, 16), "steps_per_dispatch": 2,
+               "burst_windows": 1, "block_size": 8, "seed": 11}
+FAILOVER = {"replicas": 3, "streams": 6, "prompt": 12, "max_new": 24, "kill_wave": 5,
+            "max_waves": 600}
+SHARED_KV = {"replicas": 3, "streams": 6, "sys": 16, "user": 8, "max_new": 8}
+# The cross-width drain's two streams (tests/test_sharded_decode.py:254).
+CROSS_TP = {"prompts": ([5, 11, 3, 42, 7, 9, 2, 1], [9, 8, 7, 6, 5, 4, 3, 2, 1]),
+            "max_new": (40, 34)}
+
+
+def card_line(torch, device):
+    """`nvidia-smi --query-gpu=name,power.limit`, printed beside every number
+    the fleet phase reports (a rehearsal says so)."""
+    if device.type != "cuda":
+        return "cpu rehearsal, no card"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    return out[0] if out else "nvidia-smi: no output"
+
+
+def check_windows(engines, what, cuda):
+    """On the card every engine captured its window once and every window it
+    ran was a replay of that capture."""
+    if not cuda:
+        return
+    for i, e in enumerate(engines):
+        windows = e.macro_dispatches + e.burst_windows_run
+        check(e.graph_captures == 1 and e.graph_replays == windows,
+              f"{what}: engine {i} ran {windows} windows with {e.graph_replays} replays "
+              f"and {e.graph_captures} captures")
+
+
+def fleet_oracle(torch, cfg, params, device, prompts, outs, buckets, block_size, dtype,
+                 mesh=None):
+    """The served streams against a teacher-forced pass of the plain
+    programs (`agreement`); returns (stats, the plain logits)."""
+    kern = teacher_forced(torch, params, cfg, prompts, outs, buckets, block_size, device,
+                          mesh=mesh)
+    with plain_attention():
+        plain = teacher_forced(torch, params, cfg, prompts, outs, buckets, block_size,
+                               device, mesh=mesh)
+    st = agreement(torch, kern, plain, torch.tensor(outs, device=device), dtype)
+    st["dtype"] = dtype
+    return st, plain
+
+
+def same_streams(torch, plain, outs, other, dtype, what):
+    """Streams of one arm (`outs`, whose teacher-forced plain logits are
+    `plain`) against another placement's (`other`): how many are equal, and
+    at each first divergence the gap, in steps of the logits' dtype, between
+    the two arms' tokens in the plain logits there (one prefix, so one
+    distribution). Gated in f32 only: a divergence must be a near-tie
+    within F32_CROSS_SHAPE_STEPS, the rule for programs of other shapes."""
+    gaps = []
+    for i, (a, b) in enumerate(zip(outs, other)):
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        row = plain[i, t]
+        top = row.max().abs().clamp_min(1e-30)
+        step = float(torch.exp2(torch.floor(torch.log2(top)) - (7 if dtype == "bfloat16"
+                                                                 else 23)))
+        gaps.append(abs(float(row[a[t]] - row[b[t]])) / step)
+    st = {"streams": len(outs), "equal": len(outs) - len(gaps),
+          "divergence_gap_steps": sorted(gaps)}
+    if dtype == "float32":
+        check(all(g <= F32_CROSS_SHAPE_STEPS for g in gaps),
+              f"{what}: f32 streams diverge across placements beyond the cross-shape "
+              f"rule: gaps {sorted(gaps)} steps > {F32_CROSS_SHAPE_STEPS}")
+    return st
+
+
+def multi_traffic(cfg, m):
+    """bench.py:144: six tenants' 256-token system prompts, one populator
+    each, a skewed burst interleaved round-robin across tenants, and an
+    out-of-trace warm prompt, from default_rng([2026, 8, 3]); then the
+    migrate arm's prompts from default_rng([2026, 8, 4])."""
+    srng = np.random.default_rng([2026, 8, 3])
+    tenants = [f"t{k}" for k in range(6)]
+    sys_prompts = {t: srng.integers(1, cfg.vocab, m["sys"]).tolist() for t in tenants}
+    warm_trace = [(t, sys_prompts[t] + srng.integers(1, cfg.vocab, m["suffix"]).tolist())
+                  for t in tenants]
+    by_tenant = [[(t, sys_prompts[t] + srng.integers(1, cfg.vocab, m["suffix"]).tolist())
+                  for _ in range(c - 1)] for t, c in zip(tenants, m["counts"])]
+    burst = [rows[j] for j in range(max(m["counts"])) for rows in by_tenant if j < len(rows)]
+    warm_prompt = srng.integers(1, cfg.vocab, m["warm"]).tolist()
+    mrng = np.random.default_rng([2026, 8, 4])
+    n_mig = m["mig_src"] + (m["replicas"] - 1) * m["mig_other"]
+    mig = [mrng.integers(1, cfg.vocab, m["mig_prompt"]).tolist() for _ in range(n_mig)]
+    return warm_trace, burst, warm_prompt, mig
+
+
+def multi_run(torch, cfg, params, device, m, policy, migrate):
+    """One arm of bench.py's _multi_replica: 3 replicas of 4 slots behind a
+    PrefixRouter (`policy`), each engine on its own thread (`start=True`),
+    one shared Tracer; the warm-up, the six populators, then the skewed
+    burst, timed. Then the migrate traffic, submitted to the replicas
+    directly (mig_src on replica-0): with `migrate`, once replica-0
+    decodes, a new replica is built (its window captured while the other
+    engines serve) and `migrate_replica` moves replica-0's streams; else
+    the traffic runs where it was placed (the reference placement)."""
+    from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.serving import PrefixRouter, ReplicaSet, migrate_replica
+    from nos_tpu_torch.telemetry import percentile
+    from nos_tpu_torch.tracing import EngineTracing, Tracer
+
+    warm_trace, burst, warm_prompt, mig_prompts = multi_traffic(cfg, m)
+    tracer = Tracer()
+    build_s = []
+
+    def engine():
+        t = time.perf_counter()
+        e = DecodeServer(params, cfg, n_slots=m["n_slots"], max_len=m["max_len"],
+                         prompt_buckets=m["buckets"], steps_per_dispatch=m["k"],
+                         block_size=m["block_size"], tracing=EngineTracing(tracer=tracer),
+                         device=device)
+        build_s.append(time.perf_counter() - t)
+        return e
+
+    rs = ReplicaSet([engine() for _ in range(m["replicas"])], start=True)
+    router = PrefixRouter(rs, policy=policy)
+    engines = [h.engine for h in rs.handles]
+    try:
+        for h in rs.handles:
+            for _ in range(2):
+                h.engine.generate(warm_prompt, max_new=m["max_new"], timeout=600)
+        warm_ttft = {h.replica_id: len(h.engine.ttft_s) for h in rs.handles}
+        hits0 = sum(h.engine.prefix_hit_blocks for h in rs.handles)
+        charged0 = sum(h.engine.prefill_tokens for h in rs.handles)
+        sync(torch, device)
+        phase0 = [dict(h.engine.tick_phase_s) for h in rs.handles]
+        t0 = time.perf_counter()
+        futs = [router.submit(p, max_new=m["max_new"], tenant=t) for t, p in warm_trace]
+        outs = [list(f.result(timeout=600)) for f in futs]
+        futs = [router.submit(p, max_new=m["max_new"], tenant=t) for t, p in burst]
+        outs += [list(f.result(timeout=600)) for f in futs]
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        report = rs.fleet_report()
+        # The timed phase's tick time by phase, summed over the replicas'
+        # profilers (host wall; the three threads overlap).
+        tick_phase_ms = {}
+        for h, before in zip(rs.handles, phase0):
+            for k, v in h.engine.tick_phase_s.items():
+                tick_phase_ms[k] = tick_phase_ms.get(k, 0.0) + 1e3 * (v - before.get(k, 0.0))
+        ttft = [s for h in rs.handles for s in h.engine.ttft_s[warm_ttft[h.replica_id]:]]
+        hittable = sum((len(p) - 1) // rs.block_size for _, p in burst)
+        stats = {
+            "policy": policy,
+            "tok_s_aggregate": len(outs) * m["max_new"] / wall, "wall_s": wall,
+            "ttft_p50_s": percentile(ttft, 50), "ttft_p95_s": percentile(ttft, 95),
+            "prefix_hit_rate_burst": (report.prefix_hit_blocks - hits0) / hittable,
+            "prefill_tokens_charged": report.prefill_tokens - charged0,
+            "tick_phase_ms": tick_phase_ms,
+            "router": {k: v for k, v in router.snapshot().items() if k != "replicas"},
+        }
+        # The migrate traffic: mig_src requests on replica-0, mig_other on
+        # each other replica, all on their engines' threads.
+        n_src = m["mig_src"]
+        targets = [0] * n_src + [1 + i // m["mig_other"]
+                                 for i in range(len(mig_prompts) - n_src)]
+        mig_futs = [rs.handles[r].engine.submit(p, max_new=m["mig_new"])
+                    for r, p in zip(targets, mig_prompts)]
+        src = rs.handles[0]
+        deadline = time.perf_counter() + 600
+        while not any(s.active and s.phase == "decoding" and len(s.refs) >= 2
+                      for s in src.engine._slots):
+            check(time.perf_counter() < deadline, "fleet migrate: replica-0 never decoded")
+            time.sleep(0.0005)
+        if migrate:
+            # The new replica's window is captured while the other engines'
+            # threads serve: their ticks wait at the device gate during the
+            # capture itself and run around it.
+            steps0 = [h.engine.steps_run for h in rs.handles]
+            new = engine()
+            stats["capture_under_load_s"] = build_s[-1]
+            stats["build_idle_s"] = build_s[:m["replicas"]]
+            if new._graph is not None:
+                stats["gate_wait_s"] = new._graph.gate_wait_s
+                stats["warmup_and_capture_s"] = new._graph.capture_s
+                stats["warmup_and_capture_idle_s"] = [e._graph.capture_s
+                                                      for e in engines[:m["replicas"]]]
+            stats["steps_during_build"] = [h.engine.steps_run - n
+                                           for h, n in zip(rs.handles, steps0)]
+            t_d = time.perf_counter()
+            new_handle, drain = migrate_replica(rs, router, src.replica_id, new, start=True)
+            stats["drain_wall_s"] = time.perf_counter() - t_d
+            stats["slots_migrated"] = drain.slots_migrated
+            stats["requests_migrated"] = drain.requests_migrated
+            stats["destinations"] = drain.destinations
+            check(drain.slots_migrated >= 1 and drain.rolled_back == 0,
+                  f"fleet migrate: no stream moved mid-decode ({drain})")
+            check(src.state == constants.REPLICA_STATE_RETIRED
+                  and src.engine._block_mgr.conserved(),
+                  f"fleet migrate: the source is {src.state}, pool conserved "
+                  f"{src.engine._block_mgr.conserved()}")
+            engines.append(new)
+        mig_outs = [list(f.result(timeout=600)) for f in mig_futs]
+        sync(torch, device)
+    finally:
+        rs.stop()
+    # Read the engines once their threads have stopped: a future resolves
+    # just before its slot is released.
+    for e in engines:
+        check(e._block_mgr.conserved(), f"fleet multi {policy}: a pool is not conserved")
+    stats["engines"] = [{k: getattr(e, k) for k in ("steps_run", "graph_captures",
+                                                     "graph_replays", "macro_dispatches",
+                                                     "burst_windows_run")}
+                        for e in engines]
+    check_windows(engines, f"fleet multi {policy}", device.type == "cuda")
+    return outs, mig_outs, [p for _, p in warm_trace + burst], mig_prompts, stats
+
+
+def failover_traffic(cfg):
+    srng = np.random.default_rng([2026, 14, 1])
+    return [srng.integers(1, cfg.vocab, FAILOVER["prompt"]).tolist()
+            for _ in range(FAILOVER["streams"])]
+
+
+def failover_run(torch, cfg, params, device, prompts, arm, state):
+    """One arm of bench.py's _fleet_failover, ticked on this thread: the
+    reference (supervised, fault-free) or `on` (replica-0's host dies once
+    every victim stream holds a checkpoint, at or after kill_wave; the
+    supervisor walks it to dead and fails its streams over)."""
+    from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.runtime.faults import (FAULT_REPLICA_LOST, ReplicaLostError,
+                                              classify_fault)
+    from nos_tpu_torch.serving import (FleetSupervisor, PrefixRouter, ReplicaFaultInjector,
+                                       ReplicaSet)
+    from nos_tpu_torch.tracing import EngineTracing, Tracer
+
+    f = FAILOVER
+    tracer = Tracer()
+    rs = ReplicaSet([DecodeServer(params, cfg, tracing=EngineTracing(tracer=tracer),
+                                  device=device, **TINY_ENGINE)
+                     for _ in range(f["replicas"])])
+    router = PrefixRouter(rs)
+    inj = ReplicaFaultInjector() if arm == "on" else None
+    sup = FleetSupervisor(rs, router, suspect_after=2, dead_after=3, fault_injector=inj,
+                          sleep=lambda s: None)
+    victim = "replica-0"
+    futs = [sup.submit(p, max_new=f["max_new"]) for p in prompts]
+    if arm == "on":
+        state["victim_idx"] = [i for i, fu in enumerate(futs)
+                               if id(fu) in (sup._streams.get(victim) or {})]
+    handle = rs.get(victim)
+    killed_at = dead_sel = None
+    waves = 0
+    t0 = time.perf_counter()
+    while waves < f["max_waves"]:
+        waves += 1
+        for h in rs.handles:
+            if h.replica_id == victim and killed_at is not None:
+                continue
+            if h.state == constants.REPLICA_STATE_ACTIVE:
+                h.engine._tick()
+        if arm == "on" and killed_at is None and waves >= f["kill_wave"]:
+            cks = sup._checkpoints.get(victim) or {}
+            if all(id(futs[i]) in cks and len(cks[id(futs[i])].generated) >= 1
+                   for i in state["victim_idx"]):
+                inj.kill(victim)
+                killed_at = waves
+        sup.probe()
+        if dead_sel is None and handle.health == constants.REPLICA_HEALTH_DEAD:
+            dead_sel = handle.routed_requests
+        if all(fu.done() for fu in futs):
+            break
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    check(all(fu.done() for fu in futs), f"fleet failover {arm}: stranded futures")
+    outcomes = []
+    for fu in futs:
+        exc = fu.exception()
+        if exc is not None:
+            check(isinstance(exc, ReplicaLostError)
+                  and classify_fault(exc) == FAULT_REPLICA_LOST,
+                  f"fleet failover {arm}: an unclassified failure {exc!r}")
+        outcomes.append(exc if exc is not None else list(fu.result()))
+    survivors = [h.engine for h in rs.handles if h.replica_id != victim or arm != "on"]
+    for e in survivors:
+        check(e._block_mgr.conserved(), f"fleet failover {arm}: a survivor's pool leaks")
+    rep = sup.report()
+    st = {"arm": arm, "waves": waves, "killed_at": killed_at, "wall_s": wall,
+          "completed": sum(isinstance(o, list) for o in outcomes),
+          "errored": sum(not isinstance(o, list) for o in outcomes),
+          "replica_deaths": rep.replica_deaths, "failovers": rep.failovers,
+          "futures_errored": rep.futures_errored,
+          "failover_replay_tokens": rep.failover_replay_tokens,
+          "failover_latency_p50_s": rep.failover_latency_p50_s,
+          "failover_latency_p95_s": rep.failover_latency_p95_s,
+          "replay_tokens": sum(e.replay_tokens for e in survivors),
+          "selections_of_dead_after_detection": (
+              0 if dead_sel is None else handle.routed_requests - dead_sel)}
+    if arm == "on":
+        check(killed_at is not None and rep.replica_deaths == 1 and rep.failovers >= 1
+              and st["selections_of_dead_after_detection"] == 0,
+              f"fleet failover: the kill did not fail over: {st}")
+    check_windows(survivors, f"fleet failover {arm}", device.type == "cuda")
+    rs.stop()
+    return outcomes, st
+
+
+def shared_kv_traffic(cfg):
+    s = SHARED_KV
+    srng = np.random.default_rng([2026, 16, 1])
+    system = srng.integers(1, cfg.vocab, s["sys"]).tolist()
+    return [system + srng.integers(1, cfg.vocab, s["user"]).tolist()
+            for _ in range(s["streams"])]
+
+
+def shared_kv_runs(torch, cfg, params, device, prompts):
+    """bench.py's _shared_kv_fleet, ticked on this thread: dedup (three
+    replicas serving the same six streams, a store each against one shared
+    store), turn 2 on a fresh replica (cold against prewarmed from the
+    shared store), and failover with the store against without. Returns
+    (outputs by arm, stats)."""
+    from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.serving import (FleetKVStore, FleetSupervisor, PrefixRouter,
+                                       ReplicaFaultInjector, ReplicaSet)
+    from nos_tpu_torch.telemetry import percentile
+    from nos_tpu_torch.tracing import EngineTracing
+
+    s = SHARED_KV
+    cuda = device.type == "cuda"
+    built = []
+
+    def make(store):
+        e = DecodeServer(params, cfg, kv_store=store, tracing=EngineTracing(), device=device,
+                         **TINY_ENGINE)
+        built.append(e)
+        return e
+
+    def serve(engine, reqs, idle_ticks=8):
+        futs = [engine.submit(p, max_new=s["max_new"]) for p in reqs]
+        for _ in range(4000):
+            if all(f.done() for f in futs):
+                break
+            engine._tick()
+        outs = [list(f.result(timeout=10)) for f in futs]
+        for _ in range(idle_ticks):
+            engine._tick()  # the idle sweep publishes into the store
+        return outs
+
+    def dedup(shared):
+        fleet_store = FleetKVStore(1 << 24) if shared else None
+        stores, outs, engines = [], [], []
+        for _ in range(s["replicas"]):
+            store = fleet_store if shared else FleetKVStore(1 << 24)
+            stores.append(store)
+            engines.append(make(store))
+            outs.append(serve(engines[-1], prompts))
+        st = {"store_entries": (fleet_store.entries if shared
+                                else sum(x.entries for x in stores)),
+              "store_bytes": (fleet_store.host_bytes if shared
+                              else sum(x.host_bytes for x in stores)),
+              "store_dedup_hits": sum(e.store_dedup_hits for e in engines),
+              "store_hits": sum(e.store_hits for e in engines),
+              "store_published_blocks": sum(e.store_published_blocks for e in engines),
+              "blocking_syncs": sum(e.blocking_syncs for e in engines),
+              "spills": sum(e.spills for e in engines)}
+        check(all(x.conserved() and x.pinned_entries == 0 for x in stores),
+              f"fleet shared_kv dedup shared={shared}: a store not conserved or pinned")
+        for e in engines:
+            e.stop()
+        return outs, st, fleet_store
+
+    private_outs, private, _ = dedup(False)
+    shared_outs, shared, fleet_store = dedup(True)
+    check(shared["store_entries"] * 2 <= private["store_entries"],
+          f"fleet shared_kv: shared entries {shared['store_entries']} > 1/2 of the "
+          f"summed private {private['store_entries']}")
+
+    def turn2(store, prewarm):
+        engine = make(store)
+        queued = engine.prewarm_from_store() if prewarm else 0
+        for _ in range(500):
+            if not engine._pending_prewarm:
+                break
+            engine._tick()
+        sync(torch, device)
+        outs = serve(engine, prompts, idle_ticks=0)
+        st = {"prewarm_blocks_queued": queued, "prewarm_tokens": engine.prewarm_tokens,
+              "prefill_tokens_charged": engine.prefill_tokens,
+              "prefix_hit_tokens": engine.prefix_hit_tokens, "store_hits": engine.store_hits,
+              "ttft_p50_s": percentile(engine.ttft_s, 50),
+              "ttft_p95_s": percentile(engine.ttft_s, 95)}
+        engine.stop()
+        return outs, st
+
+    cold_outs, cold = turn2(None, False)
+    warm_outs, warm = turn2(fleet_store, True)
+    check(warm["prefill_tokens_charged"] < cold["prefill_tokens_charged"],
+          f"fleet shared_kv turn 2: prewarmed prefill {warm['prefill_tokens_charged']} "
+          f"not below cold {cold['prefill_tokens_charged']}")
+    check(fleet_store.conserved() and fleet_store.pinned_entries == 0,
+          "fleet shared_kv: the shared store is not conserved after the prewarm")
+
+    fo_prompts = prompts[:2]
+    ref = make(None)
+    fo_want = serve(ref, fo_prompts, idle_ticks=0)
+    ref.stop()
+
+    def failover(store):
+        rs = ReplicaSet([make(store) for _ in range(2)])
+        router = PrefixRouter(rs)
+        inj = ReplicaFaultInjector()
+        sup = FleetSupervisor(rs, router, suspect_after=2, dead_after=3, fault_injector=inj,
+                              sleep=lambda x: None)
+        futs = [sup.submit(p, max_new=s["max_new"]) for p in fo_prompts]
+        vid = rs.handles[0].replica_id
+
+        def ticked(pred, downed=()):
+            for _ in range(800):
+                for h in rs.handles:
+                    if (h.state == constants.REPLICA_STATE_ACTIVE
+                            and h.replica_id not in downed):
+                        h.engine._tick()
+                sup.probe()
+                if pred():
+                    return True
+            return False
+
+        n_victim = len(sup._streams.get(vid, {}))
+        captured = ticked(lambda: len(sup._checkpoints.get(vid, {})) >= n_victim and all(
+            len(ck.generated) >= 2 for ck in sup._checkpoints.get(vid, {}).values()))
+        inj.kill(vid)
+        finished = ticked(lambda: all(f.done() for f in futs), downed={vid})
+        check(captured and finished and all(f.exception() is None for f in futs),
+              f"fleet shared_kv failover store={store is not None}: captured {captured}, "
+              f"finished {finished}")
+        outs = [list(f.result(0)) for f in futs]
+        survivors = [h.engine for h in rs.handles if h.replica_id != vid]
+        st = {"victim_streams": n_victim, "failovers": sup.failovers,
+              "replay_tokens": sum(e.replay_tokens for e in survivors),
+              "failover_revive_tokens": sum(e.failover_revive_tokens for e in survivors),
+              "failover_latency_p50_s": sup.report().failover_latency_p50_s}
+        check(all(e._block_mgr.conserved() for e in survivors),
+              "fleet shared_kv failover: a survivor's pool leaks")
+        rs.stop()
+        return outs, st
+
+    fo_cold_outs, fo_cold = failover(None)
+    fo_store_obj = FleetKVStore(1 << 24)
+    fo_store_outs, fo_store = failover(fo_store_obj)
+    check(fo_store["failover_revive_tokens"] > 0
+          and fo_store["replay_tokens"] < fo_cold["replay_tokens"],
+          f"fleet shared_kv failover: with the store {fo_store}, without {fo_cold}")
+    check(fo_store_obj.conserved() and fo_store_obj.pinned_entries == 0,
+          "fleet shared_kv failover: the store is not conserved or holds pins")
+    check_windows(built, "fleet shared_kv", cuda)
+    stats = {"dedup": {"private": private, "shared": shared,
+                       "entries_ratio_shared_vs_summed":
+                           shared["store_entries"] / max(1, private["store_entries"])},
+             "turn2": {"cold": cold, "prewarmed": warm},
+             "failover": {"without_store": fo_cold, "with_store": fo_store}}
+    outs = {"private": private_outs, "shared": shared_outs, "cold": cold_outs,
+            "prewarmed": warm_outs, "fo_want": fo_want, "fo_cold": fo_cold_outs,
+            "fo_store": fo_store_outs}
+    return outs, stats
+
+
+def cross_tp_drain(torch, cfg, params, device):
+    """The f32 cross-width drain (tests/test_sharded_decode.py:254): two
+    streams start on a tp=2 replica (both shards on this card), drain to a
+    tp=1 replica, then migrate to a fresh tp=2 one; they finish as an
+    undrained tp=1 run within the cross-shape rule."""
+    from nos_tpu_torch import DecodeServer
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.serving import PrefixRouter, ReplicaSet, drain_replica, migrate_replica
+
+    c = CROSS_TP
+    mesh = build_mesh({"tp": 2}, devices=[device, device])
+
+    def make(wide):
+        kw = dict(TINY_ENGINE)
+        return (DecodeServer(params, cfg, mesh=mesh, **kw) if wide
+                else DecodeServer(params, cfg, device=device, **kw))
+
+    base = make(False)
+    futs = [base.submit(p, max_new=n) for p, n in zip(c["prompts"], c["max_new"])]
+    tick_until(base, lambda: all(f.done() for f in futs))
+    baseline = [list(f.result()) for f in futs]
+    src, mid = make(True), make(False)
+    rs = ReplicaSet([src, mid])
+    router = PrefixRouter(rs)
+    futs = [src.submit(p, max_new=n) for p, n in zip(c["prompts"], c["max_new"])]
+    for _ in range(4):
+        src._tick()
+    report = drain_replica(rs, router, "replica-0")
+    check(report.slots_migrated + report.requests_migrated == 2 and src._block_mgr.conserved(),
+          f"fleet cross-tp: the drain to tp=1 moved {report}")
+    for _ in range(4):
+        mid._tick()
+    back = make(True)
+    _, report2 = migrate_replica(rs, router, "replica-1", back, start=False)
+    check(mid._block_mgr.conserved(), "fleet cross-tp: the tp=1 pool leaks")
+    tick_until(back, lambda: all(f.done() for f in futs))
+    got = [list(f.result()) for f in futs]
+    check(back._block_mgr.conserved() and back.replay_tokens > 0,
+          "fleet cross-tp: the streams did not replay on the tp=2 destination")
+    check_windows([base, src, mid, back], "fleet cross-tp", device.type == "cuda")
+    rs.stop()
+    return got, baseline, {"to_tp1": {"slots": report.slots_migrated,
+                                      "requests": report.requests_migrated},
+                           "to_tp2": {"slots": report2.slots_migrated,
+                                      "requests": report2.requests_migrated}}
+
+
+def phase_fleet(torch, device, small=False):
+    """The serving plane on the card: bench.py's _multi_replica (round_robin
+    against prefix, then a migrate under live engine threads),
+    _fleet_failover (the supervisor against a fault-free reference) and
+    _shared_kv_fleet (dedup, prewarm, failover with and without the store)
+    on the bench GPT, bf16 (the main path) then f32, and in f32 the
+    cross-width drain. The launch counts are zeroed before each dtype's
+    arms and read after them, before any oracle runs. Gates: every future
+    resolves (the supervisor's ReplicaLostErrors classified), every pool
+    and store conserved with no pin left, shared entries <= 1/2 of the
+    summed private ones, the prewarmed turn 2 charging less prefill than
+    cold, the store failover reviving tokens and replaying fewer than
+    without it, one capture per engine and every window a replay of it,
+    every stream held to the plain programs' teacher-forced oracle
+    (check_logits; f32 within F32_CROSS_SHAPE_STEPS), every decode launch
+    on "split" and every bf16 window launch on "mma". Streams equal across
+    placements are reported, and gated in f32 under the cross-shape rule
+    (same_streams)."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    card = card_line(torch, device)
+    m = MULTI_SMALL if small else MULTI
+    tiny = TINY_ENGINE["prompt_buckets"]
+    stats = {"card": card}
+    for dtype in ("bfloat16", "float32"):
+        cfg = bench_gpt(dtype, small)
+        params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+        st = stats[dtype] = {}
+        # The serving arms.
+        pa.reset_launch_counts()
+        rr_outs, rr_mig, prompts, mig_prompts, st["round_robin"] = multi_run(
+            torch, cfg, params, device, m, "round_robin", migrate=False)
+        px_outs, px_mig, _, _, st["prefix"] = multi_run(
+            torch, cfg, params, device, m, "prefix", migrate=True)
+        fprompts = failover_traffic(cfg)
+        state = {}
+        ref_outs, st["failover_reference"] = failover_run(torch, cfg, params, device,
+                                                          fprompts, "reference", state)
+        on_outs, st["failover_on"] = failover_run(torch, cfg, params, device, fprompts, "on",
+                                                  state)
+        sprompts = shared_kv_traffic(cfg)
+        skv, st["shared_kv"] = shared_kv_runs(torch, cfg, params, device, sprompts)
+        if dtype == "float32":
+            cross, cross_base, st["cross_tp"] = cross_tp_drain(torch, cfg, params, device)
+        sync(torch, device)
+        routes = st["routes"] = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+        launches = st["launches"] = dict(pa.LAUNCHES)
+        if cuda:
+            check_routes(routes, "paged_decode_attention", "split", f"fleet {dtype}")
+            check_routes(routes, "paged_window_attention",
+                         "mma" if dtype == "bfloat16" else "simt", f"fleet {dtype}")
+        # The oracles.
+        for name, outs, other, ps, n in (
+                ("round_robin", rr_outs, None, prompts, m["max_new"]),
+                ("prefix", px_outs, rr_outs, prompts, m["max_new"]),
+                ("migrate", px_mig, rr_mig, mig_prompts, m["mig_new"])):
+            check(all(len(o) == n for o in outs), f"fleet {name} {dtype}: short streams")
+            tok, plain = fleet_oracle(torch, cfg, params, device, ps, outs, m["buckets"],
+                                      m["block_size"], dtype)
+            check_logits(tok, f"fleet {name}", F32_CROSS_SHAPE_STEPS)
+            st[f"{name}_tokens"] = {k: tok[k] for k in (
+                "top1_agreement", "top1_agreement_1ulp", "max_abs_dlogit",
+                "disagreement_gap_steps")}
+            if other is not None:
+                st[f"{name}_equal"] = same_streams(torch, plain, outs, other, dtype,
+                                                   f"fleet {name} {dtype}")
+        done = [i for i, o in enumerate(on_outs) if isinstance(o, list)]
+        check(all(isinstance(o, list) for o in ref_outs) and done,
+              f"fleet failover {dtype}: the reference failed a stream or none completed")
+        tok, plain = fleet_oracle(torch, cfg, params, device, [fprompts[i] for i in done],
+                                  [on_outs[i] for i in done], tiny, 8, dtype)
+        check_logits(tok, "fleet failover", F32_CROSS_SHAPE_STEPS)
+        st["failover_equal"] = same_streams(torch, plain, [on_outs[i] for i in done],
+                                            [ref_outs[i] for i in done], dtype,
+                                            f"fleet failover {dtype}")
+        base = skv["private"][0]
+        tok, plain = fleet_oracle(torch, cfg, params, device, sprompts, base, tiny, 8, dtype)
+        check_logits(tok, "fleet shared_kv", F32_CROSS_SHAPE_STEPS)
+        eq = {}
+        arms = [(f"{name}_{r}", o) for name in ("private", "shared")
+                for r, o in enumerate(skv[name])] + [(n, skv[n]) for n in ("cold", "prewarmed")]
+        for name, o in arms:
+            eq[name] = same_streams(torch, plain, base, o, dtype,
+                                    f"fleet shared_kv {name} {dtype}")["equal"]
+        tok, plain = fleet_oracle(torch, cfg, params, device, sprompts[:2], skv["fo_want"],
+                                  tiny, 8, dtype)
+        check_logits(tok, "fleet shared_kv failover", F32_CROSS_SHAPE_STEPS)
+        for name in ("fo_cold", "fo_store"):
+            eq[name] = same_streams(torch, plain, skv["fo_want"], skv[name], dtype,
+                                    f"fleet shared_kv {name} {dtype}")["equal"]
+        st["shared_kv"]["streams_equal"] = eq
+        if dtype == "float32":
+            n = min(CROSS_TP["max_new"])
+            got, want = [g[:n] for g in cross], [w[:n] for w in cross_base]
+            tok, plain = fleet_oracle(torch, cfg, params, device, list(CROSS_TP["prompts"]),
+                                      got, tiny, 8, dtype)
+            check_logits(tok, "fleet cross-tp", F32_CROSS_SHAPE_STEPS)
+            st["cross_tp"]["equal"] = same_streams(torch, plain, got, want, dtype,
+                                                   "fleet cross-tp")
+        skd = st["shared_kv"]
+        summary = {
+            "card": card,
+            "tok_s_aggregate": {p: st[p]["tok_s_aggregate"] for p in ("round_robin", "prefix")},
+            "ttft_p50_p95_s": {p: [st[p]["ttft_p50_s"], st[p]["ttft_p95_s"]]
+                               for p in ("round_robin", "prefix")},
+            "prefix_hit_rate": {p: st[p]["prefix_hit_rate_burst"]
+                                for p in ("round_robin", "prefix")},
+            "prefill_tokens_charged": {p: st[p]["prefill_tokens_charged"]
+                                       for p in ("round_robin", "prefix")},
+            "policies_equal": st["prefix_equal"],
+            "tick_phase_ms": {p: st[p]["tick_phase_ms"] for p in ("round_robin", "prefix")},
+            "migrate": {k: st["prefix"].get(k) for k in (
+                "capture_under_load_s", "build_idle_s", "gate_wait_s", "warmup_and_capture_s",
+                "warmup_and_capture_idle_s", "steps_during_build", "drain_wall_s",
+                "slots_migrated", "requests_migrated")} | {"equal": st["migrate_equal"]},
+            "failover": {k: st["failover_on"][k] for k in (
+                "failover_latency_p50_s", "failover_latency_p95_s", "failover_replay_tokens",
+                "replay_tokens", "completed", "errored", "killed_at")}
+            | {"equal": st["failover_equal"]},
+            "store_private_vs_shared": {k: [skd["dedup"]["private"][k],
+                                            skd["dedup"]["shared"][k]]
+                                        for k in ("store_entries", "store_bytes")},
+            "turn2_cold_vs_prewarmed": {k: [skd["turn2"]["cold"][k],
+                                            skd["turn2"]["prewarmed"][k]]
+                                        for k in ("prefill_tokens_charged", "ttft_p50_s",
+                                                  "ttft_p95_s")},
+            "store_failover": skd["failover"],
+            "launches": {n: launches[n] for n in ("paged_decode_attention",
+                                                  "paged_window_attention")},
+            "launches_by_route": {n: routes[n] for n in ("paged_decode_attention",
+                                                         "paged_window_attention")},
+        }
+        log(f"fleet {dtype}: " + json.dumps(summary))
+        log(f"fleet {dtype} detail: " + json.dumps(st))
+    stats["main"] = {"routes": stats["bfloat16"]["routes"]}
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"fleet phase_s={stats['phase_s']:.1f} ({card})")
+    return stats
+
+
 # -- phase: dense ------------------------------------------------------------------
 def sync(torch, device):
     if device.type == "cuda":
@@ -3761,7 +4467,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,dense,train")
+                            "trace,fleet,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -3786,6 +4492,7 @@ def main(argv=None):
         phase_faults(torch, torch.device("cpu"), small=True)
         phase_quota(torch, torch.device("cpu"), small=True)
         phase_trace(torch, torch.device("cpu"), small=True)
+        phase_fleet(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -3831,6 +4538,9 @@ def main(argv=None):
         quota = phase_quota(torch, torch.device("cuda"))
     if "trace" in phases:
         trace = phase_trace(torch, torch.device("cuda"))
+    fleet = None
+    if "fleet" in phases:
+        fleet = phase_fleet(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -3838,8 +4548,8 @@ def main(argv=None):
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
-    if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, dense,
-                train):
+    if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
+                dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -3874,6 +4584,8 @@ def main(argv=None):
             "library_ms": t["library_ms"],
             # The quota phase's own main path (its traced bf16 arm), by route.
             "quota_launches": quota["main"]["routes"][name],
+            # The fleet phase's bf16 serving arms (every replica), by route.
+            "fleet_launches": fleet["main"]["routes"][name],
         })
     flash_replaces = {"flash_fwd": "nos_tpu/ops/flash_attention.py:77",
                       "flash_bwd_dq": "nos_tpu/ops/flash_attention.py:234",

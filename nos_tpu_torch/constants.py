@@ -1,11 +1,110 @@
 """The port's own copies of the constants its modules name.
 
 Copied from `nos_tpu/constants.py` (the port imports nothing of the JAX
-package): the KV pool dtypes (:421-423), the cost ledger's charge fields
+package): the serving plane's wire constants (replica identity, states,
+health, roles and snapshot keys, the engine probe keys, the router's
+policies, phases and store weight, :184-267, and the fleet event names,
+:304-336), the KV pool dtypes (:421-423), the cost ledger's charge fields
 and receipt statuses (:390-427), the tenant probe keys (:431-437), the
 trace and flight-recorder event names (:450-531) and the tick-phase
-names (:537-562).
+names (:537-562). The wire strings are the reference's, equal value for
+value: a replica id, state or probe key spelled differently in the port
+would not be the same protocol.
 """
+
+# Cluster serving plane (serving/replica.py, router.py, drain.py,
+# supervisor.py). Replica identity: "<prefix><ordinal>", assigned by the
+# ReplicaSet.
+REPLICA_ID_PREFIX = "replica-"
+# Replica lifecycle (create -> drain -> delete): a DRAINING replica stops
+# admitting, its in-flight work is re-homed, then it RETIRES.
+REPLICA_STATE_ACTIVE = "active"
+REPLICA_STATE_DRAINING = "draining"
+REPLICA_STATE_RETIRED = "retired"
+REPLICA_STATES = (
+    REPLICA_STATE_ACTIVE,
+    REPLICA_STATE_DRAINING,
+    REPLICA_STATE_RETIRED,
+)
+# Replica health (the supervisor's axis beside the lifecycle): active ->
+# suspect (consecutive probe failures) -> dead (failover fires); suspect
+# -> active only after a full healthy window. Suspect and dead replicas
+# are excluded from placement.
+REPLICA_HEALTH_ACTIVE = "active"
+REPLICA_HEALTH_SUSPECT = "suspect"
+REPLICA_HEALTH_DEAD = "dead"
+REPLICA_HEALTH_STATES = (
+    REPLICA_HEALTH_ACTIVE,
+    REPLICA_HEALTH_SUSPECT,
+    REPLICA_HEALTH_DEAD,
+)
+# Replica roles: which phase of work placement sends a replica (a
+# preference, not a capability limit: every engine runs both phases).
+REPLICA_ROLE_PREFILL = "prefill"
+REPLICA_ROLE_DECODE = "decode"
+REPLICA_ROLE_UNIFIED = "unified"
+REPLICA_ROLES = (
+    REPLICA_ROLE_PREFILL,
+    REPLICA_ROLE_DECODE,
+    REPLICA_ROLE_UNIFIED,
+)
+# Router placement phases (PrefixRouter.select(phase=...); None = any).
+ROUTER_PHASE_PREFILL = "prefill"
+ROUTER_PHASE_DECODE = "decode"
+ROUTER_PHASES = (ROUTER_PHASE_PREFILL, ROUTER_PHASE_DECODE)
+# Replica snapshot keys (ReplicaHandle.snapshot() / fleet telemetry rows).
+REPLICA_KEY_ID = "replica_id"
+REPLICA_KEY_STATE = "state"
+REPLICA_KEY_HEALTH = "health"
+REPLICA_KEY_SHADOW_KEYS = "shadow_keys"
+REPLICA_KEY_ROUTED_REQUESTS = "routed_requests"
+REPLICA_KEY_ROLE = "role"
+# Engine load-probe keys (DecodeServer.probe() -> router scoring): load,
+# the tensor-parallel width, and slot and pool capacity.
+PROBE_KEY_ACTIVE_SLOTS = "active_slots"
+PROBE_KEY_QUEUED_REQUESTS = "queued_requests"
+PROBE_KEY_PREFILL_BACKLOG = "prefill_backlog_tokens"
+PROBE_KEY_DRAINING = "draining"
+PROBE_KEY_TP_DEVICES = "tp_devices"
+PROBE_KEY_SLOTS_TOTAL = "slots_total"
+PROBE_KEY_KV_BLOCKS_TOTAL = "kv_blocks_total"
+# Router placement policies (PrefixRouter).
+ROUTER_POLICY_PREFIX = "prefix"
+ROUTER_POLICY_ROUND_ROBIN = "round_robin"
+ROUTER_POLICIES = (ROUTER_POLICY_PREFIX, ROUTER_POLICY_ROUND_ROBIN)
+# The value of one fleet-store hit token relative to a device-resident hit
+# token (1.0): strictly between 0 and 1, so a store hit beats recompute and
+# a device hit beats a store hit, the engine's own cost order.
+ROUTER_STORE_HIT_WEIGHT = 0.5
+
+# Fleet event names: the fleet monitor's journal and SLO events, the
+# supervisor's failure-domain events and the handoff events.
+FLEET_EV_WINDOW = "fleet.window"
+FLEET_EV_FREEZE = "fleet.freeze"
+SLO_EV_BREACH = "slo.breach"
+SLO_EV_RECOVER = "slo.recover"
+FLEET_EV_UNREACHABLE = "fleet.unreachable"  # a probe raised/timed out
+FLEET_EV_SUSPECT = "fleet.suspect"          # health active -> suspect
+FLEET_EV_RECOVERED = "fleet.recovered"      # health suspect -> active
+FLEET_EV_DEATH = "fleet.death"              # health -> dead, failover fires
+FLEET_EV_FAILOVER = "fleet.failover"        # one stream re-homed/resolved
+FLEET_EV_HANDOFF = "fleet.handoff"
+FLEET_EV_HANDOFF_REROUTE = "fleet.handoff_reroute"
+FLEET_EV_HANDOFF_FAILED = "fleet.handoff_failed"
+FLEET_EVENTS = (
+    FLEET_EV_WINDOW,
+    FLEET_EV_FREEZE,
+    SLO_EV_BREACH,
+    SLO_EV_RECOVER,
+    FLEET_EV_UNREACHABLE,
+    FLEET_EV_SUSPECT,
+    FLEET_EV_RECOVERED,
+    FLEET_EV_DEATH,
+    FLEET_EV_FAILOVER,
+    FLEET_EV_HANDOFF,
+    FLEET_EV_HANDOFF_REROUTE,
+    FLEET_EV_HANDOFF_FAILED,
+)
 
 # Paged-KV pool storage dtypes. "fp16" names the NATIVE tier: the pool
 # stores the config's dtype as it is (an f32 config stays f32). "int8"

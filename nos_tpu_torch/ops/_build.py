@@ -14,7 +14,8 @@ build raises with nvcc's output: nothing falls back to a plain version.
 
 `load` also binds the launchers' ctypes signatures and the error string
 every library exports (`nos_cuda_error_string`, from `csrc/common.cuh`);
-`raise_on`, `require` and `stream` are the wrappers' shared launch glue, and
+`raise_on`, `require`, `stream` and `count_launch` are the wrappers' shared
+launch glue, and
 `split_keys`/`split_scratch` size the split decode kernels' scratch
 (`csrc/split_decode.cuh`).
 """
@@ -109,6 +110,20 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             lib.nos_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+#: Engines on one card may each run a thread (a replica set), and each
+#: wrapper counts its launch from the thread that makes it: the counts are a
+#: read-modify-write on shared dicts, so they take this lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches: dict, routes: dict, name: str, route: str, n: int = 1) -> None:
+    """Add `n` launches of entry point `name` on `route` to a wrapper
+    module's `LAUNCHES` and `ROUTE_LAUNCHES`."""
+    with _COUNT_LOCK:
+        launches[name] += n
+        routes[name][route] += n
 
 
 def raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:

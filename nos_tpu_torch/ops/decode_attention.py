@@ -96,8 +96,7 @@ def _kernel(q, cache_k, cache_v, limit):
         part.numel(), counters.numel(), _build.stream(q),
     )
     _build.raise_on(lib, rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
-    ROUTE_LAUNCHES["decode_attention"]["split"] += 1
+    _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, "decode_attention", "split")
     return out
 
 

@@ -215,8 +215,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         rc = lib.nos_flash_fwd(*ptrs, bh, t, d, _DTYPE_CODE[q.dtype], int(causal), scale,
                                _build.stream(q))
     _build.raise_on(lib, rc, f"flash_fwd ({route})")
-    LAUNCHES["flash_fwd"] += 1
-    ROUTE_LAUNCHES["flash_fwd"][route] += 1
+    _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, "flash_fwd", route)
     return o, lse
 
 
@@ -235,8 +234,7 @@ def _bwd(name, q, k, v, do, lse, dvec, outs, causal: bool, scale: float) -> None
         rc = getattr(lib, f"nos_{name}")(*ptrs, bh, t, d, _DTYPE_CODE[q.dtype], int(causal),
                                          scale, _build.stream(q))
     _build.raise_on(lib, rc, f"{name} ({route})")
-    LAUNCHES[name] += 1
-    ROUTE_LAUNCHES[name][route] += 1
+    _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, name, route)
 
 
 def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):

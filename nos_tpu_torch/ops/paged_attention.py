@@ -194,8 +194,7 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
         _build.stream(q),
     )
     _build.raise_on(lib, rc, "paged_decode_attention")
-    LAUNCHES[count] += 1
-    ROUTE_LAUNCHES[count]["split"] += 1
+    _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, count, "split")
     return out
 
 
@@ -223,8 +222,7 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
         rc = lib.nos_paged_window_attention(*ptrs, ks, vs, *rows, *dims, qc, kc, hd ** -0.5,
                                             _build.stream(q))
     _build.raise_on(lib, rc, f"paged_window_attention ({route})")
-    LAUNCHES[count] += 1
-    ROUTE_LAUNCHES[count][route] += 1
+    _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, count, route)
     return out
 
 

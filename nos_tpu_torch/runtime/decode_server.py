@@ -59,10 +59,24 @@ zeros without it, as in the reference). `metrics=Metrics()`
 request's tenant. All of it is host bookkeeping, the same with a mesh
 or without; the one device piece is the burst's per-window token
 counts, which the captured window writes into a fixed buffer
-(`_win_counts`) and a quota-armed burst reads once. The constructor
-keeps the reference's signature; only `kv_store=` (the fleet KV store)
-is not ported yet and raises NotImplementedError naming its ROADMAP
-item, with a mesh or without.
+(`_win_counts`) and a quota-armed burst reads once.
+
+The serving plane (`nos_tpu_torch/serving/`, decode_server.py:781-819,
+:1378-1890, :2521-2640): `kv_store=FleetKVStore(...)` mounts the fleet
+KV store as the host tier through a `StoreTier`, so replicas share one
+content-addressed copy of each block; busy ticks publish a bounded
+number of indexed blocks into it (`_publish_per_tick`, one counted
+copy-out each) and idle ticks the rest, and `prewarm_from_store` queues
+a cold replica's copy-ins from it, drained under the prefill budget.
+`probe`, `transfer_in_request`, `transfer_in_checkpoint`,
+`drain_extract`, `forsake` and `reopen` are the hooks the router, the
+drain controller and the fleet supervisor drive. Phase-disaggregated
+handoff (`handoff=True`, `set_handoff_hook`) is not ported yet and
+raises NotImplementedError naming its ROADMAP item. The constructor
+keeps the reference's signature. Several engines may share one card,
+each with its own thread: their ticks share `_DEVICE_GATE` and a window
+capture holds it alone, so a replica added under load captures while
+no other engine launches.
 
 Recovery on the card. The captured window replays over fixed buffers, so
 recovery never reallocates a tensor the graph reads: `_reset_device_state`
@@ -101,6 +115,7 @@ need, so neither admission nor steady decode blocks on a host round trip.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import logging
 import queue
@@ -134,7 +149,7 @@ from nos_tpu_torch.models.speculative import (
     _LookupIndex,
     accept_prefix,
 )
-from nos_tpu_torch.ops import decode_attention, flash_attention, paged_attention
+from nos_tpu_torch.ops import _build, decode_attention, flash_attention, paged_attention
 from nos_tpu_torch.ops import quantized_kv as qkv
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
@@ -148,9 +163,15 @@ from nos_tpu_torch.runtime.faults import (
 )
 from nos_tpu_torch.runtime.spill import SpillTier
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
+from nos_tpu_torch.serving.kv_store import StoreTier
 from nos_tpu_torch.tracing import TickProfiler
 
 logger = logging.getLogger(__name__)
+
+_HANDOFF_NOT_PORTED = (
+    "phase-disaggregated handoff is not ported to PyTorch yet "
+    "(ROADMAP.md queue A: Fleet)"
+)
 
 
 class _TokRef:
@@ -162,14 +183,19 @@ class _TokRef:
     graph's output buffer may be handed over and rewritten by the next
     replay. A CPU ref holds the tensor itself: the engine never writes a
     CPU tensor it has handed to a ref. Tensor-backed refs count into the
-    engine's `blocking_syncs` ledger when they materialize."""
+    engine's `blocking_syncs` ledger when they materialize, once: the fleet
+    supervisor's probe thread reads refs too, so materializing takes the
+    ref's lock."""
 
-    __slots__ = ("_arr", "_event", "_np", "_ledger")
+    __slots__ = ("_arr", "_event", "_np", "_ledger", "_lock")
 
     def __init__(self, arr: torch.Tensor, ledger: Optional[SyncLedger] = None):
         self._np = None
         self._event = None
         self._ledger = ledger
+        # Another thread may read a ref too (the fleet supervisor's
+        # checkpoint_snapshot): one materialization, counted once.
+        self._lock = threading.Lock()
         if arr.device.type == "cuda":
             host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
             host.copy_(arr, non_blocking=True)
@@ -180,17 +206,20 @@ class _TokRef:
 
     def np(self) -> np.ndarray:
         if self._np is None:
-            if self._ledger is not None:
-                self._ledger.note()
-            if self._event is not None:
-                self._event.synchronize()
-            self._np = self._arr.numpy()
-            self._arr = None
-            self._event = None
+            with self._lock:
+                if self._np is None:
+                    if self._ledger is not None:
+                        self._ledger.note()
+                    if self._event is not None:
+                        self._event.synchronize()
+                    self._np = self._arr.numpy()
+                    self._arr = None
+                    self._event = None
         return self._np
 
     def is_ready(self) -> bool:
-        return self._np is not None or self._event is None or self._event.query()
+        event = self._event  # read once: np() on another thread clears it
+        return self._np is not None or event is None or event.query()
 
 
 def _launch_counts() -> Dict[tuple, int]:
@@ -206,8 +235,62 @@ def _launch_counts() -> Dict[tuple, int]:
 
 def _add_launches(delta: Dict[tuple, int]) -> None:
     for (mod, entry, route), n in delta.items():
-        mod.LAUNCHES[entry] += n
-        mod.ROUTE_LAUNCHES[entry][route] += n
+        _build.count_launch(mod.LAUNCHES, mod.ROUTE_LAUNCHES, entry, route, n)
+
+
+class _DeviceGate:
+    """Engine ticks share it, a window capture holds it alone. Engines on
+    one card (a replica set with a thread each) tick concurrently; a
+    capture waits for the ticks in flight to end and holds new ones back
+    until it is done (a waiting capture goes first). Reentrant per thread
+    on the shared side. One gate serves the process (`_DEVICE_GATE`): what
+    it protects, the capture's launch delta and the CUDA context a capture
+    runs in, is the process's, not an engine's."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._exclusive = False
+        self._depth = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._depth, "n", 0)
+        if depth == 0:
+            with self._cond:
+                while self._exclusive:
+                    self._cond.wait()
+                self._shared += 1
+        self._depth.n = depth + 1
+        try:
+            yield
+        finally:
+            self._depth.n = depth
+            if depth == 0:
+                with self._cond:
+                    self._shared -= 1
+                    if not self._shared:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        if getattr(self._depth, "n", 0):
+            raise RuntimeError("a window capture inside an engine tick would deadlock")
+        with self._cond:
+            while self._exclusive:
+                self._cond.wait()
+            self._exclusive = True
+            while self._shared:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._exclusive = False
+                self._cond.notify_all()
+
+
+_DEVICE_GATE = _DeviceGate()
 
 
 class _WindowGraph:
@@ -230,10 +313,21 @@ class _WindowGraph:
 
     A kernel wrapper counts its launch when its Python runs, so the
     capture's counts are taken back and kept as the graph's `delta`, and
-    each replay adds the delta: launch counts stay true under replay."""
+    each replay adds the delta: launch counts stay true under replay.
+
+    Warm-up and capture hold `_DEVICE_GATE` alone: several engines may
+    share the card (a replica set, one engine thread each), and a
+    replica added under load captures while the others serve. Their
+    ticks wait at the gate meanwhile, so no other thread launches,
+    replays or reads back while this engine captures, and the delta
+    holds this window's launches only."""
 
     def __init__(self, body, device: torch.device):
-        with torch.cuda.device(device):
+        t0 = time.perf_counter()
+        with _DEVICE_GATE.exclusive(), torch.cuda.device(device):
+            #: Seconds this capture waited at the gate for other engines'
+            #: ticks; `capture_s`: its warm-up and capture after that.
+            self.gate_wait_s = time.perf_counter() - t0
             body()  # warm-up
             before = _launch_counts()
             self._graph = torch.cuda.CUDAGraph()
@@ -250,7 +344,8 @@ class _WindowGraph:
             finally:
                 if collecting:
                     gc.enable()
-        after = _launch_counts()
+            after = _launch_counts()
+        self.capture_s = time.perf_counter() - t0 - self.gate_wait_s
         self.delta = {k: n - before[k] for k, n in after.items() if n != before[k]}
         _add_launches({k: -n for k, n in self.delta.items()})
 
@@ -470,8 +565,11 @@ class DecodeServer:
         `serving/accounting.py` CostLedger, duck-typed) per-tenant cost
         attribution; each observes or schedules on the host only, and
         with quotas off the engine's outputs and counters are the same
-        with any of them armed or not. `kv_store` (the fleet KV store) is
-        not ported yet.
+        with any of them armed or not. `kv_store` (a
+        `serving/kv_store.py` FleetKVStore, shared by the replicas of a
+        fleet) replaces the private spill tier with the fleet store: the
+        same hits and revives, plus the write-through publish, prewarm
+        and failover revives from other replicas' blocks.
 
         On CUDA the constructor captures the K-step window as a CUDA graph
         (`_WindowGraph`) that every window replays (`graph_replays`
@@ -480,11 +578,6 @@ class DecodeServer:
         cards (never run yet) runs its windows eagerly, as the CPU does."""
         if kv_dtype not in constants.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
-        if kv_store is not None:
-            raise NotImplementedError(
-                "the fleet KV store is not ported to PyTorch yet "
-                "(ROADMAP.md queue A: Fleet)"
-            )
         # Tensor-parallel serving (decode_server.py:646-691): a mesh whose
         # tp axis is wider than 1 arms it; tp=1 (or no mesh) is the
         # single-device path, with no placement and no wrapping.
@@ -589,12 +682,35 @@ class DecodeServer:
         else:
             itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
             self._bytes_per_block = cfg.layers * 2 * elems * itemsize
-        if int(spill_blocks) > 0:
+        if kv_store is not None:
+            # The fleet KV store (decode_server.py:800-809): the host tier
+            # becomes this engine's adapter over one content-addressed
+            # store every replica shares, behind the same duck surface.
+            self.spill_tier = StoreTier(kv_store)
+        elif int(spill_blocks) > 0:
             self.spill_tier = SpillTier(int(spill_blocks) * self._bytes_per_block)
+        if self.spill_tier is not None:
             # A weak reader: the manager must not keep the engine, and with
             # it the pool's device memory, alive in a reference cycle.
             reader = weakref.WeakMethod(self._extract_block)
             self._block_mgr.attach_spill(self.spill_tier, lambda block: reader()(block))
+        # Shared-store state (decode_server.py:812-819), inert on a private
+        # tier: chains queued for prewarm (`prewarm_from_store`, drained by
+        # `_pump_prewarm` under the prefill budget), the write-through
+        # publish's bound per busy tick, and the store counters.
+        self._pending_prewarm: Deque[Tuple[str, List[str], List[Tuple[int, ...]]]] = deque()
+        self._store_shared = bool(getattr(self.spill_tier, "is_shared", False))
+        self._publish_per_tick = 2
+        #: Prompt tokens copied in from the store by prewarm.
+        self.prewarm_tokens = 0
+        #: Blocks the write-through publish put into the store.
+        self.store_published_blocks = 0
+        # Phase disaggregation's counters (decode_server.py:820-833): the
+        # handoff is not ported yet, so they stay 0.
+        self.handoff_exports = 0
+        self.handoff_ingests = 0
+        self.handoff_published_blocks = 0
+        self.handoff_revived_tokens = 0
         #: Tier payloads refused for a wire format this pool cannot take.
         self.kv_quant_payload_rejected = 0
         #: Prompt tokens a restore's replay took from the host tier.
@@ -951,17 +1067,32 @@ class DecodeServer:
     # -- client side -----------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new: int = 16, tenant: Optional[str] = None,
                trace_id: Optional[str] = None) -> Future:
-        """Queue one request; thread-safe (decode_server.py:1415, :1433).
-        `tenant` names the quota account its decode tokens bill under
-        (only a QuotaPolicy acts on it); a tenant whose TenantShare pins
-        another `kv_dtype` than this pool's is refused here. `trace_id`
-        continues a trace opened elsewhere; with a tracer armed and none
-        given, the engine mints one. Raises RuntimeError once the engine
-        has stopped (or begun draining)."""
+        """Queue one request; thread-safe (decode_server.py:1415): a call
+        to `transfer_in_request` with a fresh Future. `tenant` names the
+        quota account its decode tokens bill under (only a QuotaPolicy acts
+        on it); a tenant whose TenantShare pins another `kv_dtype` than
+        this pool's is refused. `trace_id` continues a trace opened
+        elsewhere (the router's); with a tracer armed and none given, the
+        engine mints one. Raises RuntimeError once the engine has stopped
+        (or begun draining)."""
+        return self.transfer_in_request(prompt, max_new, tenant=tenant, trace_id=trace_id)
+
+    def transfer_in_request(self, prompt: Sequence[int], max_new: int = 16,
+                            tenant: Optional[str] = None, future: Optional[Future] = None,
+                            t_submit: Optional[float] = None, trace_id: Optional[str] = None,
+                            handoff: bool = False) -> Future:
+        """The request ingress (decode_server.py:1433): `submit`, plus the
+        form the drain controller (`serving/drain.py`) uses to move a
+        waiting request to another replica with its ORIGINAL client Future
+        and submit time, so the client never sees the move. Thread-safe:
+        the queue is the cross-thread boundary. `handoff=True` marks a
+        request for phase-disaggregated export, which is not ported yet."""
+        if handoff:
+            raise NotImplementedError(_HANDOFF_NOT_PORTED)
         if self._closed.is_set():
             raise RuntimeError(
                 "DecodeServer is stopped (or draining): submit() after stop() "
-                "would strand the request"
+                "would strand the request; route it elsewhere"
             )
         if self._quota is not None and tenant:
             pin = getattr(self._quota.share_of(tenant), "kv_dtype", None)
@@ -971,7 +1102,7 @@ class DecodeServer:
                     f"engine's pool is {self.kv_dtype!r}: route the request to a "
                     "matching replica"
                 )
-        fut: Future = Future()
+        fut: Future = future if future is not None else Future()
         if max_new <= 0:
             fut.set_result([])
             return fut
@@ -981,9 +1112,38 @@ class DecodeServer:
             self._tracer.event(trace_id, constants.TRACE_EV_SUBMIT,
                                prompt_tokens=len(prompt), max_new=max_new)
         self._note_accepted(fut)
-        self._queue.put(_Request(list(prompt), max_new, fut, time.monotonic(), tenant=tenant,
-                                 trace_id=trace_id))
+        self._queue.put(_Request(list(prompt), max_new, fut,
+                                 t_submit if t_submit is not None else time.monotonic(),
+                                 tenant=tenant, trace_id=trace_id))
         return fut
+
+    def transfer_in_checkpoint(self, ck: SlotCheckpoint, t_restore: Optional[float] = None,
+                               handoff: bool = False) -> None:
+        """Accept a SlotCheckpoint taken on ANOTHER replica (drain, migrate,
+        failover; decode_server.py:1504): queued as a restore, its replay
+        the tokens generated at the source, its sampling serial kept and
+        its PRNG step offset by the replay, so a temperature stream goes on
+        bit for bit on an engine with the source's params, config and
+        seed. The checkpoint's Future resolves here. `handoff=True` (a
+        phase-disaggregation arrival) is not ported yet."""
+        if handoff:
+            raise NotImplementedError(_HANDOFF_NOT_PORTED)
+        if self._closed.is_set():
+            raise RuntimeError(
+                "DecodeServer is stopped (or draining): cannot accept a "
+                "migrated checkpoint; route it elsewhere"
+            )
+        if ck.future is not None and ck.future.done():
+            return  # resolved at capture (eos or budget): nothing to replay
+        if ck.future is not None:
+            self._note_accepted(ck.future)
+        self._queue.put(_Request(
+            prompt=list(ck.prompt), max_new=ck.max_new,
+            future=ck.future if ck.future is not None else Future(),
+            t_submit=ck.t_submit, replay=list(ck.generated), serial=ck.serial,
+            t_restore=t_restore if t_restore is not None else time.monotonic(),
+            spec=dict(ck.spec) if ck.spec is not None else None, tenant=ck.tenant,
+            trace_id=ck.trace_id))
 
     def generate(self, prompt: Sequence[int], max_new: int = 16, timeout=None):
         return self.submit(prompt, max_new).result(timeout=timeout)
@@ -1053,6 +1213,259 @@ class DecodeServer:
         """Arm (or, with None, disarm) the burst-boundary checkpoint hook
         after construction; the hook only reads the checkpoints."""
         self._checkpoint_hook = hook
+
+    def set_handoff_hook(self, hook) -> None:
+        """The prefill-complete handoff hook of phase disaggregation
+        (decode_server.py:1825), which is not ported yet."""
+        raise NotImplementedError(_HANDOFF_NOT_PORTED)
+
+    # -- the serving plane's hooks (decode_server.py:1623-1890) ------------------
+    # Each may run on another thread than the engine's: `probe`,
+    # `tenant_probe` and `prefix_keys` on the router's, `checkpoint_snapshot`
+    # on the supervisor's probe thread, `prewarm_from_store` on the control
+    # thread (ReplicaSet.add, before the engine's thread starts). They read
+    # host state only and launch nothing. `drain_extract` and `forsake` join
+    # the engine's thread before they touch its state.
+    def probe(self) -> Dict[str, object]:
+        """The router's load probe (decode_server.py:1623): active slots,
+        queued requests and the prompt tokens reserved slots still owe the
+        prefill budget, plus the capacity the fleet accounts. Plain host
+        reads, no device traffic, no locks: a read racing the engine's
+        thread shades a routing score, never an output."""
+        active = 0
+        backlog = 0
+        for slot in self._slots:
+            if not slot.active:
+                continue
+            active += 1
+            pending = slot.pending_prompt
+            if pending is not None:
+                backlog += max(0, len(pending) - slot.prefill_cursor)
+        return {
+            constants.PROBE_KEY_ACTIVE_SLOTS: active,
+            constants.PROBE_KEY_QUEUED_REQUESTS: self._queue.qsize() + len(self._waiting),
+            constants.PROBE_KEY_PREFILL_BACKLOG: backlog,
+            constants.PROBE_KEY_DRAINING: self._closed.is_set(),
+            constants.PROBE_KEY_TP_DEVICES: self.tp,
+            constants.PROBE_KEY_SLOTS_TOTAL: self.n_slots,
+            # total - 1: the scratch block is never allocatable.
+            constants.PROBE_KEY_KV_BLOCKS_TOTAL: self._block_mgr.total_blocks - 1,
+        }
+
+    def drain_extract(self) -> Tuple[List[SlotCheckpoint], List[_Request]]:
+        """The drain half of the move protocol (decode_server.py:1705):
+        close admission, stop the loop, and hand back what this replica
+        owes: a checkpoint of every admitted slot (the capture recovery and
+        preemption take) and every restore already waiting, in serial
+        order, and the requests not yet admitted, FIFO, with their client
+        Futures. The pool is released and its conservation checked; the
+        engine is left stopped and empty."""
+        self._closed.set()
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self._drain_queue()
+        checkpoints: List[SlotCheckpoint] = []
+        for idx, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            ck = self._checkpoint_slot(idx)
+            self._release_slot(idx)
+            if ck is not None:
+                checkpoints.append(ck)
+        pending: List[_Request] = []
+        while self._waiting:
+            req = self._waiting.popleft()
+            if req.serial is not None:
+                # Already restore-shaped: re-wrap it as a checkpoint.
+                checkpoints.append(SlotCheckpoint(
+                    prompt=list(req.prompt), generated=list(req.replay), max_new=req.max_new,
+                    serial=req.serial, t_submit=req.t_submit, spec=req.spec,
+                    tenant=req.tenant, trace_id=req.trace_id, future=req.future))
+            else:
+                pending.append(req)
+        self._inflight.clear()
+        self._pending_verifies.clear()
+        checkpoints.sort(key=lambda ck: ck.serial)
+        if not self._block_mgr.conserved():
+            raise RuntimeError("pool conservation violated during drain")
+        return checkpoints, pending
+
+    def forsake(self) -> List[Future]:
+        """Disown every outstanding Future WITHOUT resolving it
+        (decode_server.py:1838): the fleet supervisor has taken this
+        replica's streams over (re-homed or failed each), so the `stop()`
+        that retires it must not fail them a second time. Closes
+        admission, stops the loop thread, clears every queue, slot future
+        and accepted reference, and returns the disowned futures."""
+        self._closed.set()
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        disowned: List[Future] = []
+        for slot in self._slots:
+            if slot.future is not None and not slot.future.done():
+                disowned.append(slot.future)
+            slot.future = None
+        while self._waiting:
+            req = self._waiting.popleft()
+            if not req.future.done():
+                disowned.append(req.future)
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not req.future.done():
+                disowned.append(req.future)
+        self._inflight.clear()
+        self._pending_verifies.clear()
+        with self._accept_lock:
+            self._accepted = []
+        return disowned
+
+    def reopen(self) -> None:
+        """Undo the admission close after an extraction whose re-homing
+        failed (the drain's rollback; decode_server.py:1875):
+        `drain_extract` left the engine stopped, empty and conserved, so
+        clearing the stop and closed latches makes it a valid cold
+        destination again. Only on an engine whose loop thread has
+        exited."""
+        if self._thread is not None:
+            raise RuntimeError("reopen() on an engine whose loop thread is still attached")
+        self._stop.clear()
+        self._closed.clear()
+
+    def prewarm(self) -> "DecodeServer":
+        """Run every prefill program once per prompt bucket, the mid chunk,
+        the final chunk and the multi-slot window, before traffic arrives
+        (decode_server.py:1378): the reference compiles them; here the
+        kernels are built and loaded and the programs' buffers allocated.
+        Every write goes to the scratch page (an all-zero page table), and
+        the final chunk's first-token scatter to lane 0, so it runs before
+        serving only."""
+        if any(s.active for s in self._slots):
+            raise RuntimeError("prewarm() runs before serving: a slot is active")
+        self._sync_tick_state(for_table_only=True)
+        table = self._table()
+        # All-zero page tables: a released slot's row may still name cached
+        # blocks, which the scratch writes must not touch.
+        zeros = (torch.zeros_like(table) if self._tp is None
+                 else [torch.zeros_like(t) for t in table])
+        row = self._table_row(zeros, 0)
+        with _DEVICE_GATE.shared():
+            self._first_dev = self._first_dev.clone()
+            for bucket in self.prompt_buckets:
+                dummy = np.zeros((1, bucket), dtype=np.int32)
+                self._prefill_chunk(self._stage.to_device(dummy), row, 0, 1)
+                self._prefill_last(self._stage.to_device(dummy), row, 0, 1, 0)
+                lanes = np.zeros((self.n_slots,), dtype=np.int32)
+                self._prefill_window(
+                    self._stage.to_device(np.zeros((self.n_slots, bucket), dtype=np.int32)),
+                    zeros, self._stage.to_device(lanes), self._stage.to_device(lanes),
+                    self._stage.to_device(np.zeros((self.n_slots,), dtype=bool)))
+        return self
+
+    def prewarm_from_store(self, keys: Optional[Sequence[str]] = None,
+                           max_blocks: Optional[int] = None) -> int:
+        """Queue fleet-store blocks to prewarm into this engine's device
+        cache (decode_server.py:2521): a freshly created or
+        drain-destination replica pulls the store's hot subtree into its
+        radix cache, so its first traffic hits instead of recomputing.
+        `keys` defaults to the store's MRU-first, ancestor-closed hot set;
+        each key's root chain is rebuilt from store metadata (a chain the
+        store broke by retirement is skipped). Planned keys are
+        stage-pinned at once and drained by `_pump_prewarm` under the
+        prefill budget live admissions use, admissions first. Returns the
+        number of blocks queued (0 without a shared store). Host-only: the
+        store takes its lock, the deque takes atomic appends, and only the
+        engine's thread consumes the queue and touches the pool."""
+        tier = self.spill_tier
+        if tier is None or not self._store_shared:
+            return 0
+        store = tier.store
+        if keys is None:
+            keys = store.hot_keys()
+        planned = {entry[0] for entry in self._pending_prewarm}
+        plan: List[Tuple[str, List[str], List[Tuple[int, ...]]]] = []
+        for key in keys:
+            chain: List[Tuple[str, Tuple[int, ...]]] = []
+            node, broken = key, False
+            while node:
+                meta = store.meta(node)
+                if meta is None:
+                    broken = True
+                    break
+                chain.append((node, meta[1]))
+                node = meta[0]
+            if broken:
+                continue
+            chain.reverse()
+            chain_keys = [k for k, _ in chain]
+            chain_tokens = [t for _, t in chain]
+            for i, (k, _) in enumerate(chain):
+                if k in planned or self._block_mgr.device_resident(k):
+                    continue
+                planned.add(k)
+                plan.append((k, chain_keys[: i + 1], chain_tokens[: i + 1]))
+        if max_blocks is not None:
+            plan = plan[:max_blocks]
+        if not plan:
+            return 0
+        tier.stage([k for k, _, _ in plan])
+        self._pending_prewarm.extend(plan)
+        return len(plan)
+
+    def _pump_prewarm(self, budget: int, spent: int) -> Tuple[int, int]:
+        """Drain queued prewarm copy-ins under the tick's remaining prefill
+        budget (decode_server.py:2584), `block_size` tokens a block, the
+        price a revive pays. Allocation is strictly additive: the plain
+        free list only, keeping `n_slots` free blocks for admissions, so a
+        prewarm can slow-start but never evict live traffic's cache.
+        Returns (copy-ins, budget used)."""
+        tier = self.spill_tier
+        copies = 0
+        used = 0
+        reserve = self.n_slots
+        while self._pending_prewarm:
+            key, chain_keys, chain_tokens = self._pending_prewarm[0]
+            cost = self.block_size
+            if budget and (spent + used) and spent + used + cost > budget:
+                break
+            if self._block_mgr.device_resident(key):
+                # A real admission's revive served it meanwhile.
+                self._pending_prewarm.popleft()
+                tier.unstage([key])
+                continue
+            if self._block_mgr.counts()["free"] <= reserve:
+                # No additive headroom: keep the queue for a later release.
+                break
+            payload = tier.take(key)
+            if payload is None:
+                self._pending_prewarm.popleft()
+                continue
+            if not self._payload_matches(payload):
+                # Another wire format (counted): never index bytes this
+                # pool cannot attend.
+                self.kv_quant_payload_rejected += 1
+                if self.metrics is not None:
+                    self.metrics.inc("nos_tpu_decode_kv_quant_payload_rejected")
+                self._pending_prewarm.popleft()
+                continue
+            block = self._block_mgr.admit_prewarm_block(key, chain_tokens, chain_keys,
+                                                        reserve_free=reserve)
+            if block is None:
+                self._pending_prewarm.popleft()
+                continue
+            self._dispatch_revive(payload, block)
+            self._pending_prewarm.popleft()
+            self._tick_state.mark_dirty()
+            self.prewarm_tokens += cost
+            copies += 1
+            used += cost
+        return copies, used
 
     # -- engine ----------------------------------------------------------------
     def start(self) -> "DecodeServer":
@@ -1433,6 +1846,11 @@ class DecodeServer:
                 dispatches += self._dispatch_prefill_wave(wave)
             if budget and spent >= budget:
                 break
+        if self._pending_prewarm and not exhausted:
+            # Leftover budget warms the fleet-store prewarm queue
+            # (decode_server.py:2361): admissions always go first.
+            n_pw, _ = self._pump_prewarm(budget, spent)
+            dispatches += n_pw
         return dispatches
 
     def _pump_revives(self, idx: int, budget: int, spent: int) -> Tuple[int, int]:
@@ -1930,14 +2348,15 @@ class DecodeServer:
                 self._transient_streak = 0
             except Exception as exc:  # noqa: BLE001 — classified below
                 logger.exception("decode engine step failed")
-                if not self.surgical_recovery:
-                    self._fail_all(exc)
-                    continue
-                try:
-                    self._recover(exc)
-                except Exception as rexc:  # noqa: BLE001 — the last-resort backstop
-                    logger.exception("surgical recovery failed; failing all")
-                    self._fail_all(rexc)
+                with _DEVICE_GATE.shared():
+                    if not self.surgical_recovery:
+                        self._fail_all(exc)
+                        continue
+                    try:
+                        self._recover(exc)
+                    except Exception as rexc:  # noqa: BLE001 — the last-resort backstop
+                        logger.exception("surgical recovery failed; failing all")
+                        self._fail_all(rexc)
 
     def _fail_all(self, exc: Exception) -> None:
         """The fail-all sweep (without surgical recovery, or when recovery
@@ -2170,16 +2589,17 @@ class DecodeServer:
         inside the TickProfiler (host clock reads only, never a device
         sync)."""
         prof = self._prof
-        prof.begin_tick()
-        try:
-            self._tick_phases(prof)
-        finally:
-            prof.end_tick(self.metrics)
+        with _DEVICE_GATE.shared():
+            prof.begin_tick()
+            try:
+                self._tick_phases(prof)
+            finally:
+                prof.end_tick(self.metrics)
 
     def _tick_phases(self, prof) -> None:
-        if self._engine_idle and self._queue.empty():
+        if self._engine_idle and not self._pending_prewarm and self._queue.empty():
             # The idle fast path: the previous tick proved the engine empty
-            # and only a submit can change that. O(1): the quota folds its
+            # and only a submit (or a queued prewarm) can change that. O(1): the quota folds its
             # shared empty entry, nothing is published.
             self.idle_ticks += 1
             if self._quota is not None:
@@ -2199,8 +2619,20 @@ class DecodeServer:
             self._scan_eos()
         if not any(s.active for s in self._slots):
             self._note_quota_tick()
+            if self._pending_prewarm:
+                # No live traffic: the whole prefill budget goes to prewarm
+                # copy-ins (decode_server.py:3670).
+                with prof.phase(constants.TICK_PHASE_PUMP_PREFILL):
+                    self._pump_prewarm(self.prefill_budget_tokens, 0)
+            if self._store_shared:
+                # Quiesced: publish the remaining cached blocks into the
+                # fleet store in one sweep (decode_server.py:3676).
+                self.store_published_blocks += self._block_mgr.publish_to_tier(0)
             self.idle_ticks += 1
-            self._engine_idle = not self._waiting and self._queue.empty()
+            # The fast path arms only on a provably empty engine: a waiting
+            # request needs the admission scan, a pending prewarm the pump.
+            self._engine_idle = (not self._waiting and not self._pending_prewarm
+                                 and self._queue.empty())
             with prof.phase(constants.TICK_PHASE_IDLE):
                 self._stop.wait(0.005)
             return
@@ -2245,6 +2677,13 @@ class DecodeServer:
             # blocking read.
             with prof.phase(constants.TICK_PHASE_RESOLVE):
                 self._resolve_verifies(block=True)
+        if self._store_shared:
+            # The write-through publish (decode_server.py:3740): a bounded
+            # number of indexed, still device-resident blocks a busy tick
+            # go to the fleet store before this replica dies or drains,
+            # one counted copy-out each; the idle sweep publishes the rest.
+            self.store_published_blocks += self._block_mgr.publish_to_tier(
+                self._publish_per_tick)
         self._note_quota_tick()
         if self._cost is not None:
             self._note_cost_tick(n_burst if n_burst else 1)
@@ -2541,6 +2980,39 @@ class DecodeServer:
                         total += t.numel() * t.element_size()
         return total
 
+    # -- the fleet KV store's counters (decode_server.py:4215-4251): per
+    # engine, 0 on a private tier. store_bytes and store_entries are gauges
+    # of the one shared store, so a fleet merge sums N copies of them.
+    @property
+    def store_hits(self) -> int:
+        """Revive reads the shared store served."""
+        return getattr(self.spill_tier, "store_hits", 0)
+
+    @property
+    def store_misses(self) -> int:
+        """Staged revives the store had retired meanwhile."""
+        return getattr(self.spill_tier, "store_misses", 0)
+
+    @property
+    def store_puts(self) -> int:
+        """Spills and publishes this engine put into the shared store."""
+        return getattr(self.spill_tier, "store_puts", 0)
+
+    @property
+    def store_dedup_hits(self) -> int:
+        """Puts that found the key already resident: N replicas, one copy."""
+        return getattr(self.spill_tier, "store_dedup_hits", 0)
+
+    @property
+    def store_bytes(self) -> int:
+        """Shared-store resident bytes (a gauge; 0 on a private tier)."""
+        return self.spill_tier.host_bytes if self._store_shared else 0
+
+    @property
+    def store_entries(self) -> int:
+        """Shared-store resident entries (a gauge)."""
+        return len(self.spill_tier) if self._store_shared else 0
+
     @property
     def borrowed_ticks(self) -> int:
         """Ticks where a tenant ran above its guaranteed share
@@ -2620,10 +3092,18 @@ class DecodeServer:
         m.set_gauge("nos_tpu_decode_radix_nodes", self.radix_nodes)
         m.set_gauge("nos_tpu_decode_kv_quant_enabled", self.kv_quant_enabled)
         m.set_gauge("nos_tpu_decode_kv_quant_pool_bytes", self.kv_pool_bytes)
+        if self._store_shared:
+            m.set_gauge("nos_tpu_fleet_kv_store_bytes", self.store_bytes)
+            m.set_gauge("nos_tpu_fleet_kv_store_entries", self.store_entries)
         for name, cur in (
             ("nos_tpu_decode_spills", self.spills),
             ("nos_tpu_decode_revives", self.revives),
             ("nos_tpu_decode_spill_drops", self.spill_drops),
+            ("nos_tpu_fleet_kv_store_hits", self.store_hits),
+            ("nos_tpu_fleet_kv_store_misses", self.store_misses),
+            ("nos_tpu_fleet_kv_store_puts", self.store_puts),
+            ("nos_tpu_fleet_kv_store_dedup_hits", self.store_dedup_hits),
+            ("nos_tpu_fleet_kv_prewarm_tokens", self.prewarm_tokens),
             ("nos_tpu_fleet_kv_failover_revive_tokens", self.failover_revive_tokens),
             ("nos_tpu_decode_borrowed_ticks", self.borrowed_ticks),
             ("nos_tpu_decode_h2d_uploads", self.h2d_uploads),

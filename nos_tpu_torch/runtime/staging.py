@@ -21,20 +21,26 @@ and `TickState` (:87, with `mesh` :99-142).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 
 class SyncLedger:
-    """Counts blocking device->host reads on the tick path."""
+    """Counts blocking device->host reads on the tick path (and the fleet
+    supervisor's passive reads of the engine's token refs, from its own
+    thread: the count takes a lock)."""
 
-    __slots__ = ("syncs",)
+    __slots__ = ("syncs", "_lock")
 
     def __init__(self) -> None:
         self.syncs = 0
+        self._lock = threading.Lock()
 
     def note(self) -> None:
-        self.syncs += 1
+        with self._lock:
+            self.syncs += 1
 
 
 class HostStage:

@@ -5,8 +5,12 @@
 
 `collect_serving` snapshots a DecodeServer's engine counters into a
 `ServingReport`: pure numbers, never tokens or prompts. It duck-types
-with `getattr`, so the fields of features the port does not have yet
-(the fleet KV store, handoffs, the fleet supervisor) read 0.
+with `getattr`; the port's engine has every counter it reads, the fleet
+KV store's included (`store_*`, `prewarm_tokens`,
+`failover_revive_tokens`), and only the handoff counters of phase
+disaggregation, which is not ported yet, stay 0. The supervisor's
+counters come from `FleetSupervisor.report()`, merged beside the
+replicas' reports.
 `export_serving` ships the report only when the caller opts in. The
 reference module's cluster half (:33-84, `ClusterReport`, `collect`,
 `export`) reads the k8s control plane of `nos_tpu.cluster`, which is not

@@ -23,8 +23,9 @@ from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu_torch import DecodeServer, GPTConfig, from_numpy_params, init_gpt
 from nos_tpu_torch.models.decode import init_paged_cache
 from nos_tpu_torch.observability import Metrics
+from nos_tpu_torch.runtime.checkpoint import SlotCheckpoint
 from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
-from nos_tpu_torch.serving import CostLedger
+from nos_tpu_torch.serving import CostLedger, FleetKVStore
 from nos_tpu_torch.tracing import EngineTracing
 
 from conftest import serving_test_config, serving_test_params
@@ -159,9 +160,17 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    # The fleet KV store is the one argument still refused.
+    # The fleet KV store is taken; phase-disaggregated handoff is the one
+    # piece still refused, on either transfer hook and its hook setter.
+    server = DecodeServer(tparams, tcfg, device="cpu", kv_store=FleetKVStore(1 << 20))
+    assert server.spill_tier.is_shared
     with pytest.raises(NotImplementedError, match="Fleet"):
-        DecodeServer(tparams, tcfg, device="cpu", kv_store=object())
+        server.transfer_in_request([1, 2, 3], 4, handoff=True)
+    with pytest.raises(NotImplementedError, match="Fleet"):
+        server.transfer_in_checkpoint(SlotCheckpoint(prompt=[1, 2, 3], generated=[4],
+                                                     max_new=4, serial=1), handoff=True)
+    with pytest.raises(NotImplementedError, match="Fleet"):
+        server.set_handoff_hook(print)
     # Quotas, metrics, tracing and the cost ledger construct.
     for kw in (dict(quota=QuotaPolicy({"g": TenantShare(0.5, 1.0)})), dict(metrics=Metrics()),
                dict(tracing=EngineTracing()), dict(cost_ledger=CostLedger())):
@@ -207,7 +216,8 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "assert 'nos_tpu_torch.runtime.faults' in sys.modules\n"
         "assert 'nos_tpu_torch.runtime.checkpoint' in sys.modules\n"
         "for m in ('runtime.quota', 'tracing', 'observability', 'telemetry',\n"
-        "          'serving.accounting'):\n"
+        "          'serving.accounting', 'serving.kv_store', 'serving.replica',\n"
+        "          'serving.router', 'serving.drain', 'serving.supervisor'):\n"
         "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')]\n"
@@ -217,3 +227,169 @@ def test_package_imports_neither_jax_nor_nos_tpu():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=repo)
     assert res.returncode == 0, res.stderr
+
+
+def _getattr_probes(path, obj):
+    """The names a module reads off `obj` with getattr(obj, "name", ...)."""
+    import re
+
+    with open(path) as f:
+        return set(re.findall(r'getattr\(\s*' + obj + r',\s*"(\w+)"', f.read()))
+
+
+def test_serving_plane_probes_find_every_engine_hook(model):
+    """The serving plane duck-types the engine with getattr(..., None) or
+    getattr(..., 0) and takes an "absent" branch when a name is missing:
+    in the port none may be missing. Every engine method the reference's
+    drain, replica and supervisor modules probe exists on the port's
+    DecodeServer, and so does every counter `collect_serving` reads that
+    the JAX engine has (the rest are the supervisor's, which it reports
+    itself)."""
+    jcfg, jparams, tcfg, tparams = model
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hooks = set()
+    for name in ("drain", "replica", "router", "supervisor"):
+        hooks |= _getattr_probes(os.path.join(root, "nos_tpu", "serving", name + ".py"),
+                                 r"(?:\w+\.)?engine")
+    assert hooks == {"reopen", "_thread", "prewarm_from_store", "set_checkpoint_hook",
+                     "checkpoint_snapshot", "forsake", "kv_dtype"}
+    jsrv = JaxServer(jparams, jcfg)
+    tsrv = DecodeServer(tparams, tcfg, device="cpu")
+    for hook in hooks:
+        assert hasattr(tsrv, hook), hook
+        assert callable(getattr(tsrv, hook)) == callable(getattr(jsrv, hook)), hook
+    read = _getattr_probes(os.path.join(root, "nos_tpu", "telemetry.py"), "server")
+    assert read == _getattr_probes(os.path.join(root, "nos_tpu_torch", "telemetry.py"),
+                                   "server")
+    missing = {n for n in read if hasattr(jsrv, n) and not hasattr(tsrv, n)}
+    assert not missing, missing
+    assert {n for n in read if not hasattr(jsrv, n)} == {
+        "replica_suspects", "replica_deaths", "failovers", "failover_replay_tokens",
+        "futures_failed_over", "futures_errored", "failover_latency_s"}
+    for n in ("store_hits", "store_misses", "store_puts", "store_dedup_hits",
+              "store_published_blocks", "prewarm_tokens", "failover_revive_tokens",
+              "store_bytes", "store_entries", "handoff_exports", "handoff_ingests",
+              "handoff_published_blocks", "handoff_revived_tokens"):
+        assert getattr(tsrv, n) == getattr(jsrv, n) == 0, n
+
+
+def test_device_gate_token_refs_and_counts_hold_under_thread_chaos():
+    """Engines on one card tick from their own threads (a replica set):
+    a window capture (`_DEVICE_GATE.exclusive`) never overlaps a tick
+    (`shared`, reentrant), a capture inside a tick is refused, a token
+    ref read from several threads materializes and counts once, and
+    concurrent launch counts lose no update. Threads outnumber the cores
+    and the switch interval is short, so a lost update would show."""
+    import threading
+    import time
+
+    from nos_tpu_torch.ops import _build
+    from nos_tpu_torch.runtime import decode_server as ds
+    from nos_tpu_torch.runtime.staging import SyncLedger
+
+    gate = ds._DeviceGate()
+    lock = threading.Lock()
+    inside = {"shared": 0, "exclusive": 0}
+    errors = []
+    ledger = SyncLedger()
+    refs = [ds._TokRef(torch.arange(4, dtype=torch.int32) + i, ledger) for i in range(200)]
+    launches, routes = {"k": 0}, {"k": {"r": 0}}
+    n_threads = 2 * (os.cpu_count() or 4)
+
+    captured = threading.Event()
+
+    def ticker():
+        while not captured.is_set():  # tick for as long as captures happen
+            with gate.shared(), gate.shared():
+                with lock:
+                    inside["shared"] += 1
+                    if inside["exclusive"]:
+                        errors.append("a tick ran during a capture")
+                time.sleep(0)
+                with lock:
+                    inside["shared"] -= 1
+
+    def capturer():
+        for _ in range(20):
+            with gate.exclusive():
+                with lock:
+                    inside["exclusive"] += 1
+                    if inside["shared"] or inside["exclusive"] > 1:
+                        errors.append("a capture overlapped a tick or a capture")
+                time.sleep(0.002)  # a capture takes a while: ticks must wait it out
+                with lock:
+                    inside["exclusive"] -= 1
+
+    def reader():
+        for i, ref in enumerate(refs):
+            if ref.is_ready():
+                assert ref.np().tolist() == [i, i + 1, i + 2, i + 3]
+
+    def counter():
+        for _ in range(1000):
+            _build.count_launch(launches, routes, "k", "r")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        captures = [threading.Thread(target=capturer) for _ in range(2)]
+        threads = ([threading.Thread(target=ticker) for _ in range(n_threads)]
+                   + [threading.Thread(target=reader) for _ in range(n_threads)]
+                   + [threading.Thread(target=counter) for _ in range(n_threads)])
+        for t in threads + captures:
+            t.start()
+        for t in captures:
+            t.join(timeout=20)
+        starved = any(t.is_alive() for t in captures)  # new ticks must wait for a capture
+        captured.set()
+        for t in threads + captures:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads + captures)
+    finally:
+        sys.setswitchinterval(old)
+    assert not starved and not errors, errors[:3]
+    assert ledger.syncs == len(refs)
+    assert launches["k"] == routes["k"]["r"] == 1000 * n_threads
+    with gate.shared():
+        with pytest.raises(RuntimeError, match="deadlock"):
+            with gate.exclusive():
+                pass
+
+
+def test_prewarm_runs_every_prefill_program_and_changes_nothing(model):
+    """`prewarm()` (reference decode_server.py:1378, tests/test_radix_serving.py:199)
+    runs each bucket's mid chunk, final chunk and window wave on the scratch
+    page before traffic: the same uploads as the JAX engine's, and the
+    traffic after it serves the tokens and counters of an engine without
+    it (and of the JAX engine prewarmed alike). It refuses an engine that
+    is serving."""
+    jcfg, jparams, tcfg, tparams = model
+    kw = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16, 32), block_size=8)
+    prompt = [((i * 5) % 91) + 1 for i in range(24)]
+    counters = DISPATCH_COUNTERS + ("h2d_uploads", "staging_syncs", "prefix_hit_blocks",
+                                    "prefix_cow_hits")
+
+    def run(server):
+        outs = []
+        for _ in range(2):  # cold, then a full-prefix hit
+            fut = server.submit(prompt, max_new=4)
+            for _ in range(400):
+                if fut.done():
+                    break
+                server._tick()
+            outs.append(fut.result(timeout=5))
+        return outs, {c: getattr(server, c) for c in counters}
+
+    jwarm = JaxServer(jparams, jcfg, **kw).prewarm()
+    twarm = DecodeServer(tparams, tcfg, device="cpu", **kw).prewarm()
+    assert twarm.h2d_uploads == jwarm.h2d_uploads
+    assert twarm.staging_syncs == jwarm.staging_syncs
+    got, want = run(twarm), run(jwarm)
+    assert got == want
+    plain = run(DecodeServer(tparams, tcfg, device="cpu", **kw))
+    assert got[0] == plain[0] and got[0][0] == got[0][1]
+    fut = twarm.submit(prompt, max_new=8)
+    twarm._tick()
+    with pytest.raises(RuntimeError, match="before serving"):
+        twarm.prewarm()
+    fut.cancel()

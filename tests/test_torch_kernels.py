@@ -28,7 +28,11 @@ radix tree's block copies byte for byte on the card (tp=1 and tp=2), a
 verify window (W = 9) on the mma route against the plain version, and a
 spec-armed engine with the radix cache on the card against spec-off. And
 the f32 rows the engine's programs of different shapes give for the same
-inputs (ROADMAP C)."""
+inputs (ROADMAP C). For the serving plane: an engine prewarmed before it
+serves, and one built (its window captured) while two engines tick on
+their own threads, its launch delta that of an idle build."""
+
+import time
 
 import numpy as np
 import pytest
@@ -1201,3 +1205,74 @@ def test_preemption_mid_burst_keeps_one_capture_and_revives_bytes(cuda_device, m
     assert server.graph_captures == 1
     assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
     assert server._block_mgr.conserved()
+
+
+def _fleet_engine(cuda_device, params, cfg, **kw):
+    from nos_tpu_torch import DecodeServer
+
+    return DecodeServer(params, cfg, device=cuda_device, n_slots=2, max_len=96,
+                        prompt_buckets=(8, 16), steps_per_dispatch=4, block_size=8, **kw)
+
+
+def test_prewarm_then_serve_on_card(cuda_device):
+    """`prewarm()` runs every bucket's prefill programs on the scratch page
+    of an engine about to serve: the traffic after it gives the tokens of
+    an engine without it, every window a replay of the one capture."""
+    from nos_tpu_torch import GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(6)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), m) for n, m in ((7, 30), (18, 25))]
+
+    def serve(server):
+        futs = [server.submit(p, max_new=m) for p, m in reqs]
+        while not all(f.done() for f in futs):
+            server._tick()
+        return [f.result() for f in futs]
+
+    want = serve(_fleet_engine(cuda_device, params, cfg))
+    warm = _fleet_engine(cuda_device, params, cfg).prewarm()
+    assert serve(warm) == want
+    assert warm.graph_captures == 1
+    assert warm.graph_replays == warm.macro_dispatches + warm.burst_windows_run > 0
+
+
+def test_capture_under_live_engine_threads(cuda_device):
+    """Engines sharing the card each tick on their own thread while another
+    engine is built, which captures its window meanwhile (a replica added
+    under load): the new graph's launch delta is the one an engine built
+    on an idle card captures, the serving engines' tokens are those of a
+    run with no capture beside it, and every engine's windows are replays
+    of its one capture."""
+    from nos_tpu_torch import GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="float32")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(7)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), 80) for n in (5, 9, 14, 6, 11, 3)]
+    idle = _fleet_engine(cuda_device, params, cfg)
+    want = []
+    for _ in range(2):
+        server = _fleet_engine(cuda_device, params, cfg)
+        futs = [server.submit(p, max_new=m) for p, m in reqs]
+        while not all(f.done() for f in futs):
+            server._tick()
+        want.append([f.result() for f in futs])
+    engines = [_fleet_engine(cuda_device, params, cfg) for _ in range(2)]
+    futs = [[e.submit(p, max_new=m) for p, m in reqs] for e in engines]
+    for e in engines:
+        e.start()
+    while not all(s.active and s.phase == "decoding" for e in engines for s in e._slots):
+        time.sleep(0.001)
+    new = _fleet_engine(cuda_device, params, cfg)  # built while both engines decode
+    got = [[f.result(timeout=300) for f in fs] for fs in futs]
+    for e in engines:
+        e.stop()
+    assert got == want
+    assert new._graph.delta == idle._graph.delta
+    for e in engines + [new, idle]:
+        assert e.graph_captures == 1
+        assert e.graph_replays == e.macro_dispatches + e.burst_windows_run

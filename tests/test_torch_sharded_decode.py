@@ -33,6 +33,7 @@ from nos_tpu_torch.parallel import (build_mesh, decode_param_rules, param_partit
 from nos_tpu_torch.observability import Metrics
 from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
 from nos_tpu_torch.runtime.staging import HostStage, TickState
+from nos_tpu_torch.serving import FleetKVStore
 
 from conftest import serving_test_config, serving_test_params
 
@@ -124,12 +125,25 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
 
 @pytest.mark.parametrize("case", ["kv_store", "quota+metrics"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, case):
-    """At tp=2 the fleet KV store is still refused; quotas and metrics
-    construct and serve."""
+    """At tp=2 the fleet KV store constructs and publishes full-width
+    payloads, and phase-disaggregated handoff is still refused; quotas and
+    metrics construct and serve."""
     _, _, tcfg, tparams = model
     if case == "kv_store":
+        store = FleetKVStore(1 << 24)
+        server = make(tparams, tcfg, mesh=mesh, kv_store=store)
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: Fleet"):
-            make(tparams, tcfg, mesh=mesh, kv_store=object())
+            server.transfer_in_request(PROMPTS[0], 8, handoff=True)
+        fut = server.submit(PROMPTS[0], max_new=8)
+        for _ in range(400):
+            if fut.done():
+                break
+            server._tick()
+        assert len(fut.result(timeout=5)) == 8
+        for _ in range(4):
+            server._tick()  # the idle sweep publishes the cached blocks
+        assert server.store_published_blocks > 0 and store.entries > 0
+        assert store.host_bytes == store.entries * server._bytes_per_block
         return
     registry = Metrics()
     server = make(tparams, tcfg, mesh=mesh, metrics=registry,
