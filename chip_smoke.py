@@ -11,6 +11,7 @@ them.
     python3 chip_smoke.py --phases build,card,faults
     python3 chip_smoke.py --phases build,card,quota,trace
     python3 chip_smoke.py --phases build,card,fleet
+    python3 chip_smoke.py --phases build,card,disagg
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -177,11 +178,12 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            (:125): 3 replicas x 4 slots, max_len 1024, K 16, block 32, one
            engine thread each (ReplicaSet(start=True)), 6 tenants' 256-token
            system prompts, 18 requests of 32 new, round_robin against
-           prefix; then on each fleet 20 requests of 64 tokens x 384 new
-           submitted to the replicas directly (12 on replica-0), and on the
-           prefix fleet, once replica-0 decodes, a new replica is built (its
-           window captured while the other engines serve) and
-           migrate_replica moves replica-0's streams onto the fleet.
+           prefix; then, in bf16 only, on each fleet 20 requests of 64
+           tokens x 384 new submitted to the replicas directly (12 on
+           replica-0), and on the prefix fleet, once replica-0 decodes, a
+           new replica is built (its window captured while the other
+           engines serve) and migrate_replica moves replica-0's streams
+           onto the fleet.
            fleet_failover (:1488): 3 replicas of the cell's tiny engine,
            replica-0's host killed at wave 5 once its streams hold
            checkpoints, the supervisor against a fault-free reference.
@@ -206,6 +208,51 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            latency p50/p95 with replay and revive tokens, the drain's wall
            time and slots migrated, the build time of a replica added under
            load against idle ones, and the phase's seconds;
+  disagg   phase-disaggregated serving, the fleet monitor and the debug plane
+           (nos_tpu_torch/serving/disagg.py, monitor.py, observability.py):
+           bench.py's interference_4k_disagg (:2480; bf16 then f32, greedy:
+           7 streams of 128 tokens x 512 new, then one 4096-token prompt x
+           16 new once they decode; budget 1024, block 32, K 4, 8 slots)
+           and disagg_long_context (:2498; bf16, temperature 0 and 0.8,
+           max_seq 32896: 4 streams of 24 x 512, a 32768-token prompt x 32
+           and a distinct warm one) on the bench GPT, each colocated (one
+           engine) against disaggregated (a prefill and a decode replica on
+           their threads over one FleetKVStore, a PrefixRouter and a
+           HandoffCoordinator); and fleet_pressure (:1154; bf16: 3 quota-
+           armed replicas x 2 slots, max_len 64, K 4, one CostLedger and one
+           Tracer, a FleetMonitor sampling every 2 manual ticks, the hot
+           burst and the gold arrivals from default_rng([2026, 12, 3])),
+           monitor off against on in turns, and beside the on arm an
+           ObservabilityServer on 127.0.0.1 with a bearer token. Then the two
+           paged kernels held and timed at the cells' shapes (the long
+           prompts' single chunks, W 32768 and W 4096 from key 0, the plain
+           version in row slices; a W 1024 chunk whose keys end at 32768;
+           five decode lanes, one at 32784 keys). Gates: every future
+           resolves; pools and store conserved,
+           no pin; one capture per engine, every window a replay; decode on
+           "split", bf16 windows on "mma"; every handoff made and every
+           revivable prompt block of a handed-off request not already on
+           the decode engine revived from the store (> 0 each disaggregated
+           arm); the short streams and the long stream each against the
+           plain programs' oracle at the engine's own buckets, gated apart
+           (shorts: check_logits, f32 within F32_CROSS_SHAPE_STEPS, the
+           sampled arm against the threefry draw over plain logits; the
+           long stream: check_long, at most LONG_MISSES positions beyond a
+           step, each within LONG_STEPS, forced in a disaggregated arm as
+           its destination replays it); streams equal across the arms
+           gated in f32 (same_streams); monitor on/off outputs and counters
+           equal, HOT and STARVED each within one window of its injection
+           (STARVED agreeing with the QuotaPolicy), the journal bounded,
+           parsed and replayed equal to the live verdicts; /metrics,
+           /healthz, /readyz, /debug, /debug/pressure, /debug/accounting,
+           /debug/events and a /debug/trace/<id> answer 200 with the token,
+           /metrics and /debug/pressure 401 without. Prints per arm the
+           decode tok/s during the prefill window, the window, the long
+           TTFT, peak memory and utilization_block, the interference ratio,
+           handoff latency p50/p95 and the export's share, the handoff
+           counters, store entries and bytes, launches by route, the
+           monitor's cost against the off arm's spread, the transitions'
+           windows and the journal's lines;
   dense    the dense programs on the same bench GPT. Greedy generate in bf16
            (the main path) and f32: batch 8, prompts of 1024 tokens, 256
            steps, the cache at max_len 8192; the decode_attention count is
@@ -248,8 +295,9 @@ timed launches), each entry with the route its main-path launches took
 the three bf16 flash kernels; or "simt"; the engine, tp, quant, dense and
 train phases check that every decode launch took "split" and every bf16
 window and flash launch "mma"; the two paged entries also carry
-`quota_launches` and `fleet_launches`, the quota phase's and the fleet
-phase's bf16 serving launches by route);
+`quota_launches`, `fleet_launches` and `disagg_launches`, the quota,
+fleet and disagg phases' bf16 serving launches by route, and `disagg_32k`,
+the kernel checked and timed at the 32k cell's shape);
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -258,6 +306,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -958,7 +1008,7 @@ def plain_attention():
 
     saved = (pa.paged_decode_attention, pa.paged_window_attention, D.decode_attention)
     pa.paged_decode_attention = pa._reference
-    pa.paged_window_attention = pa._window_reference
+    pa.paged_window_attention = window_reference_rows
     D.decode_attention = da._reference
     try:
         yield
@@ -966,15 +1016,44 @@ def plain_attention():
         pa.paged_decode_attention, pa.paged_window_attention, D.decode_attention = saved
 
 
+# Rows of the plain window a call computes at once: a 32768-row prefill
+# chunk's scores over its keys are 34 GB in f32, so longer windows run in
+# row slices (each row's softmax is its own: the same function).
+PLAIN_WINDOW_ROWS = 4096
+
+
+def window_reference_rows(q, pool_k, pool_v, table, pos, lengths, mask, k_scale=None,
+                          v_scale=None):
+    """`paged_attention._window_reference` over slices of PLAIN_WINDOW_ROWS
+    rows, each at its own position and with its own count of valid rows."""
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    import torch
+
+    w = q.shape[2]
+    if w <= PLAIN_WINDOW_ROWS:
+        return pa._window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
+                                    k_scale, v_scale)
+    return torch.cat([
+        pa._window_reference(q[:, :, r:r + PLAIN_WINDOW_ROWS].contiguous(), pool_k, pool_v,
+                             table, pos + r, (lengths - r).clamp(0, PLAIN_WINDOW_ROWS), mask,
+                             k_scale, v_scale)
+        for r in range(0, w, PLAIN_WINDOW_ROWS)], dim=2)
+
+
 def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, device,
-                   mesh=None, kv_dtype=None):
+                   mesh=None, kv_dtype=None, handoff=False):
     """Logits of a teacher-forced greedy pass over prompt+output, shaped as
     the engine's own programs: each prompt in chunks of the largest bucket
     (the final one padded to its bucket, batch 1), then the outputs fed
     back through batched single-token decode steps. Returns [n, max_new,
     vocab] f32 logits; row t predicts output token t. With a `mesh` the
     programs run tensor-parallel over its "tp" shards; `kv_dtype` "int8"
-    runs them over an int8 pool."""
+    runs them over an int8 pool. `handoff` shapes the first output token
+    as a handoff's destination replays it: prompt + first token from the
+    start of the last token's block (the blocks below it are revived, not
+    recomputed) through one prefill chunk, whose last row predicts token
+    1; the decode steps follow from there."""
     from nos_tpu_torch.models import decode as D
 
     tp = None
@@ -1008,10 +1087,19 @@ def teacher_forced(torch, params, cfg, prompts, outputs, buckets, block_size, de
                                           len(piece), block_size, with_logits=last, tp=tp)
             if last:
                 logits[i, 0] = lg[len(piece) - 1]
+        if handoff:
+            full = list(prompt) + [outputs[i][0]]
+            start = (len(full) - 1) // block_size * block_size
+            tail = full[start:]
+            toks = torch.zeros((1, bucket(len(tail))), dtype=torch.int32, device=device)
+            toks[0, : len(tail)] = torch.tensor(tail, dtype=torch.int32)
+            lg, _ = D.paged_prefill_chunk(params, toks, cfg, cache, table[i], start, len(tail),
+                                          block_size, tp=tp)
+            logits[i, 1] = lg[len(tail) - 1]
     out_t = torch.tensor(outputs, dtype=torch.int32, device=device)
     plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
     mask = torch.ones((n,), dtype=torch.bool, device=device)
-    for t in range(max_new - 1):
+    for t in range(1 if handoff else 0, max_new - 1):
         lg, _ = D.paged_decode_step(params, out_t[:, t].contiguous(), cfg, cache, table,
                                     plen + t, mask, block_size, tp=tp)
         logits[:, t + 1] = lg
@@ -1825,7 +1913,7 @@ def checked_copies(torch, server, seen):
     def checked_revive(tensors, block):
         revive(tensors, block)
         if seen["revive"] < COPY_CHECKS:
-            got = server._extract(block)
+            got = [t[:, 0] for t in server._gather_blocks([block])]
             check(len(got) == len(tensors)
                   and all(torch.equal(raw(g), raw(t)) for g, t in zip(got, tensors)),
                   f"radix: block {block} differs from the payload revived into it")
@@ -1834,7 +1922,7 @@ def checked_copies(torch, server, seen):
     def checked_cow(src, dst, length):
         cow(src, dst, length)
         if seen["cow"] < COPY_CHECKS:
-            s, d = server._extract(src), server._extract(dst)
+            s, d = ([t[:, 0] for t in server._gather_blocks([b])] for b in (src, dst))
             ok = all(torch.equal(raw(dt[:, :, :length]), raw(st[:, :, :length]))
                      for st, dt in zip(s[:2], d[:2]))
             if len(s) == 4:
@@ -1945,7 +2033,7 @@ def payload_across_widths(torch, server, cfg, params, device):
     from nos_tpu_torch.parallel import build_mesh
 
     block = next(b for b in range(1, server.total_blocks)
-                 if server._extract(b)[0].abs().sum().item() > 0)
+                 if server._gather_blocks([b])[0].abs().sum().item() > 0)
     (k, v), nbytes = server._extract_block(block)
     mesh = build_mesh({"tp": 2}, devices=[device, device])
     two = DecodeServer(params, cfg, n_slots=1, max_len=64, prompt_buckets=(8,),
@@ -3397,8 +3485,9 @@ def multi_run(torch, cfg, params, device, m, policy, migrate):
     burst, timed. Then the migrate traffic, submitted to the replicas
     directly (mig_src on replica-0): with `migrate`, once replica-0
     decodes, a new replica is built (its window captured while the other
-    engines serve) and `migrate_replica` moves replica-0's streams; else
-    the traffic runs where it was placed (the reference placement)."""
+    engines serve) and `migrate_replica` moves replica-0's streams; with
+    `migrate` False the traffic runs where it was placed (the reference
+    placement); with None there is no migrate traffic."""
     from nos_tpu_torch import DecodeServer, constants
     from nos_tpu_torch.serving import PrefixRouter, ReplicaSet, migrate_replica
     from nos_tpu_torch.telemetry import percentile
@@ -3454,17 +3543,20 @@ def multi_run(torch, cfg, params, device, m, policy, migrate):
             "tick_phase_ms": tick_phase_ms,
             "router": {k: v for k, v in router.snapshot().items() if k != "replicas"},
         }
+        mig_outs = []
+        if migrate is None:
+            mig_prompts = []
         # The migrate traffic: mig_src requests on replica-0, mig_other on
         # each other replica, all on their engines' threads.
-        n_src = m["mig_src"]
+        n_src = m["mig_src"] if mig_prompts else 0
         targets = [0] * n_src + [1 + i // m["mig_other"]
                                  for i in range(len(mig_prompts) - n_src)]
         mig_futs = [rs.handles[r].engine.submit(p, max_new=m["mig_new"])
                     for r, p in zip(targets, mig_prompts)]
         src = rs.handles[0]
         deadline = time.perf_counter() + 600
-        while not any(s.active and s.phase == "decoding" and len(s.refs) >= 2
-                      for s in src.engine._slots):
+        while mig_futs and not any(s.active and s.phase == "decoding" and len(s.refs) >= 2
+                                   for s in src.engine._slots):
             check(time.perf_counter() < deadline, "fleet migrate: replica-0 never decoded")
             time.sleep(0.0005)
         if migrate:
@@ -3812,7 +3904,9 @@ def phase_fleet(torch, device, small=False):
     _fleet_failover (the supervisor against a fault-free reference) and
     _shared_kv_fleet (dedup, prewarm, failover with and without the store)
     on the bench GPT, bf16 (the main path) then f32, and in f32 the
-    cross-width drain. The launch counts are zeroed before each dtype's
+    cross-width drain. The f32 half serves no migrate traffic (its 20
+    requests of 384 new tokens and their oracle; the script's time limit).
+    The launch counts are zeroed before each dtype's
     arms and read after them, before any oracle runs. Gates: every future
     resolves (the supervisor's ReplicaLostErrors classified), every pool
     and store conserved with no pin left, shared entries <= 1/2 of the
@@ -3838,22 +3932,33 @@ def phase_fleet(torch, device, small=False):
         params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
         st = stats[dtype] = {}
         # The serving arms.
+        parts = st["parts_s"] = {}
+        t1 = time.perf_counter()
         pa.reset_launch_counts()
+        bf16 = dtype == "bfloat16"
         rr_outs, rr_mig, prompts, mig_prompts, st["round_robin"] = multi_run(
-            torch, cfg, params, device, m, "round_robin", migrate=False)
+            torch, cfg, params, device, m, "round_robin", migrate=False if bf16 else None)
         px_outs, px_mig, _, _, st["prefix"] = multi_run(
-            torch, cfg, params, device, m, "prefix", migrate=True)
+            torch, cfg, params, device, m, "prefix", migrate=True if bf16 else None)
+        parts["multi"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
         fprompts = failover_traffic(cfg)
         state = {}
         ref_outs, st["failover_reference"] = failover_run(torch, cfg, params, device,
                                                           fprompts, "reference", state)
         on_outs, st["failover_on"] = failover_run(torch, cfg, params, device, fprompts, "on",
                                                   state)
+        parts["failover"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
         sprompts = shared_kv_traffic(cfg)
         skv, st["shared_kv"] = shared_kv_runs(torch, cfg, params, device, sprompts)
+        parts["shared_kv"] = time.perf_counter() - t1
         if dtype == "float32":
+            t1 = time.perf_counter()
             cross, cross_base, st["cross_tp"] = cross_tp_drain(torch, cfg, params, device)
+            parts["cross_tp"] = time.perf_counter() - t1
         sync(torch, device)
+        t1 = time.perf_counter()
         routes = st["routes"] = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
         launches = st["launches"] = dict(pa.LAUNCHES)
         if cuda:
@@ -3865,6 +3970,8 @@ def phase_fleet(torch, device, small=False):
                 ("round_robin", rr_outs, None, prompts, m["max_new"]),
                 ("prefix", px_outs, rr_outs, prompts, m["max_new"]),
                 ("migrate", px_mig, rr_mig, mig_prompts, m["mig_new"])):
+            if not outs:
+                continue
             check(all(len(o) == n for o in outs), f"fleet {name} {dtype}: short streams")
             tok, plain = fleet_oracle(torch, cfg, params, device, ps, outs, m["buckets"],
                                       m["block_size"], dtype)
@@ -3908,6 +4015,7 @@ def phase_fleet(torch, device, small=False):
             check_logits(tok, "fleet cross-tp", F32_CROSS_SHAPE_STEPS)
             st["cross_tp"]["equal"] = same_streams(torch, plain, got, want, dtype,
                                                    "fleet cross-tp")
+        parts["oracles"] = time.perf_counter() - t1
         skd = st["shared_kv"]
         summary = {
             "card": card,
@@ -3923,7 +4031,7 @@ def phase_fleet(torch, device, small=False):
             "migrate": {k: st["prefix"].get(k) for k in (
                 "capture_under_load_s", "build_idle_s", "gate_wait_s", "warmup_and_capture_s",
                 "warmup_and_capture_idle_s", "steps_during_build", "drain_wall_s",
-                "slots_migrated", "requests_migrated")} | {"equal": st["migrate_equal"]},
+                "slots_migrated", "requests_migrated")} | {"equal": st.get("migrate_equal")},
             "failover": {k: st["failover_on"][k] for k in (
                 "failover_latency_p50_s", "failover_latency_p95_s", "failover_replay_tokens",
                 "replay_tokens", "completed", "errored", "killed_at")}
@@ -3935,7 +4043,7 @@ def phase_fleet(torch, device, small=False):
                                             skd["turn2"]["prewarmed"][k]]
                                         for k in ("prefill_tokens_charged", "ttft_p50_s",
                                                   "ttft_p95_s")},
-            "store_failover": skd["failover"],
+            "store_failover": skd["failover"], "parts_s": parts,
             "launches": {n: launches[n] for n in ("paged_decode_attention",
                                                   "paged_window_attention")},
             "launches_by_route": {n: routes[n] for n in ("paged_decode_attention",
@@ -3946,6 +4054,872 @@ def phase_fleet(torch, device, small=False):
     stats["main"] = {"routes": stats["bfloat16"]["routes"]}
     stats["phase_s"] = time.perf_counter() - t0
     log(f"fleet phase_s={stats['phase_s']:.1f} ({card})")
+    return stats
+
+
+# -- phase: disagg -----------------------------------------------------------------
+# bench.py's phase-disaggregation cells (_disagg_long_context, bench.py:1932):
+# interference_4k_disagg (:2480) and disagg_long_context (:2498), with
+# bench.py's parameters, and its fleet_pressure cell (_fleet_pressure, :1154).
+DISAGG_4K = {"name": "interference_4k_disagg", "prompt_len": 4096, "budget": 1024,
+             "n_short": 7, "short_len": 128, "short_new": 512, "long_new": 16,
+             "block_size": 32, "k": 4, "max_seq": 8192}
+DISAGG_32K = {"name": "disagg_long_context", "prompt_len": 32768, "budget": 1024,
+              "n_short": 4, "short_len": 24, "short_new": 512, "long_new": 32,
+              "block_size": 32, "k": 4, "max_seq": 32896}
+DISAGG_4K_SMALL = dict(DISAGG_4K, prompt_len=96, budget=16, n_short=3, short_len=12,
+                       short_new=24, long_new=6, block_size=8, k=2, max_seq=512)
+DISAGG_32K_SMALL = dict(DISAGG_32K, prompt_len=160, budget=16, n_short=2, short_len=6,
+                        short_new=24, long_new=8, block_size=8, k=2, max_seq=512)
+DISAGG_SEED = 11
+PRESSURE = {"replicas": 3, "n_slots": 2, "max_len": 64, "buckets": (8, 16), "k": 4,
+            "block_size": 8, "new": 16, "every": 2, "trials": 2,
+            "window_ticks": 64, "shares": {"gold": (0.5, 1.0), "bulk": (0.0, 1.0)},
+            "slo_ttft_p95_s": 2.0, "slo_min_tok_s": 1.0}
+# The kernel shapes held and timed for the disagg cells: the windows the
+# main path launches for the long prompts (one chunk of 32768 rows over
+# 32768 keys, and of 4096 over 4096), and a 1024-row window (the prefill
+# budget's width) whose keys end at 32768; the decode replica's batch of
+# four short lanes beside the 32k lane.
+DISAGG_WINDOWS = ({"w": 32768, "keys": 32768}, {"w": 4096, "keys": 4096},
+                  {"w": 1024, "keys": 32768})
+DISAGG_DECODE_LIMITS = [280, 280, 280, 280, 32784]
+
+
+def disagg_traffic(cfg, c):
+    """bench.py:1983: the short prompts, a warm long prompt and the measured
+    long prompt (distinct, so the measured prefill is real admission work),
+    from default_rng([prompt_len, n_short, short_max_new])."""
+    srng = np.random.default_rng([c["prompt_len"], c["n_short"], c["short_new"]])
+    shorts = [srng.integers(1, cfg.vocab, c["short_len"]).tolist() for _ in range(c["n_short"])]
+    warm_long = srng.integers(1, cfg.vocab, c["prompt_len"]).tolist()
+    longs = [srng.integers(1, cfg.vocab, c["prompt_len"]).tolist()]
+    return shorts, warm_long, longs
+
+
+def disagg_buckets(c):
+    """bench.py:2002: the shorts' shape, the chunk shape, the whole prompt's."""
+    p = c["prompt_len"]
+    return tuple(sorted({max(8, 1 << (c["short_len"] - 1).bit_length()),
+                         max(16, c["budget"]),
+                         p if p & (p - 1) == 0 else 1 << (p - 1).bit_length()}))
+
+
+def disagg_arm(torch, cfg, params, device, c, temperature, disagg):
+    """One arm of bench.py's _disagg_long_context on engine threads: the
+    shorts to steady state, then the long prompt; the decode tokens the
+    shorts produce between its submit and its first token (counted at
+    dispatch, as the engine counts them), that window and the long TTFT
+    (bench.py's measures: the final chunk's dispatch, which runs ahead of
+    the device unless a tick syncs), and the long request's latency to
+    its last token, device work included. Colocated: one unified engine.
+    Disaggregated: a prefill and a decode replica over one
+    FleetKVStore(1 << 31), a PrefixRouter and a HandoffCoordinator, every
+    request submitted through the coordinator; the prefill engine's
+    `_export_handoff` is timed by a wrapper (the export runs before the
+    hook, outside the coordinator's latency)."""
+    from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.serving import (FleetKVStore, HandoffCoordinator, PrefixRouter,
+                                       ReplicaSet, utilization_block)
+    from nos_tpu_torch.telemetry import collect_serving
+    from nos_tpu_torch.tracing import EngineTracing
+
+    shorts, warm_long, longs = disagg_traffic(cfg, c)
+    max_len = c["prompt_len"] + c["long_new"] + 2 * c["block_size"]
+    what = f"disagg {c['name']} {cfg.dtype} t={temperature} " + (
+        "disaggregated" if disagg else "colocated")
+
+    def engine(store=None):
+        return DecodeServer(params, cfg, n_slots=c["n_short"] + 1, max_len=max_len,
+                            prompt_buckets=disagg_buckets(c), steps_per_dispatch=c["k"],
+                            prefill_budget_tokens=c["budget"], block_size=c["block_size"],
+                            kv_store=store, temperature=temperature, seed=DISAGG_SEED,
+                            tracing=EngineTracing(), device=device)
+
+    def wait(cond, t0, label):
+        while not cond():
+            check(time.perf_counter() - t0 < 900, f"{what}: {label} timed out")
+            time.sleep(0.002)
+
+    mem0 = None
+    if device.type == "cuda":
+        gc.collect()  # an earlier arm's engines, still in reference cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    store = coord = None
+    export_s, capture_s, publish_s = [], [], []
+    if disagg:
+        store = FleetKVStore(1 << 31)
+        pre, dec = engine(store), engine(store)
+        rs = ReplicaSet([pre, dec], start=True,
+                        roles=[constants.REPLICA_ROLE_PREFILL, constants.REPLICA_ROLE_DECODE])
+        coord = HandoffCoordinator(rs, PrefixRouter(rs, kv_store=store))
+        engines = [pre, dec]
+
+        def timed(obj, name, into):
+            fn = getattr(obj, name)
+
+            def wrapper(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                into.append(time.perf_counter() - t)
+                return out
+
+            setattr(obj, name, wrapper)
+
+        # The export, and inside it the capture (its first-token read waits
+        # for the final chunk on the device) and the chain's publish.
+        timed(pre, "_export_handoff", export_s)
+        timed(pre, "_checkpoint_slot", capture_s)
+        timed(pre._block_mgr, "publish_slot_chain", publish_s)
+        submit = lambda p, m: coord.submit(p, max_new=m)  # noqa: E731
+        stop = rs.stop
+    else:
+        pre = dec = engine().start()
+        engines = [pre]
+        submit = lambda p, m: pre.submit(p, max_new=m)  # noqa: E731
+        stop = pre.stop
+    cuda = device.type == "cuda"
+    mem = {}
+
+    def peak(stage):
+        # The arm's peak so far above what was allocated when it began.
+        if cuda:
+            mem[stage] = torch.cuda.max_memory_allocated() - mem0
+
+    def tick_window():
+        return [(dict(e.tick_phase_s), e.blocking_syncs, e.steps_run) for e in engines]
+
+    peak("built")
+    try:
+        for e in engines:  # the short shape, on every engine
+            e.generate(shorts[0], max_new=4, timeout=900)
+        peak("warm_short")
+        pre.generate(warm_long, max_new=2, timeout=900)  # the long shape
+        peak("warm_long")
+        warm_ttft = len(pre.ttft_s)
+        warm_tokens = int(dec.macro_tokens_by_slot.sum())
+        hits0 = dec.prefix_hit_tokens
+        t0 = time.perf_counter()
+        futs = [submit(p, c["short_new"]) for p in shorts]
+        wait(lambda: len(pre.ttft_s) >= warm_ttft + c["n_short"]
+             and int(dec.macro_tokens_by_slot.sum()) >= warm_tokens + 4 * c["k"],
+             t0, "short-stream steady state")
+        n_ttft = len(pre.ttft_s)
+        base = int(dec.macro_tokens_by_slot.sum())
+        before = tick_window()
+        t_long = time.perf_counter()
+        futs += [submit(p, c["long_new"]) for p in longs]
+        wait(lambda: len(pre.ttft_s) >= n_ttft + len(longs), t_long, "long prefill")
+        window = time.perf_counter() - t_long
+        during = int(dec.macro_tokens_by_slot.sum()) - base
+        # Where each engine's host time went in the prefill window (the
+        # tick profiler's phases), its blocking reads and decode steps.
+        in_window = [{"tick_phase_ms": {k: 1e3 * (v - b[0].get(k, 0.0)) for k, v in a[0].items()
+                                        if v - b[0].get(k, 0.0) > 0.0},
+                      "blocking_syncs": a[1] - b[1], "steps_run": a[2] - b[2]}
+                     for a, b in zip(tick_window(), before)]
+        long_outs = [list(f.result(timeout=900)) for f in futs[len(shorts):]]
+        long_latency = time.perf_counter() - t_long
+        outs = [list(f.result(timeout=900)) for f in futs[:len(shorts)]] + long_outs
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak("served")
+    finally:
+        if coord is not None:
+            coord.detach()
+        stop()
+    st = {"decode_tok_s_during_prefill": during / window,
+          "decode_tokens_during_prefill": during, "prefill_window_s": window,
+          "ttft_long_s": pre.ttft_s[n_ttft], "long_latency_s": long_latency, "wall_s": wall,
+          # The arm's own peak above what was allocated when it began.
+          "peak_mem_bytes": (torch.cuda.max_memory_allocated() - mem0
+                             if device.type == "cuda" else None),
+          "mem_at_start_bytes": mem0, "peak_mem_by_stage_bytes": mem,
+          "prefill_window_engines": in_window,
+          "chip_accounting": utilization_block([collect_serving(e) for e in engines]),
+          "engines": [{k: getattr(e, k) for k in (
+              "graph_captures", "graph_replays", "macro_dispatches", "burst_dispatches",
+              "burst_windows_run", "prefill_dispatches", "prefix_hit_tokens",
+              "handoff_exports", "handoff_ingests", "handoff_published_blocks",
+              "handoff_revived_tokens", "store_published_blocks")} for e in engines]}
+    check(all(len(o) == n for o, n in zip(outs, [c["short_new"]] * len(shorts)
+                                              + [c["long_new"]] * len(longs))),
+          f"{what}: short streams")
+    for i, e in enumerate(engines):
+        check(e._block_mgr.conserved(), f"{what}: engine {i}'s pool is not conserved")
+        if device.type == "cuda":
+            check_replays({**st["engines"][i], "graph_captures": e.graph_captures},
+                          f"{what} engine {i}", bursts=False)
+    if disagg:
+        rep = coord.report()
+        n_req = len(futs)
+        # Shipped, not recomputed: every prompt block below the block of a
+        # handed-off replay's last token, not already on the decode
+        # engine's device, was revived from the store.
+        revivable = sum((len(p) // c["block_size"]) * c["block_size"] for p in shorts + longs)
+        hit = dec.prefix_hit_tokens - hits0
+        st.update({
+            "handoffs": coord.handoffs, "handoff_reroutes": coord.handoff_reroutes,
+            "handoffs_errored": coord.handoffs_errored,
+            "handoff_latency_p50_s": rep.handoff_latency_p50_s,
+            "handoff_latency_p95_s": rep.handoff_latency_p95_s,
+            "export_s": export_s, "export_capture_s": capture_s,
+            "export_publish_s": publish_s,
+            "export_share_of_handoff": (sum(export_s) / (sum(export_s) + rep.handoff_wall_s)
+                                        if export_s else None),
+            "handoff_exports": pre.handoff_exports, "handoff_ingests": dec.handoff_ingests,
+            "handoff_published_blocks": pre.handoff_published_blocks,
+            "write_through_published_blocks": pre.store_published_blocks,
+            "handoff_revived_tokens": dec.handoff_revived_tokens,
+            "revivable_tokens": revivable, "device_hit_tokens": hit,
+            "store_entries": store.entries, "store_bytes": store.host_bytes,
+            "store_drops": store.drops, "store_pinned": store.pinned_entries,
+        })
+        check(coord.handoffs == n_req and coord.handoffs_errored == 0
+              and pre.handoff_exports == n_req and dec.handoff_ingests == n_req,
+              f"{what}: handoffs {coord.handoffs}, errored {coord.handoffs_errored}, "
+              f"exports {pre.handoff_exports}, ingests {dec.handoff_ingests}, want {n_req}")
+        check(store.conserved() and store.pinned_entries == 0,
+              f"{what}: the store is not conserved or holds pins")
+        check(dec.handoff_revived_tokens > 0, f"{what}: no handed-off token revived")
+        check(store.drops > 0 or dec.handoff_revived_tokens == revivable - hit,
+              f"{what}: revived {dec.handoff_revived_tokens} tokens, the store held "
+              f"{revivable - hit} ({revivable} revivable, {hit} device hits)")
+    log(f"{what}: " + json.dumps({k: st[k] for k in (
+        "wall_s", "prefill_window_s", "decode_tok_s_during_prefill", "ttft_long_s",
+        "long_latency_s", "peak_mem_bytes", "peak_mem_by_stage_bytes",
+        "prefill_window_engines", "handoff_revived_tokens", "handoff_latency_p50_s",
+        "export_s", "export_capture_s", "export_publish_s") if k in st}))
+    return outs, shorts + longs, st
+
+
+def sampled_draw(torch, plain, served, serials, temperature, dtype):
+    """The threefry draw over the plain logits (engine_sampled's rule, seed
+    DISAGG_SEED): token t of the stream with serial s must be
+    argmax(gumbel(fold_in(fold_in(key, s), t)) + logits / T). In bf16 a
+    served token counts when its perturbed score lies within one bf16 step
+    (over T) of the draw's maximum: check_logits' one-step rule for greedy.
+    `misses_at`: the [stream, step] positions outside that rule (outside
+    the exact draw in f32)."""
+    from nos_tpu_torch import prng
+
+    n, steps, vocab = plain.shape
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(DISAGG_SEED, device=plain.device),
+                                     serials[:, None].expand(-1, steps)),
+                        torch.arange(steps, device=plain.device))
+    score = prng.gumbel(keys, (vocab,)) + plain / temperature
+    want = score.argmax(dim=-1)
+    got = score.gather(-1, served[..., None].long())[..., 0]
+    mant = 7 if dtype == "bfloat16" else 23
+    top = plain.abs().max(dim=-1).values.clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(top)) - mant) / temperature
+    within = (score.max(dim=-1).values - got) <= step
+    ok = within if dtype == "bfloat16" else want == served
+    return {"token_match": (want == served).float().mean().item(),
+            "token_match_1step": within.float().mean().item(),
+            "misses_at": (~ok).nonzero().tolist()}
+
+
+# The long stream of a disaggregated cell (16 or 32 positions, the stream
+# that carries the handoff) is gated on its own: at most LONG_MISSES of its
+# positions may lie beyond one step of the plain maximum (beyond the exact
+# pick in f32), each within LONG_STEPS steps of the logits' dtype, the
+# count F32_CROSS_SHAPE_STEPS allows across program shapes. Every gap is
+# printed.
+LONG_MISSES = 1
+LONG_STEPS = 4
+
+
+def check_long(st, what, dtype, temperature):
+    """The long stream's gate (see LONG_MISSES), beside check_logits'
+    max|dlogit| bounds on its kernel arm."""
+    check(st["finite"], f"{what}: non-finite logits")
+    check(st["max_abs_dlogit"] <= (MAX_DLOGIT_BF16 if dtype == "bfloat16" else 0.5),
+          f"{what}: max|dlogit| {st['max_abs_dlogit']}")
+    if dtype == "bfloat16":
+        check(st["mean_abs_dlogit"] <= MEAN_DLOGIT_BF16,
+              f"{what}: mean|dlogit| {st['mean_abs_dlogit']} > {MEAN_DLOGIT_BF16}")
+    if temperature != 0.0:
+        check(len(st["misses_at"]) <= (LONG_MISSES if dtype == "bfloat16" else 0),
+              f"{what}: {len(st['misses_at'])} tokens off the threefry draw over plain "
+              f"logits at {st['misses_at']}")
+        return
+    tol = 1.0 if dtype == "bfloat16" else 0.0
+    beyond = [g for g in st["disagreement_gap_steps"] if g > tol]
+    check(len(beyond) <= LONG_MISSES and all(g <= LONG_STEPS for g in beyond),
+          f"{what}: {len(beyond)} positions beyond {tol} steps of the plain maximum "
+          f"(gaps {st['disagreement_gap_steps']} at {st['disagreements_at']}; allowed "
+          f"{LONG_MISSES} within {LONG_STEPS})")
+
+
+def disagg_oracle(torch, cfg, params, device, c, prompts, arms, temperature, serials):
+    """The plain programs' teacher-forced oracle over both arms' streams
+    (`arms`: the colocated and the disaggregated outputs), at the engine's
+    own buckets (the long prompt in one chunk of its bucket, as the engine
+    prefills it). The shorts and the long stream are forced and gated
+    apart (their lengths differ). The shorts are forced once for both
+    arms, each distinct stream once, and gated by check_logits (f32 within
+    F32_CROSS_SHAPE_STEPS), or, sampled, against the threefry draw over
+    the plain logits (sampled_draw; every token in f32, 98% within one
+    step in bf16) with the kernel arm within check_logits' dlogit bounds.
+    The long stream: check_long; the disaggregated arm's is forced as its
+    destination replayed it (teacher_forced's `handoff`) and, greedy, also
+    held against the colocated shape's plain arm (`colocated_shape`).
+    Returns (stats by arm and group, the colocated arm's plain logits by
+    group)."""
+    n = c["n_short"]
+    what = f"disagg {c['name']} t={temperature}"
+    colo, dis = arms["colocated"], arms["disaggregated"]
+
+    def forced(ps, os_, shaped, which=("kernel", "plain")):
+        got = []
+        for arm in which:
+            with plain_attention() if arm == "plain" else contextlib.nullcontext():
+                got.append(teacher_forced(torch, params, cfg, ps, os_, disagg_buckets(c),
+                                          c["block_size"], device, handoff=shaped))
+        return got
+
+    def judged(name, arm, kern, plain, os_, ser, extra=None):
+        served = torch.tensor(os_, device=device)
+        st = agreement(torch, kern, plain, served, cfg.dtype)
+        st["dtype"] = cfg.dtype
+        if temperature != 0.0:
+            st.update(sampled_draw(torch, plain, served, torch.tensor(ser, device=device),
+                                   temperature, cfg.dtype))
+        st.update(extra or {})
+        label = f"{what} {arm} {name}"
+        if name == "long":
+            check_long(st, f"{label} {cfg.dtype}", cfg.dtype, temperature)
+        elif temperature == 0.0:
+            check_logits(st, label, F32_CROSS_SHAPE_STEPS)
+        else:
+            check(st["finite"] and st["max_abs_dlogit"] <= (
+                MAX_DLOGIT_BF16 if cfg.dtype == "bfloat16" else 0.5),
+                  f"{label} {cfg.dtype}: max|dlogit| {st['max_abs_dlogit']}")
+            rule = "token_match" if cfg.dtype == "float32" else "token_match_1step"
+            bound = 1.0 if cfg.dtype == "float32" else 0.98
+            check(st[rule] >= bound, f"{label} {cfg.dtype}: {rule} {st[rule]} < {bound}")
+        keys = (("top1_agreement", "top1_agreement_1ulp", "disagreement_gap_steps",
+                 "disagreements_at", "top1_agreement_kernel_arm") if temperature == 0.0
+                else ("token_match", "token_match_1step", "misses_at"))
+        return {k: st[k] for k in keys + ("max_abs_dlogit", "mean_abs_dlogit")
+                + tuple(extra or ())} | {"positions": served.numel(),
+                                         "handoff_shaped": arm == "disaggregated"
+                                         and name == "long"}
+
+    stats = {"colocated": {}, "disaggregated": {}}
+    # The shorts: the colocated streams, then the disaggregated ones that
+    # differ, in one batch.
+    differ = [i for i in range(n) if dis[i] != colo[i]]
+    ps = prompts[:n] + [prompts[i] for i in differ]
+    os_ = colo[:n] + [dis[i] for i in differ]
+    ser = serials[:n] + [serials[i] for i in differ]
+    kern, plain = forced(ps, os_, False)
+    rows = {"colocated": list(range(n)),
+            "disaggregated": [n + differ.index(i) if i in differ else i for i in range(n)]}
+    for arm, r in rows.items():
+        stats[arm]["short"] = judged("short", arm, kern[r], plain[r], [os_[i] for i in r],
+                                     [ser[i] for i in r])
+    plains = {"short": plain[rows["colocated"]]}
+    del kern, plain
+    # The long stream, each arm at its own shape.
+    lp, ls = prompts[n:], serials[n:]
+    kern, plain = forced(lp, colo[n:], False)
+    stats["colocated"]["long"] = judged("long", "colocated", kern, plain, colo[n:], ls)
+    plains["long"] = plain
+    kern, plain = forced(lp, dis[n:], True)
+    extra = None
+    if temperature == 0.0:
+        plain_c = plains["long"] if dis[n:] == colo[n:] else forced(lp, dis[n:], False,
+                                                                   ("plain",))[0]
+        seen = agreement(torch, plain_c, plain_c, torch.tensor(dis[n:], device=device),
+                         cfg.dtype)
+        extra = {"colocated_shape": {k: seen[k] for k in (
+            "top1_agreement_1ulp", "disagreement_gap_steps", "disagreements_at")}}
+    stats["disaggregated"]["long"] = judged("long", "disaggregated", kern, plain, dis[n:],
+                                            ls, extra)
+    return stats, plains
+
+
+def disagg_cell(torch, device, c, dtype, temperatures, small):
+    """One cell in one dtype: per temperature the colocated arm, then the
+    disaggregated one, the launch counts zeroed before the arms and read
+    after them; then the oracles, and the streams the arms have in common
+    (same_streams: gated in f32)."""
+    from nos_tpu_torch import init_gpt
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    cfg = dataclasses.replace(bench_gpt(dtype, small), max_seq=c["max_seq"])
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    cuda = device.type == "cuda"
+    out = {}
+    pa.reset_launch_counts()
+    runs = {}
+    t0 = time.perf_counter()
+    for t in temperatures:
+        runs[t] = {arm: disagg_arm(torch, cfg, params, device, c, t, arm == "disaggregated")
+                   for arm in ("colocated", "disaggregated")}
+    sync(torch, device)
+    out["arms_s"] = time.perf_counter() - t0
+    routes = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+    out["launches"] = dict(pa.LAUNCHES)
+    out["routes"] = routes
+    if cuda:
+        check_routes(routes, "paged_decode_attention", "split", f"disagg {c['name']} {dtype}")
+        check_routes(routes, "paged_window_attention", "mma" if dtype == "bfloat16" else "simt",
+                     f"disagg {c['name']} {dtype}")
+    # Serials: two warm requests on the admitting engine, then the shorts
+    # and the long prompt in submit order.
+    serials = list(range(3, 3 + c["n_short"] + 1))
+    t0 = time.perf_counter()
+    for t, arms in runs.items():
+        tkey = "greedy" if t == 0.0 else f"temp_{t}"
+        (colo_outs, prompts, colo), (dis_outs, _, dis) = arms["colocated"], arms["disaggregated"]
+        n = c["n_short"]
+        tokens, plains = disagg_oracle(torch, cfg, params, device, c, prompts,
+                                       {"colocated": colo_outs, "disaggregated": dis_outs},
+                                       t, serials)
+        colo["tokens"], dis["tokens"] = tokens["colocated"], tokens["disaggregated"]
+        rate = colo["decode_tok_s_during_prefill"]
+        out[tkey] = {
+            "colocated": colo, "disaggregated": dis,
+            "outputs_identical": dis_outs == colo_outs,
+            "decode_interference_ratio": (dis["decode_tok_s_during_prefill"] / rate
+                                          if rate else None),
+            "same_streams": {
+                "short": same_streams(torch, plains["short"], colo_outs[:n], dis_outs[:n],
+                                      dtype, f"disagg {c['name']} short {dtype}"),
+                "long": same_streams(torch, plains["long"], colo_outs[n:], dis_outs[n:],
+                                     dtype, f"disagg {c['name']} long {dtype}")}
+            if t == 0.0 else {"equal": sum(a == b for a, b in zip(colo_outs, dis_outs)),
+                              "streams": len(colo_outs)},
+        }
+        del plains
+    out["oracle_s"] = time.perf_counter() - t0
+    return out
+
+
+def pressure_traffic(cfg):
+    """bench.py:1199: warm, light, hot-burst, bulk-flood and gold-arrival
+    prompts of 12 tokens from default_rng([2026, 12, 3])."""
+    srng = np.random.default_rng([2026, 12, 3])
+    warm = [srng.integers(1, cfg.vocab, 12).tolist() for _ in range(3)]
+    light = [("gold", srng.integers(1, cfg.vocab, 12).tolist())]
+    hot = [("bulk", srng.integers(1, cfg.vocab, 12).tolist()) for _ in range(4)]
+    flood = [("bulk", srng.integers(1, cfg.vocab, 12).tolist()) for _ in range(4)]
+    gold = [("gold", srng.integers(1, cfg.vocab, 12).tolist()) for _ in range(3)]
+    return warm, light, hot, flood, gold
+
+
+def debug_plane(obs, token, tracer):
+    """Every endpoint of the running ObservabilityServer: 200 with the token
+    on /metrics, /healthz, /readyz, /debug, /debug/pressure,
+    /debug/accounting, /debug/events and one /debug/trace/<id>; 401 without
+    it on /metrics and /debug/pressure."""
+    import http.client
+
+    from nos_tpu_torch import constants as K
+
+    def get(path, auth=True):
+        conn = http.client.HTTPConnection("127.0.0.1", obs.port, timeout=30)
+        try:
+            conn.request("GET", path, headers={"Authorization": f"Bearer {token}"}
+                         if auth else {})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    trace_ids = tracer.trace_ids()
+    check(trace_ids, "disagg pressure: the shared tracer holds no trace")
+    paths = ["/metrics", "/healthz", "/readyz", K.DEBUG_PATH_INDEX, K.DEBUG_PATH_PRESSURE,
+             K.DEBUG_PATH_ACCOUNTING, K.DEBUG_PATH_EVENTS,
+             K.DEBUG_PATH_TRACE_PREFIX + trace_ids[0]]
+    status = {p: get(p)[0] for p in paths}
+    status.update({p + " (no token)": get(p, auth=False)[0]
+                   for p in ("/metrics", K.DEBUG_PATH_PRESSURE)})
+    check(all(status[p] == 200 for p in paths)
+          and status["/metrics (no token)"] == 401
+          and status[K.DEBUG_PATH_PRESSURE + " (no token)"] == 401,
+          f"disagg pressure: debug plane answered {status}")
+    surfaces = json.loads(get(K.DEBUG_PATH_INDEX)[1])["surfaces"]
+    receipt = json.loads(get(K.DEBUG_PATH_TRACE_PREFIX + trace_ids[0])[1]).get("receipt")
+    return {"status": status, "surfaces": surfaces, "trace_receipt": receipt is not None}
+
+
+def pressure_run(torch, cfg, params, device, p, monitor_on):
+    """One arm of bench.py's _fleet_pressure: three quota-armed replicas
+    sharing one CostLedger and one Tracer, ticked by hand on this thread,
+    a FleetMonitor sampling every `every` ticks (monitor on); the warm-up,
+    light load, the hot burst on replica-0, the bulk flood and the gold
+    arrivals on replica-1. Beside the monitor-on arm an ObservabilityServer
+    (127.0.0.1, an ephemeral port, a bearer token) serves the monitor, the
+    tracer, a FlightRecorder and the ledger; its endpoints are read once
+    the gold arrivals are in, and that time is taken out of the arm's
+    wall."""
+    import secrets
+
+    from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.observability import HealthManager, Metrics, ObservabilityServer
+    from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
+    from nos_tpu_torch.serving import (CostLedger, FleetMonitor, ReplicaSet, SLOTarget,
+                                       utilization_block)
+    from nos_tpu_torch.telemetry import collect_serving
+    from nos_tpu_torch.tracing import EngineTracing, Tracer
+
+    warm, light, hot, flood, gold = pressure_traffic(cfg)
+    shares = {t: TenantShare(*s) for t, s in p["shares"].items()}
+    ledger, tracer = CostLedger(), Tracer()
+    engines = [DecodeServer(params, cfg, n_slots=p["n_slots"], max_len=p["max_len"],
+                            prompt_buckets=p["buckets"], steps_per_dispatch=p["k"],
+                            burst_windows=1, block_size=p["block_size"], seed=DISAGG_SEED,
+                            quota=QuotaPolicy(dict(shares), window_ticks=p["window_ticks"]),
+                            tracing=EngineTracing(tracer=tracer), cost_ledger=ledger,
+                            device=device)
+               for _ in range(p["replicas"])]
+    rs = ReplicaSet(engines)
+    mon = obs = None
+    token = secrets.token_hex(16)
+    if monitor_on:
+        mon = FleetMonitor(rs, metrics=Metrics(), ledger=ledger, slo={"gold": SLOTarget(
+            ttft_p95_s=p["slo_ttft_p95_s"], min_tok_s=p["slo_min_tok_s"])})
+        obs = ObservabilityServer(mon.metrics, HealthManager(), host="127.0.0.1", port=0,
+                                  metrics_token=token, tracer=tracer,
+                                  recorder=engines[0]._recorder, pressure=mon,
+                                  accounting=ledger).start()
+    reports, detect, state = [], {"starved_agrees": None}, {"ticks": 0}
+
+    def tick(n=1):
+        for _ in range(n):
+            for e in engines:
+                e._tick()
+            state["ticks"] += 1
+            if mon is not None and state["ticks"] % p["every"] == 0:
+                rep = mon.sample()
+                reports.append(rep)
+                if (detect["starved_agrees"] is None
+                        and rep.tenants.get("gold") == constants.PRESSURE_TENANT_STARVED):
+                    detect["starved_agrees"] = bool(engines[1]._quota.is_starved("gold"))
+
+    futs = []
+    try:
+        wf = [e.submit(pr, max_new=p["new"]) for e, pr in zip(engines, warm)]
+        while not all(f.done() for f in wf):
+            for e in engines:
+                e._tick()
+        for f in wf:
+            f.result(timeout=600)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        futs += [engines[2].submit(pr, max_new=p["new"], tenant=t) for t, pr in light]
+        tick(2 * p["every"])
+        w_hot = mon.windows_sampled if mon is not None else 0
+        futs += [engines[0].submit(pr, max_new=p["new"], tenant=t) for t, pr in hot]
+        tick(2 * p["every"])
+        futs += [engines[1].submit(pr, max_new=p["new"], tenant=t) for t, pr in flood]
+        tick(3 * p["every"])
+        w_starved = mon.windows_sampled if mon is not None else 0
+        futs += [engines[1].submit(pr, max_new=p["new"], tenant=t) for t, pr in gold]
+        tick(2 * p["every"])
+        plane, plane_s = None, 0.0
+        if obs is not None:
+            t_plane = time.perf_counter()
+            plane = debug_plane(obs, token, tracer)
+            plane_s = time.perf_counter() - t_plane
+        while not all(f.done() for f in futs):
+            tick()
+        if mon is not None:
+            reports.append(mon.sample())
+        sync(torch, device)
+        wall = time.perf_counter() - t0 - plane_s
+        outs = [list(f.result(timeout=600)) for f in futs]
+    finally:
+        if obs is not None:
+            obs.stop()
+        for e in engines:
+            e.stop()
+    for i, e in enumerate(engines):
+        check(e._block_mgr.conserved(), f"disagg pressure: engine {i}'s pool")
+    check_windows(engines, "disagg pressure", device.type == "cuda")
+    busy = sum(e.slot_seconds_total for e in engines)
+    return {
+        "outs": outs, "wall": wall, "mon": mon, "reports": reports, "plane": plane,
+        "counters": [tuple(getattr(e, k) for k in (
+            "steps_run", "macro_dispatches", "prefill_dispatches", "graph_replays",
+            "h2d_uploads", "blocking_syncs", "preemptions")) for e in engines],
+        "w_hot": w_hot, "w_starved": w_starved, "starved_agrees": detect["starved_agrees"],
+        "chip_accounting": utilization_block([collect_serving(e) for e in engines]),
+        "conservation": {"charged_slot_seconds": ledger.charged_slot_seconds(),
+                         "busy_slot_seconds": busy},
+    }
+
+
+def pressure_cell(torch, device, small):
+    """bench.py's fleet_pressure in bf16 (f32 in a rehearsal): monitor off
+    and on in turns, best of two trials (bench.py's default: no overhead
+    gate, so no escalation). Gates: outputs and
+    engine counters equal off against on; idle -> HOT and within -> STARVED
+    each within one sampling window of its injection, the latter agreeing
+    with the engine's QuotaPolicy; the journal bounded, every line JSON,
+    FleetMonitor.replay equal to the live verdicts; the debug plane's
+    answers (debug_plane); slot-seconds conserved."""
+    from nos_tpu_torch import constants, init_gpt
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.serving import FleetMonitor
+
+    p = PRESSURE
+    dtype = "float32" if small else "bfloat16"
+    cfg = bench_gpt(dtype, small)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=device)
+    walls_off, walls_on = [], []
+    pa.reset_launch_counts()
+    on = None
+
+    def pair():
+        nonlocal on
+        off_run = pressure_run(torch, cfg, params, device, p, False)
+        on = pressure_run(torch, cfg, params, device, p, True)
+        check(on["outs"] == off_run["outs"], "disagg pressure: outputs differ monitor on/off")
+        check(on["counters"] == off_run["counters"],
+              f"disagg pressure: counters differ monitor on/off: {off_run['counters']} "
+              f"against {on['counters']}")
+        walls_off.append(off_run["wall"])
+        walls_on.append(on["wall"])
+
+    def overhead():
+        return 100.0 * (min(walls_on) / min(walls_off) - 1.0)
+
+    def noise():
+        return 100.0 * (max(walls_off) / min(walls_off) - 1.0)
+
+    for _ in range(1 if small else p["trials"]):
+        pair()
+    sync(torch, device)
+    routes = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+    launches = dict(pa.LAUNCHES)
+    if device.type == "cuda":
+        check_routes(routes, "paged_decode_attention", "split", "disagg pressure")
+        check_routes(routes, "paged_window_attention", "mma", "disagg pressure")
+    mon = on["mon"]
+
+    def first_window(pred):
+        return next((r.window for r in on["reports"] if pred(r)), None)
+
+    w_hot = first_window(lambda r: r.replicas.get("replica-0")
+                         == constants.PRESSURE_REPLICA_HOT)
+    w_starved = first_window(lambda r: r.tenants.get("gold")
+                             == constants.PRESSURE_TENANT_STARVED)
+    check(w_hot is not None and w_hot <= on["w_hot"] + 1,
+          f"disagg pressure: HOT at window {w_hot}, the burst at {on['w_hot']}")
+    check(w_starved is not None and w_starved <= on["w_starved"] + 1 and on["starved_agrees"],
+          f"disagg pressure: STARVED at window {w_starved}, the arrivals at "
+          f"{on['w_starved']}, quota agrees {on['starved_agrees']}")
+    journal = mon.journal_lines()
+    parsed = [json.loads(line) for line in journal]
+    replayed = FleetMonitor.replay(journal)
+    live = on["reports"][-len(replayed):]
+    check(len(journal) <= mon.journal_windows and replayed
+          and all(r["event"] == constants.FLEET_EV_WINDOW for r in parsed)
+          and [(r.replicas, r.tenants) for r in replayed]
+          == [(r.replicas, r.tenants) for r in live],
+          "disagg pressure: the journal is unbounded, unparsable or replays otherwise")
+    cons = on["conservation"]
+    check(abs(cons["charged_slot_seconds"] - cons["busy_slot_seconds"])
+          <= 1e-9 * max(1.0, cons["busy_slot_seconds"]),
+          f"disagg pressure: slot-seconds not conserved {cons}")
+    return {
+        "dtype": dtype, "trials": len(walls_off), "walls_off_s": walls_off,
+        "walls_on_s": walls_on, "monitor_overhead_pct": overhead(),
+        "wall_noise_pct": noise(), "tok_s_monitor_off": len(on["outs"]) * p["new"]
+        / min(walls_off), "tok_s_monitor_on": len(on["outs"]) * p["new"] / min(walls_on),
+        "windows_sampled": mon.windows_sampled, "sample_wall_s": mon.sample_wall_s,
+        "hot": {"injected_window": on["w_hot"], "detected_window": w_hot},
+        "starved": {"injected_window": on["w_starved"], "detected_window": w_starved,
+                    "quota_agrees": on["starved_agrees"]},
+        "journal_lines": len(journal), "journal_capacity": mon.journal_windows,
+        "slo_events": len(mon.slo.events), "debug_plane": on["plane"],
+        "chip_accounting": on["chip_accounting"], "conservation": cons,
+        "launches": launches, "routes": routes,
+        "timeline": [{"window": r.window, "replicas": r.replicas, "tenants": r.tenants,
+                      "headroom": r.headroom} for r in on["reports"]],
+    }
+
+
+def disagg_kernels(torch):
+    """The two paged kernels at the disagg cells' shapes, bf16 pool: the
+    window kernel at DISAGG_WINDOWS (the long prompts' single chunks, 32768
+    and 4096 rows from key 0, and a 1024-row chunk whose keys end at
+    32768), and the split decode kernel over the decode replica's five
+    lanes, one of them at 32784 keys. Each held against its plain version
+    (`held`; the window's in row slices) and timed beside it and SDPA on
+    the pre-gathered cache, with its bound. `window`, the kernels line's
+    entry, is the 32768-row chunk."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    NH, NKV, HD, BS = 8, 2, 64, 32
+    lanes = len(DISAGG_DECODE_LIMITS)
+    P = -(-max(DISAGG_DECODE_LIMITS) // BS)
+    T = 1 + lanes * P
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k, v, _, _, dt = _pools(torch, gen, "bfloat16", T, NKV, BS, HD)
+    table = (torch.randperm(T - 1, generator=gen, device="cuda")[: lanes * P] + 1) \
+        .reshape(lanes, P).to(torch.int32).contiguous()
+    worst = {"paged_decode_attention": 0.0, "paged_decode_attention_rel": 0.0,
+             "paged_window_attention": 0.0, "paged_window_attention_rel": 0.0}
+
+    def bound(nbytes, flops):
+        b, f = nbytes / H100_BYTES_PER_S, flops / H100_BF16_PEAK_FLOPS
+        return 1e3 * max(b, f), "bytes" if b >= f else "operations"
+
+    lim = torch.tensor(DISAGG_DECODE_LIMITS, dtype=torch.int32, device="cuda")
+    q = torch.randn((lanes, NH, HD), generator=gen, device="cuda").to(dt)
+    held(torch, pa.paged_decode_attention(q, k, v, table, lim),
+         pa._reference(q, k, v, table, lim), "bfloat16", "paged_decode_attention 32k", worst)
+    kd = pa._gather_pool(k, table, None, dt).repeat_interleave(NH // NKV, dim=1)
+    vd = pa._gather_pool(v, table, None, dt).repeat_interleave(NH // NKV, dim=1)
+    idx = torch.arange(kd.shape[2], device="cuda")
+    mask = (idx[None, :] < lim[:, None])[:, None, None, :]
+    nbytes = decode_bytes(DISAGG_DECODE_LIMITS, NH, NKV, HD, BS, 2, 2)
+    b_ms, b_by = bound(nbytes, 4.0 * NH * HD * sum(DISAGG_DECODE_LIMITS))
+    out = {"decode": {
+        "limits": DISAGG_DECODE_LIMITS,
+        "ms": time_cuda(torch, lambda: pa.paged_decode_attention(q, k, v, table, lim)),
+        "plain_ms": time_cuda(torch, lambda: pa._reference(q, k, v, table, lim)),
+        "library_ms": time_cuda(torch, lambda: _sdpa_decode(torch, q[:, :, None, :], kd, vd,
+                                                            mask)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "route": "split"}}
+    del kd, vd, mask
+    out["windows"] = []
+    for shape in DISAGG_WINDOWS:
+        W, keys = shape["w"], shape["keys"]
+        pos0 = keys - W
+        qw = torch.randn((1, NH, W, HD), generator=gen, device="cuda").to(dt)
+        tab = table[4:5, : keys // BS].contiguous()
+        pos = torch.full((1,), pos0, dtype=torch.int32, device="cuda")
+        lengths = torch.full((1,), W, dtype=torch.int32, device="cuda")
+        active = torch.ones((1,), dtype=torch.bool, device="cuda")
+        args = (qw, k, v, tab, pos, lengths, active)
+        # The plain version in row slices (window_reference_rows): whole, a
+        # 32768-row window's f32 scores alone would be 34 GB.
+        err = {"paged_window_attention": 0.0, "paged_window_attention_rel": 0.0}
+        held(torch, pa.paged_window_attention(*args), window_reference_rows(*args),
+             "bfloat16", f"paged_window_attention W {W} to {keys} keys", err)
+        for key, e in err.items():
+            worst[key] = max(worst[key], e)
+        kd = pa._gather_pool(k, tab, None, dt).repeat_interleave(NH // NKV, dim=1)
+        vd = pa._gather_pool(v, tab, None, dt).repeat_interleave(NH // NKV, dim=1)
+        rows = pos0 + torch.arange(W, device="cuda") + 1
+        # SDPA's own causal mask where the window starts at key 0, else the
+        # limits as a mask (the window's rows end at the last keys).
+        causal = (None if pos0 == 0 else
+                  (torch.arange(keys, device="cuda")[None, :] < rows[:, None])[None, None])
+        nbytes = ((keys // BS) * NKV * BS * HD * 2 * 2 + 2 * NH * W * HD * 2
+                  + 4 * (keys // BS) + 9)
+        flops = 4.0 * NH * HD * float(rows.sum().item())
+        b_ms, b_by = bound(nbytes, flops)
+        ms = time_cuda(torch, lambda: pa.paged_window_attention(*args))
+        big = W > PLAIN_WINDOW_ROWS
+        out["windows"].append({
+            "w": W, "keys": keys, "ms": ms,
+            "plain_ms": time_cuda(torch, lambda: window_reference_rows(*args),
+                                  iters=3 if big else 20, warmup=1 if big else 3),
+            "plain_rows_per_call": min(W, PLAIN_WINDOW_ROWS),
+            "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                qw, kd, vd, attn_mask=causal, is_causal=causal is None)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "tflops": flops / ms / 1e9, "route": pa._window_route(qw, k, None),
+            "max_abs_err": err["paged_window_attention"]})
+        check(out["windows"][-1]["route"] == "mma",
+              f"disagg window W {W} route {out['windows'][-1]['route']}")
+        del kd, vd, causal, qw
+    # The kernels line's entry: the shape the 32k cell's main path launches.
+    out["window"] = dict(out["windows"][0])
+    out["decode"]["max_abs_err"] = worst["paged_decode_attention"]
+    log("disagg kernel_times " + json.dumps(out))
+    return out
+
+
+def phase_disagg(torch, device, small=False):
+    """Phase disaggregation, the fleet monitor and the debug plane on the
+    card: bench.py's interference_4k_disagg (bf16, then f32; greedy),
+    disagg_long_context (bf16; greedy and temperature 0.8) and
+    fleet_pressure (bf16) on the bench GPT, random weights from seed 0,
+    uncut; the two paged kernels held and timed at the 32k cell's shapes.
+    The launch counts are zeroed before each cell's arms and read after
+    them. Gates: every future resolves; every pool and the store conserved,
+    no pin left; one capture per engine, every window a replay; decode
+    launches on "split", bf16 window launches on "mma"; the handoffs all
+    made, and every revivable prompt block of a handed-off request not on
+    the decode engine's device revived from the store (> 0 in every
+    disaggregated arm); every stream against the plain programs' oracle
+    (disagg_oracle); streams equal across the arms gated in f32
+    (same_streams); the pressure cell's gates (pressure_cell)."""
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    card = card_line(torch, device)
+    stats = {"card": card}
+    c4, c32 = (DISAGG_4K_SMALL, DISAGG_32K_SMALL) if small else (DISAGG_4K, DISAGG_32K)
+    for dtype in ("float32",) if small else ("bfloat16", "float32"):
+        stats[f"4k_{dtype}"] = disagg_cell(torch, device, c4, dtype, (0.0,), small)
+    stats["32k_" + ("float32" if small else "bfloat16")] = disagg_cell(
+        torch, device, c32, "float32" if small else "bfloat16", (0.0, TEMPERATURE), small)
+    t1 = time.perf_counter()
+    stats["pressure"] = pressure_cell(torch, device, small)
+    stats["pressure_s"] = time.perf_counter() - t1
+    if cuda:
+        t1 = time.perf_counter()
+        stats["kernels_32k"] = disagg_kernels(torch)
+        stats["kernels_s"] = time.perf_counter() - t1
+    main = [stats[k] for k in ("4k_bfloat16", "32k_bfloat16", "pressure") if k in stats]
+    routes = {}
+    for st in main:
+        for name, counts in st["routes"].items():
+            agg = routes.setdefault(name, {})
+            for r, n in counts.items():
+                agg[r] = agg.get(r, 0) + n
+    stats["main"] = {"routes": routes}
+    for key, st in stats.items():
+        if not key.startswith(("4k", "32k")):
+            continue
+        summary = {"card": card, "launches_by_route": {n: st["routes"][n] for n in (
+            "paged_decode_attention", "paged_window_attention")}}
+        for tkey in ("greedy", f"temp_{TEMPERATURE}"):
+            if tkey not in st:
+                continue
+            arm = st[tkey]
+            summary[tkey] = {
+                "decode_interference_ratio": arm["decode_interference_ratio"],
+                "outputs_identical": arm["outputs_identical"],
+                "same_streams": arm["same_streams"],
+                **{a: {k: arm[a].get(k) for k in (
+                    "decode_tok_s_during_prefill", "prefill_window_s", "ttft_long_s",
+                    "long_latency_s", "peak_mem_bytes", "mem_at_start_bytes", "handoffs",
+                    "handoff_reroutes", "handoffs_errored",
+                    "handoff_latency_p50_s", "handoff_latency_p95_s", "export_s",
+                    "export_capture_s", "export_publish_s",
+                    "export_share_of_handoff", "handoff_exports", "handoff_ingests",
+                    "handoff_published_blocks", "write_through_published_blocks",
+                    "handoff_revived_tokens", "store_entries", "store_bytes",
+                    "chip_accounting", "tokens") if k in arm[a]}
+                   for a in ("colocated", "disaggregated")}}
+        log(f"disagg {key}: " + json.dumps(summary))
+    pr = stats["pressure"]
+    log("disagg pressure: " + json.dumps({k: v for k, v in pr.items()
+                                          if k not in ("routes", "timeline")} | {
+        "card": card}))
+    stats["phase_s"] = time.perf_counter() - t0
+    parts = {k: {p: st[p] for p in ("arms_s", "oracle_s")} for k, st in stats.items()
+             if k.startswith(("4k", "32k"))}
+    log(f"disagg phase_s={stats['phase_s']:.1f} ({card}) parts_s=" + json.dumps(
+        parts | {"pressure": stats["pressure_s"], "kernels": stats.get("kernels_s")}))
     return stats
 
 
@@ -4467,7 +5441,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,dense,train")
+                            "trace,fleet,disagg,dense,train")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -4493,6 +5467,7 @@ def main(argv=None):
         phase_quota(torch, torch.device("cpu"), small=True)
         phase_trace(torch, torch.device("cpu"), small=True)
         phase_fleet(torch, torch.device("cpu"), small=True)
+        phase_disagg(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
         return 0
@@ -4541,6 +5516,9 @@ def main(argv=None):
     fleet = None
     if "fleet" in phases:
         fleet = phase_fleet(torch, torch.device("cuda"))
+    disagg = None
+    if "disagg" in phases:
+        disagg = phase_disagg(torch, torch.device("cuda"))
     dense = None
     if "dense" in phases:
         dense = phase_dense(torch, torch.device("cuda"))
@@ -4549,7 +5527,7 @@ def main(argv=None):
         train = phase_train(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                dense, train):
+                disagg, dense, train):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -4586,6 +5564,11 @@ def main(argv=None):
             "quota_launches": quota["main"]["routes"][name],
             # The fleet phase's bf16 serving arms (every replica), by route.
             "fleet_launches": fleet["main"]["routes"][name],
+            # The disagg phase's bf16 cells (every engine), by route, and the
+            # kernel held and timed at the 32k cell's shape.
+            "disagg_launches": disagg["main"]["routes"][name],
+            "disagg_32k": disagg["kernels_32k"][
+                "decode" if name == "paged_decode_attention" else "window"],
         })
     flash_replaces = {"flash_fwd": "nos_tpu/ops/flash_attention.py:77",
                       "flash_bwd_dq": "nos_tpu/ops/flash_attention.py:234",

@@ -6,8 +6,10 @@ health, roles and snapshot keys, the engine probe keys, the router's
 policies, phases and store weight, :184-267, and the fleet event names,
 :304-336), the KV pool dtypes (:421-423), the cost ledger's charge fields
 and receipt statuses (:390-427), the tenant probe keys (:431-437), the
-trace and flight-recorder event names (:450-531) and the tick-phase
-names (:537-562). The wire strings are the reference's, equal value for
+trace and flight-recorder event names (:450-531), the tick-phase
+names (:537-562), the fleet monitor's pressure verdicts (:270-303), the
+utilization plane's keys and waste taxonomy (:336-386) and the debug HTTP
+paths (:564-574). The wire strings are the reference's, equal value for
 value: a replica id, state or probe key spelled differently in the port
 would not be the same protocol.
 """
@@ -256,3 +258,79 @@ TICK_PHASES = (
     TICK_PHASE_PUBLISH,
     TICK_PHASE_IDLE,
 )
+
+# The fleet pressure plane (serving/monitor.py): the verdict strings of
+# PressureReport, the /debug/pressure payload and the metrics journal.
+# Per-replica verdicts; UNREACHABLE: a probe raised or timed out this
+# window, so the replica's capacity is unknown (never counted as headroom).
+PRESSURE_REPLICA_HOT = "hot"          # saturated AND work is waiting
+PRESSURE_REPLICA_OK = "ok"            # serving within capacity
+PRESSURE_REPLICA_IDLE = "idle"        # no slots, no queue, no tokens
+PRESSURE_REPLICA_DRAINING = "draining"  # lifecycle: not admitting
+PRESSURE_REPLICA_UNREACHABLE = "unreachable"
+PRESSURE_REPLICA_STATES = (
+    PRESSURE_REPLICA_HOT,
+    PRESSURE_REPLICA_OK,
+    PRESSURE_REPLICA_IDLE,
+    PRESSURE_REPLICA_DRAINING,
+    PRESSURE_REPLICA_UNREACHABLE,
+)
+# Per-tenant verdicts.
+PRESSURE_TENANT_STARVED = "starved"      # under its guarantee with work waiting
+PRESSURE_TENANT_BORROWING = "borrowing"  # running above its guarantee
+PRESSURE_TENANT_WITHIN = "within"        # inside its share (or no quota)
+PRESSURE_TENANT_STATES = (
+    PRESSURE_TENANT_STARVED,
+    PRESSURE_TENANT_BORROWING,
+    PRESSURE_TENANT_WITHIN,
+)
+
+# The utilization plane (serving/accounting.py's fleet half). Duty-cycle
+# inputs journaled on each replica window row: deltas of the engine's
+# profiler and recovery counters over the window, seconds per engine (the
+# decomposition scales them by tp_devices).
+ACCT_KEY_DISPATCH_S = "dispatch_s"          # wall inside device calls
+ACCT_KEY_HOST_S = "host_overhead_s"         # tick wall minus dispatch
+ACCT_KEY_TICK_WALL_S = "tick_wall_s"        # profiled tick wall
+ACCT_KEY_IDLE_S = "idle_s"                  # idle tick-phase wall
+ACCT_KEY_REVIVE_S = "revive_pump_s"         # spill-revive pump phase wall
+ACCT_KEY_RESTORE_S = "restore_s"            # restore-latency sample sum
+ACCT_KEY_KV_BLOCK_TICKS = "kv_block_ticks"  # sum over ticks of blocks held
+# The decomposition attached to the row (`accounting.duty_cycle`, pure
+# over the inputs above).
+ACCT_KEY_DUTY = "duty"
+ACCT_KEY_WALL_CHIP_S = "wall_chip_s"
+ACCT_KEY_BUSY_CHIP_S = "busy_chip_s"
+ACCT_KEY_OVERHEAD_CHIP_S = "overhead_chip_s"
+ACCT_KEY_WASTE_CHIP_S = "waste_chip_s"
+ACCT_KEY_WASTE = "waste"
+# Fleet roll-up fields (PressureReport, `utilization_block`).
+ACCT_KEY_CHIP_SECONDS = "chip_seconds"
+ACCT_KEY_CHIP_HOURS = "chip_hours"
+ACCT_KEY_TOK_S_PER_CHIP_HOUR = "tok_s_per_chip_hour"
+ACCT_KEY_WASTE_FRACTION = "waste_fraction"
+# The named waste taxonomy: where the rest of the chip-seconds went.
+WASTE_IDLE = "waste.idle"                  # nothing to do (incl. unmeasured slack)
+WASTE_DRAINING = "waste.draining"          # capacity leaving the fleet
+WASTE_UNREACHABLE = "waste.unreachable"    # suspect/unreachable window
+WASTE_RECOVERY = "waste.recovery"          # restore/replay host time
+WASTE_SPILL_REVIVE = "waste.spill_revive"  # spill/revive copy traffic
+WASTE_CAUSES = (
+    WASTE_IDLE,
+    WASTE_DRAINING,
+    WASTE_UNREACHABLE,
+    WASTE_RECOVERY,
+    WASTE_SPILL_REVIVE,
+)
+
+# The debug HTTP surface (observability.ObservabilityServer).
+DEBUG_PATH_EVENTS = "/debug/events"
+DEBUG_PATH_TRACE_PREFIX = "/debug/trace/"
+DEBUG_PATH_PRESSURE = "/debug/pressure"
+# Per-tenant cost roll-up and receipts (serving/accounting.py CostLedger).
+DEBUG_PATH_ACCOUNTING = "/debug/accounting"
+# The index: a JSON list of the armed debug surfaces above (404 when none
+# is armed, bearer-guarded like each of them).
+DEBUG_PATH_INDEX = "/debug"
+# The Prometheus text exposition format version scrapers negotiate on.
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"

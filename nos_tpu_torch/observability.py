@@ -1,21 +1,32 @@
-"""Port of the metrics half of `nos_tpu/observability.py`, copied near
-verbatim: `MetricSpec` (:42), `METRIC_SERIES` (:59) and `Metrics` (:255),
-a Prometheus-text registry of counters, gauges and bucketed duration
-histograms. `DecodeServer(..., metrics=Metrics())` publishes its
-`nos_tpu_decode_*` series onto it. The reference's `HealthManager` (:387)
-and `ObservabilityServer` (:428) belong to the serving plane and are not
-ported yet (ROADMAP A8 step 5); `METRIC_SERIES` keeps the fleet series
-those will emit, so the schema stays the reference's.
+"""Port of `nos_tpu/observability.py`, copied near verbatim: `MetricSpec`
+(:42), `METRIC_SERIES` (:59) and `Metrics` (:255), a Prometheus-text
+registry of counters, gauges and bucketed duration histograms, onto which
+`DecodeServer(..., metrics=Metrics())` publishes its `nos_tpu_decode_*`
+series and the fleet modules their `nos_tpu_fleet_*` series; the health
+checks `HealthManager` (:387); `ObservabilityServer` (:428), an HTTP
+server of `/metrics` (text exposition format 0.0.4), `/healthz` and
+`/readyz`, and of the debug surface when its sources are attached:
+`/debug` (the index of the armed surfaces), `/debug/events` (a
+`FlightRecorder`), `/debug/trace/<id>` (a `Tracer`, with the cost
+ledger's receipt), `/debug/pressure` (a `FleetMonitor`) and
+`/debug/accounting` (a `CostLedger`), `/metrics` and `/debug/*` behind an
+optional bearer token; and `setup_logging` (:642). The server's threads
+start only in `start()`.
 """
 
 from __future__ import annotations
 
 import bisect
+import http.server
+import json
+import logging
 import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
+
+from nos_tpu_torch import constants
 
 
 # ---------------------------------------------------------------------------
@@ -353,3 +364,269 @@ class Metrics:
                 lines.append(fmt(name + "_seconds_count", labels, self._dur_count[key]))
                 lines.append(fmt(name + "_seconds_sum", labels, self._dur_sum[key]))
         return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# Health
+# ---------------------------------------------------------------------------
+class HealthManager:
+    """healthz/readyz checks (AddHealthzCheck/AddReadyzCheck analog)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._healthz: Dict[str, Callable[[], Optional[str]]] = {}
+        self._readyz: Dict[str, Callable[[], Optional[str]]] = {}
+
+    def add_healthz(self, name: str, check: Callable[[], Optional[str]]) -> None:
+        with self._lock:
+            self._healthz[name] = check
+
+    def add_readyz(self, name: str, check: Callable[[], Optional[str]]) -> None:
+        with self._lock:
+            self._readyz[name] = check
+
+    def _run(self, checks) -> Tuple[bool, Dict[str, str]]:
+        failures = {}
+        for name, check in list(checks.items()):
+            try:
+                reason = check()
+            except Exception as e:  # noqa: BLE001
+                reason = f"check raised: {e}"
+            if reason is not None:
+                failures[name] = reason
+        return not failures, failures
+
+    def healthz(self) -> Tuple[bool, Dict[str, str]]:
+        with self._lock:
+            checks = dict(self._healthz)
+        return self._run(checks)
+
+    def readyz(self) -> Tuple[bool, Dict[str, str]]:
+        with self._lock:
+            checks = dict(self._readyz)
+        return self._run(checks)
+
+
+# ---------------------------------------------------------------------------
+# HTTP endpoint
+# ---------------------------------------------------------------------------
+class ObservabilityServer:
+    """Serves /metrics, /healthz, /readyz (kube-rbac-proxy-less analog),
+    plus the serving-plane debug surface (/debug/events — the engine
+    flight recorder's ring + postmortem dumps; /debug/trace/<id> — one
+    request's lifecycle span events; /debug/pressure — the fleet
+    monitor's latest PressureReport, window rows, SLO state and journal
+    bookkeeping) when a tracing.FlightRecorder / tracing.Tracer /
+    serving.FleetMonitor is attached."""
+
+    def __init__(
+        self,
+        metrics_registry: Metrics,
+        health: HealthManager,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        metrics_token: Optional[str] = None,
+        tracer=None,
+        recorder=None,
+        pressure=None,
+        accounting=None,
+    ):
+        """In-cluster deployments bind host='0.0.0.0' on the configured
+        health_probe_port so kubelet httpGet probes can reach the pod IP;
+        tests/demos keep loopback + ephemeral.
+
+        `metrics_token` guards /metrics AND /debug/* with bearer-token
+        auth (the kube-rbac-proxy-guarded pattern without the sidecar:
+        Prometheus authenticates via the ServiceMonitor's
+        bearerTokenSecret, everyone else gets 401 — and the debug
+        surface, which exposes per-request timing, is at least as
+        sensitive as the metrics). /healthz and /readyz stay open —
+        kubelet httpGet probes cannot attach credentials.
+
+        `tracer`/`recorder` (optional, duck-typed to tracing.py's
+        Tracer/FlightRecorder) arm the /debug endpoints; without them
+        the paths answer 404. Payloads are JSON and carry counts/ids
+        only — the recorder/tracer never stored request content to
+        begin with (docs/tracing.md privacy contract).
+
+        `pressure` (optional, duck-typed to serving.FleetMonitor —
+        anything exposing `pressure_snapshot()`) arms /debug/pressure:
+        the latest PressureReport, per-replica/per-tenant window rows,
+        SLO state, and journal bookkeeping (docs/fleet-monitor.md).
+        Same auth posture as the other debug paths — fleet pressure is
+        capacity-planning intelligence, at least as sensitive as the
+        metrics.
+
+        `accounting` (optional, duck-typed to
+        serving/accounting.py CostLedger — anything exposing
+        `snapshot()` and `receipt(trace_id)`) arms /debug/accounting
+        (the per-tenant cost roll-up + recent receipts) and attaches
+        each request's cost RECEIPT to its /debug/trace/<id> payload.
+        Billing data is tenant-identifying — same auth posture again.
+
+        GET /debug (constants.DEBUG_PATH_INDEX) is the discoverability
+        index: a JSON list of whichever debug surfaces above are armed,
+        404 when none is (the same bearer-token and 404-unarmed
+        semantics as the surfaces it lists)."""
+        self.metrics = metrics_registry
+        self.health = health
+        self.metrics_token = metrics_token
+        self.tracer = tracer
+        self.recorder = recorder
+        self.pressure = pressure
+        self.accounting = accounting
+        obs = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _authorized(self) -> bool:
+                if obs.metrics_token is None:
+                    return True
+                import hmac
+
+                presented = self.headers.get("Authorization", "")
+                return hmac.compare_digest(
+                    presented, f"Bearer {obs.metrics_token}"
+                )
+
+            def _reply_401(self):
+                body = b"unauthorized"
+                self.send_response(401)
+                self.send_header("WWW-Authenticate", "Bearer")
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                # Prometheus scrapers key the exposition-format parser
+                # off the Content-Type version; plain probes and the
+                # JSON debug surface declare theirs too.
+                ctype = "text/plain"
+                if self.path == "/metrics":
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    body = obs.metrics.render().encode()
+                    ctype = constants.METRICS_CONTENT_TYPE
+                    self.send_response(200)
+                elif self.path == "/healthz":
+                    ok, failures = obs.health.healthz()
+                    body = (b"ok" if ok else repr(failures).encode())
+                    self.send_response(200 if ok else 500)
+                elif self.path == "/readyz":
+                    ok, failures = obs.health.readyz()
+                    body = (b"ok" if ok else repr(failures).encode())
+                    self.send_response(200 if ok else 500)
+                elif self.path == constants.DEBUG_PATH_EVENTS:
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    if obs.recorder is None:
+                        body = b"flight recorder not attached"
+                        self.send_response(404)
+                    else:
+                        payload = {
+                            "events": obs.recorder.snapshot(),
+                            "postmortems": obs.recorder.postmortem_dumps(),
+                        }
+                        if obs.tracer is not None:
+                            payload["traces"] = obs.tracer.trace_ids()
+                        body = json.dumps(payload).encode()
+                        ctype = "application/json"
+                        self.send_response(200)
+                elif self.path == constants.DEBUG_PATH_PRESSURE:
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    if obs.pressure is None:
+                        body = b"fleet monitor not attached"
+                        self.send_response(404)
+                    else:
+                        body = json.dumps(obs.pressure.pressure_snapshot()).encode()
+                        ctype = "application/json"
+                        self.send_response(200)
+                elif self.path == constants.DEBUG_PATH_ACCOUNTING:
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    if obs.accounting is None:
+                        body = b"cost ledger not attached"
+                        self.send_response(404)
+                    else:
+                        body = json.dumps(obs.accounting.snapshot()).encode()
+                        ctype = "application/json"
+                        self.send_response(200)
+                elif self.path == constants.DEBUG_PATH_INDEX:
+                    # Discoverability: which debug surfaces are armed.
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    surfaces = []
+                    if obs.recorder is not None:
+                        surfaces.append(constants.DEBUG_PATH_EVENTS)
+                    if obs.tracer is not None:
+                        surfaces.append(
+                            constants.DEBUG_PATH_TRACE_PREFIX + "<id>"
+                        )
+                    if obs.pressure is not None:
+                        surfaces.append(constants.DEBUG_PATH_PRESSURE)
+                    if obs.accounting is not None:
+                        surfaces.append(constants.DEBUG_PATH_ACCOUNTING)
+                    if not surfaces:
+                        body = b"no debug surface armed"
+                        self.send_response(404)
+                    else:
+                        body = json.dumps({"surfaces": surfaces}).encode()
+                        ctype = "application/json"
+                        self.send_response(200)
+                elif self.path.startswith(constants.DEBUG_PATH_TRACE_PREFIX):
+                    if not self._authorized():
+                        self._reply_401()
+                        return
+                    tid = self.path[len(constants.DEBUG_PATH_TRACE_PREFIX):]
+                    events = (
+                        obs.tracer.trace(tid) if obs.tracer is not None else None
+                    )
+                    if events is None:
+                        body = b"no such trace"
+                        self.send_response(404)
+                    else:
+                        payload = {"trace_id": tid, "events": events}
+                        if obs.accounting is not None:
+                            # The request's cost receipt rides its trace
+                            # (None while open / for unknown ids).
+                            payload["receipt"] = obs.accounting.receipt(tid)
+                        body = json.dumps(payload).encode()
+                        ctype = "application/json"
+                        self.send_response(200)
+                else:
+                    body = b"not found"
+                    self.send_response(404)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._server = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.port = self._server.server_port
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "ObservabilityServer":
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def setup_logging(level: str = "INFO") -> None:
+    """Leveled structured logging (zap-options analog)."""
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)-5s %(name)s %(message)s",
+    )

@@ -96,9 +96,11 @@ def scatter_tokens(pool_q: torch.Tensor, scale: torch.Tensor, pages: torch.Tenso
 
 
 # -- whole-block movement (spill copy-out, revive copy-in, COW) ---------------------
-def extract_block(cache: Dict, block: int, layers: int) -> Tuple[torch.Tensor, ...]:
+def extract_block(cache: Dict, block, layers: int) -> Tuple[torch.Tensor, ...]:
     """One block's codes and scales over every layer: (k [L, nkv, bs, hd]
-    int8, v, k_scale [L] f32, v_scale [L]), on the pool's device."""
+    int8, v, k_scale [L] f32, v_scale [L]), on the pool's device. A slice
+    or an index tensor for `block` keeps a block axis second (k [L, n,
+    nkv, bs, hd], the scales [L, n])."""
     return tuple(torch.stack([cache[str(i)][name][block] for i in range(layers)])
                  for name in ("k", "v", "k_scale", "v_scale"))
 

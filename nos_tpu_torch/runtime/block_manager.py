@@ -1,6 +1,10 @@
-"""Port of `nos_tpu/runtime/block_manager.py:108`, copied near-verbatim: only
-the imports point at the port, and references to the reference's change
-history are dropped from the comments.
+"""Port of `nos_tpu/runtime/block_manager.py:108`, copied near-verbatim: the
+imports point at the port, references to the reference's change history
+are dropped from the comments, and the two write-through publish paths
+(`publish_to_tier`, `publish_slot_chain`) read their blocks' payloads in
+one pass through the engine's `reader_many` (one blocking read on the
+card for a handoff's whole chain) before putting them in the reference's
+order, with the same result.
 
 BlockManager: refcounted, content-addressed bookkeeping for the paged
 KV pool — shared-prefix block reuse for the DecodeServer.
@@ -183,6 +187,8 @@ class BlockManager:
         # host hits for the engine to claim: (token offset, block, key).
         self._spill: Optional[SpillTier] = None
         self._spill_reader: Optional[Callable[[int], Tuple[object, int]]] = None
+        self._spill_reader_many: Optional[
+            Callable[[List[int]], List[Tuple[object, int]]]] = None
         self._spilled: List[int] = []
         self._slot_revives: List[List[Tuple[int, int, str]]] = [
             [] for _ in range(self.n_slots)
@@ -208,14 +214,18 @@ class BlockManager:
         self,
         tier: SpillTier,
         reader: Callable[[int], Tuple[object, int]],
+        reader_many: Optional[Callable[[List[int]], List[Tuple[object, int]]]] = None,
     ) -> None:
         """Arm the host tier. `reader(block)` extracts the block's K/V
         contents from the device pool as (payload, nbytes) — supplied by
         the engine, which owns the device arrays; the manager decides
         WHEN content moves between tiers, never touches device state
-        itself."""
+        itself. `reader_many(blocks)`, when given, extracts several
+        blocks in one pass, their (payload, nbytes) in order: the two
+        publish paths, which copy many blocks at once, go through it."""
         self._spill = tier
         self._spill_reader = reader
+        self._spill_reader_many = reader_many or (lambda blocks: [reader(b) for b in blocks])
 
     def attach_recorder(self, recorder) -> None:
         """Arm the engine's flight recorder (tracing.FlightRecorder) for
@@ -660,17 +670,41 @@ class BlockManager:
         chain. Returns the number of blocks actually put."""
         if self._spill is None:
             return 0
-        published = 0
-        for key, block in list(self._prefix_index.items()):
-            if key in self._spill:
-                continue
-            payload, nbytes = self._spill_reader(block)
+
+        def meta(_, key):
             parent, tokens = "", ()
             if self._tree is not None:
                 node = self._tree.node(key)
                 if node is not None:
                     tokens = node.tokens
                     parent = node.parent.key if node.parent is not None else ""
+            return parent, tokens
+
+        return self._publish(list(self._prefix_index.items()), meta, max_blocks)
+
+    def _publish(self, entries, meta, max_blocks: int = 0) -> int:
+        """Put the (key, block) `entries` not yet host-resident into the
+        host tier in order, up to `max_blocks` (0 = all), each with its
+        chain metadata `meta(i, key)` -> (parent, tokens). The payloads of
+        the entries absent when the call begins are read in one
+        `reader_many` pass; the puts then run as one block at a time
+        would, each key checked again when its turn comes (a put may
+        retire a key found resident earlier: it is then read and put
+        alone). Returns the number of blocks put."""
+        absent = []
+        for key, block in entries:
+            if key not in self._spill:
+                absent.append((key, block))
+                if max_blocks and len(absent) >= max_blocks:
+                    break
+        read = dict(zip([k for k, _ in absent],
+                        self._spill_reader_many([b for _, b in absent]))) if absent else {}
+        published = 0
+        for i, (key, block) in enumerate(entries):
+            if key in self._spill:
+                continue
+            payload, nbytes = read.pop(key, None) or self._spill_reader(block)
+            parent, tokens = meta(i, key)
             self._spill.put(key, payload, nbytes, parent=parent, tokens=tokens)
             published += 1
             if max_blocks and published >= max_blocks:
@@ -692,23 +726,15 @@ class BlockManager:
         like every spill copy-out. Returns the number of blocks put."""
         if self._spill is None:
             return 0
-        published = 0
         keys = self._slot_keys[idx][: self._slot_indexed[idx]]
-        for b, key in enumerate(keys):
-            if key in self._spill:
-                continue
-            block = self._prefix_index.get(key)
-            if block is None:
-                # Lost the indexing race to a concurrent same-prefix
-                # slot whose copy was since evicted: this slot's private
-                # duplicate holds identical bytes (content addressing).
-                block = self._slot_blocks[idx][b]
-            payload, nbytes = self._spill_reader(block)
-            parent = keys[b - 1] if b > 0 else ""
-            tokens = self._slot_blocks_tokens[idx][b]
-            self._spill.put(key, payload, nbytes, parent=parent, tokens=tokens)
-            published += 1
-        return published
+        # A key that lost the indexing race to a concurrent same-prefix
+        # slot whose copy was since evicted: this slot's private duplicate
+        # holds identical bytes (content addressing).
+        entries = [(key, self._prefix_index.get(key, self._slot_blocks[idx][b]))
+                   for b, key in enumerate(keys)]
+        tokens = self._slot_blocks_tokens[idx]
+        return self._publish(
+            entries, lambda b, key: (keys[b - 1] if b > 0 else "", tokens[b]))
 
     def _alloc_one(self) -> int:
         """One block, cheapest casualty first: the plain free list, then

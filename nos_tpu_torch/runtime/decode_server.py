@@ -65,15 +65,23 @@ The serving plane (`nos_tpu_torch/serving/`, decode_server.py:781-819,
 :1378-1890, :2521-2640): `kv_store=FleetKVStore(...)` mounts the fleet
 KV store as the host tier through a `StoreTier`, so replicas share one
 content-addressed copy of each block; busy ticks publish a bounded
-number of indexed blocks into it (`_publish_per_tick`, one counted
-copy-out each) and idle ticks the rest, and `prewarm_from_store` queues
+number of indexed blocks into it (`_publish_per_tick`) and idle ticks
+the rest, read off the card in one pass (`_extract_blocks`), and
+`prewarm_from_store` queues
 a cold replica's copy-ins from it, drained under the prefill budget.
 `probe`, `transfer_in_request`, `transfer_in_checkpoint`,
 `drain_extract`, `forsake` and `reopen` are the hooks the router, the
-drain controller and the fleet supervisor drive. Phase-disaggregated
-handoff (`handoff=True`, `set_handoff_hook`) is not ported yet and
-raises NotImplementedError naming its ROADMAP item. The constructor
-keeps the reference's signature. Several engines may share one card,
+drain controller and the fleet supervisor drive. Phase disaggregation
+(decode_server.py:1433-1551, :1825, :2784-2868): a request admitted with
+`transfer_in_request(handoff=True)` on an engine whose handoff hook is
+armed (`set_handoff_hook`, `serving/disagg.py`'s HandoffCoordinator)
+runs its prefill here and, in the wave that dispatches its final chunk,
+is checkpointed, its prompt chain published to the store
+(`publish_slot_chain`), its slot released and the checkpoint handed to
+the hook, before any decode dispatch of that tick sees the slot; a
+destination takes it through `transfer_in_checkpoint(handoff=True)` and
+counts the revives of its replay as `handoff_revived_tokens`. The
+constructor keeps the reference's signature. Several engines may share one card,
 each with its own thread: their ticks share `_DEVICE_GATE` and a window
 capture holds it alone, so a replica added under load captures while
 no other engine launches.
@@ -167,12 +175,6 @@ from nos_tpu_torch.serving.kv_store import StoreTier
 from nos_tpu_torch.tracing import TickProfiler
 
 logger = logging.getLogger(__name__)
-
-_HANDOFF_NOT_PORTED = (
-    "phase-disaggregated handoff is not ported to PyTorch yet "
-    "(ROADMAP.md queue A: Fleet)"
-)
-
 
 class _TokRef:
     """One dispatched step's token vector (or a wave's first-token vector);
@@ -379,6 +381,14 @@ class _Request:
     # preemptions.
     tenant: Optional[str] = None
     trace_id: Optional[str] = None
+    # Phase disaggregation (serving/disagg.py): `handoff_export`, this
+    # engine is the request's prefill replica, and at prefill-complete the
+    # slot is checkpointed, its prompt chain published to the shared store
+    # and the checkpoint handed to the handoff hook instead of decoding
+    # here; `handoff_ingest`, the request arrived by a handoff, so its
+    # staged revives count as handoff traffic, not failover traffic.
+    handoff_export: bool = False
+    handoff_ingest: bool = False
 
 
 @dataclass
@@ -436,6 +446,9 @@ class _Slot:
     trace_id: Optional[str] = None
     trace_decoding: bool = False
     t_reserved: float = 0.0
+    # Phase-disaggregation markers (see _Request).
+    handoff_export: bool = False
+    handoff_ingest: bool = False
 
 
 @dataclass
@@ -693,7 +706,9 @@ class DecodeServer:
             # A weak reader: the manager must not keep the engine, and with
             # it the pool's device memory, alive in a reference cycle.
             reader = weakref.WeakMethod(self._extract_block)
-            self._block_mgr.attach_spill(self.spill_tier, lambda block: reader()(block))
+            many = weakref.WeakMethod(self._extract_blocks)
+            self._block_mgr.attach_spill(self.spill_tier, lambda block: reader()(block),
+                                         lambda blocks: many()(blocks))
         # Shared-store state (decode_server.py:812-819), inert on a private
         # tier: chains queued for prewarm (`prewarm_from_store`, drained by
         # `_pump_prewarm` under the prefill budget), the write-through
@@ -705,8 +720,9 @@ class DecodeServer:
         self.prewarm_tokens = 0
         #: Blocks the write-through publish put into the store.
         self.store_published_blocks = 0
-        # Phase disaggregation's counters (decode_server.py:820-833): the
-        # handoff is not ported yet, so they stay 0.
+        # Phase disaggregation (decode_server.py:830-834): the prefill-
+        # complete hook and the handoff counters.
+        self._handoff_hook = None
         self.handoff_exports = 0
         self.handoff_ingests = 0
         self.handoff_published_blocks = 0
@@ -873,24 +889,30 @@ class DecodeServer:
     # under a mesh the copy-out gathers the shards' KV-head slices (and
     # takes the scales once: the shards' copies are equal) and the copy-in
     # slices them back, so a payload is the same bytes at any tp.
-    def _extract(self, block: int) -> tuple:
-        """One block's tensors on the engine's device: (k, v), or for an
-        int8 pool (k, v, k_scale, v_scale) through the funnel module."""
+    def _gather_blocks(self, blocks: List[int]) -> tuple:
+        """Blocks' full-width tensors on the engine's device, the block axis
+        second: (k, v) [L, n, nkv, bs, hd], or for an int8 pool (k, v,
+        k_scale, v_scale) through the funnel module, the scales [L, n]. The
+        one definition of the payload layout: the shards' KV heads side by
+        side, their equal scales taken once."""
         L = self.cfg.layers
-        if self._kv_quant:
-            parts = [qkv.extract_block(pool, block, L) for pool in self._pools()]
-        else:
-            parts = [tuple(torch.stack([pool[str(i)][name][block] for i in range(L)])
-                           for name in ("k", "v")) for pool in self._pools()]
+        # One block is a slice (no index upload); several, one gather.
+        idx = (slice(blocks[0], blocks[0] + 1) if len(blocks) == 1
+               else torch.tensor(blocks, dtype=torch.long))
+        parts = []
+        for pool in self._pools():
+            at = idx if isinstance(idx, slice) else idx.to(pool["0"]["k"].device)
+            parts.append(qkv.extract_block(pool, at, L) if self._kv_quant else tuple(
+                torch.stack([pool[str(i)][name][at] for i in range(L)]) for name in ("k", "v")))
         if len(parts) == 1:
             return parts[0]
-        codes = tuple(torch.cat([p[j].to(self.device) for p in parts], dim=1)
+        codes = tuple(torch.cat([p[j].to(self.device) for p in parts], dim=2)
                       for j in range(2))
         return codes + parts[0][2:]
 
     def _revive(self, tensors: tuple, block: int) -> None:
-        """Copy a block's full-width tensors (as `_extract` returns them, on
-        the engine's device) into `block`."""
+        """Copy a block's full-width tensors (as `_gather_blocks` returns
+        one block's, the block axis dropped) into `block`."""
         pools = self._pools()
         k, v = tensors[:2]
         width = k.shape[1] // len(pools)
@@ -926,13 +948,31 @@ class DecodeServer:
         pressure), and the bytes moved are the point. A native payload is
         (k, v); an int8 payload is the tagged ("int8", k, v, k_scale,
         v_scale), its nbytes with the scales (decode_server.py:1306-1329)."""
-        tensors = self._extract(block)
+        return self._read_blocks([block])[0]
+
+    def _extract_blocks(self, blocks: List[int]) -> list:
+        """Several blocks' payloads, each as `_extract_block` gives it, for
+        the publish paths (a handoff's prompt chain, the idle sweep). On
+        the card in one pass: the blocks gathered on the device and read
+        back together, one counted blocking read instead of one a block
+        (a 32k-token chain is 1024 blocks). A pool on the CPU reads them
+        one by one, as the reference counts its copy-outs."""
+        if self.device.type != "cuda":
+            return [self._extract_block(b) for b in blocks]
+        return self._read_blocks(blocks)
+
+    def _read_blocks(self, blocks: List[int]) -> list:
+        """Blocks' payloads and nbytes through one counted blocking read."""
+        tensors = self._gather_blocks(blocks)
         self._syncs.note()
-        tensors = tuple(t.cpu() for t in tensors)
-        nbytes = sum(t.numel() * t.element_size() for t in tensors)
-        if self._kv_quant:
-            return (constants.KV_DTYPE_INT8,) + tensors, nbytes
-        return tensors, nbytes
+        host = [t.cpu() for t in tensors]
+        out = []
+        for n in range(len(blocks)):
+            block = tuple(t[:, n].contiguous() for t in host)
+            nbytes = sum(t.numel() * t.element_size() for t in block)
+            out.append(((constants.KV_DTYPE_INT8,) + block if self._kv_quant else block,
+                        nbytes))
+        return out
 
     def _payload_matches(self, payload) -> bool:
         """Whether a tier payload's wire format is this pool's: a native
@@ -1085,10 +1125,13 @@ class DecodeServer:
         form the drain controller (`serving/drain.py`) uses to move a
         waiting request to another replica with its ORIGINAL client Future
         and submit time, so the client never sees the move. Thread-safe:
-        the queue is the cross-thread boundary. `handoff=True` marks a
-        request for phase-disaggregated export, which is not ported yet."""
-        if handoff:
-            raise NotImplementedError(_HANDOFF_NOT_PORTED)
+        the queue is the cross-thread boundary. `handoff=True` marks the
+        request for phase-disaggregated export (serving/disagg.py): this
+        engine runs its prefill only, and at the final chunk the slot is
+        checkpointed, its prompt chain published to the shared store and
+        the checkpoint handed to the armed handoff hook for decode
+        elsewhere. Without an armed hook the marker is inert and the
+        request decodes here."""
         if self._closed.is_set():
             raise RuntimeError(
                 "DecodeServer is stopped (or draining): submit() after stop() "
@@ -1114,7 +1157,7 @@ class DecodeServer:
         self._note_accepted(fut)
         self._queue.put(_Request(list(prompt), max_new, fut,
                                  t_submit if t_submit is not None else time.monotonic(),
-                                 tenant=tenant, trace_id=trace_id))
+                                 tenant=tenant, trace_id=trace_id, handoff_export=handoff))
         return fut
 
     def transfer_in_checkpoint(self, ck: SlotCheckpoint, t_restore: Optional[float] = None,
@@ -1124,10 +1167,12 @@ class DecodeServer:
         the tokens generated at the source, its sampling serial kept and
         its PRNG step offset by the replay, so a temperature stream goes on
         bit for bit on an engine with the source's params, config and
-        seed. The checkpoint's Future resolves here. `handoff=True` (a
-        phase-disaggregation arrival) is not ported yet."""
-        if handoff:
-            raise NotImplementedError(_HANDOFF_NOT_PORTED)
+        seed. The checkpoint's Future resolves here. `handoff=True` marks a
+        phase-disaggregation arrival (the decode half of serving/disagg.py's
+        handoff): the replay's staged store revives count as
+        `handoff_revived_tokens`, the witness that the prefill replica's KV
+        was shipped through the fleet store rather than recomputed here,
+        instead of as failover traffic."""
         if self._closed.is_set():
             raise RuntimeError(
                 "DecodeServer is stopped (or draining): cannot accept a "
@@ -1137,13 +1182,17 @@ class DecodeServer:
             return  # resolved at capture (eos or budget): nothing to replay
         if ck.future is not None:
             self._note_accepted(ck.future)
+        if handoff:
+            self.handoff_ingests += 1
+            if self.metrics is not None:
+                self.metrics.inc("nos_tpu_fleet_handoff_ingests")
         self._queue.put(_Request(
             prompt=list(ck.prompt), max_new=ck.max_new,
             future=ck.future if ck.future is not None else Future(),
             t_submit=ck.t_submit, replay=list(ck.generated), serial=ck.serial,
             t_restore=t_restore if t_restore is not None else time.monotonic(),
             spec=dict(ck.spec) if ck.spec is not None else None, tenant=ck.tenant,
-            trace_id=ck.trace_id))
+            trace_id=ck.trace_id, handoff_ingest=handoff))
 
     def generate(self, prompt: Sequence[int], max_new: int = 16, timeout=None):
         return self.submit(prompt, max_new).result(timeout=timeout)
@@ -1215,9 +1264,16 @@ class DecodeServer:
         self._checkpoint_hook = hook
 
     def set_handoff_hook(self, hook) -> None:
-        """The prefill-complete handoff hook of phase disaggregation
-        (decode_server.py:1825), which is not ported yet."""
-        raise NotImplementedError(_HANDOFF_NOT_PORTED)
+        """Arm (or, with None, disarm) the prefill-complete handoff hook
+        (decode_server.py:1825, serving/disagg.py). The hook runs on the
+        engine's thread with one argument, the freshly captured
+        SlotCheckpoint, its prompt chain already published to the shared
+        store and its slot already released, and owns the checkpoint from
+        then on: this engine has dropped the future from its accepted set,
+        so the hook must place the checkpoint or resolve its future. A
+        raising hook is contained: the export is done, the engine logs and
+        keeps ticking."""
+        self._handoff_hook = hook
 
     # -- the serving plane's hooks (decode_server.py:1623-1890) ------------------
     # Each may run on another thread than the engine's: `probe`,
@@ -1504,6 +1560,13 @@ class DecodeServer:
                 self._accepted = [f for f in self._accepted if not f.done()]
             self._accepted.append(fut)
 
+    def _drop_accepted(self, fut: Future) -> None:
+        """Ownership transfer at a handoff export (decode_server.py:1605):
+        the future now belongs to another replica's completion, so this
+        engine's drain must stop counting it as work owed here."""
+        with self._accept_lock:
+            self._accepted = [f for f in self._accepted if f is not fut]
+
     def _has_outstanding(self) -> bool:
         with self._accept_lock:
             self._accepted = [f for f in self._accepted if not f.done()]
@@ -1711,6 +1774,8 @@ class DecodeServer:
                 slot.tenant = req.tenant
                 slot.trace_id = req.trace_id
                 slot.trace_decoding = False
+                slot.handoff_export = req.handoff_export
+                slot.handoff_ingest = req.handoff_ingest
                 slot.pending_prompt = full_prompt
                 # Prefix hits are already in the page table: the cursor
                 # starts at the first miss (always below the last-token
@@ -1890,7 +1955,13 @@ class DecodeServer:
                 slot.phase = "prefilling"
             copies += 1
             used += cost
-            if slot.t_restore:
+            if slot.handoff_ingest:
+                # A handoff arrival serving its replay from the prefill
+                # replica's published payloads: shipped, not recomputed.
+                self.handoff_revived_tokens += cost
+                if self.metrics is not None:
+                    self.metrics.inc("nos_tpu_fleet_handoff_revived_tokens", cost)
+            elif slot.t_restore:
                 # A restore (after a fault or a preemption) took these
                 # replay tokens from host bytes instead of recompute.
                 self.failover_revive_tokens += cost
@@ -2025,6 +2096,7 @@ class DecodeServer:
             # finishing in this wave: a single device->host transfer.
             now = time.monotonic()
             ref = _TokRef(self._first_dev, self._syncs)
+            exports: List[int] = []
             for idx, _, _ in finals:
                 slot = self._slots[idx]
                 slot.phase = "decoding"
@@ -2043,6 +2115,15 @@ class DecodeServer:
                     self._tracer.event(slot.trace_id, constants.TRACE_EV_FIRST_TOKEN, slot=idx,
                                        pos=slot.pos)
                 self._finish_if_done(idx)
+                # Re-read the lane: a request that finished at its first
+                # token has a fresh _Slot there and never exports.
+                if (self._slots[idx].handoff_export and self._slots[idx].active
+                        and self._handoff_hook is not None):
+                    exports.append(idx)
+            # In this wave, before the tick's decode dispatch builds its
+            # lane list: an exported slot never enters a window.
+            for idx in exports:
+                self._export_handoff(idx)
         self.prefill_dispatches += dispatches
         n_tokens = sum(len(piece) for _, _, piece in wave)
         if self._recorder is not None:
@@ -2052,6 +2133,45 @@ class DecodeServer:
             self.metrics.inc("nos_tpu_decode_prefill_dispatches", dispatches)
             self.metrics.inc("nos_tpu_decode_prefill_tokens", n_tokens)
         return dispatches
+
+    def _export_handoff(self, idx: int) -> None:
+        """Prefill-complete export (decode_server.py:2812): checkpoint the
+        slot, publish its prompt chain into the shared store, release the
+        slot and hand the checkpoint to the handoff hook; the decode runs
+        on whatever replica the coordinator picks. The capture materializes
+        the first token (the destination replays it: serial and PRNG step
+        ride the checkpoint), the chain goes to the store before the
+        release so every full prompt block is there when the destination
+        stages its revives, and the future leaves this engine's accepted
+        set with the checkpoint. A key the store has dropped meanwhile
+        degrades that block to recompute at the destination: the same
+        tokens."""
+        slot = self._slots[idx]
+        ck = self._checkpoint_slot(idx)
+        if ck is None:
+            # Completed at capture (eos or budget): resolved here.
+            self._release_slot(idx)
+            return
+        published = self._block_mgr.publish_slot_chain(idx)
+        self.handoff_exports += 1
+        self.handoff_published_blocks += published
+        if self.metrics is not None:
+            self.metrics.inc("nos_tpu_fleet_handoff_exports")
+            if published:
+                self.metrics.inc("nos_tpu_fleet_handoff_published_blocks", published)
+        if self._tracer is not None:
+            self._tracer.event(slot.trace_id, constants.TRACE_EV_HANDOFF, slot=idx,
+                               published_blocks=published, generated=len(ck.generated))
+        if ck.future is not None:
+            self._drop_accepted(ck.future)
+        self._release_slot(idx)
+        try:
+            self._handoff_hook(ck)
+        except Exception as exc:
+            # The hook owns recovery (it holds the checkpoint and the
+            # future); its raise must not take the engine loop down.
+            logger.exception("handoff hook raised (%s); engine continues",
+                             classify_fault(exc))
 
     # -- completion ------------------------------------------------------------
     @staticmethod
@@ -2680,8 +2800,8 @@ class DecodeServer:
         if self._store_shared:
             # The write-through publish (decode_server.py:3740): a bounded
             # number of indexed, still device-resident blocks a busy tick
-            # go to the fleet store before this replica dies or drains,
-            # one counted copy-out each; the idle sweep publishes the rest.
+            # go to the fleet store before this replica dies or drains;
+            # the idle sweep publishes the rest.
             self.store_published_blocks += self._block_mgr.publish_to_tier(
                 self._publish_per_tick)
         self._note_quota_tick()

@@ -7,14 +7,13 @@
 `ServingReport`: pure numbers, never tokens or prompts. It duck-types
 with `getattr`; the port's engine has every counter it reads, the fleet
 KV store's included (`store_*`, `prewarm_tokens`,
-`failover_revive_tokens`), and only the handoff counters of phase
-disaggregation, which is not ported yet, stay 0. The supervisor's
-counters come from `FleetSupervisor.report()`, merged beside the
-replicas' reports.
+`failover_revive_tokens`) and phase disaggregation's handoff counters.
+The supervisor's and the handoff coordinator's counters come from their
+`report()`, merged beside the replicas' reports.
 `export_serving` ships the report only when the caller opts in. The
 reference module's cluster half (:33-84, `ClusterReport`, `collect`,
-`export`) reads the k8s control plane of `nos_tpu.cluster`, which is not
-the port's.
+`export`) reads the k8s control plane of `nos_tpu.cluster`, which has no
+counterpart in the port yet (ROADMAP.md, the control-plane item).
 """
 
 from __future__ import annotations

@@ -6,15 +6,17 @@ against the JAX package, on the CPU, mirroring the reference's
 tests/test_accounting.py: the ledger units (:36-83), the counter-gated
 purity oracle (:498), receipts and conservation (:534), cached prefill
 charges (:570) and conservation under preemption (:590), plus the
-`kv_block_ticks_int8` field of an int8 pool.
+`kv_block_ticks_int8` field of an int8 pool; then the fleet half
+(`duty_cycle`, `fleet_utilization`, `utilization_block`, :99-224) on
+hand-computed rows through both packages, the monitor's journaled duty
+and cost gauges (:226-339), and conservation across a phase handoff.
 
 Both engines serve the shared float32 test model (the JAX init carried
 across with `from_numpy_params`), each with its own ledger, driven tick
 by tick on the same traffic: every tenant total equals the JAX ledger's
 except the two wall-clock fields (slot-seconds and the chip-ms derived
-from them), which are held by the conservation law instead. The
-reference's duty-cycle, monitor and debug-endpoint cases wait for the
-serving plane (ROADMAP A8 step 5)."""
+from them), which are held by the conservation law instead. The debug endpoints'
+cases are in tests/test_torch_observability.py."""
 
 import dataclasses
 
@@ -22,14 +24,19 @@ import jax
 import numpy as np
 import pytest
 
+import test_torch_fleet_parity as fp
 from nos_tpu import tracing as jtracing
 from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu.serving import CostLedger as JaxLedger
+from nos_tpu.serving import accounting as jacct
 from nos_tpu_torch import DecodeServer, GPTConfig, constants, from_numpy_params
-from nos_tpu_torch.serving import CostLedger
+from nos_tpu_torch.serving import CostLedger, duty_cycle, fleet_utilization, utilization_block
 from nos_tpu_torch.tracing import EngineTracing
+from test_torch_fleet_monitor import stub_fleet
 
 from conftest import serving_test_config, serving_test_params
+
+_time_limit = fp.time_limit(240)
 
 ENGINE = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8, seed=11)
 PROMPTS = [
@@ -253,3 +260,201 @@ def test_burst_ticks_bill_every_fused_window(model, bw):
     assert serve(tsrv, reqs) == serve(jsrv, reqs)
     same_ledger(jsrv, tsrv)
     assert (tsrv.burst_dispatches > 0) == (bw > 1)
+
+
+# -- the fleet half (test_accounting.py:99-224) -------------------------------------------------
+def identity_residual(duty):
+    return abs(duty[constants.ACCT_KEY_BUSY_CHIP_S] + duty[constants.ACCT_KEY_OVERHEAD_CHIP_S]
+               + duty[constants.ACCT_KEY_WASTE_CHIP_S] - duty[constants.ACCT_KEY_WALL_CHIP_S])
+
+
+K = constants
+ACTIVE = {"lifecycle": K.REPLICA_STATE_ACTIVE}
+DUTY_ROWS = {
+    # 10 s x 2 chips: busy 6, host 3 of which idle 1, revive 0.5, restore
+    # 0.25, and 1 s of unmeasured slack.
+    "exact": ({"dt_s": 10.0, K.PROBE_KEY_TP_DEVICES: 2, K.ACCT_KEY_DISPATCH_S: 6.0,
+               K.ACCT_KEY_HOST_S: 3.0, K.ACCT_KEY_IDLE_S: 1.0, K.ACCT_KEY_REVIVE_S: 0.5,
+               K.ACCT_KEY_RESTORE_S: 0.25, **ACTIVE},
+              (20.0, 12.0, 2.5, {K.WASTE_IDLE: 4.0, K.WASTE_SPILL_REVIVE: 1.0,
+                                 K.WASTE_RECOVERY: 0.5})),
+    "unreachable": ({"dt_s": 4.0, K.PROBE_KEY_TP_DEVICES: 2, "probe_error": "transient",
+                     K.ACCT_KEY_DISPATCH_S: 3.0},
+                    (8.0, 0.0, 0.0, {K.WASTE_UNREACHABLE: 8.0})),
+    "draining": ({"dt_s": 5.0, K.ACCT_KEY_DISPATCH_S: 1.0, K.ACCT_KEY_HOST_S: 1.0,
+                  K.ACCT_KEY_IDLE_S: 0.5, "lifecycle": K.REPLICA_STATE_DRAINING},
+                 (5.0, 1.0, 0.5, {K.WASTE_DRAINING: 3.5})),
+    "old_journal": ({"dt_s": 2.0}, (2.0, 0.0, 0.0, {K.WASTE_IDLE: 2.0})),
+    "empty": ({}, (0.0, 0.0, 0.0, {})),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DUTY_ROWS))
+def test_duty_cycle_partitions_exactly_and_equals_the_jax_packages(case):
+    """Hand-computed decompositions (test_accounting.py:108-171): busy,
+    overhead and each named waste in chip-seconds, busy + overhead + waste
+    == wall, and the port's dict equal to the JAX package's."""
+    row, (wall, busy, overhead, waste) = DUTY_ROWS[case]
+    duty = duty_cycle(row)
+    assert duty == jacct.duty_cycle(row)
+    assert duty[K.ACCT_KEY_WALL_CHIP_S] == pytest.approx(wall)
+    assert duty[K.ACCT_KEY_BUSY_CHIP_S] == pytest.approx(busy)
+    assert duty[K.ACCT_KEY_OVERHEAD_CHIP_S] == pytest.approx(overhead)
+    want = {cause: waste.get(cause, 0.0) for cause in K.WASTE_CAUSES}
+    assert duty[K.ACCT_KEY_WASTE] == pytest.approx(want)
+    assert identity_residual(duty) < 1e-12
+
+
+def test_fleet_utilization_and_utilization_block_hand_computed():
+    """test_accounting.py:173-224: 1000 tokens over 20 chip-seconds, 6 s of
+    slack idle; the bench block over cumulative reports, an unprofiled
+    engine contributing nothing; both dicts equal the JAX package's."""
+    from nos_tpu.telemetry import ServingReport as JaxReport
+    from nos_tpu_torch.telemetry import ServingReport
+
+    rows = {"r0": {"dt_s": 10.0, K.ACCT_KEY_DISPATCH_S: 8.0, K.ACCT_KEY_HOST_S: 2.0,
+                   "tokens": 800},
+            "r1": {"dt_s": 10.0, K.ACCT_KEY_DISPATCH_S: 2.0, K.ACCT_KEY_HOST_S: 2.0,
+                   "tokens": 200}}
+    util = fleet_utilization(rows)
+    assert util == jacct.fleet_utilization(rows)
+    assert util[K.ACCT_KEY_CHIP_SECONDS] == 20.0 and util["tokens"] == 1000
+    assert util[K.ACCT_KEY_TOK_S_PER_CHIP_HOUR] == pytest.approx(1000 / (20.0 / 3600.0))
+    assert util[K.ACCT_KEY_WASTE_FRACTION] == pytest.approx(0.3)
+    assert fleet_utilization(rows, tokens=7)["tokens"] == 7
+    fields = dict(tick_wall_s=4.0, tick_dispatch_s=3.0, tick_host_overhead_s=1.0,
+                  tick_phase_s={K.TICK_PHASE_IDLE: 0.5}, tp_devices=2,
+                  macro_tokens_by_slot={"0": 90}, spec_tokens_accepted=10)
+    block = utilization_block([ServingReport(**fields), ServingReport()])
+    assert block == jacct.utilization_block([JaxReport(**fields), JaxReport()])
+    assert block[K.ACCT_KEY_CHIP_SECONDS] == 8.0 and block["tokens"] == 100
+    assert block[K.ACCT_KEY_BUSY_CHIP_S] == 6.0
+    assert abs(block["identity_residual_s"]) < 1e-12
+    assert block[K.ACCT_KEY_TOK_S_PER_CHIP_HOUR] > 0
+
+
+# -- the monitor's accounting (test_accounting.py:226-339) --------------------------------------
+@pytest.fixture(scope="module")
+def both():
+    return fp.sides()
+
+
+def test_monitor_windows_carry_duty_and_replay_reproduces_it(both):
+    def run(side):
+        rs = stub_fleet(side, n=1)
+        eng = rs.handles[0].engine
+        eng.tick_wall_s = eng.tick_dispatch_s = eng.tick_host_overhead_s = 0.0
+        eng.tp = 2
+        mon = side.monitor.FleetMonitor(rs)
+        live = [mon.sample(now=0.0)]
+        eng.tick_wall_s, eng.tick_dispatch_s, eng.tick_host_overhead_s = 1.6, 1.2, 0.4
+        eng.macro_tokens_by_slot[0] = 64
+        eng.tokens_by_tenant["a"] = 64
+        live.append(mon.sample(now=2.0))
+        duty = mon.replica_windows("replica-0")[-1][K.ACCT_KEY_DUTY]
+        assert duty[K.ACCT_KEY_WALL_CHIP_S] == pytest.approx(4.0)
+        assert duty[K.ACCT_KEY_BUSY_CHIP_S] == pytest.approx(2.4)
+        assert duty[K.ACCT_KEY_OVERHEAD_CHIP_S] == pytest.approx(0.8)
+        assert identity_residual(duty) < 1e-9
+        assert live[-1].tok_s_per_chip_hour == pytest.approx(64 / (4.0 / 3600.0))
+        assert 0.0 < live[-1].waste_fraction < 1.0
+        replayed = side.monitor.FleetMonitor.replay(mon.journal_lines())
+        got = [(r.tok_s_per_chip_hour, r.waste_fraction) for r in replayed]
+        assert got == [(r.tok_s_per_chip_hour, r.waste_fraction) for r in live]
+        return mon.journal_lines()
+
+    fp.twin(both, run)
+
+
+def test_unreachable_window_wall_lands_in_unreachable_waste(both):
+    def run(side):
+        rs = stub_fleet(side, n=1)
+        eng = rs.handles[0].engine
+        mon = side.monitor.FleetMonitor(rs)
+        mon.sample(now=1.0)
+
+        def dead_probe():
+            raise ConnectionError("connection refused by host")
+
+        eng.probe = dead_probe
+        mon.sample(now=3.0)
+        row = mon.replica_windows("replica-0")[-1]
+        duty = row[K.ACCT_KEY_DUTY]
+        assert row["probe_error"] and duty[K.ACCT_KEY_WALL_CHIP_S] == pytest.approx(2.0)
+        assert duty[K.ACCT_KEY_WASTE][K.WASTE_UNREACHABLE] == pytest.approx(2.0)
+        assert side.monitor.FleetMonitor.replay(mon.journal_lines())[-1].waste_fraction == 1.0
+        return mon.journal_lines()
+
+    fp.twin(both, run)
+
+
+def test_tenant_cost_gauges_and_the_idle_tenant_sweep(both):
+    """test_accounting.py:283-339: the ledger's nos_tpu_tenant_cost_* gauges
+    published per active tenant; a tenant idle past the horizon loses every
+    series and its ring, and comes back with the new work only."""
+    def run(side):
+        registry = side.Metrics()
+        rs = stub_fleet(side, n=1)
+        eng = rs.handles[0].engine
+        led = side.CostLedger()
+        led.charge(None, "a", slot_seconds=2.5, decode_tokens=10)
+        mon = side.monitor.FleetMonitor(rs, metrics=registry, ledger=led,
+                                        tenant_idle_windows=2)
+        mon.sample(now=0.0)
+        eng.tokens_by_tenant["a"] = 10
+        eng.macro_tokens_by_slot[0] = 10
+        mon.sample(now=1.0)
+        assert registry.get("nos_tpu_tenant_cost_slot_seconds", tenant="a") == 2.5
+        assert registry.get("nos_tpu_tenant_cost_decode_tokens", tenant="a") == 10.0
+        seeded = registry.render()
+        assert 'nos_tpu_fleet_tenant_tok_s{tenant="a"}' in seeded
+        for w in range(4):
+            mon.sample(now=2.0 + w)
+        assert 'tenant="a"' not in registry.render()
+        assert mon.tenant_windows("a") == []
+        eng.tokens_by_tenant["a"] = 16
+        eng.macro_tokens_by_slot[0] = 16
+        mon.sample(now=10.0)
+        assert 'nos_tpu_fleet_tenant_tok_s{tenant="a"}' in registry.render()
+        assert mon.tenant_windows("a")[-1]["tokens"] == 6
+        return seeded, registry.render(), mon.journal_lines()
+
+    fp.twin(both, run)
+
+
+# -- conservation across a phase handoff ----------------------------------------------------------
+def test_conservation_and_one_receipt_per_stream_across_a_handoff(both):
+    """A prefill replica and a decode replica sharing one ledger and one
+    tracer: each stream's receipt opens on the prefill replica, follows
+    the checkpoint and closes once on the decode replica; charged
+    slot-seconds equal the two engines' summed busy slot-seconds; the
+    exact fields equal the JAX ledger's."""
+    def run(side):
+        c = side.constants
+        led, tracer = side.CostLedger(), side.Tracer()
+        store = side.kv_store.FleetKVStore(capacity_bytes=1 << 22)
+        engines = [fp.engine(side, store=store, cost_ledger=led,
+                             tracing=side.EngineTracing(tracer=tracer)) for _ in range(2)]
+        rs = side.replica.ReplicaSet(engines, roles=[c.REPLICA_ROLE_PREFILL,
+                                                     c.REPLICA_ROLE_DECODE])
+        router = side.router.PrefixRouter(rs, kv_store=store, tracer=tracer)
+        coord = side.disagg.HandoffCoordinator(rs, router)
+        futs = [coord.submit(p + p, max_new=6, tenant=t) for t, p in zip("ab", PROMPTS[:2])]
+        assert fp.drive_fleet(side, rs, lambda: all(f.done() for f in futs))
+        outs = [list(f.result(5)) for f in futs]
+        for _ in range(4):
+            for e in engines:
+                e._tick()
+        busy = sum(e.slot_seconds_total for e in engines)
+        assert led.charged_slot_seconds() == pytest.approx(busy, rel=1e-9, abs=1e-9)
+        assert busy > 0.0 and engines[0].handoff_exports == 2
+        snap = led.snapshot()
+        assert snap["receipts_issued"] == 2 and snap["open_requests"] == 0
+        assert sum(e.cost_receipts for e in engines) == 2 and engines[0].cost_receipts == 0
+        keys = EXACT + ("tenant", "status", "tokens")
+        receipts = [{k: r.get(k) for k in keys} for r in snap["receipts"]]
+        coord.detach()
+        rs.stop()
+        return outs, exact_totals(led), receipts
+
+    fp.twin(both, run)

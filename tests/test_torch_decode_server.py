@@ -23,7 +23,6 @@ from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu_torch import DecodeServer, GPTConfig, from_numpy_params, init_gpt
 from nos_tpu_torch.models.decode import init_paged_cache
 from nos_tpu_torch.observability import Metrics
-from nos_tpu_torch.runtime.checkpoint import SlotCheckpoint
 from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
 from nos_tpu_torch.serving import CostLedger, FleetKVStore
 from nos_tpu_torch.tracing import EngineTracing
@@ -160,17 +159,52 @@ def test_shared_prefix_hit(model):
 
 def test_deferred_features_raise(model):
     _, _, tcfg, tparams = model
-    # The fleet KV store is taken; phase-disaggregated handoff is the one
-    # piece still refused, on either transfer hook and its hook setter.
-    server = DecodeServer(tparams, tcfg, device="cpu", kv_store=FleetKVStore(1 << 20))
+    # Nothing of the reference's constructor or hooks is refused any more:
+    # phase-disaggregated handoff is taken on both transfer hooks, and its
+    # hook setter arms the export.
+    store = FleetKVStore(1 << 20)
+    server = DecodeServer(tparams, tcfg, device="cpu", n_slots=2, max_len=64,
+                          prompt_buckets=(8, 16), block_size=8, kv_store=store)
     assert server.spill_tier.is_shared
-    with pytest.raises(NotImplementedError, match="Fleet"):
-        server.transfer_in_request([1, 2, 3], 4, handoff=True)
-    with pytest.raises(NotImplementedError, match="Fleet"):
-        server.transfer_in_checkpoint(SlotCheckpoint(prompt=[1, 2, 3], generated=[4],
-                                                     max_new=4, serial=1), handoff=True)
-    with pytest.raises(NotImplementedError, match="Fleet"):
-        server.set_handoff_hook(print)
+    handed = []
+    server.set_handoff_hook(handed.append)
+    prompt = list(range(1, 18))
+    fut = server.transfer_in_request(prompt, 4, handoff=True)
+    for _ in range(50):
+        if handed:
+            break
+        server._tick()
+    # The export: one checkpoint at the first token, the prompt's two full
+    # blocks in the store (the busy ticks' write-through publish may have
+    # put them first), the slot released and the future handed over.
+    assert len(handed) == 1 and not fut.done()
+    ck = handed[0]
+    assert ck.future is fut and ck.prompt == prompt and len(ck.generated) == 1
+    assert server.handoff_exports == 1
+    assert server.handoff_published_blocks + server.store_published_blocks == 2
+    assert store.entries == 2 and not server._has_outstanding()
+    assert not any(s.active for s in server._slots)
+    # Disarmed, the marker is inert: the request decodes here.
+    server.set_handoff_hook(None)
+    inert = server.transfer_in_request(prompt, 4, handoff=True)
+    # The ingest: a second engine over the same store takes the checkpoint
+    # with handoff=True, counts a handoff arrival and revives the two
+    # published blocks instead of recomputing them.
+    dst = DecodeServer(tparams, tcfg, device="cpu", n_slots=2, max_len=64,
+                       prompt_buckets=(8, 16), block_size=8, kv_store=store)
+    dst.transfer_in_checkpoint(ck, handoff=True)
+    for _ in range(200):
+        if fut.done() and inert.done():
+            break
+        server._tick()
+        dst._tick()
+    assert dst.handoff_ingests == 1 and dst.handoff_revived_tokens == 16
+    assert server.handoff_exports == 1 and server.handoff_ingests == 0
+    assert fut.result(0) == inert.result(0) and len(fut.result(0)) == 4
+    server.stop()
+    dst.stop()
+    with pytest.raises(RuntimeError, match="stopped"):
+        server.transfer_in_request(prompt, 4, handoff=True)
     # Quotas, metrics, tracing and the cost ledger construct.
     for kw in (dict(quota=QuotaPolicy({"g": TenantShare(0.5, 1.0)})), dict(metrics=Metrics()),
                dict(tracing=EngineTracing()), dict(cost_ledger=CostLedger())):
@@ -217,7 +251,8 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "assert 'nos_tpu_torch.runtime.checkpoint' in sys.modules\n"
         "for m in ('runtime.quota', 'tracing', 'observability', 'telemetry',\n"
         "          'serving.accounting', 'serving.kv_store', 'serving.replica',\n"
-        "          'serving.router', 'serving.drain', 'serving.supervisor'):\n"
+        "          'serving.router', 'serving.drain', 'serving.supervisor',\n"
+        "          'serving.disagg', 'serving.monitor'):\n"
         "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')]\n"

@@ -13,10 +13,12 @@ a mesh that repeats the CPU for tp=2, as the JAX side's virtual CPU
 devices do)."""
 
 import dataclasses
+import signal
 import types
 
 import jax
 import numpy as np
+import pytest
 
 from conftest import serving_test_config, serving_test_params
 
@@ -26,14 +28,15 @@ ENGINE = dict(n_slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8, seed=
 
 
 def _jax_side():
-    from nos_tpu import constants, telemetry
+    from nos_tpu import constants, observability, telemetry
     from nos_tpu.observability import Metrics
     from nos_tpu.parallel.mesh import build_mesh
     from nos_tpu.runtime import block_manager, checkpoint, faults, quota, radix_tree
     from nos_tpu.runtime.decode_server import DecodeServer
     from nos_tpu.runtime.spill import SpillTier
-    from nos_tpu.serving import accounting, drain, kv_store, replica, router, supervisor
-    from nos_tpu.tracing import EngineTracing, Tracer
+    from nos_tpu.serving import (accounting, disagg, drain, kv_store, monitor, replica, router,
+                                 supervisor)
+    from nos_tpu.tracing import EngineTracing, FlightRecorder, Tracer
 
     cfg, params = serving_test_config(), serving_test_params()
     return types.SimpleNamespace(
@@ -43,18 +46,21 @@ def _jax_side():
         block_manager=block_manager, SpillTier=SpillTier, kv_store=kv_store,
         replica=replica, router=router, drain=drain, supervisor=supervisor,
         CostLedger=accounting.CostLedger, EngineTracing=EngineTracing, Tracer=Tracer,
+        accounting=accounting, disagg=disagg, monitor=monitor, observability=observability,
+        FlightRecorder=FlightRecorder,
         mesh2=lambda: build_mesh({"tp": 2}, devices=jax.devices()[:2]))
 
 
 def _torch_side():
-    from nos_tpu_torch import GPTConfig, constants, from_numpy_params, telemetry
+    from nos_tpu_torch import GPTConfig, constants, from_numpy_params, observability, telemetry
     from nos_tpu_torch.observability import Metrics
     from nos_tpu_torch.parallel import build_mesh
     from nos_tpu_torch.runtime import block_manager, checkpoint, faults, quota, radix_tree
     from nos_tpu_torch.runtime.decode_server import DecodeServer
     from nos_tpu_torch.runtime.spill import SpillTier
-    from nos_tpu_torch.serving import accounting, drain, kv_store, replica, router, supervisor
-    from nos_tpu_torch.tracing import EngineTracing, Tracer
+    from nos_tpu_torch.serving import (accounting, disagg, drain, kv_store, monitor, replica,
+                                       router, supervisor)
+    from nos_tpu_torch.tracing import EngineTracing, FlightRecorder, Tracer
 
     jcfg = serving_test_config()
     cfg = GPTConfig(**dataclasses.asdict(jcfg))
@@ -67,8 +73,31 @@ def _torch_side():
         radix_tree=radix_tree, block_manager=block_manager, SpillTier=SpillTier,
         kv_store=kv_store, replica=replica, router=router, drain=drain,
         supervisor=supervisor, CostLedger=accounting.CostLedger,
-        EngineTracing=EngineTracing, Tracer=Tracer,
+        EngineTracing=EngineTracing, Tracer=Tracer, accounting=accounting, disagg=disagg,
+        monitor=monitor, observability=observability, FlightRecorder=FlightRecorder,
         mesh2=lambda: build_mesh({"tp": 2}, devices=["cpu", "cpu"]))
+
+
+def time_limit(seconds):
+    """An autouse fixture that fails a test still running after `seconds`
+    (SIGALRM raises in the test's thread), so a hung engine thread, server
+    or wait ends its test instead of the run. A module takes it with
+    `_time_limit = time_limit(n)`."""
+
+    @pytest.fixture(autouse=True)
+    def _time_limit():
+        def expire(signum, frame):
+            raise TimeoutError(f"test still running after {seconds} s")
+
+        old = signal.signal(signal.SIGALRM, expire)
+        signal.setitimer(signal.ITIMER_REAL, seconds)
+        try:
+            yield
+        finally:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+            signal.signal(signal.SIGALRM, old)
+
+    return _time_limit
 
 
 def sides():
@@ -169,14 +198,16 @@ def drive_fleet(side, rs, pred, n=600, downed=(), sup=None):
     return False
 
 
-FLEET_CONSTANTS = ("REPLICA_", "PROBE_KEY_", "ROUTER_", "FLEET_EV", "SLO_EV_")
+FLEET_CONSTANTS = ("REPLICA_", "PROBE_KEY_", "ROUTER_", "FLEET_EV", "SLO_EV_", "PRESSURE_",
+                   "ACCT_KEY_", "WASTE_", "DEBUG_PATH_", "METRICS_CONTENT_TYPE")
 
 
 def test_wire_constants_equal_the_jax_packages():
     """Every constant of the port's `constants.py` has the reference's
     value (a replica id, state or probe key spelled otherwise would not be
     the same protocol), and every serving-plane constant of the reference
-    is in the port."""
+    is in the port: the monitor's verdicts, the utilization plane's keys
+    and waste causes and the debug HTTP paths included."""
     from nos_tpu import constants as jc
     from nos_tpu_torch import constants as tc
 
@@ -185,4 +216,6 @@ def test_wire_constants_equal_the_jax_packages():
         n for n in names if getattr(tc, n) != getattr(jc, n)]
     fleet = {n for n in dir(jc) if n.isupper() and n.startswith(FLEET_CONSTANTS)}
     assert "FLEET_EVENTS" in fleet and "REPLICA_ROLES" in fleet
+    assert {"PRESSURE_TENANT_STATES", "WASTE_CAUSES", "DEBUG_PATH_INDEX",
+            "METRICS_CONTENT_TYPE"} <= fleet
     assert fleet <= set(names), sorted(fleet - set(names))

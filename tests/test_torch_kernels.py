@@ -1167,7 +1167,7 @@ def test_preemption_mid_burst_keeps_one_capture_and_revives_bytes(cuda_device, m
     def revive(self, payload, block):
         ok = original(self, payload, block)
         revived.append((block, [t.clone() for t in payload],
-                        [t.cpu() for t in self._extract(block)]))
+                        [t[:, 0].cpu() for t in self._gather_blocks([block])]))
         return ok
 
     monkeypatch.setattr(ds.DecodeServer, "_dispatch_revive", revive)
@@ -1177,7 +1177,7 @@ def test_preemption_mid_burst_keeps_one_capture_and_revives_bytes(cuda_device, m
     server._tick()
     assert server.burst_dispatches > 0 and server._inflight
     idx = next(i for i, s in enumerate(server._slots) if s.active)
-    held = {b: [t.clone() for t in server._extract(b)]
+    held = {b: [t[:, 0].clone() for t in server._gather_blocks([b])]
             for b in server._block_mgr.slot_blocks(idx)}
     gold = server.submit(rng.randint(1, 96, size=8).tolist(), max_new=6, tenant="gold")
     spilled = []
@@ -1239,14 +1239,17 @@ def test_prewarm_then_serve_on_card(cuda_device):
     assert warm.graph_replays == warm.macro_dispatches + warm.burst_windows_run > 0
 
 
-def test_capture_under_live_engine_threads(cuda_device):
+def test_capture_under_live_engine_threads(cuda_device, monkeypatch):
     """Engines sharing the card each tick on their own thread while another
     engine is built, which captures its window meanwhile (a replica added
     under load): the new graph's launch delta is the one an engine built
     on an idle card captures, the serving engines' tokens are those of a
     run with no capture beside it, and every engine's windows are replays
-    of its one capture."""
+    of its one capture. The serving engines' decoding slots and unresolved
+    requests at the moment the capture began are printed, and some request
+    must still be unresolved then (the capture ran under load)."""
     from nos_tpu_torch import GPTConfig, init_gpt
+    from nos_tpu_torch.runtime import decode_server as ds
 
     cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
                     dtype="float32")
@@ -1265,14 +1268,122 @@ def test_capture_under_live_engine_threads(cuda_device):
     futs = [[e.submit(p, max_new=m) for p, m in reqs] for e in engines]
     for e in engines:
         e.start()
-    while not all(s.active and s.phase == "decoding" for e in engines for s in e._slots):
+    # Both engines decoding (a slot each at least: waiting for every slot
+    # at one instant could miss the overlap and spin past the traffic).
+    deadline = time.monotonic() + 120
+    while not all(any(s.active and s.phase == "decoding" for s in e._slots) for e in engines):
+        assert time.monotonic() < deadline, "the serving engines never decoded"
         time.sleep(0.001)
+    at_capture = []
+    init = ds._WindowGraph.__init__
+
+    def recording(self, body, device):
+        at_capture.append({
+            "decoding_slots": [sum(s.active and s.phase == "decoding" for s in e._slots)
+                               for e in engines],
+            "unresolved": [sum(not f.done() for f in fs) for fs in futs]})
+        init(self, body, device)
+
+    monkeypatch.setattr(ds._WindowGraph, "__init__", recording)
     new = _fleet_engine(cuda_device, params, cfg)  # built while both engines decode
+    monkeypatch.undo()
     got = [[f.result(timeout=300) for f in fs] for fs in futs]
     for e in engines:
         e.stop()
+    print(f"serving engines when the new engine's capture began: {at_capture}")
+    assert len(at_capture) == 1 and sum(at_capture[0]["unresolved"]) > 0, at_capture
     assert got == want
     assert new._graph.delta == idle._graph.delta
     for e in engines + [new, idle]:
         assert e.graph_captures == 1
         assert e.graph_replays == e.macro_dispatches + e.burst_windows_run
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"], ids=["bf16", "int8"])
+def test_handoff_payloads_equal_the_source_blocks(cuda_device, kv_dtype):
+    """A bf16 engine's (and an int8 engine's) handoff export on the card: at
+    the moment the hook receives the checkpoint, every payload the store
+    holds for the exported prompt is byte for byte the source pool's block
+    under that chain key (codes and scales for the int8 pool)."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, constants, init_gpt
+    from nos_tpu_torch.serving import FleetKVStore
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="bfloat16")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    store = FleetKVStore(1 << 24)
+    server = DecodeServer(params, cfg, device=cuda_device, n_slots=2, max_len=96,
+                          prompt_buckets=(8, 16), steps_per_dispatch=4, block_size=8,
+                          kv_store=store, kv_dtype=kv_dtype)
+    names = ("k", "v", "k_scale", "v_scale") if kv_dtype == "int8" else ("k", "v")
+    seen, mismatched = [], []
+
+    def hook(ck):
+        # The engine contains a raising hook, so the checks record instead.
+        torch.cuda.synchronize()
+        index = server._block_mgr._prefix_index
+        for key in store.keys():
+            payload = store.get(key)
+            if kv_dtype == "int8":
+                if payload[0] != constants.KV_DTYPE_INT8:
+                    mismatched.append((key, "tag"))
+                payload = payload[1:]
+            block = index[key]
+            for got, name in zip(payload, names):
+                want = torch.stack([server.cache[str(i)][name][block]
+                                    for i in range(cfg.layers)])
+                if not torch.equal(got.contiguous().view(torch.uint8),
+                                   want.cpu().contiguous().view(torch.uint8)):
+                    mismatched.append((key, name))
+            seen.append(key)
+        ck.future.set_result(list(ck.generated))
+
+    server.set_handoff_hook(hook)
+    rng = np.random.RandomState(8)
+    futs = [server.transfer_in_request(rng.randint(1, 96, size=n).tolist(), 6, handoff=True)
+            for n in (27, 41)]
+    for _ in range(2000):
+        if all(f.done() for f in futs):
+            break
+        server._tick()
+    assert all(f.done() for f in futs) and not mismatched, mismatched
+    assert server.handoff_exports == 2 and len(seen) >= 3 + 5
+    assert server._block_mgr.conserved()
+
+
+def test_handed_off_stream_replays_on_a_second_engine(cuda_device):
+    """A prefill engine and a decode engine on one card behind a
+    HandoffCoordinator, ticked by hand: every stream resolves with its
+    tokens, the decode engine revives the handed-off prompt blocks from the
+    store instead of recomputing them, and every decode window of either
+    engine is a replay of its one capture."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, constants, init_gpt
+    from nos_tpu_torch.serving import (FleetKVStore, HandoffCoordinator, PrefixRouter,
+                                       ReplicaSet)
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="bfloat16")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    store = FleetKVStore(1 << 24)
+    engines = [_fleet_engine(cuda_device, params, cfg, kv_store=store) for _ in range(2)]
+    rs = ReplicaSet(engines, roles=[constants.REPLICA_ROLE_PREFILL,
+                                    constants.REPLICA_ROLE_DECODE])
+    coord = HandoffCoordinator(rs, PrefixRouter(rs, kv_store=store))
+    rng = np.random.RandomState(9)
+    futs = [coord.submit(rng.randint(1, 96, size=n).tolist(), max_new=40) for n in (19, 33, 12)]
+    for _ in range(5000):
+        if all(f.done() for f in futs):
+            break
+        for e in engines:
+            e._tick()
+    assert [len(f.result(timeout=0)) for f in futs] == [40, 40, 40]
+    pre, dec = engines
+    assert coord.handoffs == 3 and pre.handoff_exports == 3 and dec.handoff_ingests == 3
+    assert dec.handoff_revived_tokens > 0
+    for e in engines:
+        assert e.graph_captures == 1
+        assert e.graph_replays == e.macro_dispatches + e.burst_windows_run
+        assert e._block_mgr.conserved()
+    assert dec.graph_replays > 0 and store.conserved()
+    coord.detach()
+    rs.stop()

@@ -754,3 +754,43 @@ def test_int8_and_native_replicas_share_one_store(both):
         return out_n, out_q, queued, fp.counters(side, quant), fp.store_state(store)
 
     fp.twin(both, scenario)
+
+
+@pytest.mark.parametrize("pool", ["native", "int8", "tp2"])
+def test_one_pass_block_read_equals_per_block_copies(both, pool):
+    """The publish paths' one-pass read (`_read_blocks`, taken on the card)
+    gives each block's payload and nbytes byte for byte as `_extract_block`
+    does, native, int8 and at tp=2, with one counted blocking read for the
+    batch; a CPU pool keeps the per-block reads (and counts), as the
+    reference does."""
+    side = both[1]
+    kw = {"native": {}, "int8": {"kv_dtype": "int8"},
+          "tp2": {"mesh": side.mesh2()}}[pool]
+    server = fp.engine(side, store=side.kv_store.FleetKVStore(1 << 22), **kw)
+    gen = torch.Generator().manual_seed(5)
+    for shard in (server.cache if pool == "tp2" else [server.cache]):
+        for layer in shard.values():
+            for t in layer.values():
+                if t.dtype == torch.int8:
+                    t.copy_(torch.randint(-127, 128, t.shape, generator=gen, dtype=torch.int8))
+                else:
+                    t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+
+    def same(got, want):
+        for (gp, gn), (wp, wn) in zip(got, want, strict=True):
+            assert gn == wn and len(gp) == len(wp)
+            for g, w in zip(gp, wp):
+                if isinstance(w, str):
+                    assert g == w
+                    continue
+                assert g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous()
+                assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+    blocks = [3, 1, 4]
+    syncs = server.blocking_syncs
+    want = [server._extract_block(b) for b in blocks]
+    assert server.blocking_syncs - syncs == 3
+    same(server._extract_blocks(blocks), want)  # a CPU pool: block by block
+    assert server.blocking_syncs - syncs == 6
+    same(server._read_blocks(blocks), want)
+    assert server.blocking_syncs - syncs == 7

@@ -1,5 +1,5 @@
 """The port's radix cache and host spill tier (nos_tpu_torch/runtime/
-decode_server.py: `_extract`/`_revive`/`_cow_copy`, the revive and COW
+decode_server.py: `_extract_block`/`_revive`/`_cow_copy`, the revive and COW
 pumps, output registration) against the JAX DecodeServer on the CPU.
 
 Both engines serve the shared float32 test model with their defaults
@@ -156,7 +156,7 @@ def test_radix_counters_and_defaults(model):
 
 
 def test_copies_write_the_pool_in_place(model):
-    """`_extract` then `_revive` round-trips a block exactly; `_cow_copy`
+    """`_extract_block` then `_revive` round-trips a block exactly; `_cow_copy`
     copies exactly the first `length` rows and reads its source only; no
     pool tensor is rebound (the captured window holds their addresses)."""
     server = port(model, total_blocks=8)

@@ -126,14 +126,23 @@ def test_mesh_validation_and_tp1_passthrough(model, mesh):
 @pytest.mark.parametrize("case", ["kv_store", "quota+metrics"])
 def test_deferred_features_with_a_mesh_raise(model, mesh, case):
     """At tp=2 the fleet KV store constructs and publishes full-width
-    payloads, and phase-disaggregated handoff is still refused; quotas and
-    metrics construct and serve."""
+    payloads, and a phase-disaggregated handoff exports (the checkpoint at
+    the first token, the prompt's full blocks in the store at full width);
+    quotas and metrics construct and serve."""
     _, _, tcfg, tparams = model
     if case == "kv_store":
         store = FleetKVStore(1 << 24)
         server = make(tparams, tcfg, mesh=mesh, kv_store=store)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: Fleet"):
-            server.transfer_in_request(PROMPTS[0], 8, handoff=True)
+        handed = []
+        server.set_handoff_hook(handed.append)
+        exported = server.transfer_in_request(PROMPTS[0], 8, handoff=True)
+        for _ in range(100):
+            if handed:
+                break
+            server._tick()
+        assert [ck.future for ck in handed] == [exported] and len(handed[0].generated) == 1
+        assert server.handoff_exports == 1 and store.entries == len(PROMPTS[0]) // 8
+        server.set_handoff_hook(None)
         fut = server.submit(PROMPTS[0], max_new=8)
         for _ in range(400):
             if fut.done():

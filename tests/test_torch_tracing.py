@@ -12,8 +12,9 @@ across with `from_numpy_params`) and are driven tick by tick on the same
 traffic; the port's trace events (names and attrs), flight-recorder
 events, `collect_serving` counter fields and metric counters must equal
 the JAX engine's. Times are the only thing left out of the comparisons.
-The reference's drain-migration trace (:348) and its debug endpoints
-(:524-) wait for the serving plane (ROADMAP A8 step 5)."""
+The reference's debug endpoints (:524-) are held in
+tests/test_torch_observability.py; its drain-migration trace (:348) is
+not mirrored here."""
 
 import dataclasses
 
