@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (the paged engine and the
-dense decode programs) and its training step on one NVIDIA GPU and check
-them.
+dense decode programs), its training step, the ViT detector behind
+SliceServer and the mesh trainers on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -12,6 +12,7 @@ them.
     python3 chip_smoke.py --phases build,card,quota,trace
     python3 chip_smoke.py --phases build,card,fleet
     python3 chip_smoke.py --phases build,card,disagg
+    python3 chip_smoke.py --phases build,card,vit,mesh
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -282,7 +283,45 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            and f32: per-step loss, every gradient leaf of the first batch and
            the params after step 3 within TRAIN_TOL. Learning: the 2-layer
            bf16 model, 20 steps on one batch, the loss finite throughout and
-           lower at step 20 than at step 1.
+           lower at step 20 than at step 1;
+  vit      bench.py's headline cell (:66-122) on the port: YOLOS-small
+           (ViTConfig(): 224 px, patch 16, hidden 384, 12 layers, 6 heads,
+           100 detection tokens, 92 classes, bf16, init_vit(seed 0)) behind
+           SliceServer as bench.py::_build_server builds it (max_batch 7,
+           max_wait_s 0.003, buckets 1/2/4/7; warmup, then start); seven
+           closed-loop client threads, each with its own image, 3 warm-up
+           and 30 measured requests each, 3 trials. Prints the median
+           trial's mean per-request latency with p50 and p95, batches_run,
+           requests per batch, retries, and one batch-7 vit_detect (CUDA
+           events and device time). Every served result is held against its
+           image run alone (bucket 1) on the card (vit_agreement: labels
+           equal wherever the top-2 class gap exceeds one step of the dtype,
+           scores and boxes within VIT_TOL). An f32 arm (one trial of 10
+           requests) the same. The flash arm: ViTConfig(image_size=512),
+           1124 tokens, so attention takes the flash forward, served the
+           same way (2 requests a client) with the flash launch counts zeroed
+           just before and read just after (every launch "mma", no backward
+           launch); its results against their images alone; vit_forward of
+           the seven through the kernel against the same through the
+           kernel's plain version (VIT_FLASH_TOL); the kernel at [7, 6, 1124,
+           64] bf16 non-causal against its plain version (FLASH_TOL) and
+           timed beside the plain version and scaled_dot_product_attention,
+           with its bound;
+  mesh     the mesh trainers, every shard on cuda:0 (a mesh may repeat a
+           device). The sharded train step, dp 2 x tp 2, on the train
+           phase's 2048-wide GPT cut to 2 layers, batch 8 x 2048: three
+           steps against the single-device step from the same params
+           (init_train_state seed 0) and batches, the flash launch counts
+           zeroed just before the sharded steps and read just after (one of
+           each kernel a layer and a shard, all "mma"); the per-step loss,
+           the summed gradient leaves of the first batch, the params after
+           step 3 and the update within MESH_TOL. attention="ring" and
+           "ulysses" at sp 4 (seq 2048), one step each, the same way.
+           pipeline_apply at pp 2 (f32 tanh stages, 4 microbatches) against
+           the stages in turn, output and gradients, and moe_apply at ep 4,
+           top-2, ample capacity, f32, against the dense gate-weighted sum
+           (MESH_F32_TOL). Prints ms per step, sharded against single-device
+           (shards on one card run one after another: recorded, not gated).
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -297,7 +336,10 @@ train phases check that every decode launch took "split" and every bf16
 window and flash launch "mma"; the two paged entries also carry
 `quota_launches`, `fleet_launches` and `disagg_launches`, the quota,
 fleet and disagg phases' bf16 serving launches by route, and `disagg_32k`,
-the kernel checked and timed at the 32k cell's shape);
+the kernel checked and timed at the 32k cell's shape; the three flash
+entries carry `vit_launches` and `mesh_launches`, the vit phase's flash arm
+and the mesh phase's sharded step by route, and flash_fwd `vit_1124`, the
+kernel checked and timed at the ViT flash arm's shape);
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -5437,11 +5479,526 @@ def phase_train(torch, device, full=True):
     return stats
 
 
+# -- phase: vit ------------------------------------------------------------------
+# bench.py's headline cell (:66-122): seven closed-loop clients, each sending
+# its own image, behind one SliceServer (max_batch 7, max_wait_s 0.003,
+# buckets 1/2/4/7): 3 warm-up and 30 measured requests each, 3 trials.
+VIT = {"clients": 7, "warmup": 3, "requests": 30, "trials": 3, "max_wait_s": 0.003,
+       "buckets": (1, 2, 4, 7), "f32_requests": 10, "flash_requests": 2}
+VIT_SMALL = dict(VIT, warmup=1, requests=3, trials=1, f32_requests=2, flash_requests=1)
+# A served result against the same image run alone (bucket 1) on the card:
+# labels equal wherever the top-2 class gap exceeds one step of the dtype
+# (vit_agreement), scores and boxes within VIT_TOL[dtype] (max|err|). First
+# set at 1e-2 (bf16) and 1e-4 (f32). Measured on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md): bf16 0 and 0 (the batched and the lone runs
+# agree bit for bit there), f32 1.7e-7 and 6.9e-7. f32 is pinned at about
+# 2.5x its measurement; bf16, measured 0, at 2e-3: about one bf16 step of a
+# logit carried through the softmax (a score of ~0.05 times 2^-7 of a logit
+# of ~4) and the sigmoid (a quarter of 2^-7), so that a card whose kernels
+# round a row by batch size fails only on more than one rounding.
+VIT_TOL = {"bfloat16": {"score": 2e-3, "box": 2e-3},
+           "float32": {"score": 4.5e-7, "box": 1.8e-6}}
+# The flash arm's vit_forward through the kernel against the same with the
+# kernel's plain version (bf16, 12 layers at T 1124): max|dlogit| and
+# max|dbox|. First set at 0.25 and 0.05; pinned at about 2.5x the first
+# measurement (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 0.0342 and 0.0064.
+VIT_FLASH_TOL = {"logit": 0.085, "box": 0.016}
+VIT_FLASH_SHAPE = (7, 6, 1124, 64)  # batch 7, 6 heads, 1024 + 100 tokens, head_dim 64
+
+
+def vit_model(dtype, small, image_size=224):
+    """YOLOS-small (ViTConfig(): 224 px, patch 16, hidden 384, 12 layers, 6
+    heads, 100 detection tokens, 92 classes) at `image_size`, or a one-layer
+    32-wide model for a rehearsal (32 px, or 512 px to reach the flash
+    route)."""
+    from nos_tpu_torch import ViTConfig
+
+    if small:
+        return ViTConfig(image_size=32 if image_size == 224 else image_size, hidden=32,
+                         layers=1, heads=2, dtype=dtype)
+    return ViTConfig(image_size=image_size, dtype=dtype)
+
+
+def vit_images(torch, cfg, n, device):
+    """Client i's image: uniform [0, 1) from CPU generator seed i."""
+    return [torch.rand((cfg.image_size, cfg.image_size, 3),
+                       generator=torch.Generator().manual_seed(i)).to(device) for i in range(n)]
+
+
+def vit_serve(torch, cfg, params, images, v, warmup, requests, trials, counted=None):
+    """bench.py::_build_server and _run_trial on the port: warm every bucket,
+    start, then `trials` trials of len(images) closed-loop client threads
+    (`warmup` unmeasured and `requests` measured requests each). With
+    `counted` (a flash_attention module), its launch counts are zeroed
+    just before the traffic and read just after. -> (stats, results[i]:
+    client i's measured outputs on the host)."""
+    import threading
+
+    from nos_tpu_torch import SliceServer, vit_detect
+
+    n = len(images)
+    server = SliceServer(lambda im: vit_detect(params, im, cfg), max_batch=n,
+                         max_wait_s=v["max_wait_s"], buckets=v["buckets"])
+    server.warmup(images[0])
+    results = [[] for _ in range(n)]
+    means, per_trial = [], []
+    if counted is not None:
+        counted.reset_launch_counts()
+    server.start()
+    try:
+        for _ in range(trials):
+            latencies = [[] for _ in range(n)]
+            errors = []
+
+            def workload(i):
+                try:
+                    for _ in range(warmup):
+                        server.infer(images[i], timeout=120)
+                    for _ in range(requests):
+                        t0 = time.perf_counter()
+                        out = server.infer(images[i], timeout=120)
+                        latencies[i].append(time.perf_counter() - t0)
+                        results[i].append(out)
+                except Exception as e:  # noqa: BLE001 — raised by the check below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=workload, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not any(t.is_alive() for t in threads), "vit: a client thread hung")
+            check(not errors, f"vit: a client failed: {errors[:1]!r}")
+            lat = [x for per in latencies for x in per]
+            means.append(float(np.mean(lat)))
+            per_trial.append(lat)
+    finally:
+        server.stop()
+    launches = routes = None
+    if counted is not None:
+        launches = dict(counted.LAUNCHES)
+        routes = {k: dict(r) for k, r in counted.ROUTE_LAUNCHES.items()}
+    median = int(np.argsort(means)[len(means) // 2])
+    lat = per_trial[median]
+    stats = {
+        "trial_mean_s": means,
+        "mean_s": means[median],
+        "p50_s": float(np.percentile(lat, 50)),
+        "p95_s": float(np.percentile(lat, 95)),
+        "batches_run": server.batches_run,
+        "requests_served": server.requests_served,
+        "requests_per_batch": server.requests_served / max(server.batches_run, 1),
+        "retries": server.retries,
+        "fetch_retries": server.fetch_retries,
+        "launches": launches,
+        "routes": routes,
+    }
+    check(server.requests_served == n * (warmup + requests) * trials,
+          f"vit: served {server.requests_served} requests")
+    return stats, results
+
+
+def vit_alone(torch, cfg, params, images):
+    """Each image run alone (a batch of one) on the device: (labels,
+    scores, boxes, logits) on the host."""
+    from nos_tpu_torch.models.vit import vit_detect, vit_forward
+
+    out = []
+    for im in images:
+        logits, _ = vit_forward(params, im[None], cfg)
+        labels, scores, boxes = vit_detect(params, im[None], cfg)
+        out.append((labels[0].cpu(), scores[0].cpu(), boxes[0].cpu(), logits[0].cpu()))
+    return out
+
+
+def label_gap_mask(torch, logits, dtype):
+    """Where a label is decided by more than one step of `dtype`: the top
+    object-class logit exceeds the second by more than the dtype's spacing
+    at the top logit's magnitude."""
+    top = logits[..., :-1].float().topk(2, dim=-1).values
+    tiny = torch.finfo(torch.float32).tiny
+    step = torch.finfo(getattr(torch, dtype)).eps * torch.exp2(
+        torch.floor(torch.log2(top[..., 0].abs().clamp_min(tiny))))
+    return (top[..., 0] - top[..., 1]) > step
+
+
+def vit_agreement(torch, served, alone, dtype, tol, what):
+    """Every served result against its image alone: labels equal where the
+    top-2 gap exceeds one step (label_gap_mask), scores and boxes within
+    `tol`."""
+    out = {"positions": 0, "gated": 0, "label_mismatches": 0, "gated_mismatches": 0,
+           "max_score_err": 0.0, "max_box_err": 0.0}
+    for outs, (labels_1, scores_1, boxes_1, logits_1) in zip(served, alone):
+        strict = label_gap_mask(torch, logits_1, dtype)
+        for labels, scores, boxes in outs:
+            differ = labels != labels_1
+            out["positions"] += labels.numel()
+            out["gated"] += int(strict.sum())
+            out["label_mismatches"] += int(differ.sum())
+            out["gated_mismatches"] += int((differ & strict).sum())
+            out["max_score_err"] = max(out["max_score_err"],
+                                       (scores - scores_1).abs().max().item())
+            out["max_box_err"] = max(out["max_box_err"], (boxes - boxes_1).abs().max().item())
+    check(out["positions"] > 0 and out["gated_mismatches"] == 0
+          and out["max_score_err"] <= tol["score"] and out["max_box_err"] <= tol["box"],
+          f"{what}: served against alone {json.dumps(out)}, bounds {tol}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_vit_flash():
+    """Route the ViT's flash calls through the kernel's plain version,
+    `_flash_fwd_reference` (the plain arm; the package has no such
+    switch)."""
+    from nos_tpu_torch.models import vit
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    def plain(q, k, v, causal=False, scale=None):
+        return fa._flash_fwd_reference(q, k, v, causal, q.shape[-1] ** -0.5)[0]
+
+    saved = vit.flash_attention
+    vit.flash_attention = plain
+    try:
+        yield
+    finally:
+        vit.flash_attention = saved
+
+
+def vit_flash_kernel(torch):
+    """The flash forward at the ViT flash arm's shape, [7, 6, 1124, 64] bf16
+    non-causal (T not a tile multiple): o and lse against the plain version
+    by flash_err within FLASH_TOL, then its time against the plain version
+    and scaled_dot_product_attention, with its bound (flash_work)."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS
+
+    b, h, t, d = VIT_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    before = fa.ROUTE_LAUNCHES["flash_fwd"]["mma"]
+    o, lse = fa.flash_fwd(q, k, v, False, scale)
+    check(fa.ROUTE_LAUNCHES["flash_fwd"]["mma"] == before + 1,
+          "vit flash kernel: the [7, 6, 1124, 64] bf16 forward did not take mma")
+    want_o, want_lse = fa._flash_fwd_reference(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    errs = {"o": fa.flash_err(o, want_o), "lse": fa.flash_err(lse, want_lse)}
+    max_abs = (o.float() - want_o.float()).abs().max().item()
+    check(all(np.isfinite(e) and e <= FLASH_TOL["bfloat16"][x] for x, e in errs.items()),
+          f"vit flash kernel: flash_err {errs} against {FLASH_TOL['bfloat16']}")
+    flops, nbytes = flash_work(b, h, t, d, False, 2)["flash_fwd"]
+    by_ops = flops / H100_BF16_PEAK_FLOPS >= nbytes / H100_BYTES_PER_S
+    out = {
+        "shape": [b, h, t, d], "dtype": "bfloat16", "causal": False,
+        "flash_err": errs, "max_abs_err": max_abs,
+        "ms": time_cuda(torch, lambda: fa.flash_fwd(q, k, v, False, scale)),
+        "plain_ms": time_cuda(torch, lambda: fa._flash_fwd_reference(q, k, v, False, scale),
+                              iters=5, warmup=1),
+        "library_ms": time_cuda(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+        "bound_ms": 1e3 * max(flops / H100_BF16_PEAK_FLOPS, nbytes / H100_BYTES_PER_S),
+        "bound_by": "operations" if by_ops else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    out["tflops"] = flops / out["ms"] / 1e9
+    return out
+
+
+def vit_flash_arm(torch, device, small):
+    """ViTConfig(image_size=512): 1024 patches + 100 detection tokens, so
+    attention takes the flash route. Served as the headline cell is (every
+    client, `flash_requests` requests), the launch counts zeroed just before
+    and read just after; every served result against its image alone; the
+    forward of a batch of the seven through the kernel against the same
+    through its plain version; on the card the kernel at that shape."""
+    from nos_tpu_torch import init_vit
+    from nos_tpu_torch.models.vit import vit_forward
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    v = VIT_SMALL if small else VIT
+    cfg = vit_model("bfloat16", small, image_size=512)
+    check(cfg.seq_len >= 1024, f"vit flash arm: {cfg.seq_len} tokens")
+    params = init_vit(cfg, torch.Generator().manual_seed(0), device=device)
+    images = vit_images(torch, cfg, v["clients"], device)
+    stats, served = vit_serve(torch, cfg, params, images, v, 1, v["flash_requests"], 1,
+                              counted=fa)
+    if device.type == "cuda":
+        check(stats["launches"]["flash_fwd"] > 0, "vit flash arm: no flash_fwd launch")
+        check_routes(stats["routes"], "flash_fwd", "mma", "vit flash arm")
+        check(stats["launches"]["flash_bwd_dq"] == stats["launches"]["flash_bwd_dkv"] == 0,
+              f"vit flash arm: backward launches {stats['launches']}")
+    stats["agreement"] = vit_agreement(torch, served, vit_alone(torch, cfg, params, images),
+                                       "bfloat16", VIT_TOL["bfloat16"], "vit flash arm")
+    batch = torch.stack(images)
+    logits, boxes = vit_forward(params, batch, cfg)
+    with plain_vit_flash():
+        p_logits, p_boxes = vit_forward(params, batch, cfg)
+    strict = label_gap_mask(torch, p_logits, "bfloat16")
+    labels = logits[..., :-1].argmax(-1)
+    p_labels = p_logits[..., :-1].argmax(-1)
+    stats["kernel_vs_plain"] = {
+        "max_dlogit": (logits - p_logits).abs().max().item(),
+        "max_dbox": (boxes - p_boxes).abs().max().item(),
+        "gated_label_mismatches": int(((labels != p_labels) & strict).sum()),
+        "label_mismatches": int((labels != p_labels).sum()),
+    }
+    kv = stats["kernel_vs_plain"]
+    check(kv["max_dlogit"] <= VIT_FLASH_TOL["logit"] and kv["max_dbox"] <= VIT_FLASH_TOL["box"]
+          and kv["gated_label_mismatches"] == 0,
+          f"vit flash arm: kernel against plain {json.dumps(kv)}, bounds {VIT_FLASH_TOL}")
+    if device.type == "cuda":
+        stats["kernel"] = vit_flash_kernel(torch)
+    return stats
+
+
+def phase_vit(torch, device, small=False):
+    """The headline cell on the port: bench.py's seven closed-loop clients
+    behind SliceServer on YOLOS-small (bf16, random weights from seed 0),
+    then an f32 arm and the flash arm (512 px)."""
+    from nos_tpu_torch import init_vit, vit_detect
+
+    t0 = time.perf_counter()
+    v = VIT_SMALL if small else VIT
+    out = {"card": card_line(torch, device)}
+    for dtype in ("bfloat16", "float32"):
+        cfg = vit_model(dtype, small)
+        params = init_vit(cfg, torch.Generator().manual_seed(0), device=device)
+        images = vit_images(torch, cfg, v["clients"], device)
+        if dtype == "bfloat16":
+            stats, served = vit_serve(torch, cfg, params, images, v, v["warmup"],
+                                      v["requests"], v["trials"])
+        else:
+            stats, served = vit_serve(torch, cfg, params, images, v, 1, v["f32_requests"], 1)
+        stats["agreement"] = vit_agreement(torch, served, vit_alone(torch, cfg, params, images),
+                                           dtype, VIT_TOL[dtype], f"vit {dtype}")
+        if device.type == "cuda":
+            batch = torch.stack(images)
+            stats["batch7_ms"] = time_cuda(torch, lambda: vit_detect(params, batch, cfg))
+            stats["batch7_device_ms"] = device_ms(torch, lambda: vit_detect(params, batch, cfg))
+            stats["batch1_ms"] = time_cuda(torch, lambda: vit_detect(params, batch[:1], cfg))
+        out[dtype] = stats
+        log(f"vit {dtype}: " + json.dumps(stats))
+        del params, images, served
+    out["flash"] = vit_flash_arm(torch, device, small)
+    log("vit flash: " + json.dumps(out["flash"]))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"vit: {out['card']} phase_s={out['phase_s']:.1f}")
+    return out
+
+
+# -- phase: mesh -----------------------------------------------------------------
+# The sharded train step (dp 2 x tp 2) and the sp steps (ring and Ulysses at
+# sp 4) against the single-device step from the same params and batches:
+# max relative difference of the per-step loss, max|err| / max|want| of each
+# gradient leaf of the first batch (the sharded step's summed gradient),
+# max|err| of the params after the last step, and the relative difference of
+# the two arms' updates (as train_vs_plain). First set at 1e-3, 0.1, 1.5e-2
+# and 0.5; pinned at about 2.5x the worst of the three arms in the first
+# measurement (NVIDIA H100 80GB HBM3, 700 W; PERF.md): loss 2.8e-6, grads 1.9e-2, params
+# 1.95e-3 (two bf16 steps of a leaf's largest entries), updates 0.107 (the
+# sp arms' one step: Adam's first update is a sign, which the near-zero
+# gradient entries flip).
+MESH_TOL = {"loss": 7e-6, "grad": 4.8e-2, "param": 4.9e-3, "update": 0.27}
+# Pipeline (pp 2) and MoE (ep 4, top-2, ample capacity) in f32 against their
+# sequential and dense references: max|err| of outputs and gradients. First
+# set at 1e-4; pinned at about 2.5x the worst of the first measurement
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the pipeline's output 9.1e-7 (its microbatches' products
+# against the whole batch's), gradients 1.9e-10, MoE 0.
+MESH_F32_TOL = 2.3e-6
+
+
+def mesh_arm(torch, device, model, axes, batches, steps, count=False):
+    """The single-device step and the step over `axes` (every shard on
+    `device`) from init_train_state(seed 0) on `batches`: the first batch's
+    gradients (the sharded arm's summed ones, gathered), `steps` steps with
+    CUDA-event times, the final params; with `count`, the flash launch
+    counts zeroed just before the sharded steps and read just after."""
+    from nos_tpu_torch import TrainConfig, gpt_loss, init_train_state, make_train_step
+    from nos_tpu_torch.models.train import _sum_replica_grads, named_leaves
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.parallel.sharding import tree_get, unshard_tensor
+
+    cfg = TrainConfig(model=model)
+    cuda = device.type == "cuda"
+    tokens = [torch.from_numpy(b).to(device) for b in batches]
+
+    def timed(step, params, opt):
+        losses, ms = [], []
+        for tk in tokens[:steps]:
+            if cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, tk)
+            if cuda:
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            else:
+                ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(metrics["loss"].item())
+        return params, losses, ms
+
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+    start = {n: p.detach().clone() for n, p in named_leaves(params)}
+    gpt_loss(params, tokens[0], model, loss_chunk=cfg.loss_chunk).backward()
+    s_grad = {n: p.grad.detach().clone() for n, p in named_leaves(params)}
+    opt.zero_grad(set_to_none=True)
+    params, s_loss, s_ms = timed(make_train_step(cfg), params, opt)
+    s_par = {n: p.detach().clone() for n, p in named_leaves(params)}
+    del params, opt
+    gc.collect()
+
+    mesh = build_mesh(axes, devices=[device] * int(np.prod(list(axes.values()))))
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), mesh=mesh)
+    gpt_loss(params, tokens[0], model, mesh, loss_chunk=cfg.loss_chunk).backward()
+    _sum_replica_grads(params)
+    m_grad = {n: unshard_tensor([x.grad for x in params.leaves(n)], mesh,
+                                tree_get(params.specs, n)) for n in s_grad}
+    opt.zero_grad(set_to_none=True)
+    if count:
+        fa.reset_launch_counts()
+    params, m_loss, m_ms = timed(make_train_step(cfg, mesh), params, opt)
+    launches = dict(fa.LAUNCHES)
+    routes = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
+    m_par = {n: p for n, p in named_leaves(params.gather())}
+    del params, opt
+    gc.collect()
+    diff_sq = sum(((m_par[n].double() - s_par[n].double()) ** 2).sum().item() for n in s_par)
+    upd_sq = sum(((s_par[n].double() - start[n].double()) ** 2).sum().item() for n in s_par)
+    out = {
+        "axes": axes, "attention": model.attention, "steps": steps,
+        "losses_single": s_loss, "losses_mesh": m_loss,
+        "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(m_loss, s_loss)),
+        "grad_rel": max((m_grad[n].float() - s_grad[n].float()).abs().max().item()
+                        / max(s_grad[n].float().abs().max().item(), 1e-30) for n in s_grad),
+        "param_abs": max((m_par[n].float() - s_par[n].float()).abs().max().item()
+                         for n in s_par),
+        "update_rel": (diff_sq / upd_sq) ** 0.5 if upd_sq else float("inf"),
+        "ms_single": s_ms, "ms_mesh": m_ms,
+        "ms_per_step_single": float(np.mean(s_ms[1:] or s_ms)),
+        "ms_per_step_mesh": float(np.mean(m_ms[1:] or m_ms)),
+    }
+    out["mesh_over_single"] = out["ms_per_step_mesh"] / out["ms_per_step_single"]
+    if count:
+        out["launches"], out["routes"] = launches, routes
+    what = f"mesh {axes} {model.attention}"
+    check(all(np.isfinite(s_loss + m_loss)), f"{what}: non-finite loss")
+    check(out["loss_rel"] <= MESH_TOL["loss"] and out["grad_rel"] <= MESH_TOL["grad"]
+          and out["param_abs"] <= MESH_TOL["param"] and out["update_rel"] <= MESH_TOL["update"],
+          f"{what}: loss {out['loss_rel']}, grad {out['grad_rel']}, param {out['param_abs']}, "
+          f"update {out['update_rel']} against {MESH_TOL}")
+    return out
+
+
+def mesh_pipeline(torch, device, small):
+    """pipeline_apply at pp 2 (both stages on `device`), f32: tanh(x @ w +
+    b) stages, 4 microbatches, against the stages applied in turn to the
+    whole batch; the output and the gradients of mean(out^2)."""
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.parallel.pipeline import pipeline_apply
+
+    h, b = (32, 8) if small else (1024, 64)
+    gen = torch.Generator().manual_seed(6)
+    w = (torch.randn((2, h, h), generator=gen) * h ** -0.5).to(device)
+    bias = (torch.randn((2, h), generator=gen) * 0.1).to(device)
+    x = torch.randn((b, h), generator=gen).to(device)
+
+    def stage(p, y):
+        return torch.tanh(y @ p["w"] + p["b"])
+
+    pw, pb = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    out = pipeline_apply({"w": pw, "b": pb}, x, stage, build_mesh({"pp": 2}, [device] * 2),
+                         n_microbatches=4)
+    (out ** 2).mean().backward()
+    sw, sb = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    ref = x
+    for s in range(2):
+        ref = stage({"w": sw[s], "b": sb[s]}, ref)
+    (ref ** 2).mean().backward()
+    res = {"out": (out - ref).abs().max().item(), "grad_w": (pw.grad - sw.grad).abs().max().item(),
+           "grad_b": (pb.grad - sb.grad).abs().max().item()}
+    check(all(np.isfinite(e) and e <= MESH_F32_TOL for e in res.values()),
+          f"mesh pipeline: {res} against {MESH_F32_TOL}")
+    return res
+
+
+def mesh_moe(torch, device, small):
+    """moe_apply at ep 4 (every rank on `device`), top-2, ample capacity
+    (capacity_factor 8), f32, against the dense gate-weighted sum of each
+    token's two experts."""
+    import torch.nn.functional as F
+
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.parallel.moe import _top_k, init_moe, moe_apply
+
+    h, m, e, b, t = (16, 32, 4, 2, 8) if small else (1024, 2048, 8, 4, 256)
+    params = init_moe(h, m, e, dtype=torch.float32, generator=torch.Generator().manual_seed(7),
+                      device=device)
+    x = torch.randn((b, t, h), generator=torch.Generator().manual_seed(8)).to(device)
+    got, aux = moe_apply(params, x, build_mesh({"ep": 4}, [device] * 4), top_k=2,
+                         capacity_factor=8.0, return_aux=True)
+    flat = x.reshape(-1, h)
+    gate, idx = _top_k(torch.softmax(flat @ params["router"], dim=-1), 2)
+    gate = gate / gate.sum(-1, keepdim=True)
+    mid = F.gelu(torch.einsum("th,ehm->tem", flat, params["w_in"]), approximate="tanh")
+    every = torch.einsum("tem,emh->teh", mid, params["w_out"])
+    rows = torch.arange(flat.shape[0], device=device)
+    want = sum(every[rows, idx[:, c]] * gate[:, c, None] for c in range(2)).reshape(b, t, h)
+    res = {"out": (got - want).abs().max().item(), "aux": aux.item()}
+    check(np.isfinite(res["aux"]) and res["out"] <= MESH_F32_TOL,
+          f"mesh moe: {res} against {MESH_F32_TOL}")
+    return res
+
+
+def phase_mesh(torch, device, small=False):
+    """The mesh trainers with every shard on one device: the sharded train
+    step (dp 2 x tp 2) on the train phase's 2048-wide GPT cut to 2 layers,
+    three steps, the flash launch counts of its main path; ring and Ulysses
+    at sp 4, one step each; the pipeline and MoE against their references.
+    Shards on one card run one after another: the sharded step is expected
+    slower than the single-device one, and that is recorded, not gated."""
+    from nos_tpu_torch import synthetic_token_stream
+
+    t0 = time.perf_counter()
+    full = not small
+    # MESH_TOL is pinned for bf16 at full width on the card; a rehearsal's
+    # tiny model runs in f32, which holds well inside it.
+    model, (batch, seq) = train_model(full, 2, "bfloat16" if full else "float32")
+    batches = list(synthetic_token_stream(model.vocab, batch, seq, seed=1, steps=3))
+    out = {"card": card_line(torch, device)}
+    out["dp2_tp2"] = mesh_arm(torch, device, model, {"dp": 2, "tp": 2}, batches, 3, count=True)
+    if device.type == "cuda":
+        # One launch of each kernel a layer and a position, a step.
+        want = {n: model.layers * 4 * 3 for n in FLASH_KERNELS}
+        check(out["dp2_tp2"]["launches"] == want,
+              f"mesh: flash launches {out['dp2_tp2']['launches']}, want {want}")
+        for name in FLASH_KERNELS:
+            check_routes(out["dp2_tp2"]["routes"], name, "mma", "mesh dp2_tp2")
+    log("mesh dp2_tp2: " + json.dumps(out["dp2_tp2"]))
+    for attention in ("ring", "ulysses"):
+        arm = mesh_arm(torch, device, dataclasses.replace(model, attention=attention),
+                       {"sp": 4}, batches, 1)
+        out[f"sp4_{attention}"] = arm
+        log(f"mesh sp4_{attention}: " + json.dumps(arm))
+    out["pipeline"] = mesh_pipeline(torch, device, small)
+    out["moe"] = mesh_moe(torch, device, small)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"mesh: pipeline {json.dumps(out['pipeline'])} moe {json.dumps(out['moe'])} "
+        f"{out['card']} phase_s={out['phase_s']:.1f}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train")
+                            "trace,fleet,disagg,dense,train,vit,mesh")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -5470,6 +6027,8 @@ def main(argv=None):
         phase_disagg(torch, torch.device("cpu"), small=True)
         phase_dense(torch, torch.device("cpu"), small=True)
         phase_train(torch, torch.device("cpu"), full=False)
+        phase_vit(torch, torch.device("cpu"), small=True)
+        phase_mesh(torch, torch.device("cpu"), small=True)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5525,9 +6084,14 @@ def main(argv=None):
     train = None
     if "train" in phases:
         train = phase_train(torch, torch.device("cuda"))
+    vit = mesh = None
+    if "vit" in phases:
+        vit = phase_vit(torch, torch.device("cuda"))
+    if "mesh" in phases:
+        mesh = phase_mesh(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train):
+                disagg, dense, train, vit, mesh):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -5575,14 +6139,23 @@ def main(argv=None):
                       "flash_bwd_dkv": "nos_tpu/ops/flash_attention.py:287"}
     for name in FLASH_KERNELS:
         t = timings[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "kernel_route": kernel_route[name],
             "source": "nos_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": flash_replaces[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-        })
+            # The vit phase's flash arm (served at 512 px) and the mesh
+            # phase's sharded train step (dp 2 x tp 2), by route.
+            "vit_launches": vit["flash"]["routes"][name],
+            "mesh_launches": mesh["dp2_tp2"]["routes"][name],
+        }
+        if name == "flash_fwd":
+            entry["vit_1124"] = {k: vit["flash"]["kernel"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "tflops")}
+        kernels.append(entry)
     t = timings["dense_main"]
     kernels.append({
         "name": "decode_attention", "route": "cuda",

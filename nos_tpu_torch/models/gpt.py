@@ -8,15 +8,28 @@ Port of `nos_tpu/models/gpt.py`: `GPTConfig` (:24), `_rmsnorm` (:98),
 `gpt_loss` (:230), whose attention runs through the flash kernels
 (`ops/flash_attention.py`). Parameters are a plain nested dict of tensors
 with the reference's keys and shapes, so `models/params.py` can carry a
-JAX param tree across unchanged. Sharded training over a mesh (ring and
-Ulysses attention, sharded params) is a later slice (ROADMAP A9).
+JAX param tree across unchanged.
+
+With `mesh=` (:193-213) the three entry points run the SPMD program that
+GSPMD derives from the reference's shardings, one loop over the mesh
+positions (the port's single controller): the params as a `MeshTree` under
+`transformer_param_rules` (a plain tree is placed first), the tokens split
+as P(dp, sp). Each (dp, tp) position runs the flash kernel on its own batch
+rows and heads, [B/dp, H/tp, T, hd], causal; the row-parallel `wo` and
+`w_down` are followed by a sum across the tp shards, the feature-sharded
+embedding by a gather. With sp in the mesh, `attention="ring"` or
+`"ulysses"` routes attention through `parallel/ring_attention.py`; other
+settings gather the sequence and run the flash kernel over all of it.
+Activations stay replicated over tp, one copy per shard: the loss is read
+at each tp group's first shard, so the gradient of a replicated leaf is
+the sum of its copies' gradients (`models/train.py` sums them).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +37,11 @@ from torch.utils.checkpoint import checkpoint
 
 from nos_tpu_torch.device import resolve
 from nos_tpu_torch.ops.flash_attention import flash_attention
+from nos_tpu_torch.parallel import collectives as col
+from nos_tpu_torch.parallel.ring_attention import (ring_attention_shards,
+                                                   ulysses_attention_shards)
+from nos_tpu_torch.parallel.sharding import (MeshTree, batch_sharding, param_shardings,
+                                             shard_tensor, unshard_tensor)
 
 
 @dataclass(frozen=True)
@@ -190,26 +208,28 @@ def _attention(x, p, cfg: GPTConfig, positions):
     return o.transpose(1, 2).reshape(b, t, h) @ p["wo"]
 
 
-def _block(x, p, cfg: GPTConfig, positions):
-    x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg, positions)
-    y = _rmsnorm(x, p["ln2"])
+def _mlp(y, p, cfg: GPTConfig):
+    """The gated MLP on normed `y` (one matmul over gate|up when fused)."""
     if cfg.fuse_projections:
         g, u = torch.chunk(y @ torch.cat([p["w_gate"], p["w_up"]], dim=1), 2, dim=-1)
-        y = (F.silu(g) * u) @ p["w_down"]
-    else:
-        y = (F.silu(y @ p["w_gate"]) * (y @ p["w_up"])) @ p["w_down"]
-    return x + y
+        return (F.silu(g) * u) @ p["w_down"]
+    return (F.silu(y @ p["w_gate"]) * (y @ p["w_up"])) @ p["w_down"]
+
+
+def _block(x, p, cfg: GPTConfig, positions):
+    x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg, positions)
+    return x + _mlp(_rmsnorm(x, p["ln2"]), p, cfg)
 
 
 def gpt_hidden(params, tokens, cfg: GPTConfig, mesh=None):
     """tokens [B, T] int -> final hidden states [B, T, H] (pre-head). With
     `remat_blocks` each block runs under activation checkpointing: the
-    backward recomputes its activations instead of storing them."""
+    backward recomputes its activations instead of storing them. With a
+    mesh: the global hidden states on the first position's device."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded training over a mesh (ring/ulysses attention, sharded "
-            "params) is not ported yet: ROADMAP A9"
-        )
+        params, toks = _on_mesh(params, tokens, mesh)
+        return unshard_tensor(_mesh_hidden(params, toks, cfg, mesh), mesh,
+                              _batch_spec(mesh) + (None,))
     b, t = tokens.shape
     x = params["tok_emb"][tokens.long()]
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device).expand(b, t)
@@ -223,14 +243,28 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, mesh=None):
 
 
 def gpt_forward(params, tokens, cfg: GPTConfig, mesh=None):
-    """tokens [B, T] int -> logits [B, T, vocab] f32."""
+    """tokens [B, T] int -> logits [B, T, vocab] f32 (with a mesh, global,
+    on the first position's device)."""
+    if mesh is not None:
+        params, toks = _on_mesh(params, tokens, mesh)
+        hs = _mesh_hidden(params, toks, cfg, mesh)
+        logits: List[torch.Tensor] = [None] * len(hs)  # type: ignore[list-item]
+        for group in mesh.groups("tp"):
+            xs, heads = _head_shards(params, hs, group)
+            full = _logits(xs, heads)
+            for p in group:
+                logits[p] = full
+        return unshard_tensor(logits, mesh, _batch_spec(mesh) + (None,))
     return (gpt_hidden(params, tokens, cfg, mesh) @ params["lm_head"]).float()
 
 
 def _chunk_nll(x_c, tgt_c, mask_c, lm_head):
     """Summed masked next-token NLL of one chunk: x_c [B, C, H], tgt_c
     [B, C], mask_c [C]; f32 logsumexp."""
-    logits = (x_c @ lm_head).float()
+    return _nll((x_c @ lm_head).float(), tgt_c, mask_c)
+
+
+def _nll(logits, tgt_c, mask_c):
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, tgt_c[..., None])[..., 0]
     return ((lse - tgt) * mask_c[None, :]).sum()
@@ -241,7 +275,13 @@ def gpt_loss(params, tokens, cfg: GPTConfig, mesh=None, loss_chunk: int = 256):
     projection chunked over the sequence: the reference's math (pad to a
     chunk multiple, mask, f32 logsumexp, a running f32 sum), as a loop over
     checkpointed chunks where JAX scans a `jax.checkpoint`ed body, so the
-    backward recomputes one chunk's [B, C, vocab] logits at a time."""
+    backward recomputes one chunk's [B, C, vocab] logits at a time. With a
+    mesh, each (dp, sp) block sums its own positions' NLL (its last
+    position's target comes from the next sp shard) and the loss is their
+    sum over the global count, on the first position's device."""
+    if mesh is not None:
+        params, toks = _on_mesh(params, tokens, mesh)
+        return _mesh_loss(params, toks, cfg, mesh, loss_chunk)
     b, t = tokens.shape
     x = gpt_hidden(params, tokens, cfg, mesh)
     xs = x[:, :-1, :]
@@ -258,3 +298,159 @@ def gpt_loss(params, tokens, cfg: GPTConfig, mesh=None, loss_chunk: int = 256):
         total = total + checkpoint(_chunk_nll, xs[:, c:c + chunk], targets[:, c:c + chunk],
                                    mask[c:c + chunk], params["lm_head"], use_reentrant=False)
     return total / (b * n)
+
+
+# -- the mesh path ----------------------------------------------------------------
+_COLUMN = ("wq", "wk", "wv", "w_up", "w_gate")
+_ROW = ("wo", "w_down")
+
+
+def _batch_spec(mesh) -> Tuple:
+    return batch_sharding(mesh, "dp", "sp")
+
+
+def _on_mesh(params, tokens, mesh):
+    """(MeshTree, per-position token blocks): a plain param tree is placed
+    by `transformer_param_rules`, a global token tensor split as P(dp, sp);
+    a list of blocks (`prefetch_to_mesh`) is taken as it is."""
+    if not isinstance(params, MeshTree):
+        params = param_shardings(params, mesh)
+    if not isinstance(tokens, (list, tuple)):
+        tokens = shard_tensor(tokens, mesh, _batch_spec(mesh))
+    return params, list(tokens)
+
+
+def _over(groups, xs: List, fn) -> List:
+    """fn applied to each group's list of `xs`, the results put back by
+    position."""
+    out = [None] * len(xs)
+    for group in groups:
+        for p, y in zip(group, fn([xs[p] for p in group])):
+            out[p] = y
+    return out
+
+
+def _sharded_on(spec, axis: str) -> bool:
+    return any(axis == e or (isinstance(e, tuple) and axis in e) for e in spec)
+
+
+_SEQUENCE_PARALLEL = {"ring": ring_attention_shards, "ulysses": ulysses_attention_shards}
+
+
+def _mesh_attention(q, k, v, mesh, attention: str):
+    """Causal attention at every position: over each sp group by ring or
+    Ulysses, else through the flash kernel (with sp, over the gathered
+    sequence, each position keeping its own rows)."""
+    if mesh.shape.get("sp", 1) == 1:
+        return [flash_attention(a, b, c, causal=True) for a, b, c in zip(q, k, v)]
+
+    def full_sequence(qs, ks, vs, causal):
+        t = qs[0].shape[2]
+        qs, ks, vs = (col.all_gather(list(x), axis=2) for x in (qs, ks, vs))
+        return [flash_attention(a, b, c, causal=causal).narrow(2, i * t, t)
+                for i, (a, b, c) in enumerate(zip(qs, ks, vs))]
+
+    fn = _SEQUENCE_PARALLEL.get(attention, full_sequence)
+    return _over(mesh.groups("sp"), list(zip(q, k, v)),
+                 lambda qkv: fn(*map(list, zip(*qkv)), causal=True))
+
+
+def _mesh_block(x, lp, cfg: GPTConfig, positions, mesh, attention: str):
+    """One block at every position: x[p] [B/dp, T/sp, H] replicated over
+    tp, lp[p] position p's layer params; `cfg` is the tp-local view."""
+    tp_groups = mesh.groups("tp")
+    n = len(x)
+    h = [_rmsnorm(x[p], lp[p]["ln1"]) for p in range(n)]
+    qkv = [project_qkv(h[p], lp[p], cfg, positions[p]) for p in range(n)]
+    o = _mesh_attention(*map(list, zip(*qkv)), mesh, attention)
+    part = [o[p].transpose(1, 2).reshape(o[p].shape[0], o[p].shape[2], -1) @ lp[p]["wo"]
+            for p in range(n)]
+    y = _over(tp_groups, part, col.all_reduce_sum)
+    x = [x[p] + y[p] for p in range(n)]
+    part = [_mlp(_rmsnorm(x[p], lp[p]["ln2"]), lp[p], cfg) for p in range(n)]
+    y = _over(tp_groups, part, col.all_reduce_sum)
+    return [x[p] + y[p] for p in range(n)]
+
+
+def _mesh_hidden(params: MeshTree, toks: List[torch.Tensor], cfg: GPTConfig,
+                 mesh) -> List[torch.Tensor]:
+    """Final hidden states at every position, [B/dp, T/sp, H] each."""
+    tp = mesh.shape.get("tp", 1)
+    local = tp_local_config(cfg, tp)
+    if tp > 1:
+        for name in _COLUMN + _ROW:
+            want = (None, "tp") if name in _COLUMN else ("tp", None)
+            got = params.specs["layers"]["0"][name]
+            if got != want:
+                raise ValueError(f"tp={tp} needs {name} sharded as {want}, got {got}")
+    shards = params.shards
+    x = [s["tok_emb"][t.long()] for s, t in zip(shards, toks)]
+    if tp > 1 and _sharded_on(params.specs["tok_emb"], "tp"):
+        x = _over(mesh.groups("tp"), x, lambda xs: col.all_gather(xs, axis=-1))
+    positions = []
+    for p, t in enumerate(toks):
+        b, t_l = t.shape
+        start = mesh.coords(p).get("sp", 0) * t_l
+        positions.append((start + torch.arange(t_l, dtype=torch.int32, device=t.device))
+                         .expand(b, t_l))
+    for i in range(cfg.layers):
+        lp = [s["layers"][str(i)] for s in shards]
+        if cfg.remat_blocks:
+            x = checkpoint(_mesh_block, x, lp, local, positions, mesh, cfg.attention,
+                           use_reentrant=False)
+        else:
+            x = _mesh_block(x, lp, local, positions, mesh, cfg.attention)
+    return [_rmsnorm(x[p], s["ln_f"]) for p, s in enumerate(shards)]
+
+
+def _head_shards(params: MeshTree, hs, group):
+    """The hidden states and lm_head blocks one tp group's logits take:
+    every shard's when the head is vocab-sharded, else the first's."""
+    if len(group) > 1 and _sharded_on(params.specs["lm_head"], "tp"):
+        return [hs[p] for p in group], [params.shards[p]["lm_head"] for p in group]
+    return [hs[group[0]]], [params.shards[group[0]]["lm_head"]]
+
+
+def _logits(xs, heads):
+    """The vocab shards' logits joined on the first shard's device, f32."""
+    dev = xs[0].device
+    return torch.cat([(x @ h).to(dev) for x, h in zip(xs, heads)], dim=-1).float()
+
+
+def _chunk_nll_sharded(tgt_c, mask_c, n, *tensors):
+    return _nll(_logits(tensors[:n], tensors[n:]), tgt_c, mask_c)
+
+
+def _mesh_loss(params: MeshTree, toks, cfg: GPTConfig, mesh, loss_chunk: int):
+    hs = _mesh_hidden(params, toks, cfg, mesh)
+    sp = mesh.shape.get("sp", 1)
+    nxt = _over(mesh.groups("sp"), toks, lambda xs: col.ring_pass(xs, shift=-1))
+    global_b = toks[0].shape[0] * mesh.shape.get("dp", 1)
+    global_t = toks[0].shape[1] * sp
+    parts = []
+    for group in mesh.groups("tp"):
+        p0 = group[0]
+        tok = toks[p0]
+        last = mesh.coords(p0).get("sp", 0) == sp - 1
+        n = tok.shape[1] - 1 if last else tok.shape[1]
+        if n == 0:
+            continue
+        targets = torch.cat([tok[:, 1:], nxt[p0][:, :1].to(tok.device)], dim=1)[:, :n].long()
+        xs, heads = _head_shards(params, hs, group)
+        xs = [x[:, :n] for x in xs]
+        chunk = max(1, min(loss_chunk, n))
+        pad = (-n) % chunk
+        if pad:
+            xs = [F.pad(x, (0, 0, 0, pad)) for x in xs]
+            targets = F.pad(targets, (0, pad))
+        mask = (torch.arange(n + pad, device=tok.device) < n).float()
+        total = torch.zeros((), dtype=torch.float32, device=tok.device)
+        for c in range(0, n + pad, chunk):
+            total = total + checkpoint(
+                _chunk_nll_sharded, targets[:, c:c + chunk], mask[c:c + chunk], len(xs),
+                *[x[:, c:c + chunk] for x in xs], *heads, use_reentrant=False)
+        parts.append(total)
+    total = parts[0].to(mesh.devices[0])
+    for part in parts[1:]:  # in position order
+        total = total + part.to(total.device)
+    return total / (global_b * (global_t - 1))

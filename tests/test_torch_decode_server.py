@@ -252,7 +252,9 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "for m in ('runtime.quota', 'tracing', 'observability', 'telemetry',\n"
         "          'serving.accounting', 'serving.kv_store', 'serving.replica',\n"
         "          'serving.router', 'serving.drain', 'serving.supervisor',\n"
-        "          'serving.disagg', 'serving.monitor'):\n"
+        "          'serving.disagg', 'serving.monitor', 'models.vit', 'models.checkpoint',\n"
+        "          'runtime.slice_server', 'parallel.collectives', 'parallel.ring_attention',\n"
+        "          'parallel.pipeline', 'parallel.moe'):\n"
         "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')]\n"

@@ -30,7 +30,10 @@ spec-armed engine with the radix cache on the card against spec-off. And
 the f32 rows the engine's programs of different shapes give for the same
 inputs (ROADMAP C). For the serving plane: an engine prewarmed before it
 serves, and one built (its window captured) while two engines tick on
-their own threads, its launch delta that of an idle build."""
+their own threads, its launch delta that of an idle build. For the workload
+plane: the ViT's flash route (512 px, bf16) through the kernel against its
+plain version, and the sharded train step (dp 2 x tp 2 on one card)
+against the single-device step, its flash launches all on "mma"."""
 
 import time
 
@@ -280,6 +283,8 @@ FLASH_CASES = [
     (1, 3, 1000, 128, "float32", False),
     (1, 3, 1000, 128, "bfloat16", True),
     (1, 2, 300, 256, "float32", True),
+    # The ViT's flash arm (512 px: 1024 patches + 100 detection tokens).
+    (7, 6, 1124, 64, "bfloat16", False),
 ]
 
 
@@ -1387,3 +1392,64 @@ def test_handed_off_stream_replays_on_a_second_engine(cuda_device):
     assert dec.graph_replays > 0 and store.conserved()
     coord.detach()
     rs.stop()
+
+
+def test_vit_flash_route_on_the_card(cuda_device):
+    """A 512-pixel bf16 ViT (1124 tokens, head_dim 64) takes the flash
+    forward on "mma" once a layer; its detections against the same forward
+    through the kernel's plain version: logits within 0.25, boxes within
+    0.05 (chip_smoke.py's first VIT_FLASH_TOL)."""
+    from nos_tpu_torch.models import vit
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    cfg = vit.ViTConfig(image_size=512, hidden=128, layers=2, heads=2)
+    params = vit.init_vit(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    images = torch.rand((2, 512, 512, 3), generator=torch.Generator().manual_seed(1))
+    images = images.to(cuda_device)
+    before = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
+    logits, boxes = vit.vit_forward(params, images, cfg)
+    assert fa.ROUTE_LAUNCHES["flash_fwd"]["mma"] == before["flash_fwd"]["mma"] + cfg.layers
+    assert fa.ROUTE_LAUNCHES["flash_fwd"]["simt"] == before["flash_fwd"]["simt"]
+    real = vit.flash_attention
+    vit.flash_attention = lambda q, k, v, causal=False: fa._flash_fwd_reference(
+        q, k, v, causal, q.shape[-1] ** -0.5)[0]
+    try:
+        p_logits, p_boxes = vit.vit_forward(params, images, cfg)
+    finally:
+        vit.flash_attention = real
+    assert (logits - p_logits).abs().max().item() <= 0.25
+    assert (boxes - p_boxes).abs().max().item() <= 0.05
+
+
+def test_sharded_train_step_on_the_card(cuda_device):
+    """dp 2 x tp 2 with every shard on one card, bf16, head_dim 64: one
+    launch of each flash kernel a layer and a shard, all on "mma"; the loss
+    of three steps within 1e-3 of the single-device step's and the replicas
+    bit-identical."""
+    from nos_tpu_torch.models import gpt, train
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.parallel import build_mesh
+    from nos_tpu_torch.parallel.sharding import replica_groups, tree_leaves
+
+    cfg = train.TrainConfig(model=gpt.GPTConfig(vocab=512, hidden=256, layers=2, heads=4,
+                                                max_seq=256))
+    mesh = build_mesh({"dp": 2, "tp": 2}, devices=[cuda_device] * 4)
+    single, sopt = train.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                          device=cuda_device)
+    sharded, mopt = train.init_train_state(cfg, torch.Generator().manual_seed(0), mesh=mesh)
+    sstep, mstep = train.make_train_step(cfg), train.make_train_step(cfg, mesh)
+    rng = np.random.RandomState(0)
+    fa.reset_launch_counts()
+    for _ in range(3):
+        tokens = torch.from_numpy(rng.randint(0, 512, (4, 256)).astype(np.int32))
+        tokens = tokens.to(cuda_device)
+        single, sopt, a = sstep(single, sopt, tokens)
+        sharded, mopt, b = mstep(sharded, mopt, tokens)
+        assert abs(b["loss"].item() - a["loss"].item()) <= 1e-3 * abs(a["loss"].item())
+    per_step = cfg.model.layers * (1 + 4)  # single device, then four shards
+    assert fa.LAUNCHES == {n: 3 * per_step for n in fa.LAUNCHES}
+    assert all(r["simt"] == 0 for r in fa.ROUTE_LAUNCHES.values())
+    for path, spec in tree_leaves(sharded.specs):
+        leaves = sharded.leaves(path)
+        for group in replica_groups(mesh, spec):
+            assert all(torch.equal(leaves[p], leaves[group[0]]) for p in group)

@@ -217,14 +217,20 @@ def test_init_train_state_on_the_cpu():
 
 
 def test_mesh_paths_raise_not_implemented(model):
+    """The mesh paths no longer raise (they were refused until the sharded
+    step was ported; tests/test_torch_sharded_train.py holds them to the
+    reference): a loss over a tp=2 mesh and a sharded step run. Without sp
+    in the mesh, or without a mesh, ring and ulysses take flash attention,
+    as in the reference."""
+    from nos_tpu_torch.parallel import build_mesh
+
     jparams, tokens = model
     tcfg = dataclasses.replace(_tcfg(JCFG), attention="ring")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tgpt.gpt_loss(_port_params(jparams, tcfg), torch.from_numpy(tokens), tcfg,
-                      mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttrain.make_train_step(ttrain.TrainConfig(model=tcfg), mesh=object())
-    # Without a mesh, ring and ulysses take flash attention, as in the reference.
+    mesh = build_mesh({"tp": 2}, devices=["cpu", "cpu"])
+    got = tgpt.gpt_loss(_port_params(jparams, tcfg), torch.from_numpy(tokens), tcfg, mesh=mesh)
+    want = tgpt.gpt_loss(_port_params(jparams, tcfg), torch.from_numpy(tokens), tcfg)
+    np.testing.assert_allclose(got.item(), want.item(), rtol=1e-6)
+    assert callable(ttrain.make_train_step(ttrain.TrainConfig(model=tcfg), mesh=mesh))
     base = tgpt.gpt_forward(_port_params(jparams, tcfg), torch.from_numpy(tokens),
                             _tcfg(JCFG))
     for attention in ("ring", "ulysses"):
