@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (the paged engine and the
 dense decode programs), its training step, the ViT detector behind
-SliceServer and the mesh trainers on one NVIDIA GPU and check them.
+SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py) and
+the control plane's first layer (api/, cluster/) on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -13,6 +15,7 @@ SliceServer and the mesh trainers on one NVIDIA GPU and check them.
     python3 chip_smoke.py --phases build,card,fleet
     python3 chip_smoke.py --phases build,card,disagg
     python3 chip_smoke.py --phases build,card,vit,mesh
+    python3 chip_smoke.py --phases build,card,train,vit,control
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -283,7 +286,15 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            and f32: per-step loss, every gradient leaf of the first batch and
            the params after step 3 within TRAIN_TOL. Learning: the 2-layer
            bf16 model, 20 steps on one batch, the loss finite throughout and
-           lower at step 20 than at step 1;
+           lower at step 20 than at step 1. After the timed steps,
+           runtime/mfu.py::gpt_train_mfu over the same model and state
+           (measure_mfu's loop differencing, TRAIN_MFU_LOOP, counted by
+           gpt_train_flops): its dict, its mfu inside its mfu_range and
+           within TRAIN_MFU_AGREE of the events' MFU; then
+           flash_train_shape_speedup once (the flash pair against the plain
+           materializing attention at [8, 8, 2048, 64] bf16 causal): an
+           `invalid` marker reported as such, a published flash_ms at or
+           above its floor_ms;
   vit      bench.py's headline cell (:66-122) on the port: YOLOS-small
            (ViTConfig(): 224 px, patch 16, hidden 384, 12 layers, 6 heads,
            100 detection tokens, 92 classes, bf16, init_vit(seed 0)) behind
@@ -306,7 +317,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            kernel's plain version (VIT_FLASH_TOL); the kernel at [7, 6, 1124,
            64] bf16 non-causal against its plain version (FLASH_TOL) and
            timed beside the plain version and scaled_dot_product_attention,
-           with its bound;
+           with its bound. runtime/mfu.py::vit_batch_mfu(batch=7), the bf16
+           cell's model (FlopCounterMode's count, every product a matmul at
+           224 px): not None, its mfu inside its mfu_range;
   mesh     the mesh trainers, every shard on cuda:0 (a mesh may repeat a
            device). The sharded train step, dp 2 x tp 2, on the train
            phase's 2048-wide GPT cut to 2 layers, batch 8 x 2048: three
@@ -321,7 +334,18 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            the stages in turn, output and gradients, and moe_apply at ep 4,
            top-2, ample capacity, f32, against the dense gate-weighted sum
            (MESH_F32_TOL). Prints ms per step, sharded against single-device
-           (shards on one card run one after another: recorded, not gated).
+           (shards on one card run one after another: recorded, not gated);
+  control  the control plane's first layer (nos_tpu_torch/api/, cluster/),
+           no kernel: the port's ClusterAPIServer on 127.0.0.1 (an ephemeral
+           port, the quota webhooks installed) and its KubeCluster against
+           it: Nodes with google.com/tpu allocatable and one labelled with
+           this card's name, Pods, ElasticQuotas (min > max refused by the
+           webhook), a watch (every ADDED and MODIFIED event within
+           CONTROL["wait_s"]), a merge-patch whose null deletes an
+           annotation, a status patch, a stale update refused with a
+           ConflictError; telemetry.collect over the client equal to the
+           counts written; nos_tpu_torch.cluster.pod_resources_grpc imported
+           without loading grpc. Prints the report and the phase's seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -5343,7 +5367,42 @@ def train_timed(torch, device, full, warmup=2, steps=6):
         stats["mfu"] = flops / (ms / 1e3 * H100_BF16_PEAK_FLOPS)
         stats["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         stats["step_profile"] = profile_train_step(torch, step, params, opt, next(batches))
+    stats["gpt_train_mfu"] = train_mfu(torch, device, cfg, params, opt, batch, seq,
+                                       stats.get("mfu"))
     return stats
+
+
+# measure_mfu's loop for the ~233 ms train step: 8 calls against 2, three
+# repeats (its time budget allows one doubling at most).
+TRAIN_MFU_LOOP = {"scan_length": 8, "repeats": 3}
+# measure_mfu's step time against the events' ms_per_step: the same step,
+# timed by loop differencing (one more step) against six steps in a row.
+TRAIN_MFU_AGREE = 0.15
+
+
+def train_mfu(torch, device, cfg, params, opt, batch, seq, events_mfu):
+    """runtime/mfu.py::gpt_train_mfu over the phase's own model and
+    state (the step updates them in place, so every timed call runs the
+    whole step: forward, backward, AdamW), counted by gpt_train_flops. On
+    the card: not None, its mfu inside its own mfu_range and within
+    TRAIN_MFU_AGREE of the events' MFU; off the card it must decline
+    (None) rather than time the CPU."""
+    from nos_tpu_torch.runtime.mfu import gpt_train_mfu
+
+    t0 = time.perf_counter()
+    out = gpt_train_mfu(batch, seq, cfg=cfg, state=(params, opt), device=device,
+                        generator=torch.Generator().manual_seed(1), **TRAIN_MFU_LOOP)
+    if device.type != "cuda":
+        check(out is None, f"train: gpt_train_mfu on {device} gave {out}")
+        return None
+    check(out is not None, "train: gpt_train_mfu gave None on the card")
+    lo, hi = out["mfu_range"]
+    check(lo <= out["mfu"] <= hi, f"train: mfu {out['mfu']} outside its range {out['mfu_range']}")
+    check(abs(out["mfu"] / events_mfu - 1.0) <= TRAIN_MFU_AGREE,
+          f"train: measure_mfu's mfu {out['mfu']} against the events' {events_mfu}")
+    out["events_mfu"] = events_mfu
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def profile_train_step(torch, step, params, opt, tokens):
@@ -5464,10 +5523,33 @@ def train_learns(torch, device, full, steps=20):
     return {"losses": losses}
 
 
+def flash_speedup(torch, device):
+    """runtime/mfu.py::flash_train_shape_speedup once: the flash pair
+    against the plain materializing attention at [8, 8, 2048, 64] bf16
+    causal. An `invalid` marker is reported as such; a published result
+    must lie at or above the analytic floor. None off the card."""
+    from nos_tpu_torch.runtime.mfu import flash_train_shape_speedup
+
+    t0 = time.perf_counter()
+    out = flash_train_shape_speedup(device=device)
+    if device.type != "cuda":
+        check(out is None, f"train: flash_train_shape_speedup on {device} gave {out}")
+        return None
+    check(out is not None, "train: flash_train_shape_speedup gave None on the card")
+    if "invalid" not in out:
+        check(out["flash_ms"] >= out["floor_ms"],
+              f"train: flash pair {out['flash_ms']} ms under its floor {out['floor_ms']} ms")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_train(torch, device, full=True):
     t0 = time.perf_counter()
     stats = {"timed": train_timed(torch, device, full)}
     log("train timed: " + json.dumps(stats["timed"]))
+    log("train gpt_train_mfu: " + json.dumps(stats["timed"]["gpt_train_mfu"]))
+    stats["flash_speedup"] = flash_speedup(torch, device)
+    log("train flash_train_shape_speedup: " + json.dumps(stats["flash_speedup"]))
     # The bf16 bounds are pinned for the full width on the card; a
     # rehearsal's tiny model holds only the f32 ones.
     dtypes = ("float32", "bfloat16") if full else ("float32",)
@@ -5753,6 +5835,25 @@ def vit_flash_arm(torch, device, small):
     return stats
 
 
+def vit_mfu(torch, device):
+    """runtime/mfu.py::vit_batch_mfu(batch=7): the cell's model, counted by
+    FlopCounterMode (at 224 px attention is plain matmuls), its loop from
+    64 calls against 16. Not None on the card, its mfu inside its range;
+    None off the card."""
+    from nos_tpu_torch.runtime.mfu import vit_batch_mfu
+
+    t0 = time.perf_counter()
+    out = vit_batch_mfu(batch=7, device=device, generator=torch.Generator().manual_seed(0))
+    if device.type != "cuda":
+        check(out is None, f"vit: vit_batch_mfu on {device} gave {out}")
+        return None
+    check(out is not None, "vit: vit_batch_mfu gave None on the card")
+    lo, hi = out["mfu_range"]
+    check(lo <= out["mfu"] <= hi, f"vit: mfu {out['mfu']} outside its range {out['mfu_range']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_vit(torch, device, small=False):
     """The headline cell on the port: bench.py's seven closed-loop clients
     behind SliceServer on YOLOS-small (bf16, random weights from seed 0),
@@ -5778,6 +5879,9 @@ def phase_vit(torch, device, small=False):
             stats["batch7_ms"] = time_cuda(torch, lambda: vit_detect(params, batch, cfg))
             stats["batch7_device_ms"] = device_ms(torch, lambda: vit_detect(params, batch, cfg))
             stats["batch1_ms"] = time_cuda(torch, lambda: vit_detect(params, batch[:1], cfg))
+        if dtype == "bfloat16":
+            stats["batch_mfu"] = vit_mfu(torch, device)
+            log("vit vit_batch_mfu: " + json.dumps(stats["batch_mfu"]))
         out[dtype] = stats
         log(f"vit {dtype}: " + json.dumps(stats))
         del params, images, served
@@ -5994,11 +6098,122 @@ def phase_mesh(torch, device, small=False):
     return out
 
 
+# -- phase: control -------------------------------------------------------------
+# The control plane's first layer on the card's machine: the port's API
+# server emulator on loopback and its Kubernetes client against it.
+CONTROL = {"tpu_nodes": 2, "chips": 4, "pods": 6, "wait_s": 10.0}
+
+
+def phase_control(torch, device, small=False):
+    """The port's ClusterAPIServer (loopback, an ephemeral port, the quota
+    webhooks installed) driven by the port's KubeCluster: Nodes with
+    google.com/tpu allocatable and one labelled with this machine's device,
+    Pods, ElasticQuotas (one the webhook refuses), a watch, a merge-patch
+    whose null deletes an annotation, a status patch, a stale update
+    refused as a conflict; telemetry.collect over the client and its
+    counts; the kubelet pod-resources client imported without loading grpc
+    (a deferred import: this machine may have none). No kernel runs."""
+    import importlib.util
+
+    from nos_tpu_torch import constants, telemetry
+    from nos_tpu_torch.api.objects import Container, Node, NodeStatus, ObjectMeta, Pod, PodSpec
+    from nos_tpu_torch.api.quota_types import ElasticQuota, ElasticQuotaSpec
+    from nos_tpu_torch.api.resources import ResourceList
+    from nos_tpu_torch.api.webhooks import install_quota_webhooks
+    from nos_tpu_torch.cluster.apiserver import ClusterAPIServer
+    from nos_tpu_torch.cluster.client import AdmissionError, ConflictError, EventType
+    from nos_tpu_torch.cluster.kube import KubeCluster, KubeConfig
+
+    t0 = time.perf_counter()
+    c = CONTROL
+    had_grpc = "grpc" in sys.modules
+    importlib.import_module("nos_tpu_torch.cluster.pod_resources_grpc")
+    check(("grpc" in sys.modules) == had_grpc, "control: importing the kubelet client loaded grpc")
+    out = {"grpc_installed": importlib.util.find_spec("grpc") is not None}
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    server = ClusterAPIServer().start()
+    install_quota_webhooks(server.cluster)
+    kube = KubeCluster(KubeConfig(server=server.url))
+    events = []
+    try:
+        kube.watch("Pod", events.append)
+        for i in range(c["tpu_nodes"]):
+            kube.create(Node(
+                metadata=ObjectMeta(name=f"tpu-{i}", labels={
+                    constants.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+                    constants.LABEL_TPU_TOPOLOGY: "2x2",
+                    constants.LABEL_PARTITIONING: constants.KIND_TPU}),
+                status=NodeStatus(allocatable=ResourceList.of(
+                    {constants.RESOURCE_TPU: c["chips"]}))))
+        kube.create(Node(metadata=ObjectMeta(name="gpu-0", labels={
+            constants.LABEL_GPU_PRODUCT: kind.replace(" ", "-"),
+            constants.LABEL_PARTITIONING: constants.KIND_MPS})))
+        for i in range(c["pods"]):
+            kube.create(Pod(
+                metadata=ObjectMeta(name=f"w{i}", namespace=f"team-{'ab'[i % 2]}",
+                                    annotations={"keep": "1", "drop": "2"}),
+                spec=PodSpec(scheduler_name=constants.SCHEDULER_NAME, containers=[Container(
+                    resources=ResourceList.of({constants.RESOURCE_TPU: 1}))])))
+        kube.create(ElasticQuota(metadata=ObjectMeta(name="eq", namespace="team-a"),
+                                 spec=ElasticQuotaSpec(
+                                     min=ResourceList.of({constants.RESOURCE_TPU: 4}),
+                                     max=ResourceList.of({constants.RESOURCE_TPU: 8}))))
+        try:
+            kube.create(ElasticQuota(metadata=ObjectMeta(name="eq", namespace="team-b"),
+                                     spec=ElasticQuotaSpec(
+                                         min=ResourceList.of({constants.RESOURCE_TPU: 8}),
+                                         max=ResourceList.of({constants.RESOURCE_TPU: 4}))))
+            out["refused_quota"] = None
+        except AdmissionError as e:
+            out["refused_quota"] = str(e)
+        check(out["refused_quota"] is not None and "exceeds max" in out["refused_quota"],
+              f"control: min > max quota admitted ({out['refused_quota']})")
+        patched = kube.patch("Pod", "team-a", "w0", lambda x: x.metadata.annotations.pop("drop"))
+        check(patched.metadata.annotations == {"keep": "1"},
+              f"control: merge-patch left {patched.metadata.annotations}")
+        running = kube.patch("Pod", "team-a", "w0",
+                             lambda x: setattr(x.status, "phase", "Running"))
+        check(running.status.phase == "Running", "control: status patch not applied")
+        stale = kube.get("Pod", "team-b", "w1")
+        fresh = kube.get("Pod", "team-b", "w1")
+        fresh.metadata.labels["rev"] = "2"
+        kube.update(fresh)
+        stale.metadata.labels["rev"] = "stale"
+        try:
+            kube.update(stale)
+            out["conflict"] = None
+        except ConflictError:
+            out["conflict"] = "ConflictError"
+        check(out["conflict"] == "ConflictError", "control: a stale update was accepted")
+        deadline = time.monotonic() + c["wait_s"]
+        want = c["pods"] + 3  # ADDED each pod; MODIFIED by two patches and one update
+        while len(events) < want and time.monotonic() < deadline:
+            time.sleep(0.02)
+        out["events"] = {k: sum(e.type == k for e in events)
+                         for k in (EventType.ADDED, EventType.MODIFIED, EventType.DELETED)}
+        check(out["events"] == {EventType.ADDED: c["pods"], EventType.MODIFIED: 3,
+                                EventType.DELETED: 0}, f"control: watch saw {out['events']}")
+        out["pods"] = len(kube.list("Pod"))
+        out["report"] = dataclasses.asdict(telemetry.collect(kube))
+    finally:
+        kube.close()
+        server.stop()
+    want = {"version": "0.1.0", "node_count": c["tpu_nodes"] + 1, "tpu_nodes": c["tpu_nodes"],
+            "gpu_nodes": 1, "tpu_chips": c["tpu_nodes"] * c["chips"],
+            "partitioning_modes": {constants.KIND_TPU: c["tpu_nodes"], constants.KIND_MPS: 1},
+            "elastic_quotas": 1, "composite_quotas": 0}
+    check(out["report"] == want, f"control: telemetry {out['report']}, want {want}")
+    check(out["pods"] == c["pods"], f"control: {out['pods']} pods listed")
+    out["phase_s"] = time.perf_counter() - t0
+    log("control: " + json.dumps(out) + f" phase_s={out['phase_s']:.1f}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train,vit,mesh")
+                            "trace,fleet,disagg,dense,train,vit,mesh,control")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -6029,6 +6244,7 @@ def main(argv=None):
         phase_train(torch, torch.device("cpu"), full=False)
         phase_vit(torch, torch.device("cpu"), small=True)
         phase_mesh(torch, torch.device("cpu"), small=True)
+        phase_control(torch, torch.device("cpu"), small=True)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6089,9 +6305,12 @@ def main(argv=None):
         vit = phase_vit(torch, torch.device("cuda"))
     if "mesh" in phases:
         mesh = phase_mesh(torch, torch.device("cuda"))
+    control = None
+    if "control" in phases:
+        control = phase_control(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train, vit, mesh):
+                disagg, dense, train, vit, mesh, control):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

@@ -1,8 +1,13 @@
 """nos_tpu_torch: the PyTorch/CUDA port of `nos_tpu`'s workload plane: the
 serving path (the paged engine with greedy and temperature sampling, its
 fleet plane, and the dense `prefill`/`decode_step`/`generate` programs),
-the ViT detector behind `SliceServer`, and GPT training on one device or a
-mesh (tensor, sequence, pipeline and expert parallelism, checkpoints).
+the ViT detector behind `SliceServer`, GPT training on one device or a
+mesh (tensor, sequence, pipeline and expert parallelism, checkpoints),
+and the measurement layer (`runtime.mfu`); and of its control plane's
+first layer: the object model and wire protocol (`api`, `constants`) and
+the cluster bus (`cluster`: the in-memory API server, the k8s wire codec,
+the HTTP API-server emulator, the real-Kubernetes backend, the admission
+webhook server and the kubelet pod-resources client).
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module
@@ -10,6 +15,10 @@ names its reference by file and line. Sampling keys are JAX's threefry keys
 bit for bit (`prng`). Entry points run on CUDA unless the caller passes
 `device="cpu"`, where the kernels' plain versions run.
 """
+
+# Before the imports: telemetry's ClusterReport reads it while this package
+# is still initialising.
+__version__ = "0.1.0"
 
 from nos_tpu_torch.models.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from nos_tpu_torch.models.data import (prefetch_to_device, prefetch_to_mesh,

@@ -1,7 +1,11 @@
 """The port's own copies of the constants its modules name.
 
 Copied from `nos_tpu/constants.py` (the port imports nothing of the JAX
-package): the serving plane's wire constants (replica identity, states,
+package): the control plane's wire protocol (the domain, resource names,
+labels, annotations and their regexes, defaults, :14-175; the scheduler
+name, node-agent environment, partitioning kinds and
+`partitioning_label_values`, :576-611), the serving plane's wire
+constants (replica identity, states,
 health, roles and snapshot keys, the engine probe keys, the router's
 policies, phases and store weight, :184-267, and the fleet event names,
 :304-336), the KV pool dtypes (:421-423), the cost ledger's charge fields
@@ -13,6 +17,174 @@ paths (:564-574). The wire strings are the reference's, equal value for
 value: a replica id, state or probe key spelled differently in the port
 would not be the same protocol.
 """
+
+from __future__ import annotations
+
+import re
+
+# ---------------------------------------------------------------------------
+# Domain prefix for all labels/annotations owned by this framework.
+# ---------------------------------------------------------------------------
+DOMAIN = "tpu.nos"
+
+# ---------------------------------------------------------------------------
+# Resource names.
+# ---------------------------------------------------------------------------
+# Whole-chip TPU resource exposed by the TPU device plugin.
+RESOURCE_TPU = "google.com/tpu"
+# Fractional TPU sub-slice resources carved by the tpuagent, e.g.
+# "google.com/tpu-2x2" (a 4-chip ICI-contiguous sub-slice of a larger mesh).
+RESOURCE_TPU_SLICE_PREFIX = "google.com/tpu-"
+RESOURCE_TPU_SLICE_REGEX = re.compile(r"^google\.com/tpu-(\d+x\d+(?:x\d+)?)$")
+
+# NVIDIA parity modes (reference pkg/constant/constants.go resource regexes).
+RESOURCE_NVIDIA_GPU = "nvidia.com/gpu"
+RESOURCE_MIG_PREFIX = "nvidia.com/mig-"
+RESOURCE_MIG_REGEX = re.compile(r"^nvidia\.com/mig-(\d+)g\.(\d+)gb$")
+RESOURCE_MPS_PREFIX = "nvidia.com/gpu-"
+RESOURCE_MPS_REGEX = re.compile(r"^nvidia\.com/gpu-(\d+)gb$")
+
+# Synthetic resource injected into pod requests so Elastic Quotas can meter
+# heterogeneous accelerator requests in a single unit. The reference used
+# "nos.nebuly.com/gpu-memory" (pkg/gpu/util/resource.go:28-86); here the common
+# unit is accelerator *memory GB* as well, covering TPU slices (HBM GB) and GPUs.
+RESOURCE_ACCELERATOR_MEMORY = f"{DOMAIN}/accelerator-memory"
+
+# Non-accelerator resources.
+RESOURCE_CPU = "cpu"
+RESOURCE_MEMORY = "memory"
+RESOURCE_PODS = "pods"
+
+# ---------------------------------------------------------------------------
+# Labels (reference labels.go:19-24).
+# ---------------------------------------------------------------------------
+# Which partitioning mode a node participates in: "tpu" | "mig" | "mps".
+LABEL_PARTITIONING = f"{DOMAIN}/partitioning"
+# Quota capacity status stamped on running pods by the quota reconciler.
+LABEL_CAPACITY = f"{DOMAIN}/capacity"
+CAPACITY_IN_QUOTA = "in-quota"
+CAPACITY_OVER_QUOTA = "over-quota"
+
+# TPU node discovery labels (the GKE TPU analog of NVIDIA GFD labels,
+# reference pkg/gpu/util.go:30-73).
+LABEL_TPU_ACCELERATOR = "cloud.google.com/gke-tpu-accelerator"  # e.g. "tpu-v5-lite-podslice"
+LABEL_TPU_TOPOLOGY = "cloud.google.com/gke-tpu-topology"        # e.g. "4x4"
+
+# Multi-host podslice discovery: a slice group is the set of host nodes of
+# one TPU pod (GKE: one multi-host node pool). The global mesh comes from the
+# GKE topology label (identical on every member); each host owns one
+# host-topology block of it at host-coord (in host-block units).
+LABEL_TPU_SLICE = f"{DOMAIN}/slice"                   # slice-group id
+LABEL_TPU_HOST_TOPOLOGY = f"{DOMAIN}/host-topology"   # e.g. "2x2" (v5e host)
+LABEL_TPU_HOST_COORD = f"{DOMAIN}/host-coord"         # e.g. "3,2" (host units)
+# Scheduling surface written by host agents after a carve is acknowledged:
+# gang pods select their sub-slice by topology, the binder keeps one gang on
+# one sub-slice id.
+LABEL_TPU_SUBSLICE_ID = f"{DOMAIN}/subslice-id"
+LABEL_TPU_SUBSLICE_TOPOLOGY = f"{DOMAIN}/subslice-topology"
+
+# Gang scheduling (multi-host workloads: one pod per host, all-or-nothing).
+LABEL_GANG = f"{DOMAIN}/gang"            # gang name, unique per namespace
+LABEL_GANG_SIZE = f"{DOMAIN}/gang-size"  # expected member count
+# Multislice workloads: the gang spans N same-topology sub-slices carved in
+# N DIFFERENT slice groups — ICI inside each sub-slice, DCN between them
+# (jax multislice). gang-size must be divisible by the count.
+LABEL_MULTISLICE_COUNT = f"{DOMAIN}/multislice-count"
+
+# NVIDIA GFD labels (kept verbatim for MIG/MPS parity modes).
+LABEL_GPU_PRODUCT = "nvidia.com/gpu.product"
+LABEL_GPU_COUNT = "nvidia.com/gpu.count"
+LABEL_GPU_MEMORY = "nvidia.com/gpu.memory"
+# NVIDIA device-plugin config selector label (MPS actuation channel,
+# reference mps/partitioner.go:104-113).
+LABEL_DEVICE_PLUGIN_CONFIG = "nvidia.com/device-plugin.config"
+
+# ---------------------------------------------------------------------------
+# Annotations — the spec/status protocol between planner and node agents
+# (reference annotations.go:21-58). `dev` stands for any partitionable device:
+# a TPU board's chip group index, or a GPU index.
+#
+#   spec:    tpu.nos/spec-dev-<index>-<profile> = <quantity>
+#   status:  tpu.nos/status-dev-<index>-<profile>-<free|used> = <quantity>
+#   plan id: tpu.nos/spec-partitioning-plan / tpu.nos/status-partitioning-plan
+# ---------------------------------------------------------------------------
+ANNOTATION_SPEC_PREFIX = f"{DOMAIN}/spec-dev-"
+ANNOTATION_STATUS_PREFIX = f"{DOMAIN}/status-dev-"
+ANNOTATION_SPEC_PLAN = f"{DOMAIN}/spec-partitioning-plan"
+ANNOTATION_STATUS_PLAN = f"{DOMAIN}/status-partitioning-plan"
+# Multi-host sub-slice assignment protocol (per host node). The planner
+# assigns each member host to at most one carved sub-slice; the host agent
+# acknowledges by mirroring spec -> status and flipping the scheduling labels.
+ANNOTATION_SPEC_SUBSLICE_ID = f"{DOMAIN}/spec-subslice-id"
+ANNOTATION_SPEC_SUBSLICE_TOPOLOGY = f"{DOMAIN}/spec-subslice-topology"
+ANNOTATION_SPEC_SUBSLICE_ORIGIN = f"{DOMAIN}/spec-subslice-origin"  # chip units
+ANNOTATION_STATUS_SUBSLICE_ID = f"{DOMAIN}/status-subslice-id"
+ANNOTATION_STATUS_SUBSLICE_TOPOLOGY = f"{DOMAIN}/status-subslice-topology"
+# Physical slice layout reported by the TPU node agent. ICI contiguity makes
+# placement a *graph* constraint the planner must respect (it cannot re-carve
+# around in-use slices without knowing where they sit) — unlike the reference,
+# where NVML owns MIG placement and counts suffice (SURVEY.md §7 hard parts).
+ANNOTATION_STATUS_LAYOUT = f"{DOMAIN}/status-slice-layout"
+
+# Duration-aware backfill protocol (no reference analog — the reference
+# schedules opaque pods with no temporal model; on a TPU mesh the all-large
+# drain tails it tolerates idle whole pods, see docs/dynamic-partitioning.md):
+# workloads MAY declare an expected runtime (Slurm-timelimit style); the
+# scheduler stamps bind time and uses both to reserve capacity for the head
+# blocked workload while letting provably-harmless smaller work backfill.
+ANNOTATION_EXPECTED_DURATION = f"{DOMAIN}/expected-duration-seconds"
+ANNOTATION_BOUND_AT = f"{DOMAIN}/bound-at"
+# Declares that the workload checkpoints (e.g. orbax) and resumes after
+# eviction: consolidation may preempt it WITHOUT the provable-rebind
+# guarantee when a stranded pod has aged past the configured threshold —
+# eviction costs a requeue, not lost work.
+ANNOTATION_CHECKPOINTABLE = f"{DOMAIN}/checkpointable"
+# In-flight slice-migration hold (move protocol, written by the partitioner
+# controller on a migration's DESTINATION node): "<profile>:<count>[,...]".
+# The node agents' delete ladders treat up to <count> free slices of each
+# held profile as undeletable — delete-free-first extended to moves, so a
+# replan racing the mover's rebind can't tear down the destination slice the
+# drain already depends on. Cleared when the mover rebinds or the
+# reservation expires.
+ANNOTATION_MIGRATION_HOLD = f"{DOMAIN}/spec-migration-hold"
+
+ANNOTATION_SPEC_REGEX = re.compile(
+    rf"^{re.escape(ANNOTATION_SPEC_PREFIX)}(\d+)-(.+)$"
+)
+ANNOTATION_STATUS_REGEX = re.compile(
+    rf"^{re.escape(ANNOTATION_STATUS_PREFIX)}(\d+)-(.+)-(free|used)$"
+)
+
+# ---------------------------------------------------------------------------
+# Defaults (reference constants.go + config/v1alpha1 defaults).
+# ---------------------------------------------------------------------------
+# Default GPU memory (GB) assumed for a whole GPU when GFD labels are missing.
+DEFAULT_GPU_MEMORY_GB = 16
+# Default HBM per TPU chip generation, GB (v5e = 16, v4 = 32, v5p = 95).
+TPU_CHIP_MEMORY_GB = {"v4": 32, "v5e": 16, "v5p": 95, "v6e": 32}
+DEFAULT_TPU_CHIP_MEMORY_GB = 16
+
+# Pod batching windows for the partitioner controller
+# (reference gpu_partitioner_config.go:33-34 defaults).
+DEFAULT_BATCH_WINDOW_TIMEOUT_S = 60.0
+DEFAULT_BATCH_WINDOW_IDLE_S = 10.0
+# Periodic re-plan while pods stay pending (the reference's RequeueAfter=10s,
+# partitioner_controller.go:118-122).
+DEFAULT_PARTITIONER_RESYNC_S = 10.0
+# Requeue delay while waiting for nodes to report the last plan
+# (reference partitioner_controller.go:118-122).
+PLAN_REPORT_REQUEUE_S = 10.0
+
+# Device-plugin ConfigMap defaults (MPS mode; reference constants.go).
+DEFAULT_DEVICE_PLUGIN_CM_NAME = "nvidia-device-plugin-configs"
+DEFAULT_DEVICE_PLUGIN_CM_NAMESPACE = "kube-system"
+DEFAULT_DEVICE_PLUGIN_DELAY_S = 5.0
+# Device-plugin DaemonSet pod identification + restart poll bounds
+# (reference gpu/client.go:37-132).
+DEVICE_PLUGIN_POD_LABEL = "name"
+DEVICE_PLUGIN_POD_LABEL_VALUE = "nvidia-device-plugin-ds"
+DEFAULT_DEVICE_PLUGIN_RESTART_TIMEOUT_S = 60.0
+
 
 # Cluster serving plane (serving/replica.py, router.py, drain.py,
 # supervisor.py). Replica identity: "<prefix><ordinal>", assigned by the
@@ -334,3 +506,40 @@ DEBUG_PATH_ACCOUNTING = "/debug/accounting"
 DEBUG_PATH_INDEX = "/debug"
 # The Prometheus text exposition format version scrapers negotiate on.
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
+
+# Scheduler name used by pods that want quota-aware scheduling.
+SCHEDULER_NAME = "nos-tpu-scheduler"
+
+# Env var node agents use to learn their node (reference constant.EnvVarNodeName).
+ENV_NODE_NAME = "NODE_NAME"
+
+# Explicit operator grant of the host's chips to the agent process
+# (tpulib/local.py chip-ownership contract): libtpu is single-process, so
+# the agent must never seize the chips merely because they are visible —
+# the chart sets this alongside the google.com/tpu resource request.
+ENV_LOCAL_CHIPS = "NOS_TPU_LOCAL_CHIPS"
+
+# Partitioning kinds.
+KIND_TPU = "tpu"
+# Multi-host podslice mode: nodes are member hosts of a slice group; carving
+# assigns host blocks, not local chips.
+KIND_TPU_MULTIHOST = "tpu-multihost"
+KIND_MIG = "mig"
+KIND_MPS = "mps"
+# A hybrid node is eligible for BOTH GPU modes at once (reference
+# pkg/gpu/partitioning.go:75 declares the kind; its IsMig/IsMps helpers
+# :79-95 never match it, leaving it inert upstream — here the name's
+# promised semantics are completed: both snapshot takers see hybrid nodes,
+# and each mode's partitioner rewrites only its own profiles' spec
+# annotations so the two plans coexist on one node).
+KIND_HYBRID = "hybrid"
+PARTITIONING_KINDS = (KIND_TPU, KIND_TPU_MULTIHOST, KIND_MIG, KIND_MPS, KIND_HYBRID)
+
+
+def partitioning_label_values(kind: str) -> tuple:
+    """Label values that enable a node for `kind`: the kind itself, plus
+    `hybrid` for the GPU modes (partitioning.go:66-120 GetPartitioningKind
+    validates hybrid as a kind; mig/mps are the modes it composes)."""
+    if kind in (KIND_MIG, KIND_MPS):
+        return (kind, KIND_HYBRID)
+    return (kind,)

@@ -2,7 +2,8 @@
 (:42), `METRIC_SERIES` (:59) and `Metrics` (:255), a Prometheus-text
 registry of counters, gauges and bucketed duration histograms, onto which
 `DecodeServer(..., metrics=Metrics())` publishes its `nos_tpu_decode_*`
-series and the fleet modules their `nos_tpu_fleet_*` series; the health
+series and the fleet modules their `nos_tpu_fleet_*` series, and the
+module-level default registry `metrics` (:381); the health
 checks `HealthManager` (:387); `ObservabilityServer` (:428), an HTTP
 server of `/metrics` (text exposition format 0.0.4), `/healthz` and
 `/readyz`, and of the debug surface when its sources are attached:
@@ -364,6 +365,10 @@ class Metrics:
                 lines.append(fmt(name + "_seconds_count", labels, self._dur_count[key]))
                 lines.append(fmt(name + "_seconds_sum", labels, self._dur_sum[key]))
         return "\n".join(lines) + "\n"
+
+
+# Global default registry (components may also carry their own).
+metrics = Metrics()
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,13 @@ KV store's included (`store_*`, `prewarm_tokens`,
 `failover_revive_tokens`) and phase disaggregation's handoff counters.
 The supervisor's and the handoff coordinator's counters come from their
 `report()`, merged beside the replicas' reports.
-`export_serving` ships the report only when the caller opts in. The
-reference module's cluster half (:33-84, `ClusterReport`, `collect`,
-`export`) reads the k8s control plane of `nos_tpu.cluster`, which has no
-counterpart in the port yet (ROADMAP.md, the control-plane item).
+`export_serving` ships the report only when the caller opts in.
+
+The cluster half (:33-84), copied verbatim over the port's control plane:
+`ClusterReport`, whose `version` is the port's `__version__`, `collect`,
+which counts nodes, TPU chips, partitioning modes and quotas on a
+`nos_tpu_torch.cluster.Cluster` (or a `KubeCluster`), and `export`, which
+ships that report only when the caller opts in.
 """
 
 from __future__ import annotations
@@ -23,7 +26,63 @@ import logging
 from dataclasses import asdict, dataclass, field, fields
 from typing import Callable, Dict, Iterable, List, Optional
 
+import nos_tpu_torch
+from nos_tpu_torch import constants
+from nos_tpu_torch.cluster.client import Cluster
+
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class ClusterReport:
+    version: str = nos_tpu_torch.__version__
+    node_count: int = 0
+    tpu_nodes: int = 0
+    gpu_nodes: int = 0
+    tpu_chips: int = 0
+    partitioning_modes: Dict[str, int] = field(default_factory=dict)
+    elastic_quotas: int = 0
+    composite_quotas: int = 0
+
+
+def collect(cluster: Cluster) -> ClusterReport:
+    report = ClusterReport()
+    for node in cluster.list("Node"):
+        report.node_count += 1
+        labels = node.metadata.labels
+        if constants.LABEL_TPU_ACCELERATOR in labels:
+            report.tpu_nodes += 1
+            report.tpu_chips += int(
+                node.status.allocatable.get(constants.RESOURCE_TPU, 0)
+            )
+        if constants.LABEL_GPU_PRODUCT in labels:
+            report.gpu_nodes += 1
+        mode = labels.get(constants.LABEL_PARTITIONING)
+        if mode:
+            report.partitioning_modes[mode] = report.partitioning_modes.get(mode, 0) + 1
+    report.elastic_quotas = len(cluster.list("ElasticQuota"))
+    report.composite_quotas = len(cluster.list("CompositeElasticQuota"))
+    return report
+
+
+def export(
+    cluster: Cluster,
+    share_telemetry: bool = False,
+    sink: Optional[Callable[[str], None]] = None,
+) -> Optional[ClusterReport]:
+    """Collect and (when opted in) ship the report. Returns the report, or
+    None when telemetry is disabled."""
+    if not share_telemetry:
+        logger.debug("telemetry disabled (share_telemetry=false)")
+        return None
+    report = collect(cluster)
+    payload = json.dumps(asdict(report), sort_keys=True)
+    if sink is None:
+        # Zero-egress default: log instead of POSTing.
+        logger.info("telemetry report: %s", payload)
+    else:
+        sink(payload)
+    return report
 
 
 @dataclass

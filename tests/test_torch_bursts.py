@@ -21,7 +21,8 @@ on the CPU, mirroring the reference's tests/test_burst_decode.py:
 The reference file's fault-injection cases are in tests/test_torch_faults.py,
 its quota and preemption cases (the per-window quota fold, a preemption
 mid-burst, the idle fast path) in tests/test_torch_quota.py; its drain case
-arrives with ROADMAP A8 (the port has no drain yet)."""
+in tests/test_torch_serving_cluster.py
+(`test_drain_migrate_after_bursts_is_bit_identical`)."""
 
 import dataclasses
 

@@ -33,7 +33,10 @@ serves, and one built (its window captured) while two engines tick on
 their own threads, its launch delta that of an idle build. For the workload
 plane: the ViT's flash route (512 px, bf16) through the kernel against its
 plain version, and the sharded train step (dp 2 x tp 2 on one card)
-against the single-device step, its flash launches all on "mma"."""
+against the single-device step, its flash launches all on "mma". For the
+measurement layer: measure_mfu on a bf16 matrix product, its FLOPs
+counted by FlopCounterMode and its step time against a plain CUDA-event
+loop."""
 
 import time
 
@@ -1453,3 +1456,33 @@ def test_sharded_train_step_on_the_card(cuda_device):
         leaves = sharded.leaves(path)
         for group in replica_groups(mesh, spec):
             assert all(torch.equal(leaves[p], leaves[group[0]]) for p in group)
+
+
+def test_measure_mfu_on_the_card(cuda_device):
+    """runtime/mfu.py::measure_mfu on a [4096, 4096] x [4096, 4096] bf16
+    product: the FLOP counter's 2 * n^3, the card's name and peak, an mfu
+    in (0, 1] inside its range, and a step time within 25% of 50 products
+    between two CUDA events."""
+    from nos_tpu_torch.runtime import mfu
+
+    n = 4096
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn((n, n), generator=gen).to(cuda_device, torch.bfloat16)
+            for _ in range(2))
+    out = mfu.measure_mfu(torch.matmul, (a, b), device=cuda_device)
+    assert out is not None
+    assert out["device_kind"] == torch.cuda.get_device_name(cuda_device)
+    assert out["peak_tflops"] * 1e12 == mfu.device_peak_flops(cuda_device)
+    assert out["flops_source"] == "flop_counter" and out["flops_per_step"] == 2 * n ** 3
+    lo, hi = out["mfu_range"]
+    assert 0 < out["mfu"] <= 1 and lo <= out["mfu"] <= hi
+    torch.matmul(a, b)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        torch.matmul(a, b)
+    end.record()
+    end.synchronize()
+    events_s = start.elapsed_time(end) / 50 / 1e3
+    assert abs(out["step_time_s"] / events_s - 1) <= 0.25, (out["step_time_s"], events_s)

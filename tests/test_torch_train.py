@@ -216,7 +216,7 @@ def test_init_train_state_on_the_cpu():
     assert toks.dtype == torch.int32 and int(toks.max()) < JCFG.vocab
 
 
-def test_mesh_paths_raise_not_implemented(model):
+def test_mesh_paths_run(model):
     """The mesh paths no longer raise (they were refused until the sharded
     step was ported; tests/test_torch_sharded_train.py holds them to the
     reference): a loss over a tp=2 mesh and a sharded step run. Without sp
