@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (the paged engine and the
 dense decode programs), its training step, the ViT detector behind
-SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py) and
-the control plane's first layer (api/, cluster/) on one NVIDIA GPU and
-check them.
+SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py),
+the control plane's first layer (api/, cluster/) and its device layer
+(tpu/, util/, tpulib/ with the native tpuslice shim, and the mesh a node's
+sub-slice label becomes) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -16,6 +17,7 @@ check them.
     python3 chip_smoke.py --phases build,card,disagg
     python3 chip_smoke.py --phases build,card,vit,mesh
     python3 chip_smoke.py --phases build,card,train,vit,control
+    python3 chip_smoke.py --phases build,card,topology
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -345,7 +347,39 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            annotation, a status patch, a stale update refused with a
            ConflictError; telemetry.collect over the client equal to the
            counts written; nos_tpu_torch.cluster.pod_resources_grpc imported
-           without loading grpc. Prints the report and the phase's seconds.
+           without loading grpc. Prints the report and the phase's seconds;
+  topology the control plane's device layer (nos_tpu_torch/tpu/, util/,
+           tpulib/), no kernel of its own. The CUDA runtime's enumeration
+           (tpulib/local.py::_local_devices) lists the card under
+           torch.cuda.get_device_name; discover_local_topology() raises
+           TpuLibError naming that kind (no GPU generation is in the TPU
+           table) and local_chips_visible() is False; _probe_chip on the
+           card returns (None, False) within TOPOLOGY["probe_timeout_s"],
+           timed. A LocalChipClient over the card's record relabelled as a
+           one-chip "TPU v5 lite" at (0, 0, 0): health() None, device_stats'
+           hbm_bytes_limit the card's total memory and hbm_bytes_in_use up
+           by at least 1 GiB while a 1 GiB tensor is held. The native shim
+           built by g++ from nos_tpu_torch/tpulib/native/tpuslice.cpp into
+           its _build/ directory and loaded; NativeTpuClient carving,
+           listing and deleting TOPOLOGY["carve"] on a v5e 16x16 pod (256
+           chips); native_pack against the Python packer (uncached) on 40
+           seeded geometries at v5e 16x16 and v5p 8x8x8 (512 chips), both
+           timed. TpuMesh.update_geometry_for on both pods for one of every
+           allowed profile but the whole pod: every profile provided, the
+           placements disjoint and inside the mesh, timed cold.
+           CloudTpuClient against FakeCloudTpuServer on 127.0.0.1 (a queued
+           resource created, polled to ACTIVE, listed, deleted); two
+           LeaderElectors over the port's ClusterAPIServer (one leads, the
+           other takes over after a release). A Node labelled
+           tpu-v5-lite-podslice with sub-slice topology 2x2, read back from
+           the API server: mesh_from_assignment(labels, devices=[cuda:0] *
+           4) is a ("dp", "tp") 2 x 2 mesh equal to build_mesh({"dp": 2,
+           "tp": 2}) (the mesh phase's), and one sharded train step on it
+           (the train phase's 2048-wide GPT cut to 2 layers, batch 8 x
+           2048, init_train_state seed 0) gives the loss and params of the
+           same step on the build_mesh mesh bit for bit, with layers * 4
+           launches of each flash kernel, all "mma". Prints one JSON line
+           with the times, the card line and the phase's seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -378,6 +412,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -6209,11 +6244,327 @@ def phase_control(torch, device, small=False):
     return out
 
 
+# -- phase: topology ------------------------------------------------------------
+# The control plane's device layer on the card's machine: the CUDA runtime's
+# enumeration, the probe and the allocator's statistics behind tpulib/local.py,
+# the native tpuslice shim built from the checkout, the packer at pod size,
+# the provisioning client and leader election over loopback, and the last
+# link: a node's sub-slice label becomes the mesh a sharded train step runs on.
+TOPOLOGY = {"probe_timeout_s": 30.0, "held_bytes": 1 << 30, "pack_geometries": 40,
+            "carve": {"8x8": 1, "4x8": 2, "4x4": 3, "2x4": 4, "2x2": 6, "1x2": 4, "1x1": 8},
+            "pods": (("v5e", "16x16"), ("v5p", "8x8x8")), "subslice": "2x2"}
+
+
+def _placements_ok(shape, placements):
+    """Placements of whole chips, inside `shape`, pairwise disjoint."""
+    import itertools
+
+    seen = set()
+    for pl in placements:
+        if sorted(pl.dims) != sorted(pl.profile.shape.dims):
+            return False
+        cells = set(itertools.product(*[range(o, o + d) for o, d in zip(pl.origin, pl.dims)]))
+        if seen & cells or any(not 0 <= v < m for c in cells for v, m in zip(c, shape.dims)):
+            return False
+        seen |= cells
+    return True
+
+
+def topology_native(out):
+    """The port's tpuslice shim built from the checkout and loaded (never
+    the JAX package's; `shim_prebuilt` says whether a library of this
+    source was already there); NativeTpuClient carving, listing and deleting a
+    mixed geometry on a v5e 16x16 pod; native_pack against the Python
+    packer (uncached) on seeded geometries at 256 and 512 chips, timed."""
+    import random
+    from pathlib import Path
+
+    from nos_tpu_torch.tpu import Profile, Topology, pack
+    from nos_tpu_torch.tpu import packing
+    from nos_tpu_torch.tpulib import native_client as nc
+
+    out["shim_prebuilt"] = nc.library_path().exists()
+    t0 = time.perf_counter()
+    built = nc.ensure_built()
+    lib = nc.load_library() if built else None
+    out["shim_build_s"] = time.perf_counter() - t0
+    check(lib is not None, "topology: the native tpuslice shim did not build or load")
+    path = Path(lib._name).resolve()
+    out["shim"] = str(path.relative_to(Path(__file__).resolve().parent))
+    check(path.parent == nc.BUILD_DIR.resolve(), f"topology: shim loaded from {path}")
+
+    topo = Topology.parse("v5e", "16x16")
+    geometry = {Profile.parse(n): c for n, c in TOPOLOGY["carve"].items()}
+    placements = pack(topo.shape, geometry)
+    check(placements is not None and _placements_ok(topo.shape, placements),
+          "topology: the carve geometry does not pack onto v5e 16x16")
+    client = nc.NativeTpuClient(topo)
+    handles = [client.create_slice(pl.profile, pl.origin, pl.dims) for pl in placements]
+    listed = client.list_slices()
+    check(sorted((h.origin, h.dims) for h in listed) == sorted((pl.origin, pl.dims)
+                                                              for pl in placements),
+          "topology: the shim lists other slices than it carved")
+    client.set_slice_in_use(handles[0].slice_id, True)
+    deleted = client.delete_all_except([])
+    check(len(deleted) == len(handles) - 1
+          and [h.slice_id for h in client.list_slices()] == [handles[0].slice_id],
+          "topology: delete_all_except removed an in-use slice or kept a free one")
+    client.set_slice_in_use(handles[0].slice_id, False)
+    client.delete_slice(handles[0].slice_id)
+    check(client.list_slices() == [] and client.health() is None,
+          "topology: the shim holds slices after deleting them all")
+    out["carved"] = {"mesh": "v5e-16x16", "slices": len(handles),
+                     "chips": sum(pl.chips for pl in placements)}
+
+    rng = random.Random(17)
+    out["pack"] = {}
+    for gen, mesh in TOPOLOGY["pods"]:
+        shape = Topology.parse(gen, mesh).shape
+        menu = list(Topology.parse(gen, mesh).allowed_profiles)
+        py_s = nat_s = 0.0
+        placed = 0
+        for i in range(TOPOLOGY["pack_geometries"]):
+            geo = {}
+            for _ in range(rng.randint(1, 6)):
+                q = rng.choice(menu[:-1])
+                geo[q] = geo.get(q, 0) + rng.randint(1, 4)
+            occupied = [] if i % 2 == 0 else [((0,) * shape.rank, menu[0].shape.dims)]
+            t = time.perf_counter()
+            py = packing._pack_into_uncached(shape, occupied, geo)
+            py_s += time.perf_counter() - t
+            t = time.perf_counter()
+            nat = nc.native_pack(shape.dims, occupied, geo)
+            nat_s += time.perf_counter() - t
+            want = None if py is None else [(pl.origin, pl.dims) for pl in py]
+            check(nat == want, f"topology: native_pack {nat} against the Python packer {want} "
+                               f"on {gen} {mesh} {geo}")
+            placed += py is not None
+        n = TOPOLOGY["pack_geometries"]
+        out["pack"][f"{gen}-{mesh}"] = {"geometries": n, "packable": placed,
+                                        "python_ms": 1e3 * py_s / n, "native_ms": 1e3 * nat_s / n}
+
+
+def topology_update(out):
+    """TpuMesh.update_geometry_for on each pod of TOPOLOGY["pods"] for a
+    pending mix of every allowed profile but the whole pod (one each: 255 of
+    256 and 509 of 512 chips), cold (the placement cache cleared): every
+    profile provided, placements inside the mesh and disjoint, timed."""
+    from nos_tpu_torch.tpu import Topology, TpuMesh, packing
+
+    out["update"] = {}
+    for gen, mesh in TOPOLOGY["pods"]:
+        topo = Topology.parse(gen, mesh)
+        demand = {q: 1 for q in topo.allowed_profiles[:-1]}
+        packing._PACK_CACHE.clear()
+        tm = TpuMesh(topo)
+        t = time.perf_counter()
+        changed = tm.update_geometry_for(demand)
+        ms = 1e3 * (time.perf_counter() - t)
+        placements = tm.placements()
+        check(changed and tm.geometry == demand,
+              f"topology: update_geometry_for on {topo} gave {tm!r} for {demand}")
+        check(placements is not None and _placements_ok(topo.shape, placements),
+              f"topology: {topo} placements overlap or leave the mesh")
+        out["update"][str(topo)] = {"profiles": len(demand), "chips": 
+                                    sum(q.chips for q in demand), "ms": ms,
+                                    "placements": len(placements)}
+
+
+def topology_cloud_and_leader(out, kube):
+    """CloudTpuClient against the port's FakeCloudTpuServer on loopback: a
+    queued resource created, polled to ACTIVE, listed and deleted. Two
+    LeaderElectors over `kube`: exactly one leads, the other takes over
+    after a release."""
+    from nos_tpu_torch.tpu import Profile, Topology
+    from nos_tpu_torch.tpulib.cloud import CloudTpuClient
+    from nos_tpu_torch.tpulib.cloud_server import FakeCloudTpuServer
+    from nos_tpu_torch.util.leader import LeaderElector
+
+    srv = FakeCloudTpuServer()
+    url = srv.start()
+    try:
+        srv.provision_delay_s = 0.1
+        client = CloudTpuClient(Topology.parse("v5e", "16x16"), project="proj", zone="zone",
+                                base_url=url, token_provider=lambda: "token",
+                                poll_interval_s=0.01, retry_backoff_s=0.01,
+                                provision_timeout_s=10.0)
+        h = client.create_slice(Profile.parse("2x2"), (0, 0), (2, 2))
+        polls = sum(r["method"] == "GET" and r["path"].endswith(h.slice_id) for r in srv.requests)
+        listed = [s.slice_id for s in client.list_slices()]
+        client.delete_slice(h.slice_id)
+        check(polls >= 2 and listed == [h.slice_id] and client.list_slices() == []
+              and client.health() is None,
+              f"topology: cloud lifecycle polls {polls}, listed {listed}")
+        out["cloud"] = {"slice": h.slice_id, "polls": polls}
+    finally:
+        srv.stop()
+
+    electors = [LeaderElector(kube, lease_name="nos-tpu-operator", namespace="nos-system",
+                              identity=name, lease_duration_s=15) for name in ("a", "b")]
+    first = [e.try_acquire() for e in electors]
+    electors[0].release()
+    taken = electors[1].try_acquire()
+    lease = kube.get("Lease", "nos-system", "nos-tpu-operator")
+    check(first == [True, False] and taken and lease.spec.holder_identity == "b"
+          and lease.spec.lease_transitions == 1,
+          f"topology: leader election {first}, takeover {taken}, "
+          f"holder {lease.spec.holder_identity}")
+    out["leader"] = {"first": first, "takeover": taken,
+                     "transitions": lease.spec.lease_transitions}
+
+
+def topology_label_step(torch, device, model, mesh, tokens):
+    """One sharded train step on `mesh` from init_train_state(seed 0): the
+    loss, the gathered params, the flash launches by kernel and route, and
+    the step's seconds."""
+    from nos_tpu_torch import TrainConfig, init_train_state, make_train_step
+    from nos_tpu_torch.models.train import named_leaves
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    cfg = TrainConfig(model=model)
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), mesh=mesh)
+    step = make_train_step(cfg, mesh)
+    sync(torch, device)
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    params, opt, metrics = step(params, opt, tokens)
+    loss = metrics["loss"].item()
+    step_s = time.perf_counter() - t
+    launches = dict(fa.LAUNCHES)
+    routes = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
+    par = {n: p.detach().clone() for n, p in named_leaves(params.gather())}
+    del params, opt
+    gc.collect()
+    return loss, par, launches, routes, step_s
+
+
+def phase_topology(torch, device, small=False):
+    """The control plane's device layer (nos_tpu_torch/tpu/, util/, tpulib/)
+    and mesh_from_assignment on the card: see the module docstring. A
+    rehearsal runs every step on the CPU over a stub record (no allocator
+    statistics to read: those checks need the card)."""
+    import copy
+
+    from nos_tpu_torch import constants, synthetic_token_stream
+    from nos_tpu_torch.api.objects import Node, ObjectMeta
+    from nos_tpu_torch.cluster.apiserver import ClusterAPIServer
+    from nos_tpu_torch.cluster.kube import KubeCluster, KubeConfig
+    from nos_tpu_torch.parallel import build_mesh, mesh_from_assignment
+    from nos_tpu_torch.tpulib import TpuLibError
+    from nos_tpu_torch.tpulib import local
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    out = {"card": card_line(torch, device)}
+
+    # The device seam: enumeration, discovery's typed refusal, the probe.
+    records = local._local_devices()
+    out["devices"] = [[r.platform, r.device_kind, r.id] for r in records]
+    if cuda:
+        check(len(records) == torch.cuda.device_count() and records[device.index or 0].device_kind
+              == torch.cuda.get_device_name(device) and records[0].platform == "gpu",
+              f"topology: enumeration {out['devices']}")
+        rec = records[device.index or 0]
+    else:
+        check(records == [] or not torch.cuda.is_available(), "topology: CPU enumeration")
+        rec = types.SimpleNamespace(platform="cpu", device_kind="cpu", id=0, coords=None,
+                                    torch_device=device, memory_stats=lambda: None)
+    try:
+        local.discover_local_topology()
+        refusal = None
+    except TpuLibError as e:
+        refusal = str(e)
+    out["discover"] = refusal
+    check(refusal is not None and (not cuda or rec.device_kind in refusal),
+          f"topology: discover_local_topology() on this machine gave {refusal!r}")
+    check(local.local_chips_visible() is False, "topology: local_chips_visible() on a GPU")
+    t = time.perf_counter()
+    probe = local._probe_chip(rec, TOPOLOGY["probe_timeout_s"])
+    out["probe_ms"] = 1e3 * (time.perf_counter() - t)
+    check(probe == (None, False), f"topology: probe on {device} gave {probe}")
+
+    # The card's record relabelled as a one-chip TPU: the client's health
+    # probe and its allocator statistics run on the real device.
+    chip = copy.copy(rec)
+    chip.platform, chip.device_kind, chip.coords = "tpu", "TPU v5 lite", (0, 0, 0)
+    saved = local._local_tpu_devices
+    local._local_tpu_devices = lambda: [chip]
+    try:
+        client = local.LocalChipClient()
+    finally:
+        local._local_tpu_devices = saved
+    check(str(client.get_topology()) == "v5e-1x1" and client.health() is None,
+          f"topology: LocalChipClient over {device}: {client.get_topology()}, {client.health()}")
+    if cuda:
+        before = client.device_stats()[0]
+        held = torch.empty(TOPOLOGY["held_bytes"], dtype=torch.uint8, device=device)
+        during = client.device_stats()[0]
+        del held
+        total = torch.cuda.mem_get_info(device)[1]
+        out["hbm"] = {"limit": during["hbm_bytes_limit"], "in_use_before":
+                      before["hbm_bytes_in_use"], "in_use_held": during["hbm_bytes_in_use"],
+                      "peak": during["hbm_peak_bytes_in_use"]}
+        check(during["hbm_bytes_limit"] == total
+              and during["hbm_bytes_in_use"] - before["hbm_bytes_in_use"]
+              >= TOPOLOGY["held_bytes"], f"topology: device_stats {out['hbm']}, total {total}")
+    else:
+        out["hbm"] = "not measured (no allocator on the CPU)"
+
+    topology_native(out)
+    topology_update(out)
+
+    # The API server carries the leader lease and the node whose labels
+    # become the mesh.
+    server = ClusterAPIServer().start()
+    kube = KubeCluster(KubeConfig(server=server.url))
+    try:
+        topology_cloud_and_leader(out, kube)
+        kube.create(Node(metadata=ObjectMeta(name="tpu-host-0", labels={
+            constants.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+            constants.LABEL_TPU_TOPOLOGY: "16x16",
+            constants.LABEL_TPU_SUBSLICE_TOPOLOGY: TOPOLOGY["subslice"]})))
+        labels = kube.get("Node", "", "tpu-host-0").metadata.labels
+    finally:
+        kube.close()
+        server.stop()
+
+    label_mesh = mesh_from_assignment(labels, devices=[device] * 4)
+    axes_mesh = build_mesh({"dp": 2, "tp": 2}, devices=[device] * 4)
+    check(label_mesh.shape == {"dp": 2, "tp": 2} and label_mesh.shape == axes_mesh.shape
+          and label_mesh.devices == axes_mesh.devices,
+          f"topology: label mesh {label_mesh} against {axes_mesh}")
+    full = not small
+    model, (batch, seq) = train_model(full, 2, "bfloat16" if full else "float32")
+    (tokens,) = [torch.from_numpy(b).to(device)
+                 for b in synthetic_token_stream(model.vocab, batch, seq, seed=1, steps=1)]
+    l_loss, l_par, l_launches, l_routes, l_s = topology_label_step(torch, device, model,
+                                                                   label_mesh, tokens)
+    a_loss, a_par, _, _, a_s = topology_label_step(torch, device, model, axes_mesh, tokens)
+    same = l_loss == a_loss and l_par.keys() == a_par.keys() and all(
+        torch.equal(l_par[n], a_par[n]) for n in a_par)
+    out["label_step"] = {"mesh": dict(label_mesh.shape), "loss": l_loss, "bitwise": same,
+                         "step_s_label": l_s, "step_s_build_mesh": a_s,
+                         "launches": l_launches}
+    check(np.isfinite(l_loss) and same,
+          f"topology: the label mesh's step (loss {l_loss}) differs from build_mesh's "
+          f"({a_loss})")
+    if cuda:
+        want = {n: model.layers * 4 for n in FLASH_KERNELS}
+        check(l_launches == want, f"topology: flash launches {l_launches}, want {want}")
+        for name in FLASH_KERNELS:
+            check_routes(l_routes, name, "mma", "topology label step")
+    del l_par, a_par
+    gc.collect()
+    out["phase_s"] = time.perf_counter() - t0
+    log("topology: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train,vit,mesh,control")
+                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -6245,6 +6596,7 @@ def main(argv=None):
         phase_vit(torch, torch.device("cpu"), small=True)
         phase_mesh(torch, torch.device("cpu"), small=True)
         phase_control(torch, torch.device("cpu"), small=True)
+        phase_topology(torch, torch.device("cpu"), small=True)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6308,9 +6660,12 @@ def main(argv=None):
     control = None
     if "control" in phases:
         control = phase_control(torch, torch.device("cuda"))
+    topology = None
+    if "topology" in phases:
+        topology = phase_topology(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train, vit, mesh, control):
+                disagg, dense, train, vit, mesh, control, topology):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

@@ -7,7 +7,16 @@ and the measurement layer (`runtime.mfu`); and of its control plane's
 first layer: the object model and wire protocol (`api`, `constants`) and
 the cluster bus (`cluster`: the in-memory API server, the k8s wire codec,
 the HTTP API-server emulator, the real-Kubernetes backend, the admission
-webhook server and the kubelet pod-resources client).
+webhook server and the kubelet pod-resources client); and of its device
+layer: the TPU domain model and canonical packer (`tpu`), the
+control-plane utilities (`util`: batcher, churn ledger, predicates,
+leader election) and the device-control seam (`tpulib`: the fake, native,
+provisioning and local clients; the native tpuslice shim is the port's own
+copy, built by g++ at first use, never on import, into
+`tpulib/native/_build/`; the local client enumerates CUDA devices and, on
+a GPU, refuses TPU discovery with `TpuLibError`), with
+`parallel.mesh_from_assignment`, the mesh a node's sub-slice label
+becomes.
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module

@@ -1,7 +1,8 @@
 """A device mesh for the port's single-controller parallelism.
 
-Port of `build_mesh` (`nos_tpu/parallel/mesh.py:22`) and
-`build_multislice_mesh` (:50). JAX's `Mesh` is an
+Port of `build_mesh` (`nos_tpu/parallel/mesh.py:22`),
+`build_multislice_mesh` (:50), `mesh_from_topology` (:111) and
+`mesh_from_assignment` (:139). JAX's `Mesh` is an
 array of devices with named axes, and a `shard_map`'d program runs once per
 device. The port keeps one controller: a `Mesh` here is only the devices in
 shard order with named axis sizes, and the sharded programs loop over the
@@ -12,8 +13,9 @@ joins. A device may repeat in the
 list, which stands in for the virtual devices the JAX package tests on:
 `["cpu", "cpu"]` in the tests, `["cuda:0", "cuda:0"]` on a single card. The
 same code runs one shard per card when the devices differ.
-`mesh_from_topology` and `mesh_from_assignment` (:111, :139) read the TPU
-topology of the control plane and wait for it (ROADMAP A item 6).
+`mesh_from_assignment` is the last link from the control plane to the
+workload: the sub-slice topology label that a node agent stamps becomes
+the mesh of the job that landed there.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nos_tpu_torch import constants
+from nos_tpu_torch.tpu.topology import Topology, accelerator_generation
 
 
 class Mesh:
@@ -133,3 +138,57 @@ def build_multislice_mesh(ici_axes: Optional[Dict[str, int]] = None, dcn_axis: s
     if int(np.prod(list(ici_axes.values()))) != per_slice:
         raise ValueError(f"ICI axes {ici_axes} must multiply to {per_slice} devices per slice")
     return Mesh(devices, dict({dcn_axis: n_slices}, **ici_axes))
+
+
+def mesh_from_topology(topology: Topology, axis_names: Sequence[str] = ("dp", "tp"),
+                       devices: Optional[Sequence] = None) -> Mesh:
+    """A Mesh shaped like a sub-slice's physical topology
+    (`nos_tpu/parallel/mesh.py:111`): a v5e `4x4` becomes a ("dp", "tp")
+    4x4 mesh whose axes follow the mesh dimensions. Missing axes get size
+    1; topology dims beyond `axis_names` fold into the last axis. The
+    devices, one per chip, lie in row-major order; `devices` None means
+    every CUDA device, and raises without CUDA."""
+    devices = _devices(devices, "mesh_from_topology")
+    dims = list(topology.shape.dims)
+    if len(devices) != topology.chips:
+        raise ValueError(
+            f"topology {topology} has {topology.chips} chips, "
+            f"got {len(devices)} devices"
+        )
+    if len(dims) < len(axis_names):
+        dims += [1] * (len(axis_names) - len(dims))
+    if len(dims) > len(axis_names):
+        folded = int(np.prod(dims[len(axis_names) - 1:]))
+        dims = dims[: len(axis_names) - 1] + [folded]
+    return Mesh(devices, dict(zip(axis_names, dims)))
+
+
+def mesh_from_assignment(node_labels: Dict[str, str], axis_names: Sequence[str] = ("dp", "tp"),
+                         devices: Optional[Sequence] = None, num_slices: int = 1,
+                         ici_axes: Optional[Dict[str, int]] = None) -> Mesh:
+    """The workload mesh from the labels of the node a pod landed on
+    (`nos_tpu/parallel/mesh.py:139`): the sub-slice topology label (else
+    the node's mesh topology) under the accelerator label's generation
+    (v5e when unknown). A single-slice gang gets `mesh_from_topology`'s
+    mesh; a multislice gang (`num_slices` > 1) a leading "dcn" axis over
+    the slices with `ici_axes` (default one "tp" axis over a slice's
+    chips) inside each, through `build_multislice_mesh`."""
+    topo_str = node_labels.get(
+        constants.LABEL_TPU_SUBSLICE_TOPOLOGY
+    ) or node_labels.get(constants.LABEL_TPU_TOPOLOGY)
+    if not topo_str:
+        raise ValueError("node labels carry no sub-slice or mesh topology")
+    generation = (
+        accelerator_generation(
+            node_labels.get(constants.LABEL_TPU_ACCELERATOR, "")
+        )
+        or "v5e"
+    )
+    topology = Topology.parse(generation, topo_str)
+    if num_slices > 1:
+        if ici_axes is None:
+            ici_axes = {"tp": topology.chips}
+        return build_multislice_mesh(
+            dict(ici_axes), num_slices=num_slices, devices=devices
+        )
+    return mesh_from_topology(topology, axis_names, devices)

@@ -242,7 +242,8 @@ def test_entry_points_without_device_raise_without_cuda(model, monkeypatch, entr
 
 def test_package_imports_neither_jax_nor_nos_tpu():
     """Every module of the package, and chip_smoke.py, in a fresh process;
-    `grpc` stays a deferred import of the kubelet client's constructors."""
+    `grpc` stays a deferred import of the kubelet client's constructors,
+    and the tpuslice shim is neither built nor loaded by an import."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib, nos_tpu_torch, chip_smoke\n"
@@ -256,8 +257,12 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "          'serving.disagg', 'serving.monitor', 'models.vit', 'models.checkpoint',\n"
         "          'runtime.slice_server', 'parallel.collectives', 'parallel.ring_attention',\n"
         "          'parallel.pipeline', 'parallel.moe', 'cluster.kube', 'cluster.apiserver',\n"
-        "          'cluster.pod_resources_grpc', 'api.webhooks', 'runtime.mfu'):\n"
+        "          'cluster.pod_resources_grpc', 'api.webhooks', 'runtime.mfu',\n"
+        "          'tpu.packing', 'tpu.mesh', 'tpu.slice_group', 'util.leader', 'util.pod',\n"
+        "          'tpulib.native_client', 'tpulib.local', 'tpulib.cloud',\n"
+        "          'tpulib.cloud_server'):\n"
         "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
+        "assert sys.modules['nos_tpu_torch.tpulib.native_client']._lib is None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nos_tpu' or m.startswith('nos_tpu.')\n"
         "       or m == 'grpc' or m.startswith('grpc.')]\n"
