@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port's serving path (the paged engine and the
 dense decode programs), its training step, the ViT detector behind
 SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py),
-the control plane's first layer (api/, cluster/) and its device layer
+the control plane's first layer (api/, cluster/), its device layer
 (tpu/, util/, tpulib/ with the native tpuslice shim, and the mesh a node's
-sub-slice label becomes) on one NVIDIA GPU and check them.
+sub-slice label becomes) and its partitioning plane (partitioning/,
+controllers/, gpu/) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -18,6 +19,7 @@ sub-slice label becomes) on one NVIDIA GPU and check them.
     python3 chip_smoke.py --phases build,card,vit,mesh
     python3 chip_smoke.py --phases build,card,train,vit,control
     python3 chip_smoke.py --phases build,card,topology
+    python3 chip_smoke.py --phases build,card,topology,partition
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -379,7 +381,35 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            2048, init_train_state seed 0) gives the loss and params of the
            same step on the build_mesh mesh bit for bit, with layers * 4
            launches of each flash kernel, all "mma". Prints one JSON line
-           with the times, the card line and the phase's seconds.
+           with the times, the card line and the phase's seconds;
+  partition the partitioning plane (nos_tpu_torch/partitioning/,
+           controllers/, gpu/), no kernel; builds the native shim itself
+           when it runs without the topology phase. Four TPU-mode nodes,
+           each a v5e 8x8 (256 chips), each with a TpuAgent over the
+           shim's NativeTpuClient, and a PartitionerController with
+           FitSimScheduler over test_perf_planner.py's backlog (100 pods,
+           profiles 1x1-8x8 weighted 2^-i, seed 0). As that test and
+           docs/benchmark.md do, one control round is timed (snapshot,
+           plan, actuate, the agents' applies included), here on six
+           fresh builds of the same backlog: the first with the pack
+           cache empty (cold), the other five with what earlier builds
+           left in it (warm), reported apart. Each agent's apply from spec
+           to status is timed per node and build. Gates: every node's
+           status equal to its spec and its plan reported, the carved
+           slices disjoint and inside each 8x8 mesh, some pods made
+           schedulable, and every build's pods that fit, annotations and
+           slices equal to each other's and to a build over FakeTpuClient
+           agents. Then one MPS-mode node labelled from the card itself, as
+           GPU feature discovery labels it (torch.cuda.get_device_name with
+           spaces made "-", device_count, total memory in MiB), with a
+           GpuAgent over FakeGpuDeviceClient(count, mps_validator(the
+           card's GB)) and a seeded backlog of 10/20/40 GB pods asking for
+           more than the card holds: the carve within the card's memory,
+           every pod made schedulable fitting the allocatable, some pods
+           left pending; and the same product in MIG mode left without a
+           MIG spec (the port keeps the reference's MIG tables, A30 and
+           A100). Prints one JSON line with the round and apply times, the
+           counts, the card line and the phase's seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -3590,6 +3620,7 @@ def multi_run(torch, cfg, params, device, m, policy, migrate):
     `migrate` False the traffic runs where it was placed (the reference
     placement); with None there is no migrate traffic."""
     from nos_tpu_torch import DecodeServer, constants
+    from nos_tpu_torch.runtime.decode_server import _DEVICE_GATE
     from nos_tpu_torch.serving import PrefixRouter, ReplicaSet, migrate_replica
     from nos_tpu_torch.telemetry import percentile
     from nos_tpu_torch.tracing import EngineTracing, Tracer
@@ -3675,6 +3706,24 @@ def multi_run(torch, cfg, params, device, m, policy, migrate):
                                                       for e in engines[:m["replicas"]]]
             stats["steps_during_build"] = [h.engine.steps_run - n
                                            for h, n in zip(rs.handles, steps0)]
+            # The build may outlast the streams it started beside. Under
+            # the device gate no tick runs: there, find a replica-0 slot
+            # decoding with more tokens left than one tick dispatches and
+            # stop that engine's loop, which then runs at most the one tick
+            # waiting at the gate, so the drain finds the slot mid-decode.
+            room = src.engine.burst_windows * m["k"]
+            deadline = time.perf_counter() + 600
+            while True:
+                with _DEVICE_GATE.exclusive():
+                    held = any(s.active and s.phase == "decoding" and len(s.refs) >= 2
+                               and s.remaining > room for s in src.engine._slots)
+                    if held:
+                        src.engine._stop.set()
+                if held:
+                    break
+                check(time.perf_counter() < deadline,
+                      "fleet migrate: replica-0 never decoded after the build")
+                time.sleep(0.0005)
             t_d = time.perf_counter()
             new_handle, drain = migrate_replica(rs, router, src.replica_id, new, start=True)
             stats["drain_wall_s"] = time.perf_counter() - t_d
@@ -6256,7 +6305,8 @@ TOPOLOGY = {"probe_timeout_s": 30.0, "held_bytes": 1 << 30, "pack_geometries": 4
 
 
 def _placements_ok(shape, placements):
-    """Placements of whole chips, inside `shape`, pairwise disjoint."""
+    """Placements (or carved slice handles) of whole chips, inside `shape`,
+    pairwise disjoint."""
     import itertools
 
     seen = set()
@@ -6560,11 +6610,315 @@ def phase_topology(torch, device, small=False):
     return out
 
 
+# -- phase: partition -----------------------------------------------------------
+# test_perf_planner.py's scenario (:44-47, :116): 100 pods of profiles weighted
+# 2^-i from seed 0 against 4 x v5e 8x8, one control round. `builds` fresh
+# builds of it are timed. The MPS backlog asks for more than the card holds.
+PARTITION = {"nodes": 4, "mesh": "8x8", "pods": 100, "seed": 0, "builds": 6,
+             "profiles": ("1x1", "1x2", "2x2", "2x4", "4x4", "4x8", "8x8"),
+             "mps_sizes": ("10gb", "20gb", "40gb"), "mps_pods": 12, "mps_seed": 0,
+             "mig_sizes": ("1g.10gb", "3g.40gb", "7g.80gb")}
+
+
+def _unschedulable_pod(name, resources, ns="ml"):
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api.objects import (Container, ObjectMeta, Pod, PodCondition, PodPhase,
+                                           PodSpec)
+    from nos_tpu_torch.api.resources import ResourceList
+
+    pod = Pod(metadata=ObjectMeta(name=name, namespace=ns),
+              spec=PodSpec(containers=[Container(resources=ResourceList.of(resources))],
+                           scheduler_name=constants.SCHEDULER_NAME))
+    pod.status.phase = PodPhase.PENDING
+    pod.status.conditions.append(
+        PodCondition(type="PodScheduled", status="False", reason="Unschedulable"))
+    return pod
+
+
+def _fit_greedily(taker, state, pods):
+    """{pod: node} for the pods that fit the carved cluster, bound in name
+    order onto a fresh snapshot (the first node by name whose free
+    resources hold the pod). The same rule as
+    tests/test_torch_partitioning.py::schedulable, which the CPU checks
+    hold both packages to."""
+    from nos_tpu_torch.partitioning.core.interface import FitSimScheduler
+
+    snap = taker.take_snapshot(state)
+    sim = FitSimScheduler()
+    fits = {}
+    for pod in sorted(pods, key=lambda p: p.metadata.namespaced_name):
+        for name in sorted(snap.nodes):
+            node = snap.get_node(name)
+            if sim.filter(pod, node.node_info()):
+                node.add_pod(pod)
+                fits[pod.metadata.namespaced_name] = name
+                break
+    return fits
+
+
+def partition_tpu_round(make_client):
+    """One fresh build of test_perf_planner.py's scenario: PARTITION["nodes"]
+    TPU-mode nodes of one v5e mesh each, a TpuAgent over
+    `make_client(topology)` on each, a PartitionerController with
+    FitSimScheduler, and the seeded backlog; then its one control round.
+    Returns the round's seconds, each agent's apply (spec to status,
+    seconds), and the outcome: the pods that fit, the annotations without
+    plan ids and the carved slices."""
+    import random
+
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api import annotations as ann
+    from nos_tpu_torch.api.objects import Node, NodeStatus, ObjectMeta
+    from nos_tpu_torch.api.resources import ResourceList
+    from nos_tpu_torch.cluster import Cluster
+    from nos_tpu_torch.controllers.partitioner import PartitionerController
+    from nos_tpu_torch.controllers.tpu_agent import TpuAgent
+    from nos_tpu_torch.partitioning.core.interface import FitSimScheduler
+    from nos_tpu_torch.partitioning.state import ClusterState
+    from nos_tpu_torch.partitioning.tpu_mode import TpuPartitioner, TpuSnapshotTaker
+    from nos_tpu_torch.tpu import Topology
+
+    clock = types.SimpleNamespace(t=0.0)
+    cluster = Cluster()
+    state = ClusterState()
+    state.start_watching(cluster)
+    topology = Topology.parse("v5e", PARTITION["mesh"])
+    agents, applies = {}, {}
+    for i in range(PARTITION["nodes"]):
+        name = f"n{i}"
+        cluster.create(Node(
+            metadata=ObjectMeta(name=name, labels={
+                constants.LABEL_PARTITIONING: constants.KIND_TPU,
+                constants.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+                constants.LABEL_TPU_TOPOLOGY: PARTITION["mesh"]}),
+            status=NodeStatus(allocatable=ResourceList.of(
+                {"cpu": 64, "google.com/tpu": topology.chips}))))
+        agent = TpuAgent(cluster, name, make_client(topology))
+        agent.startup()
+        agent.start_watching()
+        applies[name] = []
+
+        def timed(reconcile=agent.reconcile, name=name):
+            t = time.perf_counter()
+            reconcile()
+            applies[name].append(time.perf_counter() - t)
+
+        agent.reconcile = timed
+        agents[name] = agent
+    controller = PartitionerController(
+        cluster=cluster, state=state, kind=constants.KIND_TPU,
+        snapshot_taker=TpuSnapshotTaker(), partitioner=TpuPartitioner(cluster),
+        sim_scheduler=FitSimScheduler(), batch_timeout_s=1, batch_idle_s=1,
+        now=lambda: clock.t)
+    controller.start_watching()
+    rng = random.Random(PARTITION["seed"])
+    weights = [2.0 ** -i for i in range(len(PARTITION["profiles"]))]
+    for j in range(PARTITION["pods"]):
+        prof = rng.choices(PARTITION["profiles"], weights)[0]
+        cluster.create(_unschedulable_pod(f"p{j}", {f"google.com/tpu-{prof}": 1}))
+    clock.t += 61
+    t = time.perf_counter()
+    ran = controller.process_batch_if_ready()
+    round_s = time.perf_counter() - t
+    check(ran, "partition: the control round did not plan")
+    fits = _fit_greedily(TpuSnapshotTaker(), state, cluster.list("Pod"))
+    check(fits, "partition: the round made none of the backlog schedulable")
+    nodes = {}
+    for node in cluster.list("Node"):
+        anns = node.metadata.annotations
+        check(ann.node_reported_last_plan(anns)
+              and ann.spec_matches_status(ann.parse_spec(anns), ann.parse_status(anns)),
+              f"partition: {node.metadata.name}'s status does not match its spec")
+        nodes[node.metadata.name] = {k: v for k, v in anns.items() if k not in (
+            constants.ANNOTATION_SPEC_PLAN, constants.ANNOTATION_STATUS_PLAN)}
+    slices = {}
+    for name, agent in agents.items():
+        handles = agent.client.list_slices()
+        check(_placements_ok(topology.shape, handles),
+              f"partition: {name}'s slices overlap or leave the mesh")
+        slices[name] = sorted((h.profile.name, h.origin, h.dims, h.in_use) for h in handles)
+        agent.stop()
+    controller.stop()
+    return round_s, applies, {"fits": sorted(fits), "nodes": nodes, "slices": slices}
+
+
+def partition_mps(torch, device):
+    """One MPS-mode node labelled from the card itself, the way GPU feature
+    discovery labels it (product, count, memory in MiB), a GpuAgent over
+    FakeGpuDeviceClient with the card's memory as its budget, and a seeded
+    backlog of 10/20/40 GB pods asking for more than the card holds; then
+    the same product in MIG mode, which the port's tables (A30, A100) leave
+    unplanned."""
+    import random
+
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api import annotations as ann
+    from nos_tpu_torch.api.objects import Node, NodeStatus, ObjectMeta
+    from nos_tpu_torch.api.resources import ResourceList
+    from nos_tpu_torch.cluster import Cluster
+    from nos_tpu_torch.controllers.gpu_agent import FakeGpuDeviceClient, GpuAgent, mps_validator
+    from nos_tpu_torch.controllers.partitioner import PartitionerController
+    from nos_tpu_torch.gpu.mig import model_known
+    from nos_tpu_torch.gpu.mps import MpsProfile
+    from nos_tpu_torch.partitioning.core.interface import FitSimScheduler
+    from nos_tpu_torch.partitioning.gpu_modes import (MigPartitioner, MigSnapshotTaker,
+                                                      MpsPartitioner, MpsSnapshotTaker)
+    from nos_tpu_torch.partitioning.state import ClusterState
+
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        count = torch.cuda.device_count()
+        mib = torch.cuda.get_device_properties(device).total_memory // 2 ** 20
+    else:  # a rehearsal stands in the facts an H100 80GB HBM3 reports to torch
+        name, count, mib = "NVIDIA H100 80GB HBM3", 1, 81079
+    product = name.replace(" ", "-")
+    card_gb = int(round(mib / 1024))
+    out = {"product": product, "count": count, "memory_mib": mib, "budget_gb": card_gb}
+    clock = types.SimpleNamespace(t=0.0)
+    now = lambda: clock.t  # noqa: E731
+
+    def gpu_node(cluster, node_name, kind):
+        cluster.create(Node(
+            metadata=ObjectMeta(name=node_name, labels={
+                constants.LABEL_PARTITIONING: kind,
+                constants.LABEL_GPU_PRODUCT: product,
+                constants.LABEL_GPU_COUNT: str(count),
+                constants.LABEL_GPU_MEMORY: str(mib)}),
+            status=NodeStatus(allocatable=ResourceList.of({"cpu": 64}))))
+
+    def controller(cluster, state, kind, taker, partitioner):
+        c = PartitionerController(cluster=cluster, state=state, kind=kind,
+                                  snapshot_taker=taker, partitioner=partitioner,
+                                  sim_scheduler=FitSimScheduler(), now=now)
+        c.start_watching()
+        return c
+
+    cluster = Cluster()
+    state = ClusterState()
+    state.start_watching(cluster)
+    gpu_node(cluster, "mps-0", constants.KIND_MPS)
+    client = FakeGpuDeviceClient(count, mps_validator(card_gb))
+    agent = GpuAgent(cluster, "mps-0", client, parse_profile=MpsProfile.from_resource,
+                     resource_of=lambda p: f"nvidia.com/gpu-{p}")
+    agent.startup()
+    agent.start_watching()
+    ctrl = controller(cluster, state, constants.KIND_MPS, MpsSnapshotTaker(),
+                      MpsPartitioner(cluster))
+    rng = random.Random(PARTITION["mps_seed"])
+    asked = 0
+    for i in range(PARTITION["mps_pods"]):
+        size = rng.choice(PARTITION["mps_sizes"])
+        asked += MpsProfile.parse(size).memory_gb
+        cluster.create(_unschedulable_pod(f"mps-{i}", {f"nvidia.com/gpu-{size}": 1}))
+    check(asked > card_gb * count, f"partition: the MPS backlog ({asked} GB) fits the card")
+    clock.t += 11
+    t = time.perf_counter()
+    check(ctrl.process_batch_if_ready(), "partition: the MPS round did not plan")
+    out["round_s"] = time.perf_counter() - t
+    per_gpu = {}
+    for d in client.list_devices():
+        per_gpu[d.gpu_index] = per_gpu.get(d.gpu_index, 0) + MpsProfile.parse(d.profile).memory_gb
+    pods = cluster.list("Pod")
+    fits = _fit_greedily(MpsSnapshotTaker(), state, pods)
+    node = cluster.get("Node", "", "mps-0")
+    out.update(asked_gb=asked, carved_gb=per_gpu, devices=len(client.list_devices()),
+               pods=len(pods), schedulable=len(fits), pending=len(pods) - len(fits))
+    check(per_gpu and all(gb <= card_gb for gb in per_gpu.values())
+          and sum(per_gpu.values()) * 1024 <= mib * count,
+          f"partition: MPS carved {per_gpu} GB against {card_gb} GB a card")
+    check(ann.node_reported_last_plan(node.metadata.annotations), "partition: MPS handshake")
+    fit_gb = {}
+    for key, _ in fits.items():
+        pod = cluster.get("Pod", *key.split("/"))
+        (res,) = [r for r in pod.spec.containers[0].resources if r.startswith("nvidia.com/gpu-")]
+        fit_gb[res] = fit_gb.get(res, 0) + 1
+    check(all(node.status.allocatable.get(r, 0) >= n for r, n in fit_gb.items()),
+          f"partition: MPS pods {fit_gb} do not fit allocatable {dict(node.status.allocatable)}")
+    check(0 < len(fits) < len(pods), f"partition: MPS made {len(fits)} of {len(pods)} "
+          "pods schedulable; the backlog must leave some pending")
+    agent.stop()
+    ctrl.stop()
+
+    # The same product in MIG mode: no MIG table, so no spec.
+    cluster = Cluster()
+    state = ClusterState()
+    state.start_watching(cluster)
+    gpu_node(cluster, "mig-0", constants.KIND_MIG)
+    ctrl = controller(cluster, state, constants.KIND_MIG, MigSnapshotTaker(),
+                      MigPartitioner(cluster))
+    for i, size in enumerate(PARTITION["mig_sizes"]):
+        cluster.create(_unschedulable_pod(f"mig-{i}", {f"nvidia.com/mig-{size}": 1}))
+    clock.t += 11
+    ctrl.process_batch_if_ready()
+    specs = ann.parse_spec(cluster.get("Node", "", "mig-0").metadata.annotations)
+    out["mig"] = {"model_known": model_known(product), "specs": len(specs)}
+    check(not model_known(product) and not specs,
+          f"partition: the MIG-mode {product} node got a spec {specs}")
+    ctrl.stop()
+    return out
+
+
+def phase_partition(torch, device):
+    """The partitioning plane (nos_tpu_torch/partitioning/, controllers/,
+    gpu/) on the card's machine: see the module docstring. No kernel. The
+    native shim is built here when the topology phase did not run first;
+    a rehearsal runs the same sizes on the CPU, over the shim where g++
+    exists and the Python fake elsewhere."""
+    import statistics
+
+    from nos_tpu_torch.tpulib import FakeTpuClient
+    from nos_tpu_torch.tpulib import native_client as nc
+
+    t0 = time.perf_counter()
+    cuda = device.type == "cuda"
+    out = {"card": card_line(torch, device), "shim_prebuilt": nc.library_path().exists()}
+    t = time.perf_counter()
+    built = nc.ensure_built() and nc.load_library() is not None
+    out["shim_build_s"] = time.perf_counter() - t
+    check(built or not cuda, "partition: the native tpuslice shim did not build or load")
+    native = nc.NativeTpuClient if built else FakeTpuClient
+    out["client"] = native.__name__
+
+    from nos_tpu_torch.tpu.packing import _PACK_CACHE
+
+    _PACK_CACHE.clear()  # the first build plans cold; the later ones reuse its packs
+    rounds, applies, outcomes = [], {}, []
+    for _ in range(PARTITION["builds"]):
+        round_s, build_applies, outcome = partition_tpu_round(native)
+        rounds.append(round_s)
+        outcomes.append(outcome)
+        for name, seq in build_applies.items():
+            check(len(seq) == 1, f"partition: {name} applied {len(seq)} times in one round")
+            applies.setdefault(name, []).extend(seq)
+    _, _, fake = partition_tpu_round(FakeTpuClient)
+    for b, got in enumerate(outcomes):
+        check(got == fake, f"partition: build {b} over {native.__name__} differs from "
+              f"FakeTpuClient's: fits {len(got['fits'])} against {len(fake['fits'])}")
+    chips = {name: sum(int(np.prod(dims)) for _, _, dims, _ in s)
+             for name, s in fake["slices"].items()}
+    out["tpu"] = {
+        "nodes": PARTITION["nodes"], "mesh": f"v5e-{PARTITION['mesh']}",
+        "chips": PARTITION["nodes"] * 64, "pods": PARTITION["pods"],
+        "builds": PARTITION["builds"], "rounds_ms": [1e3 * x for x in rounds],
+        "cold_round_ms": 1e3 * rounds[0],
+        "warm_median_round_ms": 1e3 * statistics.median(rounds[1:]),
+        "apply_ms": {name: [1e3 * x for x in seq] for name, seq in applies.items()},
+        "schedulable": len(fake["fits"]),
+        "pending": PARTITION["pods"] - len(fake["fits"]),
+        "slices": {name: len(s) for name, s in fake["slices"].items()},
+        "chips_carved": chips,
+    }
+    out["mps"] = partition_mps(torch, device)
+    out["phase_s"] = time.perf_counter() - t0
+    log("partition: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology")
+                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -6597,6 +6951,7 @@ def main(argv=None):
         phase_mesh(torch, torch.device("cpu"), small=True)
         phase_control(torch, torch.device("cpu"), small=True)
         phase_topology(torch, torch.device("cpu"), small=True)
+        phase_partition(torch, torch.device("cpu"))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6663,9 +7018,12 @@ def main(argv=None):
     topology = None
     if "topology" in phases:
         topology = phase_topology(torch, torch.device("cuda"))
+    partition = None
+    if "partition" in phases:
+        partition = phase_partition(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train, vit, mesh, control, topology):
+                disagg, dense, train, vit, mesh, control, topology, partition):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

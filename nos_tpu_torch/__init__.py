@@ -16,7 +16,13 @@ copy, built by g++ at first use, never on import, into
 `tpulib/native/_build/`; the local client enumerates CUDA devices and, on
 a GPU, refuses TPU discovery with `TpuLibError`), with
 `parallel.mesh_from_assignment`, the mesh a node's sub-slice label
-becomes.
+becomes; and of its partitioning plane: the NVIDIA modes' device models
+(`gpu`: MIG with the reference's tables, MPS, the device-plugin restart),
+the planner and its TPU and GPU modes (`partitioning`), the controllers
+that drive them (`controllers`: the partitioner, the TPU, GPU and host
+agents, the slice-group partitioner, quotas, device health) and the
+scheduler's quota arithmetic (`scheduler.resource_calculator`,
+`scheduler.quota_info`).
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module

@@ -1,9 +1,10 @@
 """The port's device-control seam (`nos_tpu_torch/tpulib/`) against the JAX
 package's: the cases of tests/test_native_tpulib.py, test_cloud_tpulib.py
-and test_local_tpulib.py that need nothing of `controllers/`, `config.py`
-or `system.py`, each run on both packages (the three cases gated on a real
-TPU skip on the reference without one, and on the port whenever
-`local_chips_visible()` is False, which holds on an H100 too); then the
+and test_local_tpulib.py that need nothing of `config.py` or `system.py`,
+each run on both packages (the three cases gated on a real TPU skip on the
+reference without one, and on the port whenever `local_chips_visible()` is
+False, which holds on an H100 too; the five that drive a `TpuAgent` use
+`controllers/tpu_agent.py` of the package under test); then the
 port's own seams and cross-package checks: `native_pack` of both packages
 and the port's Python packer equal on the same inputs, both shims loaded in
 one process from their own files, importing the port's `tpulib` building
@@ -44,6 +45,12 @@ def load(pkg):
     m.cloud = importlib.import_module(f"{pkg}.tpulib.cloud")
     m.cloud_server = importlib.import_module(f"{pkg}.tpulib.cloud_server")
     m.local = importlib.import_module(f"{pkg}.tpulib.local")
+    m.tpu_agent = importlib.import_module(f"{pkg}.controllers.tpu_agent")
+    m.metrics = importlib.import_module(f"{pkg}.observability").metrics
+    m.constants = importlib.import_module(f"{pkg}.constants")
+    m.objects = importlib.import_module(f"{pkg}.api.objects")
+    m.ResourceList = importlib.import_module(f"{pkg}.api.resources").ResourceList
+    m.Cluster = importlib.import_module(f"{pkg}.cluster").Cluster
     m.P = m.tpu.Profile.parse
     m.T = m.tpu.Topology.parse
     return m
@@ -620,6 +627,160 @@ def test_real_chip_slice_lifecycle(p):
     client.set_slice_in_use(handle.slice_id, False)
     client.delete_slice(handle.slice_id)
     assert client.list_slices() == []
+
+
+# -- the agent cases (controllers/tpu_agent.py) -------------------------------
+def agent_cluster(p):
+    """A cluster holding test_e2e_partitioning.py's `make_tpu_node()`, in
+    package `p`."""
+    o, c = p.objects, p.constants
+    resources = {"cpu": 64, "memory": "128Gi", "google.com/tpu": 16}
+    cluster = p.Cluster()
+    cluster.create(o.Node(
+        metadata=o.ObjectMeta(name="tpu-node-0", labels={
+            c.LABEL_PARTITIONING: c.KIND_TPU,
+            c.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+            c.LABEL_TPU_TOPOLOGY: "4x4"}),
+        status=o.NodeStatus(allocatable=p.ResourceList.of(resources),
+                            capacity=p.ResourceList.of(resources))))
+    return cluster
+
+
+def drive_agent_with_spec(p, client, plan_id):
+    """The spec-plan scenario the fake, native, provisioning and local
+    clients are all held to: 2 x 2x2 and 1 x 1x2 on a 4x4 node."""
+    constants = p.constants
+    cluster = agent_cluster(p)
+    agent = p.tpu_agent.TpuAgent(cluster, "tpu-node-0", client)
+    agent.startup()
+    cluster.patch(
+        "Node",
+        "",
+        "tpu-node-0",
+        lambda n: n.metadata.annotations.update(
+            {
+                "tpu.nos/spec-dev-0-2x2": "2",
+                "tpu.nos/spec-dev-0-1x2": "1",
+                constants.ANNOTATION_SPEC_PLAN: plan_id,
+            }
+        ),
+    )
+    agent.reconcile()
+    node = cluster.get("Node", "", "tpu-node-0")
+    assert node.metadata.annotations[constants.ANNOTATION_STATUS_PLAN] == plan_id
+    assert node.metadata.annotations["tpu.nos/status-dev-0-2x2-free"] == "2"
+    assert node.status.allocatable["google.com/tpu-2x2"] == 2
+    assert node.status.allocatable["google.com/tpu-1x2"] == 1
+    assert node.status.allocatable[constants.RESOURCE_TPU] == 16 - 8 - 2
+    return cluster, agent
+
+
+def test_native_client_drives_tpu_agent_e2e(native):
+    """The node agent runs unchanged over the native client (same interface
+    seam as the fake) — the cgo-vs-mock parity of the reference."""
+    p = native
+    drive_agent_with_spec(p, p.native.NativeTpuClient(p.T("v5e", "4x4")), "plan-native-1")
+
+
+def test_cloud_client_drives_tpu_agent_e2e(p, server):
+    """Identical scenario to test_native_client_drives_tpu_agent_e2e: the
+    node agent's actuate/report loop over the provisioning surface, no agent
+    changes — the TpuClient seam holds for real infrastructure."""
+    constants = p.constants
+    client = make_cloud(p, server)
+    cluster, agent = drive_agent_with_spec(p, client, "plan-cloud-1")
+    # The carves exist on the provisioning surface, geometry intact.
+    by_profile = {}
+    for s in client.list_slices():
+        by_profile[s.profile.name] = by_profile.get(s.profile.name, 0) + 1
+    assert by_profile == {"2x2": 2, "1x2": 1}
+
+    # Shrink the spec: the agent deletes the surplus free slice via the API.
+    cluster.patch(
+        "Node", "", "tpu-node-0",
+        lambda n: (
+            n.metadata.annotations.pop("tpu.nos/spec-dev-0-1x2"),
+            n.metadata.annotations.update(
+                {constants.ANNOTATION_SPEC_PLAN: "plan-cloud-2"}
+            ),
+        ),
+    )
+    agent.reconcile()
+    assert {s.profile.name for s in client.list_slices()} == {"2x2"}
+    node = cluster.get("Node", "", "tpu-node-0")
+    assert node.metadata.annotations[constants.ANNOTATION_STATUS_PLAN] == "plan-cloud-2"
+
+
+def test_agent_startup_cleanup_over_cloud(p, server):
+    """Crash recovery: slices left by a dead agent are deleted through the
+    provisioning API on startup (cmd/migagent/migagent.go:190-199 analog)."""
+    client = make_cloud(p, server)
+    client.create_slice(p.P("2x2"), (0, 0), (2, 2))  # orphan from a "crash"
+    cluster = agent_cluster(p)
+    agent = p.tpu_agent.TpuAgent(cluster, "tpu-node-0", make_cloud(p, server))
+    agent.startup()
+    assert client.list_slices() == []
+
+
+def test_local_client_drives_tpu_agent_e2e(p, monkeypatch):
+    """The node agent runs unchanged over the real-silicon client — the
+    same spec-plan scenario the fake and native backends are held to.
+    Enumeration is stubbed at 4x4."""
+    drive_agent_with_spec(p, make_local(p, monkeypatch, "4x4"), "plan-local-1")
+
+
+def test_device_stats_exports_hbm_gauges_through_agent(p, monkeypatch):
+    """Per-chip runtime stats flow into the metrics surface: a backend
+    exposing memory_stats yields nos_tpu_chip_hbm_* gauges labeled by
+    chip; entries without stats (tunnel-attached runtimes) export
+    nothing rather than zeros."""
+    metrics = p.metrics
+    metrics.__init__()
+
+    class StatsDevice(StubDevice):
+        def __init__(self, kind, coords, stats):
+            super().__init__(kind, coords)
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    stub_devices(
+        p,
+        monkeypatch,
+        [
+            StatsDevice(
+                "TPU v5 lite", [0, 0, 0],
+                {"bytes_in_use": 1 << 30, "bytes_limit": 16 << 30},
+            ),
+            StatsDevice("TPU v5 lite", [1, 0, 0], None),  # tunnel: no stats
+            StatsDevice("TPU v5 lite", [2, 0, 0], None),
+            StatsDevice("TPU v5 lite", [3, 0, 0], None),
+        ],
+    )
+    client = p.local.LocalChipClient(expected=p.T("v5e", "4x1"))
+    assert client.topology_mismatch is None
+
+    stats = client.device_stats()
+    assert stats[0]["hbm_bytes_in_use"] == 1 << 30
+    assert stats[0]["hbm_bytes_limit"] == 16 << 30
+    assert "hbm_bytes_in_use" not in stats[1]
+
+    cluster = agent_cluster(p)
+    agent = p.tpu_agent.TpuAgent(cluster, "tpu-node-0", client)
+    agent.startup()
+    agent.report()
+    rendered = metrics.render()
+    assert 'nos_tpu_chip_hbm_bytes_in_use{chip="0x0x0",node="tpu-node-0"}' in rendered
+    assert 'nos_tpu_chip_hbm_bytes_limit{chip="0x0x0",node="tpu-node-0"}' in rendered
+    assert 'chip="1x0x0"' not in rendered  # no stats -> no gauge
+
+    # A chip that STOPS reporting must drop its series, not freeze: a
+    # stale last value on /metrics reads as a live measurement.
+    client._devices[0]._stats = None
+    agent.report()
+    rendered = metrics.render()
+    assert "nos_tpu_chip_hbm_bytes_in_use" not in rendered
 
 
 # -- the port's own seams -----------------------------------------------------
