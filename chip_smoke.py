@@ -4,8 +4,10 @@ dense decode programs), its training step, the ViT detector behind
 SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py),
 the control plane's first layer (api/, cluster/), its device layer
 (tpu/, util/, tpulib/ with the native tpuslice shim, and the mesh a node's
-sub-slice label becomes) and its partitioning plane (partitioning/,
-controllers/, gpu/) on one NVIDIA GPU and check them.
+sub-slice label becomes), its partitioning plane (partitioning/,
+controllers/, gpu/) and its scheduler, wiring, simulator and CLI
+(scheduler/, config.py, system.py, sim.py, sim_oracle.py, cli.py) on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -20,6 +22,7 @@ controllers/, gpu/) on one NVIDIA GPU and check them.
     python3 chip_smoke.py --phases build,card,train,vit,control
     python3 chip_smoke.py --phases build,card,topology
     python3 chip_smoke.py --phases build,card,topology,partition
+    python3 chip_smoke.py --phases build,card,topology,partition,schedule
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -409,7 +412,33 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            left pending; and the same product in MIG mode left without a
            MIG spec (the port keeps the reference's MIG tables, A30 and
            A100). Prints one JSON line with the round and apply times, the
-           counts, the card line and the phase's seconds.
+           counts, the card line and the phase's seconds;
+  schedule the scheduler and the control plane's wiring, simulator and CLI
+           (nos_tpu_torch/scheduler/, config.py, system.py, sim.py,
+           sim_oracle.py, cli.py), no kernel. test_perf_planner.py:135's
+           group-mode round on five fresh ControlPlanes (virtual clock):
+           one v5e 16x16 slice group of 64 hosts of 2x2 with their
+           HostAgents, 100 gangs of 2x2-8x8 weighted 2^-i from seed 0
+           (copies of test_multihost.py's make_group and submit_gang), both
+           scheduler passes around one GroupPartitioner batch, timed as the
+           test times it, the first build with the pack cache empty (cold),
+           the others warm; gates: every round under the test's 3.0 s
+           ceiling, gangs bound (never in part), the same bindings on every
+           build. `python -m nos_tpu_torch.cli simulate` with its defaults
+           in a subprocess (4 x v5e 8x8, 256 chips, cli_single_host_trace(
+           200), seed 0, window 180-900 s): its report must equal
+           NORTH_STAR_REPORT, which `python -m nos_tpu.cli simulate` (the
+           JAX package's CLI) prints on the CPU, with every job completed
+           and utilization >= 0.85; its wall seconds. build_tpu_agent with
+           NOS_TPU_LOCAL_CHIPS=1 on a node labelled a one-chip v5e: the
+           warning of the refused grant names the card and the agent's
+           client is the native shim's NativeTpuClient, never the fake.
+           build_gpu_agent in MPS mode with the card's own memory inside a
+           ControlPlane: the devices carved and the pods bound by one tick
+           for a seeded backlog of 10/20/40 GB pods. `python -m
+           nos_tpu_torch.cli demo` exits 0. Prints one JSON line with the
+           round times, the report, the agents, the card line and the
+           phase's seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -6914,11 +6943,313 @@ def phase_partition(torch, device):
     return out
 
 
+# -- phase: schedule ------------------------------------------------------------
+# test_perf_planner.py:135's group-mode round (one 16x16 slice group of 64
+# hosts of 2x2, 100 gangs of 2x2..8x8 weighted 2^-i from seed 0, both
+# scheduler passes around one GroupPartitioner batch, under 3.0 s), on
+# `builds` fresh ControlPlanes; the CLI's north-star simulation;
+# build_tpu_agent and build_gpu_agent; the demo. The rehearsal's sizes are SCHEDULE_SMALL's.
+SCHEDULE = {"builds": 5, "ceiling_s": 3.0, "group": ("16x16", "2x2", (8, 8)), "gangs": 100,
+            "seed": 0, "shapes": (("2x2", 1), ("2x4", 2), ("4x4", 4), ("4x8", 8), ("8x8", 16)),
+            "simulate": [], "cli_timeout_s": 300,
+            "gpu_sizes": ("10gb", "20gb", "40gb"), "gpu_pods": 6, "gpu_seed": 0}
+SCHEDULE_SMALL = dict(SCHEDULE, builds=2, group=("8x8", "2x2", (4, 4)), gangs=20,
+                      shapes=(("2x2", 1), ("2x4", 2), ("4x4", 4), ("4x8", 8)),
+                      simulate=["--jobs", "40", "--nodes", "2", "--topology", "4x4"])
+
+# What `python -m nos_tpu.cli simulate` (the JAX package's CLI, no flags: 4 x
+# v5e 8x8, 256 chips, cli_single_host_trace(200), seed 0, window 180-900 s)
+# prints on the CPU, and the same with `--jobs 40 --nodes 2 --topology 4x4`
+# for the rehearsal. The run is deterministic: the port's CLI must print it.
+NORTH_STAR_REPORT = {
+    "total_chips": 256, "jobs": 200, "completed": 200, "unfinished": 0, "utilization": 0.8988,
+    "utilization_total": 0.7348, "utilization_window": 0.9728, "p50_schedule_latency_s": 4.0,
+    "p95_schedule_latency_s": 476.0, "makespan_s": 1545.0, "preemptions": 65}
+NORTH_STAR_REPORT_SMALL = {
+    "total_chips": 32, "jobs": 40, "completed": 40, "unfinished": 0, "utilization": 0.9126,
+    "utilization_total": 0.7069, "utilization_window": 0.9046, "p50_schedule_latency_s": 224.0,
+    "p95_schedule_latency_s": 575.0, "makespan_s": 1378.0, "preemptions": 6}
+
+
+def make_group(plane, slice_id="s0", global_topo="8x8", host_topo="2x2", grid=(4, 4)):
+    """tests/test_multihost.py:34: a slice group of grid[0] x grid[1] hosts
+    of host_topo chips, each with its HostAgent."""
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api.objects import Node, NodeStatus, ObjectMeta
+    from nos_tpu_torch.api.resources import ResourceList
+
+    names = []
+    for r in range(grid[0]):
+        for c in range(grid[1]):
+            name = f"{slice_id}-host-{r}-{c}"
+            plane.cluster.create(Node(
+                metadata=ObjectMeta(name=name, labels={
+                    constants.LABEL_PARTITIONING: constants.KIND_TPU_MULTIHOST,
+                    constants.LABEL_TPU_SLICE: slice_id,
+                    constants.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+                    constants.LABEL_TPU_TOPOLOGY: global_topo,
+                    constants.LABEL_TPU_HOST_TOPOLOGY: host_topo,
+                    constants.LABEL_TPU_HOST_COORD: f"{r},{c}"}),
+                status=NodeStatus(allocatable=ResourceList.of(
+                    {"cpu": 32, "memory": "64Gi", "google.com/tpu": 4}))))
+            plane.add_host_agent(name)
+            names.append(name)
+    return names
+
+
+def submit_gang(plane, name, ns, topology, size, priority=0):
+    """tests/test_multihost.py:65: `size` pods of one gang asking for a
+    sub-slice of `topology`."""
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api.objects import Container, ObjectMeta, Pod, PodSpec
+    from nos_tpu_torch.api.resources import ResourceList
+
+    for i in range(size):
+        plane.cluster.create(Pod(
+            metadata=ObjectMeta(name=f"{name}-{i}", namespace=ns, labels={
+                constants.LABEL_GANG: name, constants.LABEL_GANG_SIZE: str(size)}),
+            spec=PodSpec(
+                containers=[Container(resources=ResourceList.of({"google.com/tpu": 4, "cpu": 1}))],
+                scheduler_name=constants.SCHEDULER_NAME, priority=priority,
+                node_selector={constants.LABEL_TPU_SUBSLICE_TOPOLOGY: topology})))
+
+
+def schedule_group_round(s):
+    """One fresh ControlPlane on a virtual clock with test_perf_planner.py:135's
+    group and backlog; the round (first pass, the batch, second pass) timed
+    as that test times it. Returns its seconds and the bindings."""
+    import random
+
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.system import ControlPlane
+
+    clock = types.SimpleNamespace(t=0.0)
+    plane = ControlPlane(now=lambda: clock.t).start()
+    try:
+        global_topo, host_topo, grid = s["group"]
+        make_group(plane, "s0", global_topo=global_topo, host_topo=host_topo, grid=grid)
+        rng = random.Random(s["seed"])
+        weights = [2.0 ** -i for i in range(len(s["shapes"]))]
+        for j in range(s["gangs"]):
+            topo, size = rng.choices(s["shapes"], weights)[0]
+            submit_gang(plane, f"g{j}", "ml", topo, size)
+        t = time.perf_counter()
+        plane.scheduler.schedule_pending()
+        clock.t += 61
+        check(plane.group_partitioner.process_batch_if_ready(),
+              "schedule: the group partitioner did not plan")
+        result = plane.scheduler.schedule_pending()
+        round_s = time.perf_counter() - t
+        pods = {p.metadata.namespaced_name: p for p in plane.cluster.list("Pod")}
+        bound = {name: p.spec.node_name for name, p in pods.items() if p.spec.node_name}
+        check(len(bound) == len(result["bound"]),
+              f"schedule: {len(result['bound'])} binds reported, {len(bound)} pods bound")
+        gangs = {}
+        for p in pods.values():
+            gangs.setdefault(p.metadata.labels[constants.LABEL_GANG], []).append(
+                bool(p.spec.node_name))
+        partial = [g for g, b in gangs.items() if any(b) and not all(b)]
+        check(not partial, f"schedule: gangs bound in part {partial}")
+        return round_s, {"bound": bound, "gangs_bound": sorted(g for g, b in gangs.items()
+                                                               if all(b))}
+    finally:
+        plane.stop()
+
+
+def schedule_cli(args, timeout_s):
+    """`python -m nos_tpu_torch.cli <args>` from the repository root, held to
+    exit 0: its standard output and wall seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "nos_tpu_torch.cli"] + args, cwd=root,
+                         capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t
+    check(res.returncode == 0, f"schedule: `cli {' '.join(args)}` exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    return res.stdout, wall
+
+
+def schedule_tpu_agent(torch, device):
+    """build_tpu_agent with the operator's explicit grant
+    (NOS_TPU_LOCAL_CHIPS=1) on a node labelled as a one-chip v5e: the port's
+    LocalChipClient refuses a CUDA device with a TpuLibError naming it, and
+    build_tpu_agent logs that and lands on the native shim (never the fake)."""
+    import logging
+    import os
+
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api.objects import Node, NodeStatus, ObjectMeta
+    from nos_tpu_torch.api.resources import ResourceList
+    from nos_tpu_torch.cluster import Cluster
+    from nos_tpu_torch.config import AgentConfig
+    from nos_tpu_torch.system import build_tpu_agent
+    from nos_tpu_torch.tpulib import native_client as nc
+
+    cuda = device.type == "cuda"
+    cluster = Cluster()
+    cluster.create(Node(
+        metadata=ObjectMeta(name="card-0", labels={
+            constants.LABEL_PARTITIONING: constants.KIND_TPU,
+            constants.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+            constants.LABEL_TPU_TOPOLOGY: "1x1"}),
+        status=NodeStatus(allocatable=ResourceList.of({"cpu": 8, "google.com/tpu": 1}))))
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    handler = Keep(level=logging.WARNING)
+    system_log = logging.getLogger("nos_tpu_torch.system")
+    system_log.addHandler(handler)
+    before = os.environ.get(constants.ENV_LOCAL_CHIPS)
+    os.environ[constants.ENV_LOCAL_CHIPS] = "1"
+    try:
+        agent = build_tpu_agent(cluster, "card-0", AgentConfig())
+    finally:
+        system_log.removeHandler(handler)
+        if before is None:
+            os.environ.pop(constants.ENV_LOCAL_CHIPS)
+        else:
+            os.environ[constants.ENV_LOCAL_CHIPS] = before
+    kind = torch.cuda.get_device_name(device) if cuda else None
+    grant = [w for w in warnings if "local-chip grant set but unusable" in w]
+    out = {"client": type(agent.client).__name__, "warning": grant[0] if grant else None,
+           "shim_loaded": nc.load_library() is not None}
+    check(grant, f"schedule: no warning of the refused grant in {warnings}")
+    if cuda:
+        check(kind in grant[0], f"schedule: the warning does not name {kind}: {grant[0]}")
+    if cuda or out["shim_loaded"]:
+        check(type(agent.client) is nc.NativeTpuClient and out["shim_loaded"],
+              f"schedule: the granted agent landed on {out['client']}, not the native shim")
+    check(agent.client.get_topology().chips == 1, "schedule: the agent's topology is not 1x1")
+    return out
+
+
+def schedule_gpu_agent(torch, device, s):
+    """build_gpu_agent in MPS mode with the card's own memory as its budget,
+    on a node labelled from the card, inside a ControlPlane: a small mixed
+    backlog, one scheduler pass, the batch window closed, one tick."""
+    import random
+
+    from nos_tpu_torch import constants
+    from nos_tpu_torch.api.objects import Container, Node, NodeStatus, ObjectMeta, Pod, PodSpec
+    from nos_tpu_torch.api.resources import ResourceList
+    from nos_tpu_torch.gpu.mps import MpsProfile
+    from nos_tpu_torch.system import ControlPlane, build_gpu_agent
+
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        count = torch.cuda.device_count()
+        mib = torch.cuda.get_device_properties(device).total_memory // 2 ** 20
+    else:  # a rehearsal stands in the facts an H100 80GB HBM3 reports to torch
+        name, count, mib = "NVIDIA H100 80GB HBM3", 1, 81079
+    card_gb = int(round(mib / 1024))
+    clock = types.SimpleNamespace(t=0.0)
+    plane = ControlPlane(now=lambda: clock.t).start()
+    try:
+        plane.cluster.create(Node(
+            metadata=ObjectMeta(name="mps-0", labels={
+                constants.LABEL_PARTITIONING: constants.KIND_MPS,
+                constants.LABEL_GPU_PRODUCT: name.replace(" ", "-"),
+                constants.LABEL_GPU_COUNT: str(count),
+                constants.LABEL_GPU_MEMORY: str(mib)}),
+            status=NodeStatus(allocatable=ResourceList.of({"cpu": 64}))))
+        agent = build_gpu_agent(plane.cluster, "mps-0", constants.KIND_MPS, count,
+                                memory_gb=card_gb)
+        agent.startup()
+        agent.start_watching()
+        plane.agents["mps-0"] = agent
+        rng = random.Random(s["gpu_seed"])
+        asked = []
+        for i in range(s["gpu_pods"]):
+            size = rng.choice(s["gpu_sizes"])
+            asked.append(size)
+            plane.cluster.create(Pod(
+                metadata=ObjectMeta(name=f"mps-{i}", namespace="ml"),
+                spec=PodSpec(containers=[Container(resources=ResourceList.of(
+                    {f"{constants.RESOURCE_MPS_PREFIX}{size}": 1, "cpu": 1}))],
+                    scheduler_name=constants.SCHEDULER_NAME)))
+        plane.scheduler.schedule_pending()
+        clock.t += 61
+        result = plane.tick()
+        devices = sorted((d.gpu_index, d.profile) for d in agent.client.list_devices())
+        pods = plane.cluster.list("Pod", namespace="ml")
+        bound = sorted(p.metadata.name for p in pods if p.spec.node_name)
+        carved = sum(MpsProfile.parse(p).memory_gb for _, p in devices)
+        out = {"product": name.replace(" ", "-"), "memory_gb": card_gb, "asked": asked,
+               "devices": devices, "carved_gb": carved, "bound": bound,
+               "pending": len(pods) - len(bound),
+               "bound_in_tick": len(result["first_pass"]["bound"])
+               + len(result["second_pass"]["bound"])}
+        check(devices and carved <= card_gb * count,
+              f"schedule: MPS carved {devices} against {card_gb} GB a card")
+        check(bound, "schedule: no MPS pod bound after the tick")
+        return out
+    finally:
+        plane.stop()
+
+
+def phase_schedule(torch, device, small=False):
+    """The scheduler and the control plane's wiring, simulator and CLI
+    (nos_tpu_torch/scheduler/, system.py, sim.py, sim_oracle.py, cli.py) on
+    the card's machine: see the module docstring. No kernel."""
+    import statistics
+
+    from nos_tpu_torch.tpu.packing import _PACK_CACHE
+
+    t0 = time.perf_counter()
+    s = SCHEDULE_SMALL if small else SCHEDULE
+    out = {"card": card_line(torch, device)}
+    _PACK_CACHE.clear()  # the first build plans cold; the later ones reuse its packs
+    rounds, outcomes = [], []
+    for _ in range(s["builds"]):
+        round_s, outcome = schedule_group_round(s)
+        rounds.append(round_s)
+        outcomes.append(outcome)
+    for b, got in enumerate(outcomes):
+        check(got == outcomes[0], f"schedule: build {b}'s bindings differ from build 0's")
+    gangs_bound = len(outcomes[0]["gangs_bound"])
+    check(gangs_bound > 0, "schedule: the group round bound no gang")
+    check(max(rounds) < s["ceiling_s"],
+          f"schedule: a group round took {max(rounds):.3f} s (ceiling {s['ceiling_s']} s)")
+    global_topo, host_topo, grid = s["group"]
+    out["group_round"] = {
+        "group": f"v5e {global_topo} as {grid[0] * grid[1]} hosts of {host_topo}",
+        "gangs": s["gangs"], "builds": s["builds"], "rounds_ms": [1e3 * x for x in rounds],
+        "cold_ms": 1e3 * rounds[0], "warm_median_ms": 1e3 * statistics.median(rounds[1:]),
+        "ceiling_s": s["ceiling_s"], "ceiling_held": max(rounds) < s["ceiling_s"],
+        "gangs_bound": gangs_bound, "pods_bound": len(outcomes[0]["bound"])}
+
+    stdout, wall = schedule_cli(["simulate"] + s["simulate"], s["cli_timeout_s"])
+    report = json.loads(stdout.strip().splitlines()[-1])
+    want = NORTH_STAR_REPORT_SMALL if small else NORTH_STAR_REPORT
+    check(report == want, f"schedule: the CLI's north-star report {report} is not the "
+          f"reference's {want}")
+    check(report["completed"] == report["jobs"] and report["unfinished"] == 0,
+          f"schedule: {report['completed']} of {report['jobs']} jobs completed")
+    check(report["utilization"] >= 0.85, f"schedule: utilization {report['utilization']}")
+    out["north_star"] = {"args": s["simulate"], "report": report, "wall_s": wall,
+                         "equals_reference": report == want}
+
+    out["tpu_agent"] = schedule_tpu_agent(torch, device)
+    out["gpu_agent"] = schedule_gpu_agent(torch, device, s)
+    stdout, wall = schedule_cli(["demo"], s["cli_timeout_s"])
+    check("pod bound to: tpu-node-0" in stdout, f"schedule: demo printed {stdout[-500:]}")
+    out["demo"] = {"exit": 0, "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t0
+    log("schedule: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition")
+                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition,"
+                            "schedule")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -6952,6 +7283,7 @@ def main(argv=None):
         phase_control(torch, torch.device("cpu"), small=True)
         phase_topology(torch, torch.device("cpu"), small=True)
         phase_partition(torch, torch.device("cpu"))
+        phase_schedule(torch, torch.device("cpu"), small=True)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7021,9 +7353,12 @@ def main(argv=None):
     partition = None
     if "partition" in phases:
         partition = phase_partition(torch, torch.device("cuda"))
+    schedule = None
+    if "schedule" in phases:
+        schedule = phase_schedule(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train, vit, mesh, control, topology, partition):
+                disagg, dense, train, vit, mesh, control, topology, partition, schedule):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

@@ -22,7 +22,14 @@ the planner and its TPU and GPU modes (`partitioning`), the controllers
 that drive them (`controllers`: the partitioner, the TPU, GPU and host
 agents, the slice-group partitioner, quotas, device health) and the
 scheduler's quota arithmetic (`scheduler.resource_calculator`,
-`scheduler.quota_info`).
+`scheduler.quota_info`); and of the part users drive: the scheduler
+(`scheduler.scheduler.Scheduler` over `scheduler.framework` and the
+capacity, node-resources and TPU-topology `scheduler.plugins`), the
+component configs (`config`), the one-process `system.ControlPlane` and
+its `build_*` functions (`system`), the north-star capacity simulator and its
+fungible-chip floor (`sim`, `sim_oracle`) and the binaries' entry point
+(`cli`, `python -m nos_tpu_torch.cli` or `nos-tpu-torch`; `lint` waits
+for the port of `analysis/`).
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module

@@ -9,18 +9,17 @@ JAX package's.
   the reference's assertions: every name the reference imports from
   `nos_tpu` is read from the package under test (`pk.<name>`), and every
   helper takes that namespace first.
-- test_fault_recovery.py's four cases on both packages. The reference
-  drives them through `System`/`ControlPlane` and the scheduler, which come
-  with the next step; here `Binder`, the scheduler's bind pass cut to what
-  those cases need, binds and marks pods, and the same controllers and
-  agents run as the reference wires them.
+- test_fault_recovery.py's four cases on both packages, driven as the
+  reference drives them: test_full_system.py's `System` and
+  test_multihost.py's `build_plane` over the package's own `Scheduler`
+  (with `SchedulerSim` as the partitioner's simulated scheduler) and
+  `ControlPlane`.
 - Across packages, exact equality once the plan ids are stripped:
   `QuotaReconciler` over a seeded pod churn (each ElasticQuota's `used`
   and every pod's capacity label), and `GroupPartitioner` with
   `HostAgent`s on test_fault_recovery.py's group before and after a
-  partitioner restart (the carve, the ack labels, the bindings), both
-  packages through `Binder` and the JAX package through its own
-  `ControlPlane` as well.
+  partitioner restart (the carve, the ack labels, the bindings), each
+  package through its own `ControlPlane`.
 
 The `pk` fixture resets both packages' `observability.metrics` registry
 before every case; every server binds port 0 and stops in a finalizer;
@@ -63,10 +62,11 @@ NAMES = {
     "controllers.quota": ["QuotaReconciler"],
     "controllers.slice_group": ["GroupPartitioner", "HostAgent"],
     "controllers.tpu_agent": ["TpuAgent"],
-    "partitioning.core.interface": ["FitSimScheduler"],
     "partitioning.state": ["ClusterState"],
     "partitioning.tpu_mode": ["TpuPartitioner", "TpuSnapshotTaker"],
     "scheduler.quota_info": ["ElasticQuotaInfos"],
+    "scheduler.scheduler": ["Scheduler"],
+    "system": ["ControlPlane", "SchedulerSim"],
     "scheduler.resource_calculator": ["ResourceCalculator"],
     "tpu": ["Profile", "Topology"],
     "tpulib": ["FakeTpuClient"],
@@ -811,115 +811,9 @@ class FakeClock:
         self.t += dt
 
 
-class Binder:
-    """The scheduler's bind pass, cut to what test_fault_recovery.py needs.
-
-    Pending pods of the scheduler's name go in (-priority, creation, name)
-    order. A gang binds all or nothing onto the hosts of one carved
-    sub-slice of the wanted topology (the smallest that holds it, then by
-    id). A single pod binds to the first node by name whose allocatable,
-    less its active pods' requests, holds it. A bound pod runs at once. A
-    pod that does not bind is marked Unschedulable (once), which is what
-    feeds the partitioners' batches."""
-
-    def __init__(self, pk, cluster):
-        self.pk = pk
-        self.cluster = cluster
-
-    def _free(self, nodes):
-        pk = self.pk
-        free = {name: pk.ResourceList.of(dict(n.status.allocatable)) for name, n in nodes.items()}
-        for pod in self.cluster.list("Pod"):
-            if pk.podutil.is_active(pod) and pod.spec.node_name in free:
-                free[pod.spec.node_name] = free[pod.spec.node_name].subtract(
-                    pk.compute_pod_request(pod))
-        return free
-
-    def _fits(self, pod, node, free):
-        labels = node.metadata.labels
-        return (all(labels.get(k) == v for k, v in pod.spec.node_selector.items())
-                and self.pk.compute_pod_request(pod).fits_in(free))
-
-    def schedule_pending(self):
-        pk = self.pk
-        nodes = {n.metadata.name: n for n in self.cluster.list("Node")}
-        free = self._free(nodes)
-        pending = sorted(
-            (p for p in self.cluster.list("Pod")
-             if p.spec.scheduler_name == pk.constants.SCHEDULER_NAME
-             and not p.spec.node_name and pk.podutil.is_pending(p)),
-            key=lambda p: (-p.spec.priority, p.metadata.creation_timestamp,
-                           p.metadata.namespaced_name))
-        bound, gangs = [], {}
-        for pod in pending:
-            gang = pk.podutil.gang_of(pod)
-            if gang is not None:
-                gangs.setdefault(gang, []).append(pod)
-                continue
-            target = next((n for n in sorted(nodes) if self._fits(pod, nodes[n], free[n])), None)
-            if target is None:
-                self._mark_unschedulable(pod)
-                continue
-            free[target] = free[target].subtract(pk.compute_pod_request(pod))
-            self._bind(pod, target)
-            bound.append((pod.metadata.namespaced_name, target))
-        for gang in sorted(gangs):
-            pods = sorted(gangs[gang], key=lambda p: p.metadata.name)
-            assignment = None
-            if len(pods) == pk.podutil.gang_size_of(pods[0]):
-                assignment = self._place_gang(pods, nodes, free)
-            if assignment is None:
-                for pod in pods:
-                    self._mark_unschedulable(pod)
-                continue
-            for pod, host in assignment:
-                self._bind(pod, host)
-                bound.append((pod.metadata.namespaced_name, host))
-        return {"bound": bound}
-
-    def _place_gang(self, pods, nodes, free):
-        C = self.pk.constants
-        wanted = self.pk.podutil.wanted_subslice_topology(pods[0])
-        by_subslice = {}
-        for name in sorted(nodes):
-            labels = nodes[name].metadata.labels
-            sid = labels.get(C.LABEL_TPU_SUBSLICE_ID)
-            if sid and (wanted is None or labels.get(C.LABEL_TPU_SUBSLICE_TOPOLOGY) == wanted.name):
-                by_subslice.setdefault(sid, []).append(name)
-        for sid in sorted(by_subslice, key=lambda s: (len(by_subslice[s]), s)):
-            hosts = [h for h in by_subslice[sid] if self._fits(pods[0], nodes[h], free[h])]
-            if len(hosts) >= len(pods):
-                return list(zip(pods, hosts))
-        return None
-
-    def _bind(self, pod, node_name):
-        pk = self.pk
-
-        def mutate(p):
-            p.spec.node_name = node_name
-            p.status.conditions = [c for c in p.status.conditions if c.type != "PodScheduled"]
-            p.status.conditions.append(
-                pk.PodCondition(type="PodScheduled", status="True", reason="Scheduled"))
-            p.status.phase = pk.PodPhase.RUNNING
-
-        self.cluster.patch("Pod", pod.metadata.namespace, pod.metadata.name, mutate)
-
-    def _mark_unschedulable(self, pod):
-        pk = self.pk
-        if pk.podutil.is_unschedulable(pod):
-            return
-
-        def mutate(p):
-            p.status.conditions = [c for c in p.status.conditions if c.type != "PodScheduled"]
-            p.status.conditions.append(
-                pk.PodCondition(type="PodScheduled", status="False", reason="Unschedulable"))
-
-        self.cluster.patch("Pod", pod.metadata.namespace, pod.metadata.name, mutate)
-
-
 class System:
-    """tests/test_full_system.py's `System` with `Binder` in the scheduler's
-    place: one TPU node (4x4) with its agent and the TPU partitioner."""
+    """tests/test_full_system.py's `System`: one TPU node (4x4) with its
+    agent, the TPU partitioner and the package's `Scheduler`."""
 
     def __init__(self, pk, topos={"tpu-node-0": "4x4"}):
         self.pk = pk
@@ -927,7 +821,7 @@ class System:
         self.state = pk.ClusterState()
         self.state.start_watching(self.cluster)
         self.clock = FakeClock()
-        self.scheduler = Binder(pk, self.cluster)
+        self.scheduler = pk.Scheduler(self.cluster)
         self.agents = {}
         for name, topo in topos.items():
             self.cluster.create(
@@ -952,7 +846,8 @@ class System:
             agent.startup()
             agent.start_watching()
             self.agents[name] = agent
-        self.controller = make_tpu_controller(pk, self.cluster, self.state, self.clock)
+        self.controller = make_tpu_controller(pk, self.cluster, self.state, self.clock,
+                                              self.scheduler)
         self.controller.start_watching()
 
     def submit(self, name, ns, resources, priority=0):
@@ -975,37 +870,25 @@ class System:
         return self.scheduler.schedule_pending()
 
 
-def make_tpu_controller(pk, cluster, state, clock):
+def make_tpu_controller(pk, cluster, state, clock, scheduler):
     return pk.PartitionerController(
         cluster=cluster,
         state=state,
         kind=pk.constants.KIND_TPU,
         snapshot_taker=pk.TpuSnapshotTaker(),
         partitioner=pk.TpuPartitioner(cluster),
-        sim_scheduler=pk.FitSimScheduler(),
+        sim_scheduler=pk.SchedulerSim(scheduler),
         now=clock,
     )
 
 
-class Plane:
-    """The group half of `ControlPlane` (test_multihost.py's
-    `build_plane`) with `Binder` in the scheduler's place."""
-
-    def __init__(self, pk):
-        self.pk = pk
-        self.clock = FakeClock()
-        self.cluster = pk.Cluster()
-        self.scheduler = Binder(pk, self.cluster)
-        self.group_partitioner = pk.GroupPartitioner(self.cluster, now=self.clock)
-        self.group_partitioner.start_watching()
-        self.host_agents = {}
-
-    def add_host_agent(self, node_name):
-        agent = self.pk.HostAgent(self.cluster, node_name)
-        agent.startup()
-        agent.start_watching()
-        self.host_agents[node_name] = agent
-        return agent
+def build_plane(pk):
+    """test_multihost.py's `build_plane`: the package's `ControlPlane` on a
+    fake clock (kept as `plane.clock`)."""
+    clock = FakeClock()
+    plane = pk.ControlPlane(now=clock).start()
+    plane.clock = clock
+    return plane
 
 
 def make_group(pk, plane, slice_id="s0", global_topo="8x8", host_topo="2x2", grid=(4, 4)):
@@ -1092,7 +975,7 @@ def test_partitioner_restart_is_stateless(pk):
     # "Restart": new mirror + controller from the live cluster only.
     state2 = pk.ClusterState()
     state2.start_watching(sys.cluster)
-    ctrl2 = make_tpu_controller(pk, sys.cluster, state2, sys.clock)
+    ctrl2 = make_tpu_controller(pk, sys.cluster, state2, sys.clock, sys.scheduler)
     ctrl2.start_watching()
     sys.clock.advance(61)
     ctrl2.process_batch_if_ready()
@@ -1127,7 +1010,7 @@ def test_agent_restart_preserves_used_cleans_free(pk):
 
 
 def test_host_agent_restart_reacks_assignment(pk):
-    plane = Plane(pk)
+    plane = build_plane(pk)
     clock = plane.clock
     names = make_group(pk, plane)
     submit_gang(pk, plane, "g", "ml", "4x8", size=8)
@@ -1149,7 +1032,7 @@ def test_host_agent_restart_reacks_assignment(pk):
 
 
 def test_group_partitioner_restart_is_stateless(pk):
-    plane = Plane(pk)
+    plane = build_plane(pk)
     clock = plane.clock
     make_group(pk, plane)
     submit_gang(pk, plane, "g", "ml", "4x8", size=8)
@@ -1213,19 +1096,12 @@ def group_restart_run(pk, plane):
 
 def test_group_carve_equal_across_packages_and_to_control_plane():
     """`GroupPartitioner` and `HostAgent`s on test_fault_recovery.py's
-    group: both packages carve, ack and bind alike before and after a
-    partitioner restart, and the JAX package's own `ControlPlane` (its
-    scheduler binding) gives the same outcome as `Binder`."""
-    from nos_tpu.system import ControlPlane
-
-    ref = group_restart_run(REF, Plane(REF))
-    port = group_restart_run(PORT, Plane(PORT))
+    group, each package through its own `ControlPlane` (its scheduler
+    binding): both carve, ack and bind alike before and after a partitioner
+    restart."""
+    ref = group_restart_run(REF, build_plane(REF))
+    port = group_restart_run(PORT, build_plane(PORT))
     assert port == ref
-
-    clock = FakeClock()
-    plane = ControlPlane(now=clock).start()
-    plane.clock = clock
-    assert group_restart_run(REF, plane) == ref
 
     before, after, last = ref
     assert before == after

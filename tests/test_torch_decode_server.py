@@ -260,7 +260,9 @@ def test_package_imports_neither_jax_nor_nos_tpu():
         "          'cluster.pod_resources_grpc', 'api.webhooks', 'runtime.mfu',\n"
         "          'tpu.packing', 'tpu.mesh', 'tpu.slice_group', 'util.leader', 'util.pod',\n"
         "          'tpulib.native_client', 'tpulib.local', 'tpulib.cloud',\n"
-        "          'tpulib.cloud_server'):\n"
+        "          'tpulib.cloud_server', 'config', 'system', 'sim', 'sim_oracle', 'cli',\n"
+        "          'scheduler.framework', 'scheduler.scheduler', 'scheduler.plugins.capacity',\n"
+        "          'scheduler.plugins.noderesources', 'scheduler.plugins.topology'):\n"
         "    assert 'nos_tpu_torch.' + m in sys.modules, m\n"
         "assert sys.modules['nos_tpu_torch.tpulib.native_client']._lib is None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -69,3 +69,18 @@ def test_pin_sees_lazy_and_dynamic_imports():
     assert foreign_imports(source) == [
         (4, "nos_tpu.controllers.health"), (7, "jax.numpy"), (8, "nos_tpu.tpu"), (9, "jax"),
     ]
+
+
+def test_pin_reads_the_scheduler_wiring_simulator_and_cli():
+    """The modules of ROADMAP A item 6 step 5 are among the sources read,
+    and each imports the port (so a rename cannot drop one silently)."""
+    sources = {str(path.relative_to(REPO)): path for path in port_sources()}
+    step5 = ["config.py", "system.py", "sim.py", "sim_oracle.py", "cli.py",
+             "scheduler/framework.py", "scheduler/scheduler.py",
+             "scheduler/plugins/__init__.py", "scheduler/plugins/capacity.py",
+             "scheduler/plugins/noderesources.py", "scheduler/plugins/topology.py"]
+    for rel in step5:
+        path = sources[f"nos_tpu_torch/{rel}"]
+        text = path.read_text()
+        assert f"`nos_tpu/{rel}:1`" in text, rel
+        assert foreign_imports(text, str(path)) == [], rel
