@@ -5,9 +5,10 @@ SliceServer, the mesh trainers, the measurement layer (runtime/mfu.py),
 the control plane's first layer (api/, cluster/), its device layer
 (tpu/, util/, tpulib/ with the native tpuslice shim, and the mesh a node's
 sub-slice label becomes), its partitioning plane (partitioning/,
-controllers/, gpu/) and its scheduler, wiring, simulator and CLI
-(scheduler/, config.py, system.py, sim.py, sim_oracle.py, cli.py) on one
-NVIDIA GPU and check them.
+controllers/, gpu/), its scheduler, wiring, simulator and CLI
+(scheduler/, config.py, system.py, sim.py, sim_oracle.py, cli.py) and its
+static-analysis suite (analysis/, `cli lint`) on one NVIDIA GPU's machine
+and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -23,6 +24,7 @@ NVIDIA GPU and check them.
     python3 chip_smoke.py --phases build,card,topology
     python3 chip_smoke.py --phases build,card,topology,partition
     python3 chip_smoke.py --phases build,card,topology,partition,schedule
+    python3 chip_smoke.py --phases build,card,lint
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -438,6 +440,23 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            for a seeded backlog of 10/20/40 GB pods. `python -m
            nos_tpu_torch.cli demo` exits 0. Prints one JSON line with the
            round times, the report, the agents, the card line and the
+           phase's seconds;
+  lint     the port's static-analysis suite (nos_tpu_torch/analysis/), no
+           kernel. `python -m nos_tpu_torch.cli lint nos_tpu_torch --format
+           json` in a subprocess from the repository root: cold
+           (`--no-cache`), then with its cache under the gitignored
+           `.nos-lint-cache-torch.json` (removed first: a cold run that
+           fills it), then warm. Gates: exit 0, zero findings, the
+           suppressed findings as many as the port's baseline
+           (lint-baseline-torch.txt) has entries, zero stale entries; the
+           filled and the warm runs' findings byte-identical to the cold
+           run's; the warm run parsed no file and reused the cross-file
+           findings. Then an engine file planted under a temporary
+           `runtime/` directory, whose `_tick` calls `.item()` and
+           `torch.tensor(..., device=...)`: the lint must exit 1 with
+           exactly NOS010 and NOS015 at those lines. Prints one `lint:`
+           JSON line with the cold and warm seconds, the files, findings
+           and suppressed, the planted findings, the card line and the
            phase's seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
@@ -7244,12 +7263,124 @@ def phase_schedule(torch, device, small=False):
     return out
 
 
+# -- phase: lint -------------------------------------------------------------------
+# The port's analyzer from the repository root, as a user runs it; a planted
+# engine file whose `_tick` blocks on the host (`.item()`) and uploads past
+# the staging funnel (`torch.tensor(..., device=)`) at PLANTED's lines.
+LINT = {"timeout_s": 300}
+PLANTED = {
+    "runtime/engine.py": (
+        "import torch\n"
+        "\n"
+        "class Engine:\n"
+        "    def _tick(self):\n"
+        "        n = self.lens[0].item()\n"
+        "        ids = torch.tensor(self.queue, device=self.device)\n"
+        "        return n, ids\n"
+    ),
+}
+PLANTED_FINDINGS = [("runtime/engine.py", 5, "NOS010"), ("runtime/engine.py", 6, "NOS015")]
+
+
+def lint_cli(args, timeout_s):
+    """`python -m nos_tpu_torch.cli lint <args> --format json` from the
+    repository root: (exit code, its JSON report, wall seconds)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "nos_tpu_torch.cli", "lint"] + args
+                         + ["--format", "json"], cwd=root, capture_output=True, text=True,
+                         timeout=timeout_s)
+    wall = time.perf_counter() - t
+    try:
+        report = json.loads(res.stdout)
+    except ValueError:
+        raise PhaseError(f"lint: `cli lint {' '.join(args)}` exited {res.returncode} "
+                         f"without a JSON report: {res.stdout[-1000:]} {res.stderr[-2000:]}")
+    return res.returncode, report, wall
+
+
+def phase_lint(torch, device):
+    """The port's static-analysis suite on the card's machine: see the
+    module docstring. No kernel."""
+    import os
+    import re
+    import tempfile
+
+    from nos_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    s = LINT
+    root = os.path.dirname(os.path.abspath(__file__))
+    entries = analysis.load_baseline(os.path.join(root, "lint-baseline-torch.txt"))
+    cache = os.path.join(root, analysis.CACHE_BASENAME)
+    out = {"card": card_line(torch, device), "baseline_entries": len(entries)}
+
+    def stats(report):
+        m = re.match(r"(\d+) files \((\d+) parsed, (\d+) reused from cache\), "
+                     r"cross-file (\w+), ([\d.]+)s", report["stats"])
+        check(m, f"lint: unreadable stats {report['stats']!r}")
+        return {"files": int(m[1]), "parsed": int(m[2]), "reused": int(m[3]),
+                "crossfile": m[4], "engine_s": float(m[5])}
+
+    def clean(what, rc, report):
+        check(rc == 0, f"lint: the {what} run exited {rc}: {report['findings'][:5]}")
+        check(report["findings"] == [], f"lint: {what} findings {report['findings'][:5]}")
+        check(report["suppressed"] == len(entries),
+              f"lint: {what} suppressed {report['suppressed']}, baseline {len(entries)}")
+        check(report["stale_baseline_entries"] == [],
+              f"lint: {what} stale {report['stale_baseline_entries']}")
+
+    rc, cold, cold_s = lint_cli(["nos_tpu_torch", "--no-cache"], s["timeout_s"])
+    clean("cold", rc, cold)
+    if os.path.exists(cache):
+        os.remove(cache)
+    try:
+        rc, filled, filled_s = lint_cli(["nos_tpu_torch"], s["timeout_s"])
+        clean("cache-filling", rc, filled)
+        rc, warm, warm_s = lint_cli(["nos_tpu_torch"], s["timeout_s"])
+        clean("warm", rc, warm)
+    finally:
+        if os.path.exists(cache):
+            os.remove(cache)
+    cold_st, filled_st, warm_st = stats(cold), stats(filled), stats(warm)
+    dump = json.dumps(cold["findings"], sort_keys=True)
+    for what, report in (("cache-filling", filled), ("warm", warm)):
+        check(json.dumps(report["findings"], sort_keys=True) == dump,
+              f"lint: the {what} findings differ from the cold run's")
+    check(cold_st["parsed"] == cold_st["files"] == filled_st["parsed"],
+          f"lint: cold runs parsed {cold_st['parsed']} and {filled_st['parsed']} of "
+          f"{cold_st['files']} files")
+    check(warm_st["parsed"] == 0 and warm_st["reused"] == warm_st["files"]
+          and warm_st["crossfile"] == "reused", f"lint: the warm run did not reuse: {warm_st}")
+    out.update(files=cold_st["files"], findings=len(cold["findings"]),
+               suppressed=cold["suppressed"], stale=len(cold["stale_baseline_entries"]),
+               cold_s=cold_s, cold_engine_s=cold_st["engine_s"], filled_s=filled_s,
+               warm_s=warm_s, warm_engine_s=warm_st["engine_s"], warm_parsed=warm_st["parsed"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel, source in PLANTED.items():
+            os.makedirs(os.path.join(tmp, os.path.dirname(rel)), exist_ok=True)
+            with open(os.path.join(tmp, rel), "w") as fh:
+                fh.write(source)
+        rc, planted, planted_s = lint_cli(
+            [tmp, "--root", tmp, "--no-cache", "--no-baseline"], s["timeout_s"])
+    found = sorted((f["path"], f["line"], f["code"]) for f in planted["findings"])
+    check(rc == 1 and found == PLANTED_FINDINGS,
+          f"lint: the planted engine gave exit {rc} and {found}, not {PLANTED_FINDINGS}")
+    out["planted"] = {"exit": rc, "findings": [list(f) for f in found], "wall_s": planted_s}
+    out["phase_s"] = time.perf_counter() - t0
+    log("lint: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
                             "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition,"
-                            "schedule")
+                            "schedule,lint")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -7284,6 +7415,7 @@ def main(argv=None):
         phase_topology(torch, torch.device("cpu"), small=True)
         phase_partition(torch, torch.device("cpu"))
         phase_schedule(torch, torch.device("cpu"), small=True)
+        phase_lint(torch, torch.device("cpu"))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7356,9 +7488,13 @@ def main(argv=None):
     schedule = None
     if "schedule" in phases:
         schedule = phase_schedule(torch, torch.device("cuda"))
+    lint = None
+    if "lint" in phases:
+        lint = phase_lint(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
-                disagg, dense, train, vit, mesh, control, topology, partition, schedule):
+                disagg, dense, train, vit, mesh, control, topology, partition, schedule,
+                lint):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])

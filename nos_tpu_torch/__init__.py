@@ -28,8 +28,10 @@ capacity, node-resources and TPU-topology `scheduler.plugins`), the
 component configs (`config`), the one-process `system.ControlPlane` and
 its `build_*` functions (`system`), the north-star capacity simulator and its
 fungible-chip floor (`sim`, `sim_oracle`) and the binaries' entry point
-(`cli`, `python -m nos_tpu_torch.cli` or `nos-tpu-torch`; `lint` waits
-for the port of `analysis/`).
+(`cli`, `python -m nos_tpu_torch.cli` or `nos-tpu-torch`); and the
+static-analysis suite behind `cli lint` (`analysis`: the engine, the call
+graph, the baseline and cache, and the checkers, six of them with rules
+written for PyTorch).
 
 A package of its own beside the JAX package, which stays the reference. It
 imports `torch` and numpy, never `jax` and nothing of `nos_tpu`; each module
@@ -38,28 +40,53 @@ bit for bit (`prng`). Entry points run on CUDA unless the caller passes
 `device="cpu"`, where the kernels' plain versions run.
 """
 
-# Before the imports: telemetry's ClusterReport reads it while this package
-# is still initialising.
 __version__ = "0.1.0"
 
-from nos_tpu_torch.models.checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from nos_tpu_torch.models.data import (prefetch_to_device, prefetch_to_mesh,
-                                       synthetic_token_stream)
-from nos_tpu_torch.models.decode import decode_step, generate, init_cache, prefill
-from nos_tpu_torch.models.gpt import GPTConfig, gpt_forward, gpt_loss, init_gpt
-from nos_tpu_torch.models.params import from_numpy_params
-from nos_tpu_torch.models.train import TrainConfig, init_train_state, make_train_step
-from nos_tpu_torch.models.vit import ViTConfig, init_vit, vit_detect, vit_forward
-from nos_tpu_torch.ops.flash_attention import flash_attention
-from nos_tpu_torch.runtime.decode_server import DecodeServer
-from nos_tpu_torch.runtime.slice_server import SliceServer
+import importlib
 
-__all__ = [
-    "DecodeServer", "GPTConfig", "init_gpt", "from_numpy_params",
-    "init_cache", "prefill", "decode_step", "generate",
-    "gpt_forward", "gpt_loss", "flash_attention",
-    "TrainConfig", "init_train_state", "make_train_step",
-    "synthetic_token_stream", "prefetch_to_device", "prefetch_to_mesh",
-    "save_checkpoint", "latest_step", "restore_checkpoint",
-    "ViTConfig", "init_vit", "vit_forward", "vit_detect", "SliceServer",
-]
+#: The entry points, by the module that defines each. They load on first use
+#: (PEP 562 `__getattr__`): like the reference's package, which imports
+#: nothing, importing this one (the CLI, the control plane, `cli lint`)
+#: loads no torch until a model, kernel or engine is asked for.
+_EXPORTS = {
+    "DecodeServer": "runtime.decode_server",
+    "GPTConfig": "models.gpt",
+    "init_gpt": "models.gpt",
+    "from_numpy_params": "models.params",
+    "init_cache": "models.decode",
+    "prefill": "models.decode",
+    "decode_step": "models.decode",
+    "generate": "models.decode",
+    "gpt_forward": "models.gpt",
+    "gpt_loss": "models.gpt",
+    "flash_attention": "ops.flash_attention",
+    "TrainConfig": "models.train",
+    "init_train_state": "models.train",
+    "make_train_step": "models.train",
+    "synthetic_token_stream": "models.data",
+    "prefetch_to_device": "models.data",
+    "prefetch_to_mesh": "models.data",
+    "save_checkpoint": "models.checkpoint",
+    "latest_step": "models.checkpoint",
+    "restore_checkpoint": "models.checkpoint",
+    "ViTConfig": "models.vit",
+    "init_vit": "models.vit",
+    "vit_forward": "models.vit",
+    "vit_detect": "models.vit",
+    "SliceServer": "runtime.slice_server",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -1,11 +1,12 @@
 """Port of `nos_tpu/cli.py:1` (:1-768): `cmd_operator` (:127), `cmd_scheduler`
 (:185), `cmd_partitioner` (:210), `cmd_tpu_agent` (:243), `cmd_gpu_agent`
 (:296), `cmd_telemetry` (:330), `cmd_apiserver` (:339), `cmd_demo` (:362),
-`cmd_simulate` (:423), `main` (:594). Copied verbatim; only the imports
-point at the port, which imports nothing of the JAX package, and the
-logger and program names are the port's. `lint` (`cmd_lint` :526, its
-parser :717) is left out: it runs `nos_tpu/analysis/`, whose port has not
-been written yet, and arrives with it.
+`cmd_simulate` (:423), `cmd_lint` (:526), `main` (:594). Copied verbatim;
+only the imports point at the port, which imports nothing of the JAX
+package, and the logger and program names are the port's. `lint` runs the
+port's analyzer (`nos_tpu_torch/analysis/`) over `nos_tpu_torch` by default,
+against the port's own baseline (`lint-baseline-torch.txt`) and cache
+(`.nos-lint-cache-torch.json`).
 
 Command-line entry points — the analog of the reference's six binaries
 (cmd/: operator, scheduler, gpupartitioner, migagent, gpuagent,
@@ -19,6 +20,7 @@ metricsexporter; SURVEY.md §2.1).
     python -m nos_tpu_torch.cli telemetry       [--share]
     python -m nos_tpu_torch.cli demo            # single-process full system demo
     python -m nos_tpu_torch.cli simulate        # north-star capacity simulation
+    python -m nos_tpu_torch.cli lint            # domain-aware static analysis
 
 Outside a k8s deployment these run against the in-process cluster bus; the
 `demo` subcommand assembles the whole control plane, carves a mesh for a
@@ -531,6 +533,70 @@ def _simulate_multihost(args) -> int:
     return 0
 
 
+#: The port's committed suppression baseline, read from the working
+#: directory as the reference reads `lint-baseline.txt`.
+LINT_BASELINE = "lint-baseline-torch.txt"
+
+
+def cmd_lint(args) -> int:
+    """Domain-aware static analysis (docs/static-analysis.md): wire-protocol
+    literals, protocol round-trips, exception hygiene, lock discipline,
+    capture/compile trace-safety, and the interprocedural checkers (graph
+    replay outputs, replay purity, telemetry schema). Incremental by
+    default: per-file findings are reused from `.nos-lint-cache-torch.json`
+    when content hashes match (`--no-cache` for a guaranteed-cold run).
+    Exit 0 iff every finding is baseline-covered."""
+    from nos_tpu_torch import analysis
+
+    baseline = args.baseline
+    if baseline is None and not args.no_baseline and os.path.exists(LINT_BASELINE):
+        baseline = LINT_BASELINE
+    engine = analysis.Engine(analysis.all_checkers(), root=args.root)
+    select = [c.strip() for c in args.select.split(",")] if args.select else None
+    cache = None
+    if not args.no_cache:
+        cache_path = os.path.join(engine.root, analysis.CACHE_BASENAME)
+        cache = analysis.LintCache(cache_path, analysis.package_salt(select))
+    findings = engine.run(args.paths, select=select, cache=cache)
+    if cache is not None:
+        cache.write()
+    if args.write_baseline:
+        analysis.write_baseline(findings, args.write_baseline)
+        print(f"wrote {len(findings)} entries to {args.write_baseline} "
+              "(fill in the rationale comments before committing)")
+        return 0
+    suppressed, stale = [], []
+    if baseline and not args.no_baseline:
+        entries = analysis.load_baseline(baseline)
+        findings, suppressed, stale = analysis.apply_baseline(findings, entries)
+    if args.format == "json":
+        print(json.dumps(
+            {
+                "findings": [
+                    {"path": f.path, "line": f.line, "code": f.code, "message": f.message}
+                    for f in findings
+                ],
+                "suppressed": len(suppressed),
+                "stale_baseline_entries": [e.render() for e in stale],
+                "stats": engine.stats.summary(),
+            },
+            indent=2,
+        ))
+        return 1 if findings else 0
+    for f in findings:
+        print(f.render())
+    for e in stale:
+        print(f"stale baseline entry (matches nothing, remove it): {e.render()}",
+              file=sys.stderr)
+    print(
+        f"nos-tpu-torch lint: {len(findings)} finding(s), "
+        f"{len(suppressed)} suppressed by baseline, {len(stale)} stale entr(y/ies) "
+        f"[{engine.stats.summary()}]",
+        file=sys.stderr,
+    )
+    return 1 if findings else 0
+
+
 def _wait(args) -> int:
     if args.once:
         return 0
@@ -664,6 +730,40 @@ def main(argv=None) -> int:
         help="chips per host VM in --multihost mode",
     )
 
+    p_lint = sub.add_parser("lint", help="domain-aware static analysis")
+    p_lint.add_argument("paths", nargs="*", default=["nos_tpu_torch"])
+    p_lint.add_argument(
+        "--baseline",
+        default=None,
+        help=f"suppression baseline file (default: ./{LINT_BASELINE} when present)",
+    )
+    p_lint.add_argument(
+        "--no-baseline", action="store_true", help="report findings ignoring any baseline"
+    )
+    p_lint.add_argument(
+        "--write-baseline",
+        default=None,
+        metavar="FILE",
+        help="write current findings as a fresh baseline to FILE and exit 0",
+    )
+    p_lint.add_argument(
+        "--select", default=None, help="comma-separated checker codes (e.g. NOS001,NOS005)"
+    )
+    p_lint.add_argument(
+        "--root", default=None, help="path findings are reported relative to (default: cwd)"
+    )
+    p_lint.add_argument(
+        "--format",
+        choices=("text", "json"),
+        default="text",
+        help="output format: human text (default) or a machine-readable JSON object",
+    )
+    p_lint.add_argument(
+        "--no-cache",
+        action="store_true",
+        help="skip the incremental cache (.nos-lint-cache-torch.json) — guaranteed cold run",
+    )
+
     args = parser.parse_args(argv)
     handlers = {
         "operator": cmd_operator,
@@ -675,6 +775,7 @@ def main(argv=None) -> int:
         "apiserver": cmd_apiserver,
         "demo": cmd_demo,
         "simulate": cmd_simulate,
+        "lint": cmd_lint,
     }
     return handlers[args.command](args)
 

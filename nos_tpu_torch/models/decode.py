@@ -382,18 +382,24 @@ def init_paged_cache(cfg: GPTConfig, total_blocks: int, block_size: int,
     quant = kv_dtype == constants.KV_DTYPE_INT8
     shape = (total_blocks, cfg.n_kv, block_size, cfg.head_dim)
     dtype = torch.int8 if quant else cfg.torch_dtype
-    pool = {
+
+    def _zeros():
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def _scales():
+        return torch.zeros((total_blocks,), dtype=torch.float32, device=device)
+
+    if not quant:
+        return {str(i): {"k": _zeros(), "v": _zeros()} for i in range(cfg.layers)}
+    return {
         str(i): {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "k": _zeros(),
+            "v": _zeros(),
+            "k_scale": _scales(),
+            "v_scale": _scales(),
         }
         for i in range(cfg.layers)
     }
-    if quant:
-        for lc in pool.values():
-            lc["k_scale"] = torch.zeros((total_blocks,), dtype=torch.float32, device=device)
-            lc["v_scale"] = torch.zeros((total_blocks,), dtype=torch.float32, device=device)
-    return pool
 
 
 def _page_of(table, positions, block_size: int):

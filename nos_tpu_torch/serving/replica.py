@@ -320,7 +320,7 @@ class ReplicaSet:
         if prewarm and pw is not None:
             try:
                 pw()
-            except Exception:  # prewarm is best-effort, not a recovery path
+            except Exception:  # nos-lint: ignore[NOS012] prewarm is best-effort, not a recovery path
                 # Prewarm is a performance head start, never a liveness
                 # dependency: a cold replica is still a correct replica.
                 logger.warning(

@@ -432,7 +432,7 @@ class FleetSupervisor:
         def runner():
             try:
                 box.set_result(fn(*args, **kwargs))
-            except BaseException as exc:  # not a
+            except BaseException as exc:  # nos-lint: ignore[NOS012] — not a
                 # swallow: the exception is DELIVERED through the box and
                 # re-raised in supervised_call's caller thread, where it
                 # classifies through the taxonomy like an inline failure.
