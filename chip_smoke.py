@@ -7,8 +7,10 @@ the control plane's first layer (api/, cluster/), its device layer
 sub-slice label becomes), its partitioning plane (partitioning/,
 controllers/, gpu/), its scheduler, wiring, simulator and CLI
 (scheduler/, config.py, system.py, sim.py, sim_oracle.py, cli.py) and its
-static-analysis suite (analysis/, `cli lint`) on one NVIDIA GPU's machine
-and check them.
+static-analysis suite (analysis/, `cli lint`), and the repository's entry
+points outside the package (examples/end_to_end_torch.py,
+examples/sharing-comparison/run_local_torch.py) on one NVIDIA GPU's
+machine and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
@@ -25,6 +27,7 @@ and check them.
     python3 chip_smoke.py --phases build,card,topology,partition
     python3 chip_smoke.py --phases build,card,topology,partition,schedule
     python3 chip_smoke.py --phases build,card,lint
+    python3 chip_smoke.py --phases build,card,examples
     python3 chip_smoke.py --rehearse      # tiny models on the CPU, plain versions
 
 Phases, in order (any failure exits non-zero; nothing is caught and passed over):
@@ -42,8 +45,10 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            f32, bf16 and int8 with scales (max|err| <= 1e-4 for f32, 5e-3 for
            bf16 and 2e-2 for int8, and <= 2e-2 of max|want| for bf16 and
            int8). Flash kernels (forward o and lse, dq, dk/dv) at the training
-           shape [8, 8, 2048, 256] bf16 causal, and at head_dim 64 and 128, T
-           177 and 1000, non-causal and f32 (each entry's error against its
+           shape [8, 8, 2048, 256] bf16 causal, at head_dim 64 and 128, T
+           177 and 1000, non-causal and f32, and at head_dim 16, 32 and 96
+           (zero-padded to 64 or 128 by the entry points) in both dtypes,
+           causal and not, T 177, 1000 and 300 (each entry's error against its
            own size and its row's, flash_err <= FLASH_TOL, a bound for each
            output; planted faults at the training shape must fail those
            bounds). The dense decode kernel at the bench GPT's heads over a
@@ -457,7 +462,30 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            exactly NOS010 and NOS015 at those lines. Prints one `lint:`
            JSON line with the cold and warm seconds, the files, findings
            and suppressed, the planted findings, the card line and the
-           phase's seconds.
+           phase's seconds;
+  examples the repository's entry points outside the package, through
+           their own functions. examples/end_to_end_torch.py: the control
+           plane carves `tpu-node-0` (v5e 4x4) and binds a pod asking for
+           `google.com/tpu-2x4`; the 2x4 becomes a dp 2 x tp 4 mesh over
+           `["cuda:0"] * 8`; five bf16 train steps of the example's GPT
+           (head_dim 16: the flash kernels at the padded width 64), the
+           flash launch counts zeroed just before and read just after (one
+           launch of each kernel a layer, a position and a step, all
+           "mma"), the losses finite and within EXAMPLES_LOSS_RTOL of the
+           same steps through the plain formula; the gathered params served
+           through DecodeServer (the paged counts zeroed just before and
+           read just after: decode launches all "split", window launches
+           above zero), 8 tokens held by the teacher-forced oracle
+           (check_logits). examples/sharing-comparison/run_local_torch.py:
+           `run_point` at 1/3/5/7 clients, shared and sequential, on
+           YOLOS-small at its defaults (224 px, bf16; no kernel, as in the
+           reference); every served result against its image alone
+           within VIT_TOL, the shared mode batching (requests per batch
+           above 1 from 3 clients on); the per-request means printed
+           beside upstream nos's A100 table, recorded, not gated. Then the
+           three flash kernels timed at head_dim 16 (FLASH_D16). Prints one
+           `examples:` JSON line with the card line and the phase's
+           seconds.
 
 The line before the last is the `kernels` JSON object (the two paged, the
 three flash, the dense decode and the two sharded paged entry points,
@@ -474,8 +502,10 @@ window and flash launch "mma"; the two paged entries also carry
 fleet and disagg phases' bf16 serving launches by route, and `disagg_32k`,
 the kernel checked and timed at the 32k cell's shape; the three flash
 entries carry `vit_launches` and `mesh_launches`, the vit phase's flash arm
-and the mesh phase's sharded step by route, and flash_fwd `vit_1124`, the
-kernel checked and timed at the ViT flash arm's shape);
+and the mesh phase's sharded step by route, flash_fwd `vit_1124`, the
+kernel checked and timed at the ViT flash arm's shape, and `d16`, each
+flash kernel timed at head_dim 16; the paged and flash entries carry
+`examples_launches`, the examples phase's end-to-end launches by route);
 the last line is {"ok": true, "device": {...}}, printed only when every
 phase passed.
 """
@@ -535,6 +565,11 @@ FLASH_CHECKS = [
     (1, 4, 1000, 128, "float32", False),
     (1, 4, 1000, 128, "bfloat16", True),
     (1, 8, 2048, 64, "bfloat16", True),
+    # head_dim 16, 32 and 96, zero-padded to 64 or 128 by the entry points
+    # (ops/flash_attention.py `_widen`): both dtypes, causal and not, a
+    # ragged T.
+    *[(2, 4, t, d, dtype, causal) for d, t in ((16, 177), (32, 1000), (96, 300))
+      for dtype in ("float32", "bfloat16") for causal in (True, False)],
 ]
 FLASH_MAIN = FLASH_CHECKS[0]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1017,19 +1052,20 @@ def flash_work(b, h, t, d, causal, itemsize):
     }
 
 
-def time_flash(torch):
-    """Each flash kernel, its plain version and the library call at the
-    training shape (FLASH_MAIN), with its bound. The library is
-    scaled_dot_product_attention(is_causal=True): its forward for
+def time_flash(torch, shape=FLASH_MAIN):
+    """Each flash kernel, its plain version and the library call at `shape`
+    (b, h, t, d, dtype, causal; the training shape by default), with its
+    bound. The library is scaled_dot_product_attention: its forward for
     flash_fwd, and for both backward kernels one autograd call of its
-    backward, which computes dq, dk and dv together. Also SDPA's forward +
-    backward pair and the pair's floor (runtime/mfu.py)."""
+    backward, which computes dq, dk and dv together. At the training shape
+    also SDPA's forward + backward pair and the pair's floor
+    (runtime/mfu.py)."""
     import torch.nn.functional as F
 
     from nos_tpu_torch.ops import flash_attention as fa
     from nos_tpu_torch.runtime.mfu import H100_BF16_PEAK_FLOPS, flash_pair_floor_ms
 
-    b, h, t, d, dtype, causal = FLASH_MAIN
+    b, h, t, d, dtype, causal = shape
     gen = torch.Generator(device="cuda").manual_seed(3)
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dt)
@@ -1074,9 +1110,10 @@ def time_flash(torch):
             "flops": flops, "bytes": nbytes,
         }
         out_t[name]["tflops"] = flops / out_t[name]["ms"] / 1e9
-    out_t["sdpa_pair_ms"] = time_cuda(torch, sdpa_pair, iters=10)
-    out_t["pair_floor_ms"] = flash_pair_floor_ms(b, h, t, d, H100_BF16_PEAK_FLOPS)
-    log("flash_times " + json.dumps(out_t))
+    if shape == FLASH_MAIN:
+        out_t["sdpa_pair_ms"] = time_cuda(torch, sdpa_pair, iters=10)
+        out_t["pair_floor_ms"] = flash_pair_floor_ms(b, h, t, d, H100_BF16_PEAK_FLOPS)
+    log(f"flash_times {list(shape)} " + json.dumps(out_t))
     return out_t
 
 
@@ -7375,12 +7412,170 @@ def phase_lint(torch, device):
     return out
 
 
+# -- phase: examples ------------------------------------------------------------
+# The repo's entry points outside the package, on the port:
+# examples/end_to_end_torch.py (carve, mesh, train, serve) and
+# examples/sharing-comparison/run_local_torch.py (the 1/3/5/7 sweep).
+EXAMPLES_WORKLOADS = (1, 3, 5, 7)
+# The end-to-end example's five dp 2 x tp 4 bf16 steps through the flash
+# kernels against the same steps with the kernel's plain formula
+# (`plain_flash`): the max relative difference of the per-step loss. First
+# set at 2e-3, about half a bf16 step; measured 2.51e-4 on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md).
+EXAMPLES_LOSS_RTOL = 2e-3
+# The flash kernels timed at head_dim 16: the end-to-end example's shape at
+# a mesh position (batch 8 / dp 2, 4 heads / tp 4, T 32), and the training
+# batch's 8 x 8 x 2048.
+FLASH_D16 = ((4, 1, 32, 16, "bfloat16", True), (8, 8, 2048, 16, "bfloat16", True))
+
+
+def load_script(rel, name):
+    """A script of the repository (`rel` from its root) as module `name`."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_end_to_end(torch, device):
+    """examples/end_to_end_torch.py's three acts through its functions: the
+    carve and bind, five dp 2 x tp 4 steps on `["cuda:0"] * 8` (the flash
+    launch counts zeroed just before and read just after; then the same
+    steps through the plain formula), and the gathered params served (the
+    paged kernels' counts zeroed just before and read just after; the
+    served tokens held by the teacher-forced oracle)."""
+    from nos_tpu_torch.models.train import TrainConfig
+    from nos_tpu_torch.ops import flash_attention as fa
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    ex = load_script("examples/end_to_end_torch.py", "end_to_end_torch")
+    cuda = device.type == "cuda"
+    model = ex.MODEL
+    out = {}
+
+    def say(line):
+        log(f"examples e2e: {line}")
+
+    bound = ex.carve_and_bind(say=say)
+    check(bound["node"] == "tpu-node-0" and bound["carved"] == {"google.com/tpu-2x4": 1},
+          f"examples e2e: bind and carve {bound}")
+    mesh = ex.carve_mesh(device)
+    check(mesh.shape == {"dp": 2, "tp": 4} and len(mesh.devices) == 8
+          and len(set(mesh.devices)) == 1 and mesh.devices[0].type == device.type,
+          f"examples e2e: mesh {mesh}")
+    out.update(bound=bound, mesh={"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]},
+               head_dim=model.head_dim, dtype=model.dtype)
+    cfg = TrainConfig(model=model)
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    params, losses = ex.train_on_mesh(cfg, mesh, say=say)
+    out["train_s"] = time.perf_counter() - t
+    out["flash_launches"] = dict(fa.LAUNCHES)
+    out["flash_routes"] = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
+    check(len(losses) == ex.STEPS and all(np.isfinite(losses)),
+          f"examples e2e: losses {losses}")
+    if cuda:
+        # One launch of each kernel a layer, a mesh position and a step.
+        want = {n: model.layers * len(mesh.devices) * ex.STEPS for n in FLASH_KERNELS}
+        check(out["flash_launches"] == want,
+              f"examples e2e: flash launches {out['flash_launches']}, want {want}")
+        for name in FLASH_KERNELS:
+            check_routes(out["flash_routes"], name, "mma", "examples e2e")
+    with plain_flash():
+        _, plain = ex.train_on_mesh(cfg, ex.carve_mesh(device), say=lambda _: None)
+    out["losses"], out["plain_losses"] = losses, plain
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    check(out["loss_rel"] <= EXAMPLES_LOSS_RTOL,
+          f"examples e2e: kernel losses {losses} against plain {plain}: "
+          f"{out['loss_rel']} > {EXAMPLES_LOSS_RTOL}")
+    pa.reset_launch_counts()
+    t = time.perf_counter()
+    tokens = ex.serve_trained(params, model, device, say=say)
+    out["serve_s"] = time.perf_counter() - t
+    out["paged_launches"] = dict(pa.LAUNCHES)
+    out["paged_routes"] = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+    check(len(tokens) == ex.MAX_NEW and all(0 <= x < model.vocab for x in tokens),
+          f"examples e2e: served {tokens}")
+    if cuda:
+        check_routes(out["paged_routes"], "paged_decode_attention", "split", "examples e2e")
+        check(out["paged_launches"]["paged_window_attention"] > 0,
+              f"examples e2e: window launches {out['paged_launches']}")
+    out["tokens"] = tokens
+    out["oracle"] = TeacherForced(torch, params.gather(), model, (8, 16, 32), device)(
+        [ex.PROMPT], [tokens], model.dtype)
+    check_logits(out["oracle"], "examples e2e")
+    return out
+
+
+def examples_sharing(torch, device, small):
+    """run_local_torch's `run_point` at 1/3/5/7 clients in both modes on
+    YOLOS-small at its defaults (bf16, seed-0 weights; a one-layer 32 px
+    model for a rehearsal): every served result held against its image
+    alone (vit_agreement within VIT_TOL), the shared mode's SliceServer
+    batching (requests per batch above 1 from 3 clients on), the means
+    printed beside upstream nos's A100 table, recorded, not gated."""
+    from nos_tpu_torch.models.vit import init_vit
+
+    rl = load_script("examples/sharing-comparison/run_local_torch.py", "run_local_torch")
+    cfg = vit_model("bfloat16", small)
+    params = init_vit(cfg, torch.Generator().manual_seed(0), device=device)
+    rows = {}
+    for mode in ("shared", "sequential"):
+        for n in EXAMPLES_WORKLOADS:
+            t = time.perf_counter()
+            point = rl.run_point(cfg, params, n, mode, device)
+            what = f"examples sharing {mode} N={n}"
+            agree = vit_agreement(torch, point["results"],
+                                  vit_alone(torch, cfg, params, point["images"]), cfg.dtype,
+                                  VIT_TOL[cfg.dtype], what)
+            if mode == "shared" and n >= 3:
+                check(point["requests_per_batch"] > 1,
+                      f"{what}: {point['requests_per_batch']} requests a batch")
+            rows.setdefault(n, {})[mode] = {
+                "mean_s": point["mean_s"], "batches_run": point["batches_run"],
+                "requests_served": point["requests_served"],
+                "requests_per_batch": point["requests_per_batch"],
+                "max_score_err": agree["max_score_err"], "max_box_err": agree["max_box_err"],
+                "label_mismatches": agree["label_mismatches"],
+                "point_s": time.perf_counter() - t}
+    log(f"examples sharing: {card_line(torch, device)}; mean s a request, this port beside "
+        "upstream nos's published A100 table (BASELINE.md)")
+    log(f"{'N':>3} {'shared':>10} {'sequential':>10} {'A100 MPS':>9} {'A100 MIG':>9} "
+        f"{'A100 t-slice':>12}")
+    for n, r in rows.items():
+        log(f"{n:>3} {r['shared']['mean_s']:>10.4f} {r['sequential']['mean_s']:>10.4f} "
+            + " ".join(f"{rl.REFERENCE[k][n]:>{w}.4f}"
+                       for k, w in (("mps", 9), ("mig", 9), ("time-slicing", 12))))
+    return {"model": dataclasses.asdict(cfg), "rows": rows, "reference_a100": rl.REFERENCE}
+
+
+def phase_examples(torch, device, small=False):
+    """The end-to-end example and the sharing sweep (see the module
+    docstring), then, on the card, the flash kernels timed at head_dim 16
+    (FLASH_D16)."""
+    t0 = time.perf_counter()
+    out = {"card": card_line(torch, device)}
+    out["e2e"] = examples_end_to_end(torch, device)
+    out["sharing"] = examples_sharing(torch, device, small)
+    if device.type == "cuda":
+        out["flash_d16"] = {"x".join(map(str, shape[:4])): time_flash(torch, shape)
+                            for shape in FLASH_D16}
+    out["phase_s"] = time.perf_counter() - t0
+    log("examples: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
                             "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition,"
-                            "schedule,lint")
+                            "schedule,lint,examples")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -7416,6 +7611,7 @@ def main(argv=None):
         phase_partition(torch, torch.device("cpu"))
         phase_schedule(torch, torch.device("cpu"), small=True)
         phase_lint(torch, torch.device("cpu"))
+        phase_examples(torch, torch.device("cpu"), small=True)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7491,10 +7687,13 @@ def main(argv=None):
     lint = None
     if "lint" in phases:
         lint = phase_lint(torch, torch.device("cuda"))
+    examples = None
+    if "examples" in phases:
+        examples = phase_examples(torch, torch.device("cuda"))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     if None in (worst, engine, graph, tp, radix, spec, quant, faults, quota, trace, fleet,
                 disagg, dense, train, vit, mesh, control, topology, partition, schedule,
-                lint):
+                lint, examples):
         return 0
     launches = dict(engine["launches"], **dense["bfloat16"]["launches"],
                     **train["timed"]["launches"])
@@ -7536,6 +7735,8 @@ def main(argv=None):
             "disagg_launches": disagg["main"]["routes"][name],
             "disagg_32k": disagg["kernels_32k"][
                 "decode" if name == "paged_decode_attention" else "window"],
+            # The end-to-end example's serving act (head_dim 16), by route.
+            "examples_launches": examples["e2e"]["paged_routes"][name],
         })
     flash_replaces = {"flash_fwd": "nos_tpu/ops/flash_attention.py:77",
                       "flash_bwd_dq": "nos_tpu/ops/flash_attention.py:234",
@@ -7553,6 +7754,12 @@ def main(argv=None):
             # phase's sharded train step (dp 2 x tp 2), by route.
             "vit_launches": vit["flash"]["routes"][name],
             "mesh_launches": mesh["dp2_tp2"]["routes"][name],
+            # The end-to-end example's training act (dp 2 x tp 4, head_dim 16
+            # padded to 64), by route, and the kernel timed at head_dim 16.
+            "examples_launches": examples["e2e"]["flash_routes"][name],
+            "d16": {key: {k: t16[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
+                for key, t16 in examples["flash_d16"].items()},
         }
         if name == "flash_fwd":
             entry["vit_1124"] = {k: vit["flash"]["kernel"][k] for k in (

@@ -20,6 +20,15 @@ kernels compute, in f32, over the whole [T, T] score matrix:
 main path went through them, and `ROUTE_LAUNCHES` the same launches by
 route: each of the three kernels takes "mma", a tensor-core kernel, for
 bf16 inputs (`_flash_route`), and "simt" for f32.
+
+The kernels are built for head_dim 64, 128 and 256; the reference's Pallas
+block takes the whole head_dim, whatever it is (:171). So every CUDA entry
+point takes any head_dim up to 256: q, k, v (and dO) get zero columns up to
+the next of those widths (`_widen`) and the outputs are sliced back. The
+arithmetic is exact: the zero columns add nothing to q k^T, so S and lse
+are unchanged while the scale is the real width's (the caller's), and o,
+dq, dk and dv come out with zero columns there, so D = rowsum(dO * O) is
+unchanged too.
 """
 
 from __future__ import annotations
@@ -58,10 +67,10 @@ def reset_launch_counts() -> None:
 
 def _flash_route(q) -> str:
     """The route of the forward, dq and dk/dv kernels alike, a pure
-    function of dtype and shape: "mma" (the tensor-core kernels) for bf16
-    at head_dim 64, 128 or 256, "simt" otherwise (f32; the kernels take no
-    other head_dim, and the simt kernels refuse bf16)."""
-    return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS else "simt"
+    function of dtype and the padded head_dim (64, 128 or 256, which every
+    accepted head_dim pads to): "mma" (the tensor-core kernels) for bf16,
+    "simt" for f32 (the simt kernels refuse bf16)."""
+    return "mma" if q.dtype == torch.bfloat16 else "simt"
 
 
 # -- plain versions ------------------------------------------------------------
@@ -181,8 +190,9 @@ def _lib():
 
 def _check(q, *others) -> Tuple[int, int, int]:
     """q and the [B,H,T,D] tensors beside it: one CUDA device, one dtype
-    (f32 or bf16), one shape, contiguous, D in 64/128/256. The f32 [B,H,T]
-    rows (lse, D) are checked by the callers. Returns (bh, t, d)."""
+    (f32 or bf16), one shape, contiguous, D at most 256 (the launchers see
+    it padded to 64, 128 or 256). The f32 [B,H,T] rows (lse, D) are checked
+    by the callers. Returns (bh, t, d)."""
     _require(q.dim() == 4, f"flash attention takes [B, H, T, D], got {tuple(q.shape)}")
     _require(q.dtype in _DTYPE_CODE, f"q must be float32 or bfloat16, got {q.dtype}")
     for x in (q, *others):
@@ -190,7 +200,9 @@ def _check(q, *others) -> Tuple[int, int, int]:
                  "q, k, v (and o, dO) must share device, dtype and shape")
         _require(x.is_contiguous(), "the kernels take contiguous tensors only")
     b, h, t, d = q.shape
-    _require(d in _HEAD_DIMS, f"head_dim must be one of {_HEAD_DIMS}, got {d}")
+    _require(d <= _HEAD_DIMS[-1],
+             f"head_dim must be at most {_HEAD_DIMS[-1]} (padded to one of {_HEAD_DIMS}), "
+             f"got {d}")
     _require(t > 0 and b * h > 0, "empty attention")
     return b * h, t, d
 
@@ -201,8 +213,25 @@ def _check_rows(q, *rows) -> None:
                  and r.device == q.device, "lse and D must be [B, H, T] float32 on q's device")
 
 
+def _widen(*xs):
+    """xs (checked by `_check`) with zero columns up to the kernels' width,
+    the next of 64, 128 and 256 (xs themselves at those widths)."""
+    d = _check(*xs)[2]
+    width = next(w for w in _HEAD_DIMS if w >= d)
+    if width == d:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, width - d)) for x in xs)
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
-    """The forward kernel on CUDA tensors -> (o, lse [B,H,T] f32)."""
+    """The forward kernel on CUDA tensors -> (o, lse [B,H,T] f32), at any
+    head_dim up to 256 (run at the padded width, o sliced back)."""
+    o, lse = _fwd(*_widen(q, k, v), causal, scale)
+    return o[..., :q.shape[-1]], lse
+
+
+def _fwd(q, k, v, causal: bool, scale: float):
+    """Launch the forward kernel on its route (q, k, v at a kernel width)."""
     bh, t, d = _check(q, k, v)
     route = _flash_route(q)
     o = torch.empty_like(q)
@@ -221,7 +250,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
 
 def _bwd(name, q, k, v, do, lse, dvec, outs, causal: bool, scale: float) -> None:
     """Launch backward kernel `name` (flash_bwd_dq or flash_bwd_dkv) on its
-    route, writing `outs` (dq, or dk and dv)."""
+    route (q, k, v, do at a kernel width), writing `outs` (dq, or dk and
+    dv)."""
     bh, t, d = _check(q, k, v, do)
     _check_rows(q, lse, dvec)
     route = _flash_route(q)
@@ -237,19 +267,29 @@ def _bwd(name, q, k, v, do, lse, dvec, outs, causal: bool, scale: float) -> None
     _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, name, route)
 
 
-def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
-    """The dq kernel on CUDA tensors -> dq."""
+def _bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
     dq = torch.empty_like(q)
     _bwd("flash_bwd_dq", q, k, v, do, lse, dvec, (dq,), causal, scale)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float):
-    """The dk/dv kernel on CUDA tensors -> (dk, dv)."""
+def _bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _bwd("flash_bwd_dkv", q, k, v, do, lse, dvec, (dk, dv), causal, scale)
     return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float):
+    """The dq kernel on CUDA tensors -> dq, at any head_dim up to 256."""
+    return _bwd_dq(*_widen(q, k, v, do), lse, dvec, causal, scale)[..., :q.shape[-1]]
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float):
+    """The dk/dv kernel on CUDA tensors -> (dk, dv), at any head_dim up to
+    256."""
+    dk, dv = _bwd_dkv(*_widen(q, k, v, do), lse, dvec, causal, scale)
+    return dk[..., :q.shape[-1]], dv[..., :q.shape[-1]]
 
 
 # -- autograd and the public entry point -----------------------------------------
@@ -264,28 +304,36 @@ def _on_cuda(q) -> bool:
 class _Flash(torch.autograd.Function):
     """The reference's `custom_vjp` `_flash` (:365-394): the forward saves
     q, k, v, o and lse; the backward forms D = rowsum(dO * O) and runs the
-    dq and dkv kernels (plain versions on the CPU)."""
+    dq and dkv kernels (plain versions on the CPU). On CUDA, q, k and v are
+    padded once (`_widen`), saved padded with the padded o, and the outputs
+    sliced back to the real head_dim."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        d = q.shape[-1]
         if _on_cuda(q):
-            o, lse = flash_fwd(q, k, v, causal, scale)
+            q, k, v = _widen(q, k, v)
+            o, lse = _fwd(q, k, v, causal, scale)
         else:
             o, lse = _flash_fwd_reference(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         ctx.scale = scale
-        return o
+        ctx.head_dim = d
+        return o if o.shape[-1] == d else o[..., :d].contiguous()
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()  # it arrives through _attention's transpose
         if _on_cuda(q):
+            do = _widen(do)[0]
             dvec = _dvec(o, do)
-            dq = flash_bwd_dq(q, k, v, do, lse, dvec, ctx.causal, ctx.scale)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dvec, ctx.causal, ctx.scale)
+            dq = _bwd_dq(q, k, v, do, lse, dvec, ctx.causal, ctx.scale)
+            dk, dv = _bwd_dkv(q, k, v, do, lse, dvec, ctx.causal, ctx.scale)
+            d = ctx.head_dim
+            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
         else:
             dq, dk, dv = _flash_bwd_reference(q, k, v, o, lse, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
@@ -294,8 +342,8 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
                     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
     """Attention over [B, H, T, D] tensors (self-attention: q, k and v of
-    one shape), differentiable. CUDA tensors launch the kernels; CPU
-    tensors take the plain versions. `block_q`/`block_k` are the
+    one shape, head_dim up to 256), differentiable. CUDA tensors launch
+    the kernels; CPU tensors take the plain versions. `block_q`/`block_k` are the
     reference's Pallas block sizes, taken for its signature; the CUDA
     kernels use their own tiles (csrc/flash_attention.cu)."""
     _require(block_q > 0 and block_k > 0, "block sizes must be positive")

@@ -148,14 +148,87 @@ def test_cpu_runs_no_kernel_and_defaults_match_reference():
 @pytest.mark.parametrize("dtype,d,route", [
     ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"), ("bfloat16", 256, "mma"),
     ("float32", 64, "simt"), ("float32", 128, "simt"), ("float32", 256, "simt"),
-    ("bfloat16", 96, "simt"),
+    ("bfloat16", 96, "mma"), ("bfloat16", 16, "mma"), ("bfloat16", 32, "mma"),
+    ("float32", 16, "simt"), ("float32", 96, "simt"),
 ])
 def test_flash_route(dtype, d, route):
-    """`_flash_route` depends on dtype and head_dim alone: the tensor-core
-    kernels (forward, dq and dk/dv alike) for bf16 at head_dim 64, 128 or
-    256 (the kernels take no other head_dim; `_check` refuses it before any
-    launch)."""
+    """`_flash_route` depends on dtype alone at every head_dim the kernels
+    take (each pads to 64, 128 or 256): the tensor-core kernels (forward,
+    dq and dk/dv alike) for bf16, simt for f32."""
     assert tfa._flash_route(torch.zeros((1, 2, 8, d), dtype=getattr(torch, dtype))) == route
+
+
+# -- head_dim below 256 off 64/128: zero padding to the kernels' widths -------
+@pytest.mark.parametrize("d,width", [(16, 64), (40, 64), (96, 128)])
+def test_zero_padding_is_exact(d, width):
+    """The plain forward and its gradients on q, k, v zero-padded to the
+    kernels' width, at the real width's scale, equal the unpadded ones
+    (float64, causal, ragged T 37): the padded columns add nothing to
+    q k^T, so lse is the same, and o, dq, dk and dv come out with zero
+    columns there."""
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 3, 37, d)) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = tfa._flash_fwd_reference(q, k, v, True, scale)
+    grads = tfa._flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    wq, wk, wv, wdo = (torch.nn.functional.pad(x, (0, width - d)) for x in (q, k, v, do))
+    assert [x.shape[-1] for x in tfa._widen(*(x.float() for x in (q, k, v, do)))] == [width] * 4
+    wo, wlse = tfa._flash_fwd_reference(wq, wk, wv, True, scale)
+    wgrads = tfa._flash_bwd_reference(wq, wk, wv, wo, wlse, wdo, True, scale)
+    assert torch.equal(wlse, lse)
+    for got, want in zip((wo, *wgrads), (o, *grads)):
+        assert torch.equal(got[..., :d], want)
+        assert bool((got[..., d:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_cuda_wiring_pads_and_slices(monkeypatch, d, dtype):
+    """`flash_attention`'s CUDA path on CPU tensors, each launcher swapped
+    for its plain version: the launchers see q, k, v, dO padded to 64 or
+    128, once each; o, dq, dk and dv come back at the real head_dim equal
+    to the unpadded plain versions' (bf16: within one rounding of the
+    output, the padded einsums summing in another order); one call of
+    each launcher per forward and backward."""
+    calls = []
+
+    def fwd(q, k, v, causal, scale):
+        calls.append(("fwd", q.shape[-1]))
+        return tfa._flash_fwd_reference(q, k, v, causal, scale)
+
+    def dq(q, k, v, do, lse, dvec, causal, scale):
+        calls.append(("dq", q.shape[-1], do.shape[-1]))
+        return tfa._dq_reference(q, k, v, do, lse, dvec, causal, scale)
+
+    def dkv(q, k, v, do, lse, dvec, causal, scale):
+        calls.append(("dkv", q.shape[-1], do.shape[-1]))
+        return tfa._dkv_reference(q, k, v, do, lse, dvec, causal, scale)
+
+    monkeypatch.setattr(tfa, "_on_cuda", lambda q: True)
+    monkeypatch.setattr(tfa, "_fwd", fwd)
+    monkeypatch.setattr(tfa, "_bwd_dq", dq)
+    monkeypatch.setattr(tfa, "_bwd_dkv", dkv)
+    _, (q, k, v, g) = _inputs((2, 2, 45, d), dtype, d)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    width = 64 if d <= 64 else 128
+    assert calls == [("fwd", width), ("dq", width, width), ("dkv", width, width)]
+    o, lse = tfa._flash_fwd_reference(q.detach(), k.detach(), v.detach(), True, d ** -0.5)
+    want = tfa._flash_bwd_reference(q.detach(), k.detach(), v.detach(), o, lse, g, True,
+                                    d ** -0.5)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    tol = 0.0 if dtype == "float32" else 2 ** -7
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (out, *got), (o, *want)):
+        assert a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(1.0, b.float().abs().max().item()), (name, err)
+
+
+def test_head_dims_over_256_are_refused():
+    x = torch.zeros((1, 2, 8, 320))
+    with pytest.raises(ValueError, match="at most 256"):
+        tfa._widen(x, x, x)
 
 
 # chip_smoke.py's FLASH_TOL for the bf16 forward.

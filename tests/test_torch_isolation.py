@@ -38,8 +38,16 @@ def foreign_imports(source, filename="<source>"):
     return sorted(found)
 
 
+# The port's entry points outside the package.
+PORT_SCRIPTS = ["hack/e2e_check_torch.py", "examples/end_to_end_torch.py",
+                "examples/sharing-comparison/run_local_torch.py",
+                "examples/sharing-comparison/serve_torch.py",
+                "examples/sharing-comparison/client_torch.py"]
+
+
 def port_sources():
-    return sorted((REPO / "nos_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "nos_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + [REPO / rel for rel in PORT_SCRIPTS])
 
 
 def test_no_module_of_the_port_imports_jax_or_nos_tpu():
@@ -84,3 +92,15 @@ def test_pin_reads_the_scheduler_wiring_simulator_and_cli():
         text = path.read_text()
         assert f"`nos_tpu/{rel}:1`" in text, rel
         assert foreign_imports(text, str(path)) == [], rel
+
+
+def test_pin_reads_the_port_scripts_outside_the_package():
+    """The port's copies of the reference's entry points outside the
+    package (the kind gate, the end-to-end example, the sharing demo) are
+    among the sources read, and each imports the port."""
+    sources = {str(path.relative_to(REPO)) for path in port_sources()}
+    for rel in PORT_SCRIPTS:
+        assert rel in sources
+        text = (REPO / rel).read_text()
+        assert "from nos_tpu_torch" in text, rel
+        assert foreign_imports(text, rel) == [], rel

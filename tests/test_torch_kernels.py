@@ -288,6 +288,16 @@ FLASH_CASES = [
     (1, 2, 300, 256, "float32", True),
     # The ViT's flash arm (512 px: 1024 patches + 100 detection tokens).
     (7, 6, 1124, 64, "bfloat16", False),
+    # head_dim 16, 32 and 96, zero-padded to 64 or 128 (ops/flash_attention.py
+    # `_widen`): ragged T, both dtypes, causal and not; then the end-to-end
+    # example's shape a mesh position (examples/end_to_end_torch.py).
+    (2, 4, 177, 16, "float32", True),
+    (2, 4, 177, 16, "bfloat16", False),
+    (1, 3, 1000, 32, "float32", False),
+    (1, 3, 1000, 32, "bfloat16", True),
+    (2, 2, 300, 96, "float32", True),
+    (2, 2, 300, 96, "bfloat16", False),
+    (4, 1, 32, 16, "bfloat16", True),
 ]
 
 
@@ -443,12 +453,59 @@ def test_flash_autograd_launches_the_kernels(cuda_device):
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_flash_autograd_pads_narrow_head_dims(cuda_device, d, dtype):
+    """flash_attention at head_dim 16, 32 and 96: one launch of each kernel
+    on the dtype's route (at the padded width 64 or 128), o and the
+    gradients at the real head_dim and bit for bit the entry points'
+    (`flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`) on the same inputs,
+    each within FLASH_TOL of its plain version on the unpadded tensors.
+    The backward kernels are held alone, as test_flash_kernels_match_plain
+    holds them: their plain versions take the kernel forward's lse and D
+    (D = rowsum(dO * O) over the padded columns, as the backward forms it),
+    so a row whose exact gradient cancels to zero is not held to the
+    forward's rounding."""
+    from nos_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    dt = getattr(torch, dtype)
+    scale = d ** -0.5
+    q, k, v = (torch.randn((2, 2, 150, d), generator=gen, device="cuda").to(dt)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn((2, 2, 150, d), generator=gen, device="cuda").to(dt)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    before = {n: dict(r) for n, r in fa.ROUTE_LAUNCHES.items()}
+    out = fa.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    route = fa._flash_route(qd)
+    assert route == ("mma" if dtype == "bfloat16" else "simt")
+    for name, counts in before.items():
+        assert fa.ROUTE_LAUNCHES[name] == dict(counts, **{route: counts[route] + 1})
+    o, lse = fa.flash_fwd(qd, kd, vd, True, scale)
+    dvec = fa._dvec(*fa._widen(o.contiguous(), g))
+    dq_k = fa.flash_bwd_dq(qd, kd, vd, g, lse, dvec, True, scale)
+    dk_k, dv_k = fa.flash_bwd_dkv(qd, kd, vd, g, lse, dvec, True, scale)
+    o_want, lse_want = fa._flash_fwd_reference(qd, kd, vd, True, scale)
+    dq_want = fa._dq_reference(qd, kd, vd, g, lse, dvec, True, scale)
+    dk_want, dv_want = fa._dkv_reference(qd, kd, vd, g, lse, dvec, True, scale)
+    torch.cuda.synchronize()
+    _flash_held(lse, lse_want, dtype, "lse")
+    for name, got, entry, want in (("o", out, o, o_want), ("dq", dq, dq_k, dq_want),
+                                   ("dk", dk, dk_k, dk_want), ("dv", dv, dv_k, dv_want)):
+        assert got.shape == want.shape == (2, 2, 150, d) and got.dtype == dt, name
+        assert torch.equal(got, entry), name
+        _flash_held(got, want, dtype, name)
+
+
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     from nos_tpu_torch.ops import flash_attention as fa
 
     x = torch.zeros((1, 2, 64, 64), device="cuda")
-    with pytest.raises(ValueError):  # head_dim 96
-        fa.flash_fwd(*(torch.zeros((1, 2, 64, 96), device="cuda"),) * 3, True, 0.1)
+    with pytest.raises(ValueError):  # head_dim 320, over the widest kernel's 256
+        fa.flash_fwd(*(torch.zeros((1, 2, 64, 320), device="cuda"),) * 3, True, 0.1)
+    with pytest.raises(ValueError):  # head_dim 320 through autograd
+        fa.flash_attention(*(torch.zeros((1, 2, 64, 320), device="cuda"),) * 3)
     with pytest.raises(ValueError):  # mixed dtypes
         fa.flash_fwd(x, x.bfloat16(), x, True, 0.1)
     with pytest.raises(ValueError):  # a non-contiguous k
