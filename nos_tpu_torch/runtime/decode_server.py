@@ -172,7 +172,18 @@ from nos_tpu_torch.runtime.faults import (
 from nos_tpu_torch.runtime.spill import SpillTier
 from nos_tpu_torch.runtime.staging import HostStage, SyncLedger, TickState
 from nos_tpu_torch.serving.kv_store import StoreTier
-from nos_tpu_torch.tracing import TickProfiler
+from nos_tpu_torch.tracing import (
+    DISPATCH_BURST,
+    DISPATCH_COW,
+    DISPATCH_MACRO,
+    DISPATCH_PREFILL_CHUNK,
+    DISPATCH_PREFILL_LAST,
+    DISPATCH_PREFILL_WINDOW,
+    DISPATCH_REVIVE,
+    DISPATCH_SCATTER,
+    DISPATCH_VERIFY,
+    TickProfiler,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -187,7 +198,7 @@ class _TokRef:
     CPU tensor it has handed to a ref. Tensor-backed refs count into the
     engine's `blocking_syncs` ledger when they materialize, once: the fleet
     supervisor's probe thread reads refs too, so materializing takes the
-    ref's lock."""
+    ref's lock. The wait is a `read_wait` span of the ledger's profiler."""
 
     __slots__ = ("_arr", "_event", "_np", "_ledger", "_lock")
 
@@ -218,7 +229,9 @@ class _TokRef:
                     # _resolve_verifies' pipelined reads): the wait on the
                     # copy's event, then the view of the pinned host copy.
                     if self._event is not None:
-                        self._event.synchronize()  # nos-lint: ignore[NOS010]
+                        with (self._ledger.profiler.read_wait() if self._ledger is not None
+                              else contextlib.nullcontext()):
+                            self._event.synchronize()  # nos-lint: ignore[NOS010]
                     self._np = self._arr.numpy()  # nos-lint: ignore[NOS010]
                     self._arr = None
                     self._event = None
@@ -661,8 +674,16 @@ class DecodeServer:
         self.kv_dtype = kv_dtype
         self._kv_quant = kv_dtype == constants.KV_DTYPE_INT8
         self.cache = self._new_pool()
-        self._stage = HostStage(self.device)
-        self._syncs = SyncLedger()
+        # Tracing (decode_server.py:752-759): the tracer and recorder hooks
+        # are None-guarded; the profiler is a disabled instance when tracing
+        # is off, so every tick phase, upload and read wait costs one flag
+        # check.
+        self.tracing = tracing
+        self._tracer = tracing.tracer if tracing is not None else None
+        self._recorder = tracing.recorder if tracing is not None else None
+        self._prof = tracing.profiler if tracing is not None else TickProfiler(enabled=False)
+        self._stage = HostStage(self.device, self._prof)
+        self._syncs = SyncLedger(self._prof)
         self._tick_state = TickState(self._stage, n_slots, self.max_pages,
                                      mesh=self._mesh, tp_axis=tp_axis)
         self._table_np = np.zeros((n_slots, self.max_pages), dtype=np.int32)
@@ -672,13 +693,6 @@ class DecodeServer:
         # two formats never alias each other's blocks (decode_server.py:768).
         self._fault_injector = fault_injector
         self._checkpoint_hook = checkpoint_hook
-        # Tracing (decode_server.py:752-759): the tracer and recorder hooks
-        # are None-guarded; the profiler is a disabled instance when tracing
-        # is off, so every tick phase costs one flag check.
-        self.tracing = tracing
-        self._tracer = tracing.tracer if tracing is not None else None
-        self._recorder = tracing.recorder if tracing is not None else None
-        self._prof = tracing.profiler if tracing is not None else TickProfiler(enabled=False)
         self.metrics = metrics
         self._block_mgr = BlockManager(self.total_blocks, self.block_size, n_slots,
                                        fault_injector=fault_injector, radix=self.radix_cache,
@@ -1000,7 +1014,7 @@ class DecodeServer:
                 self.metrics.inc("nos_tpu_decode_kv_quant_payload_rejected")
             return False
         tensors = payload[1:] if self._kv_quant else payload
-        with self._prof.dispatch():
+        with self._prof.dispatch(DISPATCH_REVIVE):
             self._revive(tuple(self._stage.to_device(t) for t in tensors), block)
         return True
 
@@ -1997,7 +2011,7 @@ class DecodeServer:
             return 0, 0
         self._check_fault("cow", idx)
         if src is not None:
-            with self._prof.dispatch():
+            with self._prof.dispatch(DISPATCH_COW):
                 self._cow_copy(src, dst, n)
             self._block_mgr.cow_done(idx)
         else:
@@ -2025,7 +2039,8 @@ class DecodeServer:
         always go through the per-slot `_prefill_last`, which samples the
         first token."""
         self._check_fault("dispatch_prefill_wave", wave[0][0])
-        self._sync_tick_state(for_table_only=True)
+        # The wave's first dispatch uploads the table (a no-op after it).
+        packed = self._pack_tick_state(for_table_only=True)
         table = self._table()
         mids: Dict[int, List[Tuple[int, int, list]]] = {}
         finals: List[Tuple[int, int, list]] = []
@@ -2041,7 +2056,8 @@ class DecodeServer:
                 idx, start, piece = entries[0]
                 padded = np.zeros((1, bucket), dtype=np.int32)
                 padded[0, : len(piece)] = piece
-                with self._prof.dispatch():
+                with self._prof.dispatch(DISPATCH_PREFILL_CHUNK):
+                    self._tick_state.sync(packed)
                     self._prefill_chunk(
                         self._stage.to_device(padded), self._table_row(table, idx), start,
                         len(piece),
@@ -2056,7 +2072,8 @@ class DecodeServer:
                     pos[idx] = start
                     lengths[idx] = len(piece)
                     active[idx] = True
-                with self._prof.dispatch():
+                with self._prof.dispatch(DISPATCH_PREFILL_WINDOW):
+                    self._tick_state.sync(packed)
                     self._prefill_window(
                         self._stage.to_device(tokens),
                         table,
@@ -2066,16 +2083,23 @@ class DecodeServer:
                     )
                 self.prefill_window_dispatches += 1
             dispatches += 1
-        if finals:
-            self._first_dev = self._first_dev.clone()
-        for idx, start, piece in finals:
+        ref = None
+        for n, (idx, start, piece) in enumerate(finals):
             padded = np.zeros((1, self._bucket(len(piece))), dtype=np.int32)
             padded[0, : len(piece)] = piece
-            with self._prof.dispatch():
+            with self._prof.dispatch(DISPATCH_PREFILL_LAST):
+                self._tick_state.sync(packed)
+                if n == 0:
+                    self._first_dev = self._first_dev.clone()
                 self._prefill_last(
                     self._stage.to_device(padded), self._table_row(table, idx), start,
                     len(piece), idx, self._slots[idx].step_base,
                 )
+                if n == len(finals) - 1:
+                    # ONE ref over the wave's first-token vector for every
+                    # slot finishing in this wave: a single device->host
+                    # transfer.
+                    ref = _TokRef(self._first_dev, self._syncs)
             dispatches += 1
         # Cursor/phase advances dirty the scheduling metadata (not the table).
         self._tick_state.mark_dirty()
@@ -2097,10 +2121,7 @@ class DecodeServer:
             # the same stream, so its reads see these writes.
             self._block_mgr.note_progress(idx, slot.prefill_cursor)
         if finals:
-            # ONE ref over the wave's first-token vector for every slot
-            # finishing in this wave: a single device->host transfer.
             now = time.monotonic()
-            ref = _TokRef(self._first_dev, self._syncs)
             exports: List[int] = []
             for idx, _, _ in finals:
                 slot = self._slots[idx]
@@ -2370,14 +2391,15 @@ class DecodeServer:
         # The drafting flags changed the macro mask: the verify's read of
         # `pos` and this tick's window consume one freshly packed state.
         self._tick_state.mark_dirty()
-        self._sync_tick_state()
-        with self._prof.dispatch():
+        packed = self._pack_tick_state()
+        with self._prof.dispatch(DISPATCH_VERIFY):
+            self._tick_state.sync(packed)
             logits, _ = paged_verify_window(
                 self.params, self._stage.to_device(tokens), self.cfg, self.cache,
                 self._table(), self._tick_state.pos, self._stage.to_device(lengths),
                 self._stage.to_device(active), self.block_size, tp=self._tp,
             )
-            preds = greedy(logits)
+            preds = _TokRef(greedy(logits), self._syncs)
         self.steps_run += 1
         self.spec_rounds += 1
         if self._recorder is not None:
@@ -2385,7 +2407,7 @@ class DecodeServer:
         if self.metrics is not None:
             self.metrics.inc("nos_tpu_decode_steps")
             self.metrics.inc("nos_tpu_decode_spec_rounds")
-        self._pending_verifies.append(_PendingVerify(_TokRef(preds, self._syncs), windows, sources))
+        self._pending_verifies.append(_PendingVerify(preds, windows, sources))
 
     def _resolve_verifies(self, block: bool) -> None:
         """Fold completed verify rounds into slot state, oldest first: only
@@ -2457,7 +2479,8 @@ class DecodeServer:
             self._recorder.record(constants.FLIGHT_EV_RESOLVE, slots=len(entry.windows),
                                   scattered=len(rows))
         if rows:
-            with self._prof.phase(constants.TICK_PHASE_SAMPLE_SCATTER), self._prof.dispatch():
+            with (self._prof.phase(constants.TICK_PHASE_SAMPLE_SCATTER),
+                  self._prof.dispatch(DISPATCH_SCATTER)):
                 self._last_dev[self._stage.to_device(rows, dtype=torch.long)] = (
                     self._stage.to_device(vals, dtype=torch.int32))
 
@@ -2848,17 +2871,19 @@ class DecodeServer:
                 self.kv_block_ticks += held
                 self._cost.charge(slot.trace_id, slot.tenant or "", **{name: held})
 
-    def _sync_tick_state(self, for_table_only: bool = False) -> None:
-        """Re-sync the device-resident tick metadata from the host mirrors:
-        ONE packed [n_slots, max_pages + 5] int32 upload (table row, then
-        pos / macro mask / serial / step / steps_left), only when a host
-        event dirtied it. The prefill programs read only the table."""
+    def _pack_tick_state(self, for_table_only: bool = False) -> Optional[np.ndarray]:
+        """The device-resident tick metadata packed from the host mirrors:
+        ONE [n_slots, max_pages + 5] int32 array (table row, then pos /
+        macro mask / serial / step / steps_left), or None when no host
+        event dirtied it. The prefill programs read only the table. The
+        packing is host work; `TickState.sync` uploads the array inside
+        the dispatch that reads it."""
         st = self._tick_state
         if for_table_only:
             if not st.table_dirty:
-                return
+                return None
         elif not st.dirty and not st.table_dirty:
-            return
+            return None
         P = self.max_pages
         packed = np.zeros((self.n_slots, P + 5), dtype=np.int32)
         packed[:, :P] = self._table_np
@@ -2868,7 +2893,11 @@ class DecodeServer:
             packed[i, P + 2] = self._slot_serial[i]
             packed[i, P + 3] = s.step_base + len(s.refs)
             packed[i, P + 4] = s.remaining if s.active else 0
-        st.sync(packed)
+        return packed
+
+    def _sync_tick_state(self, for_table_only: bool = False) -> None:
+        """Pack and upload the tick metadata in one call (outside a tick)."""
+        self._tick_state.sync(self._pack_tick_state(for_table_only))
 
     def _burst_plan(self, macro: List[int], n_prefill: int, n_drafting: int = 0) -> int:
         """How many macro windows to fuse into one burst dispatch this tick
@@ -2924,17 +2953,20 @@ class DecodeServer:
         `observe_tick` per window (decode_server.py:4034-4049). A clean
         burst without a quota uploads nothing and reads nothing back."""
         self._check_fault("dispatch_burst", idxs[0])
-        self._sync_tick_state()
         K = self.steps_per_dispatch
-        self._finished.zero_()
-        with self._prof.dispatch():
+        packed = self._pack_tick_state()
+        with self._prof.dispatch(DISPATCH_BURST):
+            self._tick_state.sync(packed)
+            self._finished.zero_()
             toks = torch.empty((n_windows * K, self.n_slots), dtype=torch.int32,
                                device=self.device)
             for w in range(n_windows):
                 toks[w * K:(w + 1) * K].copy_(self._window())
                 if self._quota is not None:
                     self._burst_counts[w].copy_(self._win_counts)
-        ref = _TokRef(toks, self._syncs)
+            ref = _TokRef(toks, self._syncs)
+            counts = (_TokRef(self._burst_counts[:n_windows], self._syncs)
+                      if self._quota is not None else None)
         self._inflight.append(ref)
         self.steps_run += 1
         self.burst_dispatches += 1
@@ -2961,8 +2993,8 @@ class DecodeServer:
                 self.tokens_by_tenant[tname] = self.tokens_by_tenant.get(tname, 0) + total
                 if self._cost is not None:
                     self._cost.charge(slot.trace_id, tname, decode_tokens=total)
-        if self._quota is not None:
-            counts = _TokRef(self._burst_counts[:n_windows], self._syncs).np()
+        if counts is not None:
+            counts = counts.np()
             for w in range(n_windows):
                 tick_tokens: Dict[str, int] = {}
                 for idx in idxs:
@@ -2987,10 +3019,11 @@ class DecodeServer:
         / steps_left on the device, so steady-state dispatches upload
         nothing."""
         self._check_fault("dispatch_macro", idxs[0])
-        self._sync_tick_state()
         K = self.steps_per_dispatch
-        self._finished.zero_()
-        with self._prof.dispatch():
+        packed = self._pack_tick_state()
+        with self._prof.dispatch(DISPATCH_MACRO):
+            self._tick_state.sync(packed)
+            self._finished.zero_()
             ref = _TokRef(self._window(), self._syncs)
         self._inflight.append(ref)
         self.steps_run += 1
@@ -3182,8 +3215,15 @@ class DecodeServer:
 
     @property
     def tick_host_overhead_s(self) -> float:
-        """Tick wall minus dispatch time: the host's own scheduling."""
+        """Tick wall minus dispatch time: the host's own scheduling and its
+        blocking reads (`tick_read_wait_s`)."""
         return self._prof.host_overhead_s
+
+    @property
+    def tick_read_wait_s(self) -> float:
+        """The part of `tick_host_overhead_s` the engine thread spent
+        waiting on device->host reads (token refs materializing)."""
+        return self._prof.read_wait_s
 
     @property
     def tick_phase_s(self) -> Dict[str, float]:

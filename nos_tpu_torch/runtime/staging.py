@@ -17,26 +17,34 @@ and `TickState` (:87, with `mesh` :99-142).
   - ``SyncLedger`` counts blocking device->host reads on the tick path
     (every `.item()`, `.cpu()`, `.tolist()`, host materialization or
     synchronize): the ``blocking_syncs`` budget.
+
+Both carry the engine's TickProfiler (a disabled one without tracing):
+an upload is a `stage` span, a token ref's wait a `read_wait` span.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
+
+from nos_tpu_torch.tracing import TickProfiler
 
 
 class SyncLedger:
     """Counts blocking device->host reads on the tick path (and the fleet
     supervisor's passive reads of the engine's token refs, from its own
-    thread: the count takes a lock)."""
+    thread: the count takes a lock). `profiler` is the engine's
+    TickProfiler: a reader wraps its wait in `profiler.read_wait()`."""
 
-    __slots__ = ("syncs", "_lock")
+    __slots__ = ("syncs", "_lock", "profiler")
 
-    def __init__(self) -> None:
+    def __init__(self, profiler: Optional[TickProfiler] = None) -> None:
         self.syncs = 0
         self._lock = threading.Lock()
+        self.profiler = profiler if profiler is not None else TickProfiler(enabled=False)
 
     def note(self) -> None:
         with self._lock:
@@ -44,25 +52,28 @@ class SyncLedger:
 
 
 class HostStage:
-    """The counted host->device staging funnel."""
+    """The counted host->device staging funnel; each upload runs inside
+    `profiler.stage()` (the engine's TickProfiler)."""
 
-    __slots__ = ("uploads", "device")
+    __slots__ = ("uploads", "device", "profiler")
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, profiler: Optional[TickProfiler] = None) -> None:
         self.uploads = 0
         self.device = torch.device(device)
+        self.profiler = profiler if profiler is not None else TickProfiler(enabled=False)
 
     def to_device(self, value, dtype: torch.dtype = None) -> torch.Tensor:
         """One counted host->device transfer of a numpy array, a list or a
         CPU tensor (a spill payload). The result never aliases `value`:
         later host edits do not reach it."""
         self.uploads += 1
-        host = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
-        if dtype is not None:
-            host = host.to(dtype)
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.clone()
+        with self.profiler.stage():
+            host = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+            if dtype is not None:
+                host = host.to(dtype)
+            if self.device.type == "cuda":
+                return host.pin_memory().to(self.device, non_blocking=True)
+            return host.clone()
 
 
 class TickState:
@@ -118,10 +129,10 @@ class TickState:
         self.dirty = True
         self.table_dirty = True
 
-    def sync(self, packed: np.ndarray) -> None:
+    def sync(self, packed: Optional[np.ndarray]) -> None:
         """One packed staging upload, copied into the fields on the device.
-        No-op unless dirty."""
-        if not self.dirty and not self.table_dirty:
+        No-op unless dirty, or when there is nothing packed (None)."""
+        if packed is None or (not self.dirty and not self.table_dirty):
             return
         dev = self._stage.to_device(packed, dtype=torch.int32)
         P = self.max_pages

@@ -313,11 +313,14 @@ class ServingReport:
     # split percentiles. All zeros/empty when the engine ran untraced.
     # `merge` sums the totals, sums the phase dict per key, POOLS the
     # samples, and re-derives the percentiles — same contract as the
-    # latency tails above.
+    # latency tails above. `tick_read_wait_s` is the part of the host
+    # overhead the engine thread spent waiting on device->host reads (the
+    # port's own; host work is `tick_host_overhead_s - tick_read_wait_s`).
     ticks_profiled: int = 0
     tick_wall_s: float = 0.0
     tick_dispatch_s: float = 0.0
     tick_host_overhead_s: float = 0.0
+    tick_read_wait_s: float = 0.0
     tick_phase_s: Dict[str, float] = field(default_factory=dict)
     host_overhead_p50_s: float = 0.0
     host_overhead_p95_s: float = 0.0
@@ -392,6 +395,7 @@ MERGE_FLOAT_FIELDS = (
     "tick_wall_s",
     "tick_dispatch_s",
     "tick_host_overhead_s",
+    "tick_read_wait_s",
     "slot_seconds_total",
     "handoff_wall_s",
 )
@@ -600,6 +604,7 @@ def collect_serving(server) -> ServingReport:
         tick_wall_s=float(getattr(server, "tick_wall_s", 0.0)),
         tick_dispatch_s=float(getattr(server, "tick_dispatch_s", 0.0)),
         tick_host_overhead_s=float(getattr(server, "tick_host_overhead_s", 0.0)),
+        tick_read_wait_s=float(getattr(server, "tick_read_wait_s", 0.0)),
         tick_phase_s={
             str(k): float(v)
             for k, v in dict(getattr(server, "tick_phase_s", {}) or {}).items()

@@ -291,7 +291,7 @@ def test_serving_plane_probes_find_every_engine_hook(model):
     drain, replica and supervisor modules probe exists on the port's
     DecodeServer, and so does every counter `collect_serving` reads that
     the JAX engine has (the rest are the supervisor's, which it reports
-    itself)."""
+    itself); the port's reads `tick_read_wait_s` besides."""
     jcfg, jparams, tcfg, tparams = model
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     hooks = set()
@@ -306,8 +306,10 @@ def test_serving_plane_probes_find_every_engine_hook(model):
         assert hasattr(tsrv, hook), hook
         assert callable(getattr(tsrv, hook)) == callable(getattr(jsrv, hook)), hook
     read = _getattr_probes(os.path.join(root, "nos_tpu", "telemetry.py"), "server")
-    assert read == _getattr_probes(os.path.join(root, "nos_tpu_torch", "telemetry.py"),
-                                   "server")
+    # The port's `collect_serving` reads one counter of its own besides.
+    assert read | {"tick_read_wait_s"} == _getattr_probes(
+        os.path.join(root, "nos_tpu_torch", "telemetry.py"), "server")
+    assert hasattr(tsrv, "tick_read_wait_s") and not hasattr(jsrv, "tick_read_wait_s")
     missing = {n for n in read if hasattr(jsrv, n) and not hasattr(tsrv, n)}
     assert not missing, missing
     assert {n for n in read if not hasattr(jsrv, n)} == {

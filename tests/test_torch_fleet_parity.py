@@ -133,9 +133,15 @@ def store_state(store):
             "drops": store.drops, "keys": sorted(store.keys())}
 
 
+#: ServingReport fields of the port's own, which the JAX package's lacks.
+PORT_ONLY = ("tick_read_wait_s",)
+
+
 def report(obj, drop=("latency_s",)):
-    """A DrainReport or FailoverReport as a dict, wall-clock fields aside."""
-    return {k: v for k, v in dataclasses.asdict(obj).items() if k not in drop}
+    """A DrainReport, FailoverReport or ServingReport as a dict, wall-clock
+    fields and the port's own fields aside."""
+    return {k: v for k, v in dataclasses.asdict(obj).items()
+            if k not in drop and k not in PORT_ONLY}
 
 
 def twin(both, scenario):

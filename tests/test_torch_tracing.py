@@ -30,7 +30,7 @@ from nos_tpu.runtime import faults as jfaults
 from nos_tpu.runtime import quota as jquota
 from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu_torch import DecodeServer, GPTConfig, constants, from_numpy_params
-from nos_tpu_torch import telemetry
+from nos_tpu_torch import telemetry, tracing
 from nos_tpu_torch.observability import METRIC_SERIES, Metrics
 from nos_tpu_torch.runtime import faults as tfaults
 from nos_tpu_torch.runtime import quota as tquota
@@ -140,7 +140,7 @@ class TestTracer:
         assert [e["attrs"]["start"] for e in tr.trace(tid)] == [6, 7, 8, 9]
         tids = [tid] + [tr.new_trace() for _ in range(4)]
         assert len(tr.trace_ids()) == 3 and tr.trace(tids[0]) is None
-        assert tr.dropped_traces == 2
+        assert tr.trace_ids() == tids[2:]  # the two oldest evicted
         tr.event("tr-foreign", constants.TRACE_EV_RESTORE, slot=1)
         assert [e["name"] for e in tr.trace("tr-foreign")] == [constants.TRACE_EV_RESTORE]
 
@@ -177,6 +177,14 @@ class TestFlightRecorder:
             tfaults.FAULT_POISON, tfaults.FAULT_DEVICE_LOST]
 
 
+def _dispatch(prof):
+    """A macro dispatch on the port's profiler, a kindless one on the
+    reference's."""
+    if isinstance(prof, TickProfiler):
+        return prof.dispatch(tracing.DISPATCH_MACRO)
+    return prof.dispatch()
+
+
 class TestTickProfiler:
     @staticmethod
     def _both(body):
@@ -209,7 +217,7 @@ class TestTickProfiler:
         def body(prof):
             prof.begin_tick()
             with prof.phase("macro"):
-                with prof.dispatch():
+                with _dispatch(prof):
                     pass
             prof.end_tick()
         t, j = self._both(body)
@@ -219,7 +227,7 @@ class TestTickProfiler:
     def test_disabled_profiler_records_nothing(self):
         prof = TickProfiler(enabled=False)
         prof.begin_tick()
-        with prof.phase("x"), prof.dispatch():
+        with prof.phase("x"), prof.dispatch(tracing.DISPATCH_MACRO):
             pass
         prof.end_tick()
         assert prof.ticks == 0 and prof.phase_s == {} and prof.attribution_coverage() == 1.0
@@ -269,6 +277,9 @@ def test_tracing_is_a_pure_observer(model, temperature):
         outs = drive(tsrv, reqs)
         runs.append((outs, {c: getattr(tsrv, c) for c in COUNTERS}))
     assert runs[1] == runs[0]
+    # The traced engine ran with its span log armed.
+    log = tsrv.tracing.profiler.span_log()
+    assert log["kind"].count(tracing.SPAN_DISPATCH) > 0 and log["dropped"] == 0
 
 
 # -- lifecycle spans (test_tracing.py:247) --------------------------------------------------------
@@ -450,3 +461,231 @@ def test_collect_serving_counters_and_metrics_equal_the_jax_engines(model):
     sent = []
     assert telemetry.export_serving(tsrv, share_telemetry=True, sink=sent.append) is not None
     assert len(sent) == 1
+
+
+# -- the span log, the dispatch kinds and the read-wait split (the port's own) --------------------
+class _CountingClock:
+    """1 s a read, counting the reads."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def __call__(self):
+        self.reads += 1
+        return float(self.reads - 1)
+
+
+def _nested_tick(prof):
+    prof.begin_tick()
+    with prof.phase("outer"):
+        with _dispatch(prof):
+            pass
+        with prof.phase("inner"):
+            pass
+    prof.end_tick()
+
+
+def test_span_log_nests_records_and_keeps_the_exclusive_sums():
+    t, j = TestTickProfiler._both(lambda p: (_nested_tick(p), _nested_tick(p)))
+    assert TestTickProfiler._state(t) == TestTickProfiler._state(j)
+    log = t.span_log()
+    assert list(zip(log["kind"], log["name"])) == [
+        (tracing.SPAN_TICK, tracing.SPAN_TICK), (tracing.SPAN_PHASE, "outer"),
+        (tracing.SPAN_DISPATCH, tracing.DISPATCH_MACRO), (tracing.SPAN_PHASE, "inner")] * 2
+    assert log["parent"].tolist() == [-1, 0, 1, 1, -1, 4, 5, 5]
+    assert log["tick"].tolist() == [0] * 4 + [1] * 4
+    # Clock reads 0-7 each tick, stamped on the perf_counter_ns scale.
+    assert log["start_ns"].tolist() == [int(v * 1e9) for v in (0, 1, 2, 4, 8, 9, 10, 12)]
+    assert log["end_ns"].tolist() == [int(v * 1e9) for v in (7, 6, 3, 5, 15, 14, 11, 13)]
+    assert log["dropped"] == 0
+    # The exclusive phase sums read back from the log are the profiler's.
+    dur = (log["end_ns"] - log["start_ns"]) / 1e9
+    excl = {}
+    for i, (kind, name) in enumerate(zip(log["kind"], log["name"])):
+        if kind == tracing.SPAN_PHASE:
+            child = sum(dur[c] for c in range(len(dur)) if log["parent"][c] == i
+                        and log["kind"][c] == tracing.SPAN_PHASE)
+            excl[name] = excl.get(name, 0.0) + dur[i] - child
+    assert excl == t.phase_s == {"outer": 8.0, "inner": 2.0}
+
+
+@pytest.mark.parametrize("capacity, kinds, parent, ticks", [
+    # The latest 6 of 12 records: tick 1's last two, then tick 2 whole.
+    (6, ["dispatch", "phase", "tick", "phase", "dispatch", "phase"], [-1, -1, -1, 2, 3, 3],
+     [1, 1, 2, 2, 2, 2]),
+    # A ring of 2: spans still open when overwritten (the tick, "outer")
+    # leave their successors' end stamps alone.
+    (2, ["dispatch", "phase"], [-1, -1], [2, 2]),
+])
+def test_span_log_is_a_ring_that_counts_its_drops(capacity, kinds, parent, ticks):
+    prof = TickProfiler(clock=_CountingClock())
+    prof.span_capacity = capacity
+    for _ in range(3):
+        _nested_tick(prof)
+    log = prof.span_log()
+    assert log["kind"] == kinds and log["parent"].tolist() == parent
+    assert log["tick"].tolist() == ticks
+    assert prof.spans_dropped == log["dropped"] == 12 - capacity
+    # Every kept record closed, at its own end: the last tick's inner
+    # phase opened at clock read 20 and closed at 21.
+    assert (log["end_ns"] > log["start_ns"]).all()
+    assert (log["start_ns"][-1], log["end_ns"][-1]) == (int(20e9), int(21e9))
+    # Dropping records leaves the sums whole.
+    assert prof.ticks == 3 and prof.phase_s == {"outer": 12.0, "inner": 3.0}
+
+
+def test_disabled_profiler_never_reads_the_clock():
+    clock = _CountingClock()
+    prof = TickProfiler(enabled=False, clock=clock)
+    for _ in range(3):
+        _nested_tick(prof)
+        with prof.stage(), prof.read_wait():
+            pass
+    assert clock.reads == 0 and prof.span_log()["kind"] == [] and prof.ticks == 0
+
+
+def test_clock_pair_reads_the_epoch_and_the_perf_counter():
+    import time
+
+    w0, p0 = time.time_ns(), time.perf_counter_ns()
+    wall, perf = TickProfiler.clock_pair()
+    w1, p1 = time.time_ns(), time.perf_counter_ns()
+    assert w0 <= wall <= w1 and p0 <= perf <= p1
+
+
+class _FakeEvent:
+    """A CUDA event stand-in whose wait returns at once."""
+
+    def synchronize(self):
+        pass
+
+
+@pytest.mark.parametrize("where, counted", [
+    ("engine thread", 1.0), ("inside a dispatch", 0.0), ("another thread", 0.0)])
+def test_a_token_refs_wait_is_a_read_wait_span(where, counted):
+    import threading
+
+    import torch
+
+    from nos_tpu_torch.runtime import decode_server as ds
+    from nos_tpu_torch.runtime.staging import SyncLedger
+
+    clock = _CountingClock()
+    prof = TickProfiler(clock=clock)
+    ref = ds._TokRef(torch.arange(3, dtype=torch.int32), SyncLedger(prof))
+    ref._event = _FakeEvent()
+    prof.begin_tick()
+    with prof.phase(constants.TICK_PHASE_EOS_SCAN):
+        if where == "inside a dispatch":
+            with prof.dispatch(tracing.DISPATCH_MACRO):
+                ref.np()
+        elif where == "another thread":
+            t = threading.Thread(target=ref.np)
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+        else:
+            ref.np()
+    prof.end_tick()
+    assert ref.np().tolist() == [0, 1, 2] and ref._ledger.syncs == 1
+    assert prof.read_wait_s == counted
+    kinds = prof.span_log()["kind"]
+    assert kinds.count(tracing.SPAN_READ_WAIT) == (0 if where == "another thread" else 1)
+    # The wait is a part of the host overhead, which is wall - dispatch.
+    assert 0 <= prof.read_wait_s <= prof.host_overhead_s == prof.tick_wall_s - prof.dispatch_s
+
+
+def _kinds_run(model, **kw):
+    """An engine whose traffic takes each prefill program, macro windows
+    and bursts: one long prompt alone (a mid chunk, then the final one),
+    then two long prompts together (one window over both mid chunks)."""
+    _, _, tcfg, tparams = model
+    tsrv = DecodeServer(tparams, tcfg, tracing=EngineTracing(), device="cpu", **dict(
+        ENGINE, n_slots=2, max_len=96, prompt_buckets=(8, 16), prefill_budget_tokens=64, **kw))
+    outs = drive(tsrv, [(list(range(1, 21)), 30, None)])
+    outs += drive(tsrv, [(list(range(3, 23)), 24, None), (list(range(5, 26)), 24, None)])
+    return tsrv, outs
+
+
+def test_span_log_covers_every_dispatch_kind_the_run_uses(model):
+    tsrv, _ = _kinds_run(model)
+    prof = tsrv.tracing.profiler
+    log = prof.span_log()
+    kinds, names, parent = log["kind"], log["name"], log["parent"]
+    used = {n for k, n in zip(kinds, names) if k == tracing.SPAN_DISPATCH}
+    assert used >= {tracing.DISPATCH_PREFILL_CHUNK, tracing.DISPATCH_PREFILL_WINDOW,
+                    tracing.DISPATCH_PREFILL_LAST, tracing.DISPATCH_MACRO,
+                    tracing.DISPATCH_BURST}
+    assert used <= set(tracing.DISPATCH_KINDS) and tsrv.burst_dispatches > 0
+    assert log["dropped"] == 0 and (log["end_ns"] >= log["start_ns"]).all()
+    # Every upload is a stage span inside a dispatch, every dispatch inside
+    # a phase, every phase inside a tick.
+    enclosing = {tracing.SPAN_STAGE: tracing.SPAN_DISPATCH,
+                 tracing.SPAN_DISPATCH: tracing.SPAN_PHASE}
+    for i, kind in enumerate(kinds):
+        if kind in enclosing:
+            assert kinds[parent[i]] == enclosing[kind], (i, kind, names[i])
+        elif kind == tracing.SPAN_PHASE:
+            assert kinds[parent[i]] in (tracing.SPAN_PHASE, tracing.SPAN_TICK)
+        else:
+            assert kind == tracing.SPAN_TICK and parent[i] == -1
+    assert kinds.count(tracing.SPAN_STAGE) == tsrv.h2d_uploads
+    assert kinds.count(tracing.SPAN_TICK) == prof.ticks == tsrv.ticks_profiled
+    # The log's dispatch durations are the profiler's dispatch total.
+    disp = np.array([k == tracing.SPAN_DISPATCH for k in kinds])
+    assert (log["end_ns"] - log["start_ns"])[disp].sum() / 1e9 == pytest.approx(
+        prof.dispatch_s, rel=1e-6)
+
+
+class _SlowEvent(_FakeEvent):
+    """A copy's event whose wait takes a millisecond."""
+
+    def synchronize(self):
+        import time
+
+        time.sleep(1e-3)
+
+    def query(self):
+        return True
+
+
+def test_tick_wall_splits_into_host_work_read_wait_and_dispatch(model, monkeypatch):
+    """Token refs that wait on the card (a CPU run has no copy to wait on):
+    the engine's read-wait total is its read_wait spans outside any
+    dispatch, host work the rest of the host overhead, and the serving
+    report carries the split and sums it across replicas."""
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    class SlowRef(ds._TokRef):
+        __slots__ = ()
+
+        def __init__(self, arr, ledger=None):
+            super().__init__(arr, ledger)
+            self._event = _SlowEvent()
+
+    monkeypatch.setattr(ds, "_TokRef", SlowRef)
+    tsrv, _ = _kinds_run(model)
+    log = tsrv.tracing.profiler.span_log()
+    kinds, parent = log["kind"], log["parent"]
+
+    def in_dispatch(i):
+        while i >= 0:
+            if kinds[i] == tracing.SPAN_DISPATCH:
+                return True
+            i = parent[i]
+        return False
+
+    waits = [i for i, k in enumerate(kinds) if k == tracing.SPAN_READ_WAIT
+             and not in_dispatch(parent[i])]
+    assert len(waits) > 0
+    assert tsrv.tick_read_wait_s == pytest.approx(
+        sum(log["end_ns"][i] - log["start_ns"][i] for i in waits) / 1e9, rel=1e-6)
+    assert tsrv.tick_read_wait_s >= 1e-3 * len(waits)
+    host_work = tsrv.tick_host_overhead_s - tsrv.tick_read_wait_s
+    assert host_work > 0 and tsrv.tick_dispatch_s > 0
+    rep = telemetry.collect_serving(tsrv)
+    assert rep.tick_read_wait_s == tsrv.tick_read_wait_s
+    assert telemetry.ServingReport.merge([rep, rep]).tick_read_wait_s == pytest.approx(
+        2 * tsrv.tick_read_wait_s)
+    _, _, tcfg, tparams = model
+    assert DecodeServer(tparams, tcfg, device="cpu", **ENGINE).tick_read_wait_s == 0.0
