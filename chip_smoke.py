@@ -69,10 +69,11 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            streams (prompts of 64-256 tokens, 128 new) and two 4096-token
            prompts arriving together while they decode, whose chunks batch
            through the multi-slot prefill window. The engine runs its
-           defaults: fused bursts of up to 4 windows, and every 16-step
+           defaults: fused bursts of up to 4 windows, every 16-step
            window a replay of the CUDA graph the constructor captured
            (check_replays: graph_replays equals the windows run, some of
-           them in bursts). The launch counts (replays included) are zeroed
+           them in bursts), and every batch-1 prompt chunk a replay of its
+           bucket's graph (no eager chunk). The launch counts (replays included) are zeroed
            just before that run and read just after; then every output is
            checked against a teacher-forced greedy pass of the plain programs
            on the card (see check_logits for the bounds), and the run repeats
@@ -1396,6 +1397,8 @@ def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
         **{c: getattr(server, c) for c in BUDGET_COUNTERS},
         "burst_windows": server.burst_windows,
         "graph_captures": server.graph_captures,
+        "prefill_graph_replays": server.prefill_graph_replays,
+        "prefill_eager_chunks": server.prefill_eager_chunks,
         "ticks_with_prefill_and_macro": server.ticks_with_prefill_and_macro,
         "prefix_hit_tokens": server.prefix_hit_tokens,
         "kv_pool_bytes": server.kv_pool_bytes,
@@ -1409,12 +1412,17 @@ def serve_stats(torch, server, device, t0, t_long, n_req, max_new, n_long):
 
 def check_replays(stats, what, bursts=True):
     """On the card every decode window of an engine run was a replay of its
-    captured graph (one capture per engine), and with bursts on (the
-    default) some windows ran inside bursts."""
+    captured graph (one capture per engine), every batch-1 prompt chunk a
+    replay of its bucket's graph where the run counted them, and with
+    bursts on (the default) some windows ran inside bursts."""
     windows = stats["macro_dispatches"] + stats["burst_windows_run"]
     check(stats["graph_captures"] == 1 and stats["graph_replays"] == windows > 0,
           f"{what}: {stats['graph_replays']} graph replays for {windows} windows "
           f"({stats['graph_captures']} captures)")
+    if "prefill_eager_chunks" in stats:
+        check(stats["prefill_eager_chunks"] == 0 and stats["prefill_graph_replays"] > 0,
+              f"{what}: {stats['prefill_eager_chunks']} eager prompt chunks, "
+              f"{stats['prefill_graph_replays']} replayed")
     if bursts:
         check(stats["burst_dispatches"] > 0, f"{what}: no burst dispatched")
 

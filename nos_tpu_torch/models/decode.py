@@ -5,7 +5,8 @@ Port of `nos_tpu/models/decode.py`: the dense programs `init_cache` (:21),
 `decode_step` (:235), `decode_step_ragged` (:636) and `generate` (:648);
 `_attend_cache` (:33), `TPLocal` (:54), `_embed` / `_lm_logits` (:113,
 :117), `_block_core` (:123); and the paged ones, `init_paged_cache` (:242,
-native pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393),
+native pool), `paged_decode_step` (:322), `paged_prefill_chunk` (:393;
+with `paged_prefill_last`, its head on the last row only),
 `_paged_window_core` (:469), `paged_verify_window` (:545) and
 `paged_prefill_window` (:603).
 
@@ -480,52 +481,70 @@ def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
     return _lm_logits(x, params)[:, 0, :], pcache
 
 
-def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start: int,
-                        length: int, block_size: int, with_logits: bool = True,
+def _lane(v, device) -> torch.Tensor:
+    """A one-lane int32 vector [1]: a tensor as it is, an int on `device`."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((1,), int(v), dtype=torch.int32, device=device)
+
+
+def _chunk_layers(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
+                  block_size: int, tp: Optional[TPLocal] = None):
+    """The layers of the batch-1 prompt chunk: `_paged_window_core` over
+    one lane. `start` and `length` are ints or [1] int32 tensors on the
+    tokens' device (a captured graph's inputs); `table_row` is the
+    sequence's page-table row [P] (per shard with `tp`). Returns the
+    pre-final-norm activations [1, C, h] (per shard with `tp`)."""
+    dev = tokens.device
+    if tp is not None:
+        table = [r[None, :].contiguous() for r in tp.replicate(table_row)]
+    else:
+        table = table_row[None, :].contiguous()  # [1, P]
+    x, _ = _paged_window_core(params, tokens, cfg, pcache, table, _lane(start, dev),
+                              _lane(length, dev), torch.ones((1,), dtype=torch.bool, device=dev),
+                              block_size, tp=tp)
+    return x
+
+
+def _head(x, params, tp: Optional[TPLocal] = None):
+    """Logits f32 from pre-final-norm activations: the final norm, then
+    the head (with `tp`, both per shard in `_lm_logits`)."""
+    if tp is not None:
+        return _lm_logits(x, params, tp)
+    return _lm_logits(_rmsnorm(x, params["ln_f"]), params)
+
+
+def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
+                        block_size: int, with_logits: bool = True,
                         tp: Optional[TPLocal] = None):
     """One prompt chunk [1, C] for a single sequence, written into its pages
     at positions start..start+C-1 (positions >= start+length, the chunk
     padding, go to the scratch page). Returns (logits [C, vocab] or None,
-    pool). `tp`: see `paged_decode_step`."""
-    from nos_tpu_torch.ops.paged_attention import paged_window_attention
-
-    if tp is not None:
-        dev = tokens.device
-        rows = [r[None, :].contiguous() for r in tp.replicate(table_row)]
-        x = _paged_window_tp(params, tokens, pcache, rows,
-                             torch.full((1,), start, dtype=torch.int32, device=dev),
-                             torch.full((1,), length, dtype=torch.int32, device=dev),
-                             torch.ones((1,), dtype=torch.bool, device=dev), block_size, tp)
-        return (_lm_logits(x, params, tp)[0] if with_logits else None), pcache
-    dev = tokens.device
-    _, c = tokens.shape
-    ar = torch.arange(c, dtype=torch.int32, device=dev)
-    positions = start + ar
-    valid = ar < length
-    x = _embed(params, tokens)
-    table = table_row[None, :].contiguous()  # [1, P]
-    pages = _page_of(table, positions[None, :], block_size)[0]
-    pages = torch.where(valid, pages, torch.zeros_like(pages)).long()
-    offs = (positions % block_size).long()
-    w_pos = torch.full((1,), start, dtype=torch.int32, device=dev)
-    w_len = torch.full((1,), length, dtype=torch.int32, device=dev)
-    w_mask = torch.ones((1,), dtype=torch.bool, device=dev)
-    for i in range(cfg.layers):
-        lc = pcache[str(i)]
-
-        def attend(q, k_new, v_new, lc=lc):
-            scales = _write_kv(lc, pages, offs, k_new[0].transpose(0, 1),
-                               v_new[0].transpose(0, 1))
-            return paged_window_attention(
-                q.contiguous(), lc["k"], lc["v"], table, w_pos, w_len, w_mask, **scales
-            )
-
-        x = _block_core(x, params["layers"][str(i)], cfg, positions[None, :], attend)
+    pool): every row's, as the verify pass reads them; the engine's final
+    chunk takes `paged_prefill_last`. `start` and `length` are ints or [1]
+    int32 tensors on the tokens' device. `tp`: see `paged_decode_step`."""
+    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp)
     if not with_logits:
         # Non-final chunks only feed the cache: skip the [C, vocab] head.
         return None, pcache
-    x = _rmsnorm(x, params["ln_f"])
-    return _lm_logits(x, params)[0], pcache
+    return _head(x, params, tp)[0], pcache
+
+
+def paged_prefill_last(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
+                       block_size: int, tp: Optional[TPLocal] = None):
+    """A prompt's final chunk, as `paged_prefill_chunk` writes it, with the
+    head on its last row only: the logits [1, vocab] f32 of row
+    `length - 1`, gathered from the activations by a device index (the
+    norm and the head act row by row, so the row is the full head's row;
+    only the product's shape changes). `length` 0 writes nothing but the
+    scratch page and reads row 0 (a warm-up). Returns (logits, pool)."""
+    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp)
+    last = (_lane(length, tokens.device).long() - 1).clamp(min=0)  # [1]
+    if tp is not None:
+        x = [xs.index_select(1, at) for xs, at in zip(x, tp.replicate(last))]
+    else:
+        x = x.index_select(1, last)  # [1, 1, h]
+    return _head(x, params, tp)[0], pcache
 
 
 def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,
@@ -577,10 +596,7 @@ def paged_verify_window(params, tokens, cfg: GPTConfig, pcache, table, pos, leng
     x, pcache = _paged_window_core(
         params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp
     )
-    if tp is not None:
-        return _lm_logits(x, params, tp), pcache
-    x = _rmsnorm(x, params["ln_f"])
-    return _lm_logits(x, params), pcache
+    return _head(x, params, tp), pcache
 
 
 def paged_prefill_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,

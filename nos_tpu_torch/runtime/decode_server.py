@@ -104,11 +104,16 @@ stream, whose ordering replaces JAX's donation chain. The reference jits
 its K-step window (`_macro`); here, on CUDA, the constructor captures the
 window once as a CUDA graph (`_WindowGraph`) over fixed device state (the
 pool, the TickState buffers, the last-token and eos-carry vectors), and
-every macro dispatch and every window of a burst replays it. Prefill runs
+every macro dispatch and every window of a burst replays it. It captures
+the batch-1 prompt chunk too, one graph per prompt bucket and body (a mid
+chunk; a final chunk with its head on the last row and its first token's
+draw), over one packed input buffer that each chunk's single upload fills
+(`_chunk_in`: start, length, slot, serial, step0 and the tokens) and the
+tick state's table, in one memory pool. The multi-slot prefill wave runs
 eagerly, and so do verify rounds and the spill tier's copies, which write
 the pool in place: a verify round moves a drafting slot's `pos` on the
 host, and the next packed sync carries it into the TickState buffers the
-graph reads. On the CPU the same `_macro` runs eagerly as the window.
+graph reads. On the CPU the same `_macro` and chunk bodies run eagerly.
 Tensor parallelism (`mesh` with a `tp_axis` wider than 1,
 docs/sharded-decode.md) keeps one controller: params are placed per shard by
 `decode_param_rules`, the pool is partitioned on KV heads, and the programs
@@ -145,6 +150,7 @@ from nos_tpu_torch.models.decode import (
     init_paged_cache,
     paged_decode_step,
     paged_prefill_chunk,
+    paged_prefill_last,
     paged_prefill_window,
     paged_verify_window,
     place_tp,
@@ -312,24 +318,51 @@ class _DeviceGate:
 
 _DEVICE_GATE = _DeviceGate()
 
+#: The batch-1 prompt chunk's scalar inputs ahead of its tokens in the
+#: packed buffer: start, length, slot, serial, step0.
+_CHUNK_META = 5
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """The cyclic collector run once, then off while the block lasts: a
+    dead engine in a reference cycle still holds its own graphs, pools and
+    pinned buffers, and freeing those inside a capture invalidates it
+    (torch's capture no longer collects first). Inside an enclosing block
+    (the collector already off) it does nothing, so an engine's captures
+    share one collection."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
 
 class _WindowGraph:
-    """The engine's K-step decode window as one CUDA graph: the reference's
-    `jax.jit` of `_macro` (decode_server.py:1067), on the H100.
+    """One of the engine's window programs as a CUDA graph: the K-step
+    decode window (the reference's `jax.jit` of `_macro`,
+    decode_server.py:1067) and the batch-1 prompt chunk of each bucket and
+    body (the window core at one lane, `_prefill_body`), on the H100.
 
-    `body()` runs the window over the engine's fixed device state and
-    returns its [K, n_slots] token window. At construction it runs once
-    eagerly on the current stream, with every lane masked (the caller's
-    state), which builds and loads the kernels, allocates the split decode
-    kernels' counters and the kept constants (rope frequencies, sampler
-    floats), and writes only the scratch page; then it is captured on a
-    side stream in "thread_local" mode, so client threads may submit
-    meanwhile. A capture or replay failure raises.
+    `body()` runs the program over the engine's fixed device state and
+    returns its output buffer (the decode window's [K, n_slots] tokens; a
+    prompt chunk's is None: it writes fixed buffers). At construction it
+    runs once eagerly on the current stream, with every lane masked or
+    every row past its length (the caller's state), which builds and loads
+    the kernels, allocates the split decode kernels' counters and the kept
+    constants (rope frequencies, sampler floats), and writes only the
+    scratch page; then it is captured on a side stream in "thread_local"
+    mode, so client threads may submit meanwhile. `pool` (a
+    `torch.cuda.graph_pool_handle()`) shares one memory pool among graphs
+    that never run at once and keep their outputs in buffers allocated
+    before capture. A capture or replay failure raises.
 
     Before the capture the cyclic collector runs, and it stays off while
-    the capture lasts: a dead engine in a reference cycle still holds its
-    own graph, pool and pinned buffers, and freeing those inside a capture
-    invalidates it (torch's capture no longer collects first).
+    the capture lasts (`_collector_off`).
 
     A kernel wrapper counts its launch when its Python runs, so the
     capture's counts are taken back and kept as the graph's `delta`, and
@@ -342,7 +375,7 @@ class _WindowGraph:
     replays or reads back while this engine captures, and the delta
     holds this window's launches only."""
 
-    def __init__(self, body, device: torch.device):
+    def __init__(self, body, device: torch.device, pool=None):
         t0 = time.perf_counter()
         with _DEVICE_GATE.exclusive(), torch.cuda.device(device):
             #: Seconds this capture waited at the gate for other engines'
@@ -354,23 +387,16 @@ class _WindowGraph:
             # A side stream of this card (torch's shared capture stream
             # lives on whichever card first made it).
             side = torch.cuda.Stream(device)
-            collecting = gc.isenabled()
-            gc.collect()
-            gc.disable()
-            try:
-                with torch.cuda.graph(self._graph, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self._out = body()
-            finally:
-                if collecting:
-                    gc.enable()
+            with _collector_off(), torch.cuda.graph(self._graph, pool=pool, stream=side,
+                                                    capture_error_mode="thread_local"):
+                self._out = body()
             after = _launch_counts()
         self.capture_s = time.perf_counter() - t0 - self.gate_wait_s
         self.delta = {k: n - before[k] for k, n in after.items() if n != before[k]}
         _add_launches({k: -n for k, n in self.delta.items()})
 
-    def replay(self) -> torch.Tensor:
-        """Replay on the current stream; returns the graph's token buffer,
+    def replay(self) -> Optional[torch.Tensor]:
+        """Replay on the current stream; returns the graph's output buffer,
         which the next replay rewrites."""
         self._graph.replay()
         _add_launches(self.delta)
@@ -604,9 +630,13 @@ class DecodeServer:
 
         On CUDA the constructor captures the K-step window as a CUDA graph
         (`_WindowGraph`) that every window replays (`graph_replays`
-        counts them). A mesh whose shards all lie on the engine's device
+        counts them), and the batch-1 prompt chunk as one graph per bucket
+        and body (mid, final) that every such chunk replays
+        (`prefill_graph_replays`; `prefill_eager_chunks` counts the chunks
+        run eagerly). A mesh whose shards all lie on the engine's device
         is captured whole, every shard in one graph; a mesh over distinct
-        cards (never run yet) runs its windows eagerly, as the CPU does."""
+        cards (never run yet) runs its windows and chunks eagerly, as the
+        CPU does."""
         if kv_dtype not in constants.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
         # Tensor-parallel serving (decode_server.py:646-691): a mesh whose
@@ -877,15 +907,36 @@ class DecodeServer:
         self.spec_history_demotions = 0
         #: Ticks that dispatched both a verify round and a macro window.
         self.both_dispatch_ticks = 0
-        #: CUDA graphs captured, and windows run as a graph replay.
+        #: CUDA graphs of the decode window captured, and windows run as a
+        #: graph replay.
         self.graph_captures = 0
         self.graph_replays = 0
         self._graph: Optional[_WindowGraph] = None
+        # The batch-1 prompt chunk's fixed inputs, [start, length, slot,
+        # serial, step0] then the tokens (filled by one packed upload a
+        # chunk), and a final chunk's sampled first token: every bucket's
+        # program reads and writes these, replayed or eager.
+        self._chunk_in = torch.zeros((_CHUNK_META + self.prompt_buckets[-1],),
+                                     dtype=torch.int32, device=self.device)
+        self._chunk_tok = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        #: Batch-1 prompt chunks run as a replay of their bucket's graph, and
+        #: run eagerly (the CPU, a mesh over distinct cards).
+        self.prefill_graph_replays = 0
+        self.prefill_eager_chunks = 0
+        self._prefill_graphs: Dict[Tuple[int, bool], _WindowGraph] = {}
         shard_devices = (self._tp.devices if self._tp is not None else [self.device])
         if self.device.type == "cuda" and all(
                 canonical_device(d) == canonical_device(self.device) for d in shard_devices):
-            self._graph = _WindowGraph(self._macro, self.device)
-            self.graph_captures += 1
+            with _collector_off():
+                self._graph = _WindowGraph(self._macro, self.device)
+                self.graph_captures += 1
+                # One pool for the chunk graphs: they never run at once,
+                # and their outputs live in the buffers above.
+                pool = torch.cuda.graph_pool_handle()
+                for bucket in self.prompt_buckets:
+                    for final in (False, True):
+                        self._prefill_graphs[bucket, final] = _WindowGraph(
+                            self._prefill_body(bucket, final), self.device, pool)
 
     # -- the programs ----------------------------------------------------------
     def _new_pool(self):
@@ -1024,9 +1075,6 @@ class DecodeServer:
         st = self._tick_state
         return st.table if self._tp is None else st.tables
 
-    def _table_row(self, table, idx: int):
-        return table[idx] if self._tp is None else [t[idx] for t in table]
-
     def _sample(self, logits, serial, step) -> torch.Tensor:
         """Greedy at temperature 0, else lane i samples
         categorical(fold_in(fold_in(PRNGKey(seed), serial[i]), step[i]),
@@ -1092,30 +1140,68 @@ class DecodeServer:
         self.graph_replays += 1
         return out
 
-    def _prefill_chunk(self, tokens, table_row, start: int, length: int) -> None:
-        paged_prefill_chunk(
-            self.params, tokens, self.cfg, self.cache, table_row, start, length,
-            self.block_size, with_logits=False, tp=self._tp,
-        )
+    def _prefill_body(self, bucket: int, final: bool):
+        """The batch-1 prompt chunk at `bucket` over fixed device state, the
+        program a graph captures (`_prefill_graphs`) and the CPU runs: its
+        inputs from `_chunk_in` (positions, pages and the window's pos and
+        length derive from start and length on the device), the page-table
+        row read from the tick state's table at the slot's index. A mid
+        chunk only writes the pool; a final chunk also samples its first
+        token, at the slot's serial and step0, from its last row's logits
+        (`paged_prefill_last`) into `_chunk_tok`. The engine keeps no body
+        (it would tie the engine into a reference cycle), only its graph."""
+        meta, tables = self._chunk_in, self._table()
+        start, length, slot, serial, step0 = (meta[i:i + 1] for i in range(_CHUNK_META))
+        tokens = meta[_CHUNK_META:_CHUNK_META + bucket][None, :]  # [1, C]
 
-    def _prefill_last(self, tokens, table_row, start: int, length: int, slot: int,
-                      step0: int = 0) -> None:
-        """The final chunk: sample the first token at the true last prompt
-        position and scatter it into the step-feed vector and into this
-        wave's first-token vector (cloned per wave by the caller: earlier
-        waves' refs still hold the previous one). `step0` is 0 for a fresh
-        request; a restore passes its replayed-token count, so a sampled
-        stream continues its PRNG draws where the fault interrupted it."""
-        logits, _ = paged_prefill_chunk(
-            self.params, tokens, self.cfg, self.cache, table_row, start, length,
-            self.block_size, tp=self._tp,
-        )
-        serial = torch.full((1,), int(self._slot_serial[slot]), dtype=torch.int64,
-                            device=self.device)
-        first = self._sample(logits[length - 1][None, :], serial,
-                             torch.full_like(serial, step0))[0]
-        self._last_dev[slot] = first
-        self._first_dev[slot] = first
+        def body():
+            if self._tp is None:
+                row = tables.index_select(0, slot)[0]
+            else:
+                row = [t.index_select(0, slot.to(t.device))[0] for t in tables]
+            if not final:
+                paged_prefill_chunk(self.params, tokens, self.cfg, self.cache, row, start,
+                                    length, self.block_size, with_logits=False, tp=self._tp)
+                return None
+            logits, _ = paged_prefill_last(self.params, tokens, self.cfg, self.cache, row,
+                                           start, length, self.block_size, tp=self._tp)
+            self._chunk_tok.copy_(self._sample(logits, serial, step0))
+            return None
+
+        return body
+
+    def _chunk_inputs(self, bucket: int, idx: int, start: int, piece: Sequence[int],
+                      step0: int = 0) -> np.ndarray:
+        """A batch-1 chunk's inputs packed for its one upload (host work):
+        [start, length, slot, serial, step0], then `piece` zero-padded to
+        `bucket`, int32. `step0` is 0 for a fresh request; a restore passes
+        its replayed-token count, so a sampled stream continues its PRNG
+        draws where the fault interrupted it."""
+        inputs = np.zeros((_CHUNK_META + bucket,), dtype=np.int32)
+        inputs[:_CHUNK_META] = (start, len(piece), idx, self._slot_serial[idx], step0)
+        inputs[_CHUNK_META:_CHUNK_META + len(piece)] = piece
+        return inputs
+
+    def _prefill_chunk(self, inputs: np.ndarray, final: bool) -> None:
+        """One batch-1 prompt chunk from its packed `inputs`: ONE counted
+        upload into `_chunk_in`, then a replay of its bucket's graph, or
+        its body eagerly where none was captured. A final chunk's first
+        token then goes to the step-feed vector and to this wave's
+        first-token vector (cloned per wave by the caller: earlier waves'
+        refs still hold the previous one, so no graph holds it)."""
+        key = (len(inputs) - _CHUNK_META, final)
+        self._stage.upload(self._chunk_in, inputs)
+        graph = self._prefill_graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            self.prefill_graph_replays += 1
+        else:
+            self._prefill_body(*key)()
+            self.prefill_eager_chunks += 1
+        if final:
+            slot = int(inputs[2])
+            self._last_dev[slot:slot + 1].copy_(self._chunk_tok)
+            self._first_dev[slot:slot + 1].copy_(self._chunk_tok)
 
     def _prefill_window(self, tokens, table, pos, lengths, active) -> None:
         paged_prefill_window(
@@ -1418,9 +1504,11 @@ class DecodeServer:
         the final chunk and the multi-slot window, before traffic arrives
         (decode_server.py:1378): the reference compiles them; here the
         kernels are built and loaded and the programs' buffers allocated.
-        Every write goes to the scratch page (an all-zero page table), and
-        the final chunk's first-token scatter to lane 0, so it runs before
-        serving only."""
+        Where the batch-1 chunks are graphs, their captures' warm-ups ran
+        them already, and only the windows run here. Every write goes to
+        the scratch page (a chunk of length 0, a window over an all-zero
+        page table), and the final chunk's first-token scatter to lane 0,
+        so it runs before serving only."""
         if any(s.active for s in self._slots):
             raise RuntimeError("prewarm() runs before serving: a slot is active")
         self._sync_tick_state(for_table_only=True)
@@ -1429,13 +1517,12 @@ class DecodeServer:
         # blocks, which the scratch writes must not touch.
         zeros = (torch.zeros_like(table) if self._tp is None
                  else [torch.zeros_like(t) for t in table])
-        row = self._table_row(zeros, 0)
         with _DEVICE_GATE.shared():
             self._first_dev = self._first_dev.clone()
             for bucket in self.prompt_buckets:
-                dummy = np.zeros((1, bucket), dtype=np.int32)
-                self._prefill_chunk(self._stage.to_device(dummy), row, 0, 1)
-                self._prefill_last(self._stage.to_device(dummy), row, 0, 1, 0)
+                if not self._prefill_graphs:
+                    for final in (False, True):
+                        self._prefill_chunk(self._chunk_inputs(bucket, 0, 0, []), final)
                 lanes = np.zeros((self.n_slots,), dtype=np.int32)
                 self._prefill_window(
                     self._stage.to_device(np.zeros((self.n_slots, bucket), dtype=np.int32)),
@@ -2036,8 +2123,8 @@ class DecodeServer:
         """Dispatch one wave (decode_server.py:2644). Mid-prompt chunks
         sharing a bucket go through the batched multi-slot window program;
         a singleton mid chunk keeps the batch-1 program. Final chunks
-        always go through the per-slot `_prefill_last`, which samples the
-        first token."""
+        always go through the batch-1 program's final body, which samples
+        the first token (`_prefill_chunk`)."""
         self._check_fault("dispatch_prefill_wave", wave[0][0])
         # The wave's first dispatch uploads the table (a no-op after it).
         packed = self._pack_tick_state(for_table_only=True)
@@ -2053,15 +2140,10 @@ class DecodeServer:
         dispatches = 0
         for bucket, entries in sorted(mids.items()):
             if len(entries) == 1:
-                idx, start, piece = entries[0]
-                padded = np.zeros((1, bucket), dtype=np.int32)
-                padded[0, : len(piece)] = piece
+                inputs = self._chunk_inputs(bucket, *entries[0])
                 with self._prof.dispatch(DISPATCH_PREFILL_CHUNK):
                     self._tick_state.sync(packed)
-                    self._prefill_chunk(
-                        self._stage.to_device(padded), self._table_row(table, idx), start,
-                        len(piece),
-                    )
+                    self._prefill_chunk(inputs, final=False)
             else:
                 tokens = np.zeros((self.n_slots, bucket), dtype=np.int32)
                 pos = np.zeros((self.n_slots,), dtype=np.int32)
@@ -2085,16 +2167,13 @@ class DecodeServer:
             dispatches += 1
         ref = None
         for n, (idx, start, piece) in enumerate(finals):
-            padded = np.zeros((1, self._bucket(len(piece))), dtype=np.int32)
-            padded[0, : len(piece)] = piece
+            inputs = self._chunk_inputs(self._bucket(len(piece)), idx, start, piece,
+                                        self._slots[idx].step_base)
             with self._prof.dispatch(DISPATCH_PREFILL_LAST):
                 self._tick_state.sync(packed)
                 if n == 0:
                     self._first_dev = self._first_dev.clone()
-                self._prefill_last(
-                    self._stage.to_device(padded), self._table_row(table, idx), start,
-                    len(piece), idx, self._slots[idx].step_base,
-                )
+                self._prefill_chunk(inputs, final=True)
                 if n == len(finals) - 1:
                     # ONE ref over the wave's first-token vector for every
                     # slot finishing in this wave: a single device->host

@@ -4,7 +4,8 @@ Port of `nos_tpu/runtime/staging.py`: `SyncLedger` (:53), `HostStage` (:68)
 and `TickState` (:87, with `mesh` :99-142).
 
   - ``HostStage`` is the one host->device funnel of the tick path: every
-    upload goes through :meth:`HostStage.to_device`, which counts it
+    upload goes through :meth:`HostStage.to_device` (or, into a buffer
+    allocated once, :meth:`HostStage.upload`), which counts it
     (``h2d_uploads``). On CUDA the value is staged in pinned host memory
     and copied with ``non_blocking=True``, so an upload never stalls the
     host behind the stream.
@@ -74,6 +75,17 @@ class HostStage:
             if self.device.type == "cuda":
                 return host.pin_memory().to(self.device, non_blocking=True)
             return host.clone()
+
+    def upload(self, dst: torch.Tensor, value: np.ndarray) -> None:
+        """One counted host->device transfer of a 1-D numpy array into the
+        leading elements of `dst`, a buffer allocated once (a captured
+        graph's input): pinned and non-blocking on CUDA, as `to_device`."""
+        self.uploads += 1
+        with self.profiler.stage():
+            host = torch.from_numpy(np.ascontiguousarray(value))
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            dst[: host.numel()].copy_(host, non_blocking=True)
 
 
 class TickState:

@@ -316,11 +316,16 @@ class ServingReport:
     # latency tails above. `tick_read_wait_s` is the part of the host
     # overhead the engine thread spent waiting on device->host reads (the
     # port's own; host work is `tick_host_overhead_s - tick_read_wait_s`).
+    # `prefill_graph_replays` and `prefill_eager_chunks` (the port's own)
+    # count the batch-1 prompt chunks run as a CUDA graph replay and run
+    # eagerly.
     ticks_profiled: int = 0
     tick_wall_s: float = 0.0
     tick_dispatch_s: float = 0.0
     tick_host_overhead_s: float = 0.0
     tick_read_wait_s: float = 0.0
+    prefill_graph_replays: int = 0
+    prefill_eager_chunks: int = 0
     tick_phase_s: Dict[str, float] = field(default_factory=dict)
     host_overhead_p50_s: float = 0.0
     host_overhead_p95_s: float = 0.0
@@ -426,13 +431,23 @@ REPORT_GAUGE_FIELDS = frozenset(
 )
 
 
+#: ServingReport fields of the port's own, which the JAX package's report
+#: lacks. `merge` sums them like the rest; the fleet monitor's windows
+#: (`report_counter_fields`) leave them out, so its journals keep the
+#: reference's schema.
+PORT_REPORT_FIELDS = frozenset(
+    {"tick_read_wait_s", "prefill_graph_replays", "prefill_eager_chunks"})
+
+
 def report_counter_fields() -> tuple:
     """The monotonic integer counter fields of ServingReport, in schema
-    order — the delta/rate surface the fleet monitor windows over."""
+    order — the delta/rate surface the fleet monitor windows over (the
+    port's own fields aside)."""
     return tuple(
         f.name
         for f in fields(ServingReport)
         if f.type == "int" and f.name not in REPORT_GAUGE_FIELDS
+        and f.name not in PORT_REPORT_FIELDS
     )
 
 
@@ -605,6 +620,8 @@ def collect_serving(server) -> ServingReport:
         tick_dispatch_s=float(getattr(server, "tick_dispatch_s", 0.0)),
         tick_host_overhead_s=float(getattr(server, "tick_host_overhead_s", 0.0)),
         tick_read_wait_s=float(getattr(server, "tick_read_wait_s", 0.0)),
+        prefill_graph_replays=int(getattr(server, "prefill_graph_replays", 0)),
+        prefill_eager_chunks=int(getattr(server, "prefill_eager_chunks", 0)),
         tick_phase_s={
             str(k): float(v)
             for k, v in dict(getattr(server, "tick_phase_s", {}) or {}).items()

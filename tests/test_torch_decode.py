@@ -179,3 +179,51 @@ def test_paged_prefill_window_matches_reference(model):
         n = lengths[row]
         np.testing.assert_allclose(tx.numpy()[row, :n], np.asarray(jx)[row, :n],
                                    atol=LOGIT_ATOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def bf16_model(model):
+    """The serving config's weights in bfloat16, as the engine serves them."""
+    jcfg, jparams, _, _ = model
+    cfg = TGPTConfig(**{**dataclasses.asdict(jcfg), "dtype": "bfloat16"})
+    params = from_numpy_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+@pytest.mark.parametrize("fill", ["one", "mid", "full"])
+@pytest.mark.parametrize("start", [0, 13])
+def test_prefill_last_row_head_matches_the_full_head(bf16_model, chunk, fill, start):
+    """The final chunk's head on its last row only (`paged_prefill_last`)
+    against the full [C, vocab] head indexed at `length - 1`, in bf16: the
+    same first token, the same logits row within bf16 rounding, the same
+    pool bit for bit; and the chunk's start and length as [1] device
+    scalars (a captured graph's inputs) give the int arguments' bits."""
+    cfg, params = bf16_model
+    length = {"one": 1, "mid": chunk // 2 + 1, "full": chunk}[fill]
+    rng = np.random.RandomState(chunk + length + start)
+    pools = {l: {k: a.astype(np.float32) for k, a in lc.items()}
+             for l, lc in random_pools(cfg, 5).items()}
+    table = torch.from_numpy(table_for(1, 5, 7)[0])
+    tokens = torch.zeros((1, chunk), dtype=torch.int32)
+    tokens[0, :length] = torch.from_numpy(rng.randint(0, cfg.vocab, size=length))
+
+    def pool():
+        return {l: {k: t.to(torch.bfloat16) for k, t in lc.items()}
+                for l, lc in as_torch(pools).items()}
+
+    full_pool, last_pool, dev_pool = pool(), pool(), pool()
+    full, _ = td.paged_prefill_chunk(params, tokens, cfg, full_pool, table, start, length, BS)
+    last, _ = td.paged_prefill_last(params, tokens, cfg, last_pool, table, start, length, BS)
+    scalar = lambda v: torch.tensor([v], dtype=torch.int32)  # noqa: E731
+    dev, _ = td.paged_prefill_last(params, tokens, cfg, dev_pool, table, scalar(start),
+                                   scalar(length), BS)
+    row = full[length - 1][None, :]
+    assert last.shape == (1, cfg.vocab) and last.dtype == torch.float32
+    assert torch.equal(td.greedy(last), td.greedy(row))
+    torch.testing.assert_close(last, row, rtol=1.6e-2, atol=1e-5)
+    assert torch.equal(dev, last)
+    for layer in full_pool:
+        for name in ("k", "v"):
+            assert torch.equal(last_pool[layer][name][1:], full_pool[layer][name][1:])
+            assert torch.equal(dev_pool[layer][name][1:], full_pool[layer][name][1:])

@@ -21,6 +21,7 @@ import torch
 
 from nos_tpu.runtime.decode_server import DecodeServer as JaxServer
 from nos_tpu_torch import DecodeServer, GPTConfig, from_numpy_params, init_gpt
+from nos_tpu_torch import telemetry as tt
 from nos_tpu_torch.models.decode import init_paged_cache
 from nos_tpu_torch.observability import Metrics
 from nos_tpu_torch.runtime.quota import QuotaPolicy, TenantShare
@@ -116,6 +117,26 @@ def test_two_long_prompts_batch_through_the_prefill_window(model):
                           prompt_buckets=(8, 16, 32), prefill_budget_tokens=64)
     # Both mid chunks (0-32, 32-64) of the two prompts as one window each.
     assert tsrv.prefill_window_dispatches == 2
+
+
+def test_batch1_chunks_run_eagerly_on_the_cpu(model):
+    """On the CPU no chunk graph is captured: every batch-1 prompt chunk
+    (a singleton mid chunk, every final chunk) runs its body eagerly and
+    counts in `prefill_eager_chunks`, none in `prefill_graph_replays`. The
+    serving report carries both, `merge` sums them, and the fleet
+    monitor's windows leave the port's own fields out."""
+    traffic = [(p, 5) for p in prompts(4, [70, 75, 40, 6])]
+    _, tsrv, _ = run_both(model, traffic, n_slots=2, max_len=96,
+                          prompt_buckets=(8, 16, 32), prefill_budget_tokens=64)
+    assert not tsrv._prefill_graphs and tsrv.prefill_graph_replays == 0
+    assert (tsrv.prefill_eager_chunks
+            == tsrv.prefill_dispatches - tsrv.prefill_window_dispatches > len(traffic))
+    rep = tt.collect_serving(tsrv)
+    assert (rep.prefill_eager_chunks, rep.prefill_graph_replays) == (
+        tsrv.prefill_eager_chunks, 0)
+    merged = tt.ServingReport.merge([rep, rep])
+    assert merged.prefill_eager_chunks == 2 * tsrv.prefill_eager_chunks
+    assert not tt.PORT_REPORT_FIELDS & set(tt.report_counter_fields())
 
 
 def test_steps_per_dispatch_4_matches_1(model):
@@ -291,7 +312,8 @@ def test_serving_plane_probes_find_every_engine_hook(model):
     drain, replica and supervisor modules probe exists on the port's
     DecodeServer, and so does every counter `collect_serving` reads that
     the JAX engine has (the rest are the supervisor's, which it reports
-    itself); the port's reads `tick_read_wait_s` besides."""
+    itself); the port's reads its own counters besides
+    (`telemetry.PORT_REPORT_FIELDS`)."""
     jcfg, jparams, tcfg, tparams = model
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     hooks = set()
@@ -306,10 +328,12 @@ def test_serving_plane_probes_find_every_engine_hook(model):
         assert hasattr(tsrv, hook), hook
         assert callable(getattr(tsrv, hook)) == callable(getattr(jsrv, hook)), hook
     read = _getattr_probes(os.path.join(root, "nos_tpu", "telemetry.py"), "server")
-    # The port's `collect_serving` reads one counter of its own besides.
-    assert read | {"tick_read_wait_s"} == _getattr_probes(
+    # The port's `collect_serving` reads counters of its own besides.
+    own = set(tt.PORT_REPORT_FIELDS)
+    assert read | own == _getattr_probes(
         os.path.join(root, "nos_tpu_torch", "telemetry.py"), "server")
-    assert hasattr(tsrv, "tick_read_wait_s") and not hasattr(jsrv, "tick_read_wait_s")
+    for name in own:
+        assert hasattr(tsrv, name) and not hasattr(jsrv, name), name
     missing = {n for n in read if hasattr(jsrv, n) and not hasattr(tsrv, n)}
     assert not missing, missing
     assert {n for n in read if not hasattr(jsrv, n)} == {

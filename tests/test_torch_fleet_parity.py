@@ -134,7 +134,7 @@ def store_state(store):
 
 
 #: ServingReport fields of the port's own, which the JAX package's lacks.
-PORT_ONLY = ("tick_read_wait_s",)
+PORT_ONLY = ("tick_read_wait_s", "prefill_graph_replays", "prefill_eager_chunks")
 
 
 def report(obj, drop=("latency_s",)):

@@ -23,7 +23,10 @@ captured decode window (a CUDA graph) against its eager `_macro` on one
 state: tokens and the state they advance equal, the pool's written pages
 byte for byte, the launch counts equal; a capture that copies from host
 memory raises, and a dead engine's graph in a reference cycle is
-collected before a capture, never inside it. The spill tier's and the
+collected before a capture, never inside it. The batch-1 prompt chunk's
+graphs against its eager chunks over every bucket (tokens, launch counts,
+fixed buffer addresses), a restore drawing at its replayed step, and two
+engines capturing at once. The spill tier's and the
 radix tree's block copies byte for byte on the card (tp=1 and tp=2), a
 verify window (W = 9) on the mma route against the plain version, and a
 spec-armed engine with the radix cache on the card against spec-off. And
@@ -812,6 +815,95 @@ def test_engine_windows_replay_and_match_eager(cuda_device):
     assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
 
 
+def _chunk_engine(cuda_device, dtype, temperature, graphs, fault=None):
+    """A small engine whose batch-1 prompt chunks replay their bucket's
+    graph (`graphs`) or run eagerly (its chunk graphs dropped), served
+    tick by tick over prompts at every bucket, some past the largest (mid
+    chunks, one a tick under the default budget), three slots for five
+    requests. `fault` (site, occurrence) forces a device-lost recovery
+    there: every slot checkpointed and replayed, a sampled stream's
+    restore continuing at its replayed step (step0 > 0)."""
+    from nos_tpu_torch import DecodeServer, GPTConfig, init_gpt
+    from nos_tpu_torch.runtime.faults import FaultInjector, FaultSpec
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype=dtype)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    inj = FaultInjector([FaultSpec(*fault, "device-lost")]) if fault else None
+    server = DecodeServer(params, cfg, device=cuda_device, n_slots=3, max_len=128,
+                          prompt_buckets=(8, 16, 32), steps_per_dispatch=4, block_size=8,
+                          temperature=temperature, seed=5, fault_injector=inj)
+    if not graphs:
+        server._prefill_graphs = {}
+    rng = np.random.RandomState(11)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), m)
+            for n, m in ((5, 20), (13, 9), (30, 14), (70, 11), (45, 17))]
+    return server, reqs
+
+
+def _serve_ticks(server, reqs):
+    futs = [server.submit(p, max_new=m) for p, m in reqs]
+    while not all(f.done() for f in futs):
+        try:
+            server._tick()
+        except Exception as exc:  # an injected fault: the engine's recovery
+            server._recover(exc)
+    return [f.result() for f in futs]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_graphs_replay_and_match_eager_chunks(cuda_device, dtype, temperature):
+    """Every batch-1 prompt chunk (mid and final, at every bucket, several
+    slots) replays its bucket's graph, and the served tokens, the launch
+    counts of the serve and the chunk counters equal those of the same
+    engine running its chunks eagerly. The chunk's input buffers, its
+    first-token buffer, the step-feed vector and the tick state's table
+    keep their addresses across the replays."""
+    from nos_tpu_torch.runtime import decode_server as ds
+
+    runs = {}
+    for graphs in (False, True):
+        server, reqs = _chunk_engine(cuda_device, dtype, temperature, graphs)
+        ptrs = [t.data_ptr() for t in (server._chunk_in, server._chunk_tok, server._last_dev,
+                                       server._tick_state.table)]
+        before = ds._launch_counts()
+        outs = _serve_ticks(server, reqs)
+        torch.cuda.synchronize()
+        after = ds._launch_counts()
+        assert ptrs == [t.data_ptr() for t in (server._chunk_in, server._chunk_tok,
+                                               server._last_dev, server._tick_state.table)]
+        runs[graphs] = (outs, {k: n - before[k] for k, n in after.items() if n != before[k]},
+                        server)
+    (want, launches_e, eager), (got, launches_g, server) = runs[False], runs[True]
+    assert got == want
+    assert launches_g == launches_e
+    assert len(server._prefill_graphs) == 2 * 3
+    batch1 = server.prefill_dispatches - server.prefill_window_dispatches
+    assert server.prefill_graph_replays == eager.prefill_eager_chunks == batch1 > 5
+    assert server.prefill_eager_chunks == eager.prefill_graph_replays == 0
+    assert server.graph_captures == 1
+    assert server.graph_replays == server.macro_dispatches + server.burst_windows_run
+
+
+def test_prefill_graphs_restore_at_its_replayed_step(cuda_device):
+    """A sampled bf16 engine loses its device mid-decode: every slot is
+    checkpointed and its prompt and generated tokens replayed through the
+    prefill, the final chunk drawing at the restored step (step0 > 0, an
+    input of the graph, never a captured constant). The replayed graphs
+    give the eager chunks' tokens."""
+    outs = {}
+    for graphs in (False, True):
+        server, reqs = _chunk_engine(cuda_device, "bfloat16", 0.8, graphs,
+                                     fault=("dispatch_macro", 6))
+        outs[graphs] = _serve_ticks(server, reqs)
+        assert server.recoveries == 1 and server.slots_restored > 0
+        assert server.replay_tokens > 0
+        if graphs:
+            assert server.prefill_eager_chunks == 0 and server.prefill_graph_replays > 5
+    assert outs[True] == outs[False]
+
+
 def test_capture_that_copies_from_host_raises(cuda_device):
     """A window body that builds a tensor from host data cannot be
     captured: the capture raises (nothing falls back to eager windows)."""
@@ -1081,8 +1173,9 @@ def test_int8_engine_matches_its_plain_programs(cuda_device, monkeypatch):
             toks = torch.zeros((1, 8 if len(piece) <= 8 else 16), dtype=torch.int32,
                                device=cuda_device)
             toks[0, :len(piece)] = torch.tensor(piece, dtype=torch.int32)
-            lg, _ = D.paged_prefill_chunk(params, toks, cfg, cache, row, start, len(piece), 8)
-        picks.append(int(D.greedy(lg[len(piece) - 1][None, :])[0]))
+            # The engine's final chunk takes its head on the last row only.
+            lg, _ = D.paged_prefill_last(params, toks, cfg, cache, row, start, len(piece), 8)
+        picks.append(int(D.greedy(lg)[0]))
         mask = torch.ones((1,), dtype=torch.bool, device=cuda_device)
         for t in range(m - 1):
             lg, _ = D.paged_decode_step(
@@ -1342,12 +1435,12 @@ def test_capture_under_live_engine_threads(cuda_device, monkeypatch):
     at_capture = []
     init = ds._WindowGraph.__init__
 
-    def recording(self, body, device):
+    def recording(self, body, device, pool=None):
         at_capture.append({
             "decoding_slots": [sum(s.active and s.phase == "decoding" for s in e._slots)
                                for e in engines],
             "unresolved": [sum(not f.done() for f in fs) for fs in futs]})
-        init(self, body, device)
+        init(self, body, device, pool)
 
     monkeypatch.setattr(ds._WindowGraph, "__init__", recording)
     new = _fleet_engine(cuda_device, params, cfg)  # built while both engines decode
@@ -1356,12 +1449,58 @@ def test_capture_under_live_engine_threads(cuda_device, monkeypatch):
     for e in engines:
         e.stop()
     print(f"serving engines when the new engine's capture began: {at_capture}")
-    assert len(at_capture) == 1 and sum(at_capture[0]["unresolved"]) > 0, at_capture
+    # The window, then a mid and a final chunk graph per bucket.
+    assert len(at_capture) == 1 + 2 * 2 and sum(at_capture[0]["unresolved"]) > 0, at_capture
     assert got == want
     assert new._graph.delta == idle._graph.delta
+    assert ({k: g.delta for k, g in new._prefill_graphs.items()}
+            == {k: g.delta for k, g in idle._prefill_graphs.items()})
     for e in engines + [new, idle]:
         assert e.graph_captures == 1
         assert e.graph_replays == e.macro_dispatches + e.burst_windows_run
+        assert e.prefill_eager_chunks == 0
+
+
+def test_two_engines_capture_at_once_and_serve(cuda_device):
+    """Two engines built at once on their own threads capture their windows
+    and chunk graphs in turn under the device gate, then serve at once on
+    their own threads: each gives the tokens of an engine built and served
+    alone, every batch-1 chunk a replay of its own graphs."""
+    import threading
+
+    from nos_tpu_torch import GPTConfig, init_gpt
+
+    cfg = GPTConfig(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, max_seq=256,
+                    dtype="bfloat16")
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(12)
+    reqs = [(rng.randint(1, 96, size=n).tolist(), 24) for n in (4, 11, 19, 26, 9)]
+    alone = _fleet_engine(cuda_device, params, cfg)
+    want = [alone.submit(p, max_new=m) for p, m in reqs]
+    while not all(f.done() for f in want):
+        alone._tick()
+    want = [f.result() for f in want]
+    engines = [None, None]
+
+    def build(i):
+        engines[i] = _fleet_engine(cuda_device, params, cfg)
+
+    threads = [threading.Thread(target=build, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert all(e is not None for e in engines)
+    futs = [[e.submit(p, max_new=m) for p, m in reqs] for e in engines]
+    for e in engines:
+        e.start()
+    got = [[f.result(timeout=300) for f in fs] for fs in futs]
+    for e in engines:
+        e.stop()
+    assert got == [want, want]
+    for e in engines:
+        assert len(e._prefill_graphs) == 2 * 2 and e.prefill_eager_chunks == 0
+        assert e.prefill_graph_replays == alone.prefill_graph_replays > 0
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp16", "int8"], ids=["bf16", "int8"])
