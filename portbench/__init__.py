@@ -4,9 +4,12 @@
 runs one cell once and prints one JSON line. Everything a cell is made of
 is found by name: `cells/<cell>.json` (engine settings, the configuration
 and the traffic mix it names, the correctness limit), `configs/<config>.json`
-(a model's published sizes), `traffic/<mix>.json` (a mix's parameters, read
-by the generator `gen/<kind>.py`), `drivers/<driver>.py` (what runs the
+(a model's published sizes and its `arch`), `arch/<arch>.py` (the weights,
+the engine's model config, the kernel libraries and the work count of one
+token), `references/<arch>.py` (the plain float32 forward),
+`traffic/<mix>.json` (a mix's parameters, read by the generator
+`gen/<kind>.py`), `drivers/<driver>.py` (what runs the
 cell), `endtoend/<metric>.py` and `metrics/<metric>.py` (one reader per
 end-to-end and per-layer metric). Nothing here imports JAX or the JAX
-package; `reference.py` imports nothing of the port either.
+package; nothing under `references/` imports anything of the port either.
 """

@@ -4,7 +4,8 @@ token's logit lies below the plain reference's best.
 Once the window has closed and the engine's state is freed, a sample of
 the finished requests (the cell's `requests`), drawn from the seed and
 always holding the longest request (prompt plus reply), is run once
-through `reference.py` over each prompt and all its served tokens. At each position that chose a served token the
+through the configuration's reference (`references/<arch>.py`, its
+`logits_at`) over each prompt and all its served tokens. At each position that chose a served token the
 gap is the reference's best logit less the served token's; the run's
 number is the widest gap over the sample. Greedy serving in the
 configuration's bf16 leaves gaps only where the reference's top two lie
@@ -15,9 +16,10 @@ as PERF.md records.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 def sample(records, seed: int, requests: int) -> List:
@@ -33,14 +35,34 @@ def sample(records, seed: int, requests: int) -> List:
     return [done[i] for i in order[:max(1, int(requests))]]
 
 
-def compare(params, config, picked, quant=None) -> Dict[str, float]:
-    """Widest gap over `picked` (and the control's, with `quant`)."""
-    from portbench.reference import served_gaps
+def served_gaps(logits_at: Callable, params: Dict, config: Dict, prompt, served,
+                quant: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """For one request: the reference's logits (`logits_at`) at the
+    positions that chose each served token (the prompt's last position,
+    then each fed token), and how far each served token's logit lies below
+    the reference's best. With `quant`, also the gaps of the tokens the
+    quantized forward puts first (the control's reading), under the float32
+    reference."""
+    seq = list(prompt) + list(served[:-1])
+    ref = logits_at(params, config, seq, len(prompt) - 1)
+    idx = torch.as_tensor(list(served), dtype=torch.long, device=ref.device)
+    best = ref.max(dim=-1).values
+    out = {"served": best - ref.gather(1, idx[:, None])[:, 0]}
+    if quant is not None:
+        low = logits_at(params, config, seq, len(prompt) - 1, quant=quant)
+        pick = low.argmax(dim=-1)
+        out["control"] = best - ref.gather(1, pick[:, None])[:, 0]
+    return out
 
+
+def compare(logits_at: Callable, params, config, picked, quant=None) -> Dict[str, float]:
+    """Widest gap over `picked` (and the control's, with `quant`), under the
+    reference `logits_at`."""
     worst = {"served": 0.0, "control": 0.0}
     tokens = 0
     for r in picked:
-        gaps = served_gaps(params, config, r.prompt.tolist(), r.out.tolist(), quant=quant)
+        gaps = served_gaps(logits_at, params, config, r.prompt.tolist(), r.out.tolist(),
+                           quant=quant)
         for key, g in gaps.items():
             worst[key] = max(worst[key], float(g.max().item()))
         tokens += r.n_out

@@ -43,9 +43,8 @@ def bf16(x, dim):
     return x.to(torch.bfloat16).float()
 
 
-def lower_precision(config):
-    dtype = config["gpt"].get("dtype", "bfloat16")
-    return bf16 if dtype == "float32" else fp8
+def lower_precision(shape):
+    return bf16 if shape.dtype == "float32" else fp8
 
 
 def readings(cell: str, seeds, seconds: float, device: str = "cuda", roots=()):
@@ -59,7 +58,8 @@ def readings(cell: str, seeds, seconds: float, device: str = "cuda", roots=()):
         driver.run(run)
         chk = run.cell["check"]
         picked = check.sample(run.served.records, seed, int(chk["requests"]))
-        got = check.compare(run.params, run.config, picked, quant=lower_precision(run.config))
+        got = check.compare(run.reference.logits_at, run.params, run.config, picked,
+                            quant=lower_precision(run.shape))
         unfinished = sum(1 for r in run.served.records if r.error or r.done is None)
         yield {"cell": cell, "seed": seed, **got, "unfinished": unfinished,
                "limit": float(chk["max_logit_gap"]), "seconds": time.monotonic() - t}

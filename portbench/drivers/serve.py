@@ -1,9 +1,10 @@
 """Serve a cell's traffic through `nos_tpu_torch`'s DecodeServer.
 
-Set-up: the serving path's kernel library (built on a checkout's first
-run only), the weights on the card from the seed (`weights.py`), the engine
-with the cell's settings, and warm requests that run each program shape
-the cell's traffic will use: a final prefill chunk at every prompt bucket
+Set-up: from the configuration's architecture (`arch/<arch>.py`) the
+serving path's kernel libraries (built on a checkout's first run only),
+the weights on the card from the seed and the engine's model config; the
+engine with the cell's settings; and warm requests that run each program
+shape the cell's traffic will use: a final prefill chunk at every prompt bucket
 up to the longest prompt, a mid chunk where prompts outrun the largest
 bucket, decode windows and fused bursts, and a prefix hit with a
 copy-on-write. The window opens with the first request of the traffic:
@@ -176,34 +177,31 @@ def run(ctx) -> None:
     """Fill `ctx` (a `harness.Run`) with the window's results."""
     import torch
 
-    from nos_tpu_torch.models.gpt import GPTConfig
     from nos_tpu_torch.runtime.decode_server import DecodeServer
     from nos_tpu_torch.tracing import EngineTracing
-    from portbench.weights import make_params
 
-    cell, config = ctx.cell, ctx.config
+    cell, config, arch = ctx.cell, ctx.config, ctx.arch
     device = torch.device(run_device(ctx))
     marks = [("imports", time.monotonic())]
     if device.type == "cuda":
         from nos_tpu_torch.ops import _build
 
-        # The serving path's kernel library, built by nvcc on a checkout's
+        # The serving path's kernel libraries, built by nvcc on a checkout's
         # first run only; timed apart from the rest of the set-up.
-        _build.build("paged_attention")
+        for lib in arch.KERNEL_LIBRARIES:
+            _build.build(lib)
     marks.append(("kernels", time.monotonic()))
-    params = make_params(config, ctx.seed, device)
+    params = arch.make_params(config, ctx.seed, device)
     sync(device)
     marks.append(("weights", time.monotonic()))
-    gpt = config["gpt"]
-    cfg = GPTConfig(**{k: gpt[k] for k in ("vocab", "hidden", "layers", "heads", "kv_heads",
-                                           "max_seq", "mlp_ratio", "rope_theta", "dtype")})
+    cfg = arch.engine_config(config)
     streams = ctx.make_traffic()
     engine = DecodeServer(params, cfg, device=device, temperature=0.0, seed=0,
                           tracing=EngineTracing() if ctx.trace else None,
                           **engine_kwargs(cell))
     engine.start()
     marks.append(("engine", time.monotonic()))
-    ctx.warm_requests = warm(engine, cell, max_prompt(streams), int(gpt["vocab"]), ctx.seed)
+    ctx.warm_requests = warm(engine, cell, max_prompt(streams), ctx.shape.vocab, ctx.seed)
     sync(device)
     marks.append(("warm", time.monotonic()))
     t = ctx.t_process

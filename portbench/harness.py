@@ -1,15 +1,18 @@
 """Find a cell's parts by name, run it, and build its result line.
 
 A cell `<cell>` is `cells/<cell>.json`; it names its configuration
-(`configs/<config>.json`), its traffic mix (`traffic/<mix>.json`, whose
-`kind` selects `gen/<kind>.py`) and its driver (`drivers/<driver>.py`).
+(`configs/<config>.json`, whose `arch` selects `arch/<arch>.py` for the
+weights, the engine's model config, the kernel libraries and the work
+count, and `references/<arch>.py` for the plain reference), its traffic
+mix (`traffic/<mix>.json`, whose `kind` selects `gen/<kind>.py`) and its
+driver (`drivers/<driver>.py`).
 The metrics a run reports are those `BENCHMARK.json` lists for the cell:
 its `end_to_end` metrics with `--trace 0`, its `per_layer` metrics with
 `--trace 1`, each computed by the reader of the same name under
 `endtoend/` or `metrics/` (`UNIT`, `read(run) -> value or None`). A reader
 that finds nothing to read returns None and the metric is left out.
-Adding a cell, a mix, a configuration or a metric is adding files and
-entries; nothing here names one.
+Adding a cell, a mix, a configuration, an architecture or a metric is
+adding files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -85,6 +88,10 @@ class Run:
         self.cell = load_json("cells", cell_name, self.roots)
         self.name = cell_name
         self.config = load_json("configs", self.cell["config"], self.roots)
+        if "arch" not in self.config:
+            path = _find("configs", self.cell["config"], ".json", self.roots)
+            raise ValueError(f"configuration {path} names no 'arch' (arch/<arch>.py and "
+                             "references/<arch>.py)")
         self.mix = load_json("traffic", self.cell["traffic"], self.roots)
         self.device = device
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
@@ -103,7 +110,7 @@ class Run:
 
     def make_traffic(self):
         gen = load_module("gen", self.mix["kind"], self.roots)
-        return gen.make(self.mix, int(self.config["gpt"]["vocab"]), self.seed, self.seconds)
+        return gen.make(self.mix, int(self.shape.vocab), self.seed, self.seconds)
 
     def open_window(self) -> None:
         self.t_open = time.monotonic()
@@ -113,16 +120,28 @@ class Run:
         return self.t_open - self.t_process
 
     @cached_property
+    def arch(self):
+        """`arch/<arch>.py`: weights, engine config, kernel libraries and
+        the work count of the configuration's architecture."""
+        return load_module("arch", self.config["arch"], self.roots)
+
+    @cached_property
+    def reference(self):
+        """`references/<arch>.py`: the plain forward (`logits_at`) that
+        judges the served tokens."""
+        return load_module("references", self.config["arch"], self.roots)
+
+    @cached_property
     def shape(self):
-        from portbench.work import Shape
-        return Shape.from_gpt(self.config["gpt"])
+        return self.arch.shape(self.config)
 
     @cached_property
     def work(self):
-        """The work the window's requests needed (`work.py`), prompt tokens
-        counted as prefill only where no earlier request held them: the
-        benchmark's own trie sees each prompt when it is sent and each
-        reply when it arrives, in that order."""
+        """The work the window's requests needed (`work.py` over the
+        architecture's `shape`), prompt tokens counted as prefill only where
+        no earlier request held them: the benchmark's own trie sees each
+        prompt when it is sent and each reply when it arrives, in that
+        order."""
         from portbench.work import PrefixTrie, Work
 
         events = []

@@ -96,21 +96,3 @@ def logits_at(params: Dict, config: Dict, tokens, first: int,
     x = _rmsnorm(x[first:], params["ln_f"]["scale"], eps)
     return _mm(x, params["lm_head"].float(), quant)
 
-
-def served_gaps(params: Dict, config: Dict, prompt, served,
-                quant: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
-    """For one request: the reference's logits at the positions that chose
-    each served token (the prompt's last position, then each fed token),
-    and how far each served token's logit lies below the reference's best.
-    With `quant`, also the gaps of the tokens the quantized forward puts
-    first (the control's reading), under the float32 reference."""
-    seq = list(prompt) + list(served[:-1])
-    ref = logits_at(params, config, seq, len(prompt) - 1)
-    idx = torch.as_tensor(list(served), dtype=torch.long, device=ref.device)
-    best = ref.max(dim=-1).values
-    out = {"served": best - ref.gather(1, idx[:, None])[:, 0]}
-    if quant is not None:
-        low = logits_at(params, config, seq, len(prompt) - 1, quant=quant)
-        pick = low.argmax(dim=-1)
-        out["control"] = best - ref.gather(1, pick[:, None])[:, 0]
-    return out

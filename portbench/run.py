@@ -102,7 +102,8 @@ def finish(run, names) -> dict:
     unfinished = sum(1 for r in records if r.error is not None or r.done is None)
     chk = run.cell["check"]
     picked = check.sample(records, run.seed, int(chk["requests"]))
-    got = check.compare(run.params, run.config, picked) if picked else {}
+    got = (check.compare(run.reference.logits_at, run.params, run.config, picked)
+           if picked else {})
     gap = got.get("max_logit_gap", float("inf"))
     checks = {
         "max_logit_gap": {"value": gap, "limit": float(chk["max_logit_gap"])},

@@ -41,6 +41,8 @@ def test_every_cell_finds_its_parts_by_name(cell):
     assert (w["config"], w["traffic"]) == (run.cell["config"], run.cell["traffic"])
     assert harness.load_module("gen", run.mix["kind"]).make
     assert harness.load_module("drivers", run.cell["driver"]).run
+    assert run.arch.make_params and run.arch.engine_config and run.arch.KERNEL_LIBRARIES
+    assert run.shape.vocab == run.config["vocab_size"] and run.reference.logits_at
     for trace in (False, True):
         for name in harness.benchmark_metrics(cell, trace, SPEC):
             assert harness.load_module("metrics" if trace else "endtoend", name).read
@@ -291,7 +293,11 @@ def test_a_fault_under_the_timed_path_makes_the_run_incorrect(fault, monkeypatch
 
 
 def test_the_control_fails_the_limit_that_the_program_meets(data_root):
-    rows = list(control.readings("tiny.chat", [5, 6, 7], 1.0, device="cpu", roots=[data_root]))
+    # Each seed compares every request it finished (the cell's `requests`
+    # is the tiny mix's 16) in a window long enough to finish most of them
+    # on a loaded CPU: a sample of a few short requests can leave the
+    # control under the limit.
+    rows = list(control.readings("tiny.chat", [5, 6, 7], 3.0, device="cpu", roots=[data_root]))
     for row in rows:
         assert row["max_logit_gap"] <= row["limit"] < row["control_max_logit_gap"]
 
@@ -317,6 +323,70 @@ def test_a_mix_a_cell_and_a_metric_added_as_files_alone(tmp_path, data_root):
     assert run.read("metrics", ["turns_sent"]) == {"turns_sent": {"value": 6.0, "unit": "requests"}}
 
 
+def _config_and_cell(tmp_path, data_root, config, cell, **changes):
+    """A copy of the tiny configuration (`changes` applied, None deletes a
+    key) and of tiny.chat naming it, both under `tmp_path`."""
+    for sub in ("configs", "cells"):
+        (tmp_path / sub).mkdir(exist_ok=True)
+    body = json.loads((Path(data_root) / "configs" / "tiny.json").read_text())
+    body.update(name=config, **changes)
+    body = {k: v for k, v in body.items() if v is not None}
+    (tmp_path / "configs" / f"{config}.json").write_text(json.dumps(body))
+    chat = json.loads((Path(data_root) / "cells" / "tiny.chat.json").read_text())
+    chat.update(name=cell, config=config)
+    (tmp_path / "cells" / f"{cell}.json").write_text(json.dumps(chat))
+
+
+def test_an_architecture_added_as_files_alone(tmp_path, data_root):
+    for sub in ("arch", "references"):
+        (tmp_path / sub).mkdir()
+    (tmp_path / "arch" / "tinyalt.py").write_text(
+        "import dataclasses\n"
+        "from portbench.arch import llama\n"
+        "KERNEL_LIBRARIES = llama.KERNEL_LIBRARIES\n"
+        "make_params, engine_config = llama.make_params, llama.engine_config\n"
+        "class Shape(llama.Shape):\n"
+        "    def linear_flops(self):\n"
+        "        return 2 * super().linear_flops()\n"
+        "def shape(config):\n"
+        "    return Shape(**dataclasses.asdict(llama.shape(config)))\n")
+    (tmp_path / "references" / "tinyalt.py").write_text(
+        "from portbench.references import llama\n"
+        "CALLS = []\n"
+        "def logits_at(params, config, tokens, first, quant=None):\n"
+        "    CALLS.append(len(tokens))\n"
+        "    return llama.logits_at(params, config, tokens, first, quant=quant)\n")
+    _config_and_cell(tmp_path, data_root, "tinyalt", "tiny.alt", arch="tinyalt")
+    run, res = tiny("tiny.alt", data_root, roots=[str(tmp_path), data_root])
+    assert res["correct"] is True and res["failed"] == 0
+    # The configuration's own reference judged every compared request.
+    from portbench import check
+
+    picked = check.sample(run.served.records, run.seed, run.cell["check"]["requests"])
+    assert len(run.reference.CALLS) == len(picked) >= 4
+    assert run.reference.__file__ == str(tmp_path / "references" / "tinyalt.py")
+    doubled = vars(run.work)
+    # The same records under the dense count: the linear layers ran once
+    # for each prefilled token and each decode step.
+    dense_shape = harness.load_module("arch", "llama").shape(run.config)
+    del run.__dict__["work"]
+    run.__dict__["shape"] = dense_shape
+    dense = vars(run.work)
+    passes = dense["prefill_tokens"] + dense["decode_tokens"]
+    assert passes > 0
+    assert doubled["model_flops"] == pytest.approx(
+        dense["model_flops"] + passes * dense_shape.linear_flops(), rel=1e-12)
+    assert {k: v for k, v in doubled.items() if k != "model_flops"} == {
+        k: v for k, v in dense.items() if k != "model_flops"}
+
+
+def test_a_configuration_without_arch_is_refused_by_its_file(tmp_path, data_root):
+    _config_and_cell(tmp_path, data_root, "noarch", "tiny.noarch", arch=None)
+    with pytest.raises(ValueError, match=r"noarch\.json names no 'arch'"):
+        harness.Run("tiny.noarch", 1, 1.0, False, time.monotonic(), device="cpu",
+                    roots=[str(tmp_path), data_root])
+
+
 # -- the import rule -------------------------------------------------------------
 def _imports(path):
     tree = ast.parse(path.read_text())
@@ -336,8 +406,10 @@ def test_nothing_under_portbench_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "work.py", "stats.py", "check.py"):
-        assert "nos_tpu_torch" not in set(_imports(ROOT / name))
+    refs = sorted((ROOT / "references").glob("*.py"))
+    assert refs
+    for path in refs + [ROOT / name for name in ("work.py", "stats.py", "check.py")]:
+        assert not set(_imports(path)) & {"nos_tpu_torch", *harness.FORBIDDEN}, path
 
 
 def test_forbidden_modules_compare_whole_top_level_names(monkeypatch):

@@ -1,13 +1,14 @@
-"""The benchmark's work arithmetic (`portbench/work.py`) against direct
-counts."""
+"""The benchmark's work arithmetic (`portbench/work.py` over the dense
+count of `portbench/arch/llama.py`) against direct counts."""
 
 import math
 
 import pytest
 
-from portbench.work import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PrefixTrie, Shape, Work,
-                            attention_flops, bound_s, decode_bytes, linear_flops,
-                            logits_flops, window_bytes)
+from portbench import harness
+from portbench.arch.llama import (Shape, attention_flops, decode_bytes, linear_flops,
+                                  logits_flops, window_bytes)
+from portbench.work import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PrefixTrie, Work, bound_s
 
 SMOL = Shape.from_gpt({"vocab": 49152, "hidden": 2048, "layers": 24, "heads": 32,
                        "kv_heads": 32, "mlp_ratio": 4, "dtype": "bfloat16"})
@@ -72,6 +73,35 @@ def test_a_fully_held_prompt_still_computes_its_last_token():
     w = Work()
     w.add(SMOL, prompt_len=8, cached=8, n_out=1, block=32)
     assert w.prefill_tokens == 1 and w.decode_tokens == 0
+
+
+#: (prompt, cached, served) triples and what `Work` gave for them, summed
+#: in this order, before the count moved into `arch/llama.py` (block 32,
+#: then 16).
+TRIPLES = [(1, 0, 1), (10, 4, 3), (8, 8, 1), (300, 299, 0), (128, 0, 256), (1000, 0, 1024),
+           (2048 + 150, 2048, 64), (3584, 0, 128), (4095, 1000, 33)]
+TOKENS = {"prefill_tokens": 7966, "decode_tokens": 1502, "prompt_tokens": 11324,
+          "cached_tokens": 3358}
+BEFORE = {
+    ("smollm2-1.7b", 32): {"model_flops": 34240344883200.0, "decode_attn_bound_s": 0.1392272748895533,
+                           "window_attn_bound_s": 0.003134282229530205},
+    ("smollm2-1.7b", 16): {"model_flops": 34240344883200.0, "decode_attn_bound_s": 0.13852229184000017,
+                           "window_attn_bound_s": 0.003134282229530205},
+    ("falcon3-1b", 32): {"model_flops": 24833311244288.0, "decode_attn_bound_s": 0.05224409692656721,
+                         "window_attn_bound_s": 0.0022790887081888837},
+    ("falcon3-1b", 16): {"model_flops": 24833311244288.0, "decode_attn_bound_s": 0.051980516339104596,
+                         "window_attn_bound_s": 0.0022790887081888837},
+}
+
+
+@pytest.mark.parametrize("config,block", sorted(BEFORE), ids=[f"{c}-{b}" for c, b in sorted(BEFORE)])
+def test_the_configurations_count_what_they_counted_before_the_move(config, block):
+    body = harness.load_json("configs", config)
+    shape = harness.load_module("arch", body["arch"]).shape(body)
+    w = Work()
+    for prompt, cached, served in TRIPLES:
+        w.add(shape, prompt, cached, served, block)
+    assert vars(w) == {**BEFORE[(config, block)], **TOKENS}
 
 
 def test_trie_matches_whole_prefixes_only():

@@ -1,21 +1,23 @@
 """The work a served request needs, counted from the traffic alone.
 
-A frozen copy of the arithmetic behind PERF.md's kernel table (the bound =
-max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s), and `decode_bytes` of
-chip_smoke.py), applied per token of the benchmark's own requests. Nothing
-here reads a counter of the program, so the count is the same whatever
-implements the model. Peaks are one NVIDIA H100 SXM's published dense rates.
+`Work.add` sums, over the benchmark's own requests, the per-token counts
+of the configuration's architecture (`arch/<arch>.py`, its `shape(config)`:
+`linear_flops()`, `logits_flops()`, `attention_flops(lo, hi)`,
+`window_bytes(lo, hi)`, `decode_flops(limit)`, `decode_bytes(limit,
+block)`), and turns them into bounds on one H100 (the bound = max(bytes /
+3.35 TB/s, FLOPs / 989 TFLOP/s)). Nothing here reads a counter of the
+program, so the count is the same whatever implements the model. Peaks are
+one NVIDIA H100 SXM's published dense rates.
 
 Per request with prompt length P, of which the first `cached` tokens were
 already held by an earlier request (the benchmark's own `PrefixTrie`), and
 n served tokens:
 
 - prefill: the tokens at positions cached .. P-1, each one pass through the
-  linear layers and causal attention over the keys 0 .. p;
+  linear layers and attention over its keys (`attention_flops(cached, P)`);
 - one logits row for the first served token, sampled at position P-1;
 - decode: n-1 steps at positions P .. P+n-2, each one pass through the
-  linear layers, attention over the keys 0 .. p (the kernel's limit p+1),
-  and one logits row.
+  linear layers, attention at the kernel's limit p+1, and one logits row.
 """
 
 from __future__ import annotations
@@ -26,73 +28,6 @@ from typing import Dict, Sequence
 #: One H100 SXM: dense bf16 tensor-core FLOP/s and HBM3 bytes/s (data sheet).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-
-
-@dataclass(frozen=True)
-class Shape:
-    vocab: int
-    hidden: int
-    layers: int
-    heads: int
-    kv_heads: int
-    head_dim: int
-    ffn: int
-    itemsize: int = 2
-
-    @classmethod
-    def from_gpt(cls, gpt: Dict) -> "Shape":
-        """From a configuration file's `gpt` group (GPTConfig's keys)."""
-        hidden, heads = int(gpt["hidden"]), int(gpt["heads"])
-        itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[gpt.get("dtype", "bfloat16")]
-        return cls(vocab=int(gpt["vocab"]), hidden=hidden, layers=int(gpt["layers"]),
-                   heads=heads, kv_heads=int(gpt.get("kv_heads") or heads),
-                   head_dim=hidden // heads, ffn=hidden * int(gpt.get("mlp_ratio", 4)),
-                   itemsize=itemsize)
-
-    @property
-    def kv_bytes_per_token(self) -> int:
-        """K and V of one token over every layer."""
-        return self.layers * 2 * self.kv_heads * self.head_dim * self.itemsize
-
-
-def linear_flops(s: Shape) -> float:
-    """One token through every layer's projections and gated MLP."""
-    q = s.heads * s.head_dim
-    kv = s.kv_heads * s.head_dim
-    per_layer = 2 * (s.hidden * q + 2 * s.hidden * kv + q * s.hidden + 3 * s.hidden * s.ffn)
-    return float(s.layers * per_layer)
-
-
-def logits_flops(s: Shape) -> float:
-    return float(2 * s.hidden * s.vocab)
-
-
-def _pos_sum(lo: int, hi: int) -> int:
-    """sum of (p + 1) for p in [lo, hi)."""
-    return (hi * (hi + 1) - lo * (lo + 1)) // 2
-
-
-def attention_flops(s: Shape, lo: int, hi: int) -> float:
-    """Causal attention of the query tokens at positions lo .. hi-1, each
-    over the keys 0 .. p: QK^T and PV, every layer."""
-    return float(4 * s.layers * s.heads * s.head_dim * _pos_sum(lo, hi))
-
-
-def window_bytes(s: Shape, lo: int, hi: int) -> float:
-    """The window kernel's least traffic for queries lo .. hi-1: every key
-    and value 0 .. hi-1 read once, q read and the output written once."""
-    per_layer = (hi * 2 * s.kv_heads * s.head_dim + (hi - lo) * 2 * s.heads * s.head_dim)
-    return float(s.layers * per_layer * s.itemsize)
-
-
-def decode_bytes(s: Shape, limit: int, block: int) -> float:
-    """chip_smoke.py's `decode_bytes` for one lane at `limit` keys, every
-    layer: the K and V pages under the limit, q and the output once, the
-    table entries and the limit."""
-    pages = -(-int(limit) // block)
-    per_layer = (pages * s.kv_heads * block * s.head_dim * 2 * s.itemsize
-                 + 2 * s.heads * s.head_dim * s.itemsize + 4 * (pages + 1))
-    return float(s.layers * per_layer)
 
 
 def bound_s(flops: float, nbytes: float) -> float:
@@ -111,28 +46,28 @@ class Work:
     decode_attn_bound_s: float = 0.0
     window_attn_bound_s: float = 0.0
 
-    def add(self, s: Shape, prompt_len: int, cached: int, n_out: int, block: int) -> None:
-        """One request: prompt of `prompt_len` tokens, `cached` of them held
-        before it, `n_out` tokens served."""
+    def add(self, s, prompt_len: int, cached: int, n_out: int, block: int) -> None:
+        """One request under the architecture's shape `s`: prompt of
+        `prompt_len` tokens, `cached` of them held before it, `n_out` tokens
+        served."""
         cached = min(int(cached), prompt_len - 1) if prompt_len else 0
         self.prompt_tokens += prompt_len
         self.cached_tokens += cached
         new = prompt_len - cached
         self.prefill_tokens += new
-        self.model_flops += new * linear_flops(s) + attention_flops(s, cached, prompt_len)
+        self.model_flops += new * s.linear_flops() + s.attention_flops(cached, prompt_len)
         if new:
-            self.window_attn_bound_s += bound_s(attention_flops(s, cached, prompt_len),
-                                                window_bytes(s, cached, prompt_len))
+            self.window_attn_bound_s += bound_s(s.attention_flops(cached, prompt_len),
+                                                s.window_bytes(cached, prompt_len))
         if n_out <= 0:
             return
-        self.model_flops += logits_flops(s)
+        self.model_flops += s.logits_flops()
         steps = n_out - 1
         self.decode_tokens += steps
         lo, hi = prompt_len, prompt_len + steps
-        self.model_flops += steps * (linear_flops(s) + logits_flops(s)) + attention_flops(s, lo, hi)
+        self.model_flops += steps * (s.linear_flops() + s.logits_flops()) + s.attention_flops(lo, hi)
         for p in range(lo, hi):
-            self.decode_attn_bound_s += bound_s(
-                4.0 * s.layers * s.heads * s.head_dim * (p + 1), decode_bytes(s, p + 1, block))
+            self.decode_attn_bound_s += bound_s(s.decode_flops(p + 1), s.decode_bytes(p + 1, block))
 
 
 class PrefixTrie:
