@@ -14,6 +14,7 @@ machine and check them.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases build,card,kernels,dense
+    python3 chip_smoke.py --phases build,card,experts
     python3 chip_smoke.py --phases build,card,graph
     python3 chip_smoke.py --phases build,card,radix,spec
     python3 chip_smoke.py --phases build,card,quant
@@ -63,6 +64,23 @@ Phases, in order (any failure exits non-zero; nothing is caught and passed over)
            the dense kernel) at the main path's shapes, and for the decode
            kernels and their SDPA calls also the device time alone
            (`device_ms`, torch.profiler);
+  experts  the Mellum2-12B-A2.5B cell's kernels at its shapes: the expert
+           chain (ops/moe.py) at 48 and 2048 rows of hidden 2304, 64
+           experts of 896, top 8, with masked rows, against its plain
+           version (max|err| <= EXPERT_RTOL x max|want|, tallies equal, two
+           calls equal bit for bit; a dropped and a skipped expert planted
+           must fail the bound); the split decode and window kernels with a
+           1024-key window at 32 query heads over 4 KV heads of 128, 48
+           lanes up to 13312 keys with bounds on, just off and below a page
+           boundary and a wave of 2048-row chunks, against their plain
+           versions within `held`'s bf16 bounds (the unbounded read must fail
+           them; window 0 is the unbounded kernel bit for bit). Then a small
+           Mellum layout served by DecodeServer with its graphs, bursts and
+           multi-slot waves, its launch counts zeroed just before the
+           traffic: every kernel's launches equal the host's count of
+           programs (K steps a window replay, one per chunk and wave) times
+           the layers, the expert tallies the exact rows, and every served
+           token within 0.3 of the reference's best logit;
   engine   serves the bench GPT (vocab 32000, hidden 512, 8 layers, 8 heads, 2
            KV heads) with random weights from init_gpt(seed 0) in bf16, 8 slots,
            max_len 8192, a prefill budget of two 256-token chunks per tick: six
@@ -1213,6 +1231,265 @@ def time_decode(torch):
     return out
 
 
+# -- phase: experts ------------------------------------------------------------------
+# The Mellum2-12B-A2.5B cell's shapes (portbench/configs/mellum2-12b-a2.5b.json):
+# the expert layer at a decode window's 48 rows and a prefill chunk's 2048,
+# the paged kernels at 32 query heads over 4 KV heads of 128, block 32,
+# window 1024, 48 lanes of up to 13312 keys. Small: the CPU rehearsal's.
+EXPERTS = {"hidden": 2304, "ffn": 896, "experts": 64, "top_k": 8, "tokens": (48, 2048),
+           "heads": 32, "kv_heads": 4, "head_dim": 128, "block": 32, "window": 1024,
+           "lanes": 48, "max_len": 13312, "chunk": 2048}
+EXPERTS_SMALL = {"hidden": 256, "ffn": 128, "experts": 8, "top_k": 4, "tokens": (8, 40),
+                 "heads": 4, "kv_heads": 2, "head_dim": 32, "block": 8, "window": 24,
+                 "lanes": 8, "max_len": 96, "chunk": 16}
+# The expert chain against its plain version: max|err| <= EXPERT_RTOL x
+# max|want| (tests/test_torch_moe_kernels.py's bound: the plain version
+# rounds the gate and up products to bf16 before silu, the chain keeps them
+# in f32). Planted faults (one token's last expert dropped, one expert's
+# rows zeroed) must fail it.
+EXPERT_RTOL = 2e-2
+
+
+def _expert_inputs(torch, gen, t, e, dev):
+    h, f = e["hidden"], e["ffn"]
+    n = e["experts"]
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    return (normal((t, h), 1.0), normal((h, n), h ** -0.5), normal((n, h, f), h ** -0.5),
+            normal((n, h, f), h ** -0.5), normal((n, f, h), f ** -0.5))
+
+
+def check_expert_chain(torch, dev, e):
+    """The chain (`moe_experts`) against `_plain` at each of e["tokens"]
+    rows, with masked rows (a decode window's idle lanes, a chunk's
+    padding): the error within EXPERT_RTOL, the tallies equal, two calls
+    equal bit for bit, and the planted faults outside the bound."""
+    from nos_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    k = e["top_k"]
+    out = {}
+    for t in e["tokens"]:
+        x, router, wg, wu, wd = _expert_inputs(torch, gen, t, e, dev)
+        valid = torch.ones(t, dtype=torch.bool, device=dev)
+        valid[-max(1, t // 6):] = False
+        tally = torch.zeros(2, dtype=torch.int64, device=dev)
+        want_tally = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = moe.moe_experts(x, router, wg, wu, wd, k, True, valid=valid, tally=tally)
+        again = moe.moe_experts(x, router, wg, wu, wd, k, True, valid=valid)
+        want = moe._plain(x, router, wg, wu, wd, k, True, valid, want_tally)
+        top = want.float().abs().max().item()
+
+        def rel(a):
+            return (a.float() - want.float()).abs().max().item() / max(top, 1e-30)
+
+        err = rel(got)
+        check(np.isfinite(err) and err <= EXPERT_RTOL,
+              f"moe_experts T={t}: max|err| / max|want| {err} (bound {EXPERT_RTOL})")
+        check(torch.equal(got, again), f"moe_experts T={t}: two calls differ")
+        check(tally.tolist() == want_tally.tolist(),
+              f"moe_experts T={t}: tally {tally.tolist()}, plain {want_tally.tolist()}")
+        check(bool((got[~valid] == 0).all()), f"moe_experts T={t}: a masked row has output")
+        dropped = want.clone()
+        dropped[0] = moe._plain(x[:1], router, wg, wu, wd, k - 1, True, None, None)[0]
+        ids, _ = moe.route(x, router, k, True)
+        busiest = int(torch.bincount(ids[valid].flatten(), minlength=e["experts"]).argmax())
+        wd0 = wd.clone()
+        wd0[busiest] = 0
+        skipped = moe._plain(x, router, wg, wu, wd0, k, True, valid, None)
+        planted = {"dropped_expert": rel(dropped), "skipped_expert": rel(skipped)}
+        for name, v in planted.items():
+            check(v > EXPERT_RTOL, f"moe_experts T={t}: planted {name} reads {v}, within "
+                                   f"the bound {EXPERT_RTOL}")
+        out[f"T{t}"] = {"rel_err": err, "rows": tally.tolist()[0], "hit": tally.tolist()[1],
+                        "planted": planted}
+        log(f"experts: chain T={t} {json.dumps(out[f'T{t}'])}")
+    return out
+
+
+def _windowed_held(got, want, dtype, name, worst):
+    """`held`'s bounds (TOL, RTOL), on either device."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    check(np.isfinite(err) and err <= TOL[dtype] and rel <= RTOL[dtype],
+          f"{name} with a window, {dtype}: max|err| {err} (bound {TOL[dtype]}), relative "
+          f"{rel} (bound {RTOL[dtype]})")
+    worst[name], worst[name + "_rel"] = err, rel
+
+
+def check_windowed_paged(torch, dev, e, dtype="bfloat16"):
+    """The split decode kernel and the window kernel with the window on,
+    against `_reference` / `_window_reference` with it, at the cell's
+    heads: decode lanes whose bound limit - window lies on a page boundary,
+    one past it, one short, at 0 and below it, and the rest ragged up to
+    max_len; a wave of chunk-row lanes whose first rows' bounds lie on and
+    off a page, one at position 0 and one masked. The unbounded result
+    must fail the windowed bound (the window is read), and window 0 is
+    the unbounded kernel bit for bit."""
+    from nos_tpu_torch.ops import paged_attention as pa
+
+    nh, nkv, hd, bs, w = e["heads"], e["kv_heads"], e["head_dim"], e["block"], e["window"]
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rng = np.random.default_rng(28)
+    pages = e["max_len"] // bs
+    b = e["lanes"]
+    total = 1 + b * pages
+    qdt = getattr(torch, dtype)
+    k_pool = torch.randn((total, nkv, bs, hd), generator=gen, device=dev).to(qdt)
+    v_pool = torch.randn((total, nkv, bs, hd), generator=gen, device=dev).to(qdt)
+    table = (torch.randperm(total - 1, generator=gen, device=dev)[: b * pages] + 1).reshape(
+        b, pages).to(torch.int32)
+    edges = [w + 4 * bs, w + 4 * bs + 1, w + 4 * bs - 1, w, w - 3, e["max_len"]]
+    ragged = np.exp(rng.uniform(np.log(w), np.log(e["max_len"]), b - len(edges))).astype(int)
+    limits = torch.tensor(edges + ragged.tolist(), dtype=torch.int32, device=dev)
+    q = torch.randn((b, nh, hd), generator=gen, device=dev).to(qdt)
+    before = {n: dict(r) for n, r in pa.ROUTE_LAUNCHES.items()}
+    got = pa.paged_decode_attention(q, k_pool, v_pool, table, limits, window=w)
+    off = pa.paged_decode_attention(q, k_pool, v_pool, table, limits, window=0)
+    unbounded = pa.paged_decode_attention(q, k_pool, v_pool, table, limits)
+    want = pa._reference(q, k_pool, v_pool, table, limits, window=w)
+    worst = {}
+    _windowed_held(got, want, dtype, "paged_decode_attention", worst)
+    check(torch.equal(off, unbounded), "paged_decode_attention: window 0 is not the "
+                                       "unbounded kernel bit for bit")
+    fault = (unbounded.float() - want.float()).abs().max().item()
+    check(fault > TOL[dtype], f"paged_decode_attention: the unbounded read ({fault}) "
+                              f"passes the windowed bound {TOL[dtype]}")
+    # The window kernel over a wave of chunk rows.
+    c = e["chunk"]
+    pos_list = [2 * w + 2 * c, (w - 1) + 2 * bs, 0, w + c]  # off page, on page, 0, masked
+    lanes = len(pos_list)
+    need = -(-(max(pos_list) + c) // bs)
+    wt = table[:lanes, :need].contiguous()
+    qw = torch.randn((lanes, nh, c, hd), generator=gen, device=dev).to(qdt)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    lengths = torch.tensor([c, c, c - c // 4, c], dtype=torch.int32, device=dev)
+    mask = torch.tensor([True, True, True, False], device=dev)
+    got_w = pa.paged_window_attention(qw, k_pool, v_pool, wt, pos, lengths, mask, window=w)
+    off_w = pa.paged_window_attention(qw, k_pool, v_pool, wt, pos, lengths, mask, window=0)
+    unb_w = pa.paged_window_attention(qw, k_pool, v_pool, wt, pos, lengths, mask)
+    want_w = pa._window_reference(qw, k_pool, v_pool, wt, pos, lengths, mask, window=w)
+    valid = (torch.arange(c, device=dev)[None, :] < lengths[:, None]) & mask[:, None]
+    sel = valid[:, None, :, None]
+    _windowed_held(got_w * sel, want_w * sel, dtype, "paged_window_attention", worst)
+    check(torch.equal(off_w, unb_w), "paged_window_attention: window 0 is not the "
+                                     "unbounded kernel bit for bit")
+    fault_w = ((unb_w.float() - want_w.float()) * sel).abs().max().item()
+    check(fault_w > TOL[dtype], f"paged_window_attention: the unbounded read ({fault_w}) "
+                                f"passes the windowed bound {TOL[dtype]}")
+    if dev.type == "cuda":
+        routes = {n: {r: k - before[n][r] for r, k in rs.items()}
+                  for n, rs in pa.ROUTE_LAUNCHES.items()}
+        check_routes(routes, "paged_decode_attention", "split", "experts")
+        check_routes(routes, "paged_window_attention",
+                     "mma" if dtype == "bfloat16" else "simt", "experts")
+    out = dict(worst, unbounded_decode=fault, unbounded_window=fault_w)
+    log(f"experts: windowed paged kernels {json.dumps(out)}")
+    return out
+
+
+def mellum_small():
+    """The Mellum layout at a size the card serves in seconds (4 layers,
+    3 sliding and 1 full, window 48, q width 512 over hidden 256, 8 experts
+    top 4, YaRN at original 64), its weights and its reference, from the
+    benchmark's configuration (portbench/)."""
+    from pathlib import Path
+
+    from portbench import harness
+
+    path = Path(__file__).resolve().parent / "portbench/configs/mellum2-12b-a2.5b.json"
+    cfg = json.loads(path.read_text())
+    ropes = cfg["rope_parameters"]
+    cfg.update(vocab_size=512, hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+               head_dim=128, num_hidden_layers=4,
+               layer_types=["sliding_attention"] * 3 + ["full_attention"],
+               mlp_layer_types=["sparse"] * 4, sliding_window=48, num_experts=8,
+               num_experts_per_tok=4, moe_intermediate_size=128, max_position_embeddings=256,
+               rope_parameters={
+                   "full_attention": dict(ropes["full_attention"], factor=4,
+                                          original_max_position_embeddings=64),
+                   "sliding_attention": ropes["sliding_attention"]})
+    return cfg, harness.load_module("arch", "mellum"), harness.load_module("references",
+                                                                           "mellum")
+
+
+def mellum_engine_run(torch, dev):
+    """The small Mellum layout through DecodeServer with its defaults
+    (window graphs, bursts, chunk graphs) and a budget of four 64-token
+    chunks a tick, so long prompts' mid chunks meet in multi-slot waves.
+    The launch counts are zeroed just before the traffic and read just
+    after: on the card the expert chain ran once per layer of every
+    program the host dispatched (K steps a window replay, one per chunk
+    and wave), the paged kernels likewise, and the tallies hold the exact
+    rows; every served token lies within 0.3 of the reference's best
+    logit."""
+    from nos_tpu_torch.ops import moe
+    from nos_tpu_torch.ops import paged_attention as pa
+    from nos_tpu_torch.runtime.decode_server import DecodeServer
+
+    cfg, arch, ref = mellum_small()
+    params = arch.make_params(cfg, 7, dev)
+    K = 4
+    eng = DecodeServer(params, arch.engine_config(cfg), n_slots=4, max_len=256,
+                       prompt_buckets=(32, 64), block_size=16, steps_per_dispatch=K,
+                       prefill_budget_tokens=256, device=dev, temperature=0.0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (150, 200, 20, 64, 180, 90)]
+    moe.reset_launch_counts()
+    pa.reset_launch_counts()
+    eng.start()
+    try:
+        futs = [eng.submit(p, 40) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        counts = eng.expert_counts()
+    finally:
+        eng.stop()
+    layers, top = 4, 4
+    stats = {n: getattr(eng, n) for n in (
+        "graph_captures", "graph_replays", "macro_dispatches", "burst_windows_run",
+        "burst_dispatches", "prefill_graph_replays", "prefill_eager_chunks",
+        "prefill_window_dispatches")}
+    programs = stats["prefill_graph_replays"] + stats["prefill_eager_chunks"] + \
+        stats["prefill_window_dispatches"]
+    launches = {"moe_experts": moe.LAUNCHES["moe_experts"],
+                "paged_decode_attention": pa.LAUNCHES["paged_decode_attention"],
+                "paged_window_attention": pa.LAUNCHES["paged_window_attention"]}
+    want = {"moe_experts": layers * (K * stats["graph_replays"] + programs),
+            "paged_decode_attention": layers * K * stats["graph_replays"],
+            "paged_window_attention": layers * programs}
+    log(f"experts: engine {json.dumps(stats)} launches {json.dumps(launches)} "
+        f"expected {json.dumps(want)} tallies {json.dumps(counts)}")
+    if dev.type == "cuda":
+        check_replays(stats, "experts engine")
+        check(launches == want, f"experts engine: launches {launches}, host bookkeeping "
+                                f"{want}")
+    check(stats["prefill_window_dispatches"] > 0, "experts engine: no multi-slot wave ran")
+    check(counts["prefill_rows"] == layers * top * sum(len(p) for p in prompts),
+          f"experts engine: prefill rows {counts['prefill_rows']}")
+    check(counts["decode_rows"] == layers * top * sum(len(o) - 1 for o in outs),
+          f"experts engine: decode rows {counts['decode_rows']}")
+    worst = 0.0
+    for p, o in zip(prompts, outs):
+        lg = ref.logits_at(params, cfg, p + list(o[:-1]), len(p) - 1)
+        pick = torch.tensor(o, device=lg.device)[:, None]
+        worst = max(worst, (lg.max(-1).values - lg.gather(1, pick)[:, 0]).max().item())
+    check(worst <= 0.3, f"experts engine: a served token {worst} below the reference's best")
+    return dict(stats, launches=launches, tallies=counts, max_logit_gap=worst)
+
+
+def phase_experts(torch, device, small=False):
+    """The Mellum cell's kernels on the card at its shapes, then the small
+    Mellum layout through the engine (see the module docstring)."""
+    e = EXPERTS_SMALL if small else EXPERTS
+    out = {"chain": check_expert_chain(torch, device, e),
+           "paged": check_windowed_paged(torch, device, e,
+                                         "bfloat16" if device.type == "cuda" else "float32")}
+    out["engine"] = mellum_engine_run(torch, device)
+    return out
+
+
 # -- phase: engine -----------------------------------------------------------------
 @contextlib.contextmanager
 def plain_attention():
@@ -1240,9 +1517,10 @@ PLAIN_WINDOW_ROWS = 4096
 
 
 def window_reference_rows(q, pool_k, pool_v, table, pos, lengths, mask, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, window=0):
     """`paged_attention._window_reference` over slices of PLAIN_WINDOW_ROWS
-    rows, each at its own position and with its own count of valid rows."""
+    rows, each at its own position and with its own count of valid rows;
+    `window` as the kernel's (0: none)."""
     from nos_tpu_torch.ops import paged_attention as pa
 
     import torch
@@ -1250,11 +1528,11 @@ def window_reference_rows(q, pool_k, pool_v, table, pos, lengths, mask, k_scale=
     w = q.shape[2]
     if w <= PLAIN_WINDOW_ROWS:
         return pa._window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
-                                    k_scale, v_scale)
+                                    k_scale, v_scale, window=window)
     return torch.cat([
         pa._window_reference(q[:, :, r:r + PLAIN_WINDOW_ROWS].contiguous(), pool_k, pool_v,
                              table, pos + r, (lengths - r).clamp(0, PLAIN_WINDOW_ROWS), mask,
-                             k_scale, v_scale)
+                             k_scale, v_scale, window=window)
         for r in range(0, w, PLAIN_WINDOW_ROWS)], dim=2)
 
 
@@ -7581,9 +7859,9 @@ def phase_examples(torch, device, small=False):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,card,kernels,engine,graph,tp,radix,spec,quant,faults,quota,"
-                            "trace,fleet,disagg,dense,train,vit,mesh,control,topology,partition,"
-                            "schedule,lint,examples")
+                    default="build,card,kernels,experts,engine,graph,tp,radix,spec,quant,faults,"
+                            "quota,trace,fleet,disagg,dense,train,vit,mesh,control,topology,"
+                            "partition,schedule,lint,examples")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny model on the CPU through the plain versions; no result line")
     args = ap.parse_args(argv)
@@ -7599,6 +7877,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     if args.rehearse:
+        phase_experts(torch, torch.device("cpu"), small=True)
         check_logits(phase_engine(torch, torch.device("cpu"), "float32", small=True), "engine")
         phase_graph(torch, torch.device("cpu"), small=True)
         phase_tp(torch, torch.device("cpu"), small=True)
@@ -7635,6 +7914,8 @@ def main(argv=None):
     worst, timings = None, None
     if "kernels" in phases:
         worst, timings = phase_kernels(torch)
+    if "experts" in phases:
+        phase_experts(torch, torch.device("cuda"))
     engine = None
     if "engine" in phases:
         engine = phase_engine(torch, torch.device("cuda"), "bfloat16")

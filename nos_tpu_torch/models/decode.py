@@ -10,6 +10,12 @@ with `paged_prefill_last`, its head on the last row only),
 `_paged_window_core` (:469), `paged_verify_window` (:545) and
 `paged_prefill_window` (:603).
 
+Each layer takes its own RoPE, and a sliding layer bounds its keys below
+(`window=` to the paged kernels); with experts every layer's MLP is the expert layer
+(`ops/moe.py`), which routes only the rows a program holds valid (active
+lanes, rows inside a chunk's length) and adds its work into the engine's
+device tally (`moe_tally`). The dense-cache programs refuse sliding layers.
+
 Tensor parallelism (docs/sharded-decode.md) runs under one controller: where
 JAX runs a `shard_map`'d body once per device, the paged programs here take
 `tp` (a `TPLocal`) and loop over its shards. Params, pool and per-shard
@@ -40,13 +46,15 @@ from nos_tpu_torch import constants, prng
 from nos_tpu_torch.device import resolve
 from nos_tpu_torch.models.gpt import GPTConfig, _rmsnorm, project_qkv, tp_local_config
 from nos_tpu_torch.ops.decode_attention import decode_attention
+from nos_tpu_torch.ops.moe import moe_experts
 
 
-def _attend_cache(q, cache_k, cache_v, n_rep: int, limit):
+def _attend_cache(q, cache_k, cache_v, n_rep: int, limit, window: int = 0):
     """q [B,nh,T,hd] against the cache [B,nkv,max,hd]. `limit` is [T]
     (shared across the batch) or [B,T]; query (b,t) attends to cache
-    positions < limit[(b,)t]. Query heads are grouped against the
-    un-repeated cache."""
+    positions < limit[(b,)t], and with a `window` > 0 only to those >=
+    limit[(b,)t] - window. Query heads are grouped against the un-repeated
+    cache."""
     b, nh, t, hd = q.shape
     qg = q.reshape(b, nh // n_rep, n_rep, t, hd)  # [B, nkv, rep, T, hd]
     scale = hd ** -0.5
@@ -54,6 +62,8 @@ def _attend_cache(q, cache_k, cache_v, n_rep: int, limit):
     idx = torch.arange(cache_k.shape[2], device=q.device)
     limit = torch.atleast_2d(limit)  # [B or 1, T]
     mask = idx[None, None, :] < limit[:, :, None]  # [B1, T, max]
+    if window:
+        mask &= idx[None, None, :] >= limit[:, :, None] - window
     scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrts,bgsd->bgrtd", probs, cache_v.float())
@@ -164,21 +174,30 @@ def greedy(logits):
     return torch.where(logits == top, idx, vocab).min(dim=-1).values
 
 
-def _block_core(x, p, cfg: GPTConfig, positions, attend, tp=None):
+def _block_core(x, p, cfg: GPTConfig, positions, attend, tp=None, layer: int = 0,
+                valid=None, moe_tally=None):
     """The one copy of the cached transformer block math (norms, QKV
-    projection, residuals, gated MLP); every cache layout supplies only
-    its `attend(q, k_new, v_new) -> o [B, nh, T, hd]` strategy. With `tp`
-    see `_block_core_tp`."""
+    projection with layer `layer`'s RoPE, residuals, gated MLP or the
+    expert layer); every cache layout supplies only its `attend(q, k_new,
+    v_new) -> o [B, nh, T, hd]` strategy. `valid` [B, T] marks the rows the
+    expert layer routes (None: all), `moe_tally` its device tally
+    (`ops/moe.py`). With `tp` see `_block_core_tp`."""
     if tp is not None:
         return _block_core_tp(x, p, positions, attend, tp)
     b, t, _ = x.shape
     y = _rmsnorm(x, p["ln1"])
-    q, k_new, v_new = project_qkv(y, p, cfg, positions, repeat_kv=False)
+    q, k_new, v_new = project_qkv(y, p, cfg, positions, repeat_kv=False, layer=layer)
     o = attend(q, k_new, v_new)
     o = o.transpose(1, 2).reshape(b, t, -1)
     x = x + o @ p["wo"]
     z = _rmsnorm(x, p["ln2"])
-    z = (F.silu(z @ p["w_gate"]) * (z @ p["w_up"])) @ p["w_down"]
+    if cfg.n_experts:
+        rows = None if valid is None else valid.reshape(b * t)
+        z = moe_experts(z.reshape(b * t, -1), p["router"], p["expert_gate"], p["expert_up"],
+                        p["expert_down"], cfg.top_k, cfg.norm_topk_prob, valid=rows,
+                        tally=moe_tally).reshape(b, t, -1)
+    else:
+        z = (F.silu(z @ p["w_gate"]) * (z @ p["w_up"])) @ p["w_down"]
     return x + z
 
 
@@ -229,7 +248,7 @@ def _is_lockstep(start) -> bool:
     return not isinstance(start, torch.Tensor) or start.dim() == 0
 
 
-def _block_with_cache(x, p, cfg: GPTConfig, layer_cache, positions, start):
+def _block_with_cache(x, p, cfg: GPTConfig, layer_cache, positions, start, layer: int = 0):
     """One transformer block writing its new K/V into the cache at `start`
     and attending over everything cached so far. x: [B, T, h]. `start` is a
     scalar (prefill, lockstep decode) or a [B] tensor (ragged decode). The
@@ -268,12 +287,16 @@ def _block_with_cache(x, p, cfg: GPTConfig, layer_cache, positions, start):
             )[:, :, None, :]
         return _attend_cache(q, ck, cv, cfg.heads // cfg.n_kv, limit)
 
-    return _block_core(x, p, cfg, positions, attend)
+    return _block_core(x, p, cfg, positions, attend, layer=layer)
 
 
 def _forward_with_cache(params, tokens, cfg: GPTConfig, cache, start):
     """tokens [B, T] at `start` through every block -> (logits [B, T,
-    vocab] f32, the cache written in place)."""
+    vocab] f32, the cache written in place). Sliding layers are served by
+    the paged programs only."""
+    if any(cfg.window(i) for i in range(cfg.layers)):
+        raise ValueError("the dense cache has no sliding window: serve this config through "
+                         "the paged programs (DecodeServer)")
     b, t = tokens.shape
     x = _embed(params, tokens)
     ar = torch.arange(t, dtype=torch.int32, device=tokens.device)
@@ -283,7 +306,7 @@ def _forward_with_cache(params, tokens, cfg: GPTConfig, cache, start):
         positions = start[:, None] + ar
     for i in range(cfg.layers):
         x = _block_with_cache(x, params["layers"][str(i)], cfg, cache[str(i)],
-                              positions, start)
+                              positions, start, layer=i)
     x = _rmsnorm(x, params["ln_f"])
     return _lm_logits(x, params), cache
 
@@ -433,10 +456,12 @@ def _write_kv(lc, pages, offs, k_rows, v_rows, amax=(None, None)) -> dict:
 
 
 def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
-                      block_size: int, tp: Optional[TPLocal] = None):
+                      block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """One token [B] with per-row positions [B] against the paged pool.
-    Lanes with mask[b]=False write to the scratch page and their logits are
-    garbage the caller ignores. Returns (logits [B, vocab] f32, pool).
+    Lanes with mask[b]=False write to the scratch page, take no expert, and
+    their logits are garbage the caller ignores. A sliding layer attends
+    its window's keys only. `moe_tally`: the expert layers' device tally
+    (`ops/moe.py`). Returns (logits [B, vocab] f32, pool).
 
     `tp`: params and pool are per-shard lists; each shard writes and reads
     its own head slices of the pool through `paged_decode_attention_sharded`,
@@ -470,13 +495,15 @@ def paged_decode_step(params, token, cfg: GPTConfig, pcache, table, pos, mask,
     for i in range(cfg.layers):
         lc = pcache[str(i)]
 
-        def attend(q, k_new, v_new, lc=lc):
+        def attend(q, k_new, v_new, lc=lc, window=cfg.window(i)):
             scales = _write_kv(lc, page, off, k_new[:, :, 0, :], v_new[:, :, 0, :])
             return paged_decode_attention(
-                q[:, :, 0, :].contiguous(), lc["k"], lc["v"], table, limit, **scales
+                q[:, :, 0, :].contiguous(), lc["k"], lc["v"], table, limit, **scales,
+                window=window,
             )[:, :, None, :]
 
-        x = _block_core(x, params["layers"][str(i)], cfg, positions, attend)
+        x = _block_core(x, params["layers"][str(i)], cfg, positions, attend, layer=i,
+                        valid=mask[:, None], moe_tally=moe_tally)
     x = _rmsnorm(x, params["ln_f"])
     return _lm_logits(x, params)[:, 0, :], pcache
 
@@ -489,7 +516,7 @@ def _lane(v, device) -> torch.Tensor:
 
 
 def _chunk_layers(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
-                  block_size: int, tp: Optional[TPLocal] = None):
+                  block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """The layers of the batch-1 prompt chunk: `_paged_window_core` over
     one lane. `start` and `length` are ints or [1] int32 tensors on the
     tokens' device (a captured graph's inputs); `table_row` is the
@@ -502,7 +529,7 @@ def _chunk_layers(params, tokens, cfg: GPTConfig, pcache, table_row, start, leng
         table = table_row[None, :].contiguous()  # [1, P]
     x, _ = _paged_window_core(params, tokens, cfg, pcache, table, _lane(start, dev),
                               _lane(length, dev), torch.ones((1,), dtype=torch.bool, device=dev),
-                              block_size, tp=tp)
+                              block_size, tp=tp, moe_tally=moe_tally)
     return x
 
 
@@ -516,14 +543,16 @@ def _head(x, params, tp: Optional[TPLocal] = None):
 
 def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
                         block_size: int, with_logits: bool = True,
-                        tp: Optional[TPLocal] = None):
+                        tp: Optional[TPLocal] = None, moe_tally=None):
     """One prompt chunk [1, C] for a single sequence, written into its pages
     at positions start..start+C-1 (positions >= start+length, the chunk
     padding, go to the scratch page). Returns (logits [C, vocab] or None,
     pool): every row's, as the verify pass reads them; the engine's final
     chunk takes `paged_prefill_last`. `start` and `length` are ints or [1]
-    int32 tensors on the tokens' device. `tp`: see `paged_decode_step`."""
-    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp)
+    int32 tensors on the tokens' device. `tp`, `moe_tally`: see
+    `paged_decode_step`."""
+    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp,
+                      moe_tally)
     if not with_logits:
         # Non-final chunks only feed the cache: skip the [C, vocab] head.
         return None, pcache
@@ -531,14 +560,15 @@ def paged_prefill_chunk(params, tokens, cfg: GPTConfig, pcache, table_row, start
 
 
 def paged_prefill_last(params, tokens, cfg: GPTConfig, pcache, table_row, start, length,
-                       block_size: int, tp: Optional[TPLocal] = None):
+                       block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """A prompt's final chunk, as `paged_prefill_chunk` writes it, with the
     head on its last row only: the logits [1, vocab] f32 of row
     `length - 1`, gathered from the activations by a device index (the
     norm and the head act row by row, so the row is the full head's row;
     only the product's shape changes). `length` 0 writes nothing but the
     scratch page and reads row 0 (a warm-up). Returns (logits, pool)."""
-    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp)
+    x = _chunk_layers(params, tokens, cfg, pcache, table_row, start, length, block_size, tp,
+                      moe_tally)
     last = (_lane(length, tokens.device).long() - 1).clamp(min=0)  # [1]
     if tp is not None:
         x = [xs.index_select(1, at) for xs, at in zip(x, tp.replicate(last))]
@@ -548,12 +578,14 @@ def paged_prefill_last(params, tokens, cfg: GPTConfig, pcache, table_row, start,
 
 
 def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,
-                       mask, block_size: int, tp: Optional[TPLocal] = None):
+                       mask, block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """Shared body of the batched per-slot window programs: tokens [B, W]
     written at per-row positions pos[b]..pos[b]+lengths[b]-1 into each
-    row's own pages, attending causally over the prefix plus the window.
-    Returns (pre-final-norm activations [B, W, h], pool); with `tp` the
-    activations are per shard (see `paged_decode_step`)."""
+    row's own pages, attending causally over the prefix plus the window (a
+    sliding layer over its window's keys only); rows past a lane's length
+    and masked lanes take no expert. Returns (pre-final-norm activations
+    [B, W, h], pool); with `tp` the activations are per shard (see
+    `paged_decode_step`)."""
     from nos_tpu_torch.ops.paged_attention import paged_window_attention
 
     if tp is not None:
@@ -570,18 +602,20 @@ def _paged_window_core(params, tokens, cfg: GPTConfig, pcache, table, pos, lengt
     for i in range(cfg.layers):
         lc = pcache[str(i)]
 
-        def attend(q, k_new, v_new, lc=lc):
+        def attend(q, k_new, v_new, lc=lc, window=cfg.window(i)):
             scales = _write_kv(lc, pages, offs, k_new.transpose(1, 2), v_new.transpose(1, 2))
             return paged_window_attention(
-                q.contiguous(), lc["k"], lc["v"], table, pos, lengths, mask, **scales
+                q.contiguous(), lc["k"], lc["v"], table, pos, lengths, mask, **scales,
+                window=window,
             )
 
-        x = _block_core(x, params["layers"][str(i)], cfg, positions, attend)
+        x = _block_core(x, params["layers"][str(i)], cfg, positions, attend, layer=i,
+                        valid=valid, moe_tally=moe_tally)
     return x, pcache
 
 
 def paged_verify_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths, mask,
-                        block_size: int, tp: Optional[TPLocal] = None):
+                        block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """Batched speculative-verify window (decode.py:545): tokens [B, W] are
     per-slot draft windows (window[0] = the slot's last accepted token),
     each slot writing K/V at pos[b]..pos[b]+lengths[b]-1 into its own pages
@@ -594,20 +628,22 @@ def paged_verify_window(params, tokens, cfg: GPTConfig, pcache, table, pos, leng
     the decode window write disjoint page sets (masked lanes write only
     the scratch page), as `paged_decode_step` does."""
     x, pcache = _paged_window_core(
-        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp
+        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp,
+        moe_tally=moe_tally,
     )
     return _head(x, params, tp), pcache
 
 
 def paged_prefill_window(params, tokens, cfg: GPTConfig, pcache, table, pos, lengths,
-                         mask, block_size: int, tp: Optional[TPLocal] = None):
+                         mask, block_size: int, tp: Optional[TPLocal] = None, moe_tally=None):
     """Multi-slot batched prefill chunk: `paged_prefill_chunk` batched
     across slots. Active row b writes its chunk's K/V at positions
     pos[b]..pos[b]+lengths[b]-1 into its own pages; inactive rows and
     window padding hit the scratch page. Mid-prompt chunks only feed the
     cache, so no head projection runs. Returns the pool."""
     _, pcache = _paged_window_core(
-        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp
+        params, tokens, cfg, pcache, table, pos, lengths, mask, block_size, tp=tp,
+        moe_tally=moe_tally,
     )
     return pcache
 

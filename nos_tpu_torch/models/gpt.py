@@ -10,6 +10,14 @@ Port of `nos_tpu/models/gpt.py`: `GPTConfig` (:24), `_rmsnorm` (:98),
 with the reference's keys and shapes, so `models/params.py` can carry a
 JAX param tree across unchanged.
 
+Beyond the reference, `GPTConfig` describes serving layouts whose fields
+default to the dense Llama one: a head size that is not hidden // heads,
+layers of two kinds (full, and sliding over a window of keys), the full
+ones' `RoPE` scaled by YaRN (with an attention factor), and expert
+layers (a softmax router over `n_experts`, top_k of them a token,
+`ops/moe.py`). The paged serving programs (`models/decode.py`) run them;
+the training forward here refuses them (`_dense_only`).
+
 With `mesh=` (:193-213) the three entry points run the SPMD program that
 GSPMD derives from the reference's shardings, one loop over the mesh
 positions (the port's single controller): the params as a `MeshTree` under
@@ -28,6 +36,7 @@ the sum of its copies' gradients (`models/train.py` sums them).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -42,6 +51,48 @@ from nos_tpu_torch.parallel.ring_attention import (ring_attention_shards,
                                                    ulysses_attention_shards)
 from nos_tpu_torch.parallel.sharding import (MeshTree, batch_sharding, param_shardings,
                                              shard_tensor, unshard_tensor)
+
+
+@dataclass(frozen=True)
+class YaRN:
+    """YaRN's scaling of a rotary embedding, as transformers'
+    `_compute_yarn_parameters` computes it: the frequencies blended between
+    the extrapolated ones and the ones interpolated by `factor`, over the
+    correction range that `beta_fast` and `beta_slow` give at
+    `original_max_position` (truncated), and cos and sin multiplied by
+    `attention_factor` (None: 0.1 ln(factor) + 1, as transformers sets
+    it)."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
+
+    def cos_sin_scale(self) -> float:
+        if self.attention_factor is None:
+            return 0.1 * math.log(self.factor) + 1.0
+        return self.attention_factor
+
+
+@dataclass(frozen=True)
+class RoPE:
+    """The rotary embedding of one layer: theta ** -(i / half), scaled by
+    `yarn` where it is set."""
+    theta: float = 10000.0
+    yarn: Optional[YaRN] = None
+
+
+def yarn_correction_range(rope: RoPE, dim: int) -> Tuple[int, int]:
+    """(low, high): the frequencies below `low` keep their extrapolated
+    value, those above `high` the interpolated one (truncated, as
+    transformers' `find_correction_range` with `truncate=True`)."""
+    yarn = rope.yarn
+
+    def at(rotations):
+        return (dim * math.log(yarn.original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(rope.theta)))
+
+    return max(math.floor(at(yarn.beta_fast)), 0), min(math.ceil(at(yarn.beta_slow)), dim - 1)
 
 
 @dataclass(frozen=True)
@@ -60,10 +111,42 @@ class GPTConfig:
     # same param tree.
     fuse_projections: bool = False
     remat_blocks: bool = False
+    # The serving layouts beyond the dense Llama one; the defaults leave it
+    # as it was. `head_size` None: hidden // heads. `layer_types` gives
+    # each layer "full" or "sliding" (None: every layer full); a sliding
+    # layer's query at p attends the keys p - sliding_window < j <= p.
+    # Every layer rotates at `rope_theta`; the full layers scale it by
+    # `rope_yarn` where it is set. With `n_experts` every layer replaces
+    # the gated MLP by `n_experts` gated experts of width `expert_ffn`,
+    # top_k of them a token by a softmax router (renormalized over the
+    # top_k when `norm_topk_prob`).
+    head_size: Optional[int] = None
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: int = 0
+    rope_yarn: Optional[YaRN] = None
+    n_experts: int = 0
+    top_k: int = 0
+    expert_ffn: int = 0
+    norm_topk_prob: bool = True
 
     @property
     def head_dim(self) -> int:
-        return self.hidden // self.heads
+        return self.head_size or self.hidden // self.heads
+
+    @property
+    def mixed(self) -> bool:
+        """Whether any layer departs from the dense full-attention layout
+        with one RoPE: a window, YaRN, or experts."""
+        return bool(self.layer_types or self.n_experts or self.rope_yarn)
+
+    def window(self, layer: int) -> int:
+        """The layer's sliding window in keys, 0 for a full layer."""
+        if self.layer_types is not None and self.layer_types[layer] == "sliding":
+            return self.sliding_window
+        return 0
+
+    def rope(self, layer: int) -> RoPE:
+        return RoPE(self.rope_theta, None if self.window(layer) else self.rope_yarn)
 
     @property
     def n_kv(self) -> int:
@@ -101,6 +184,7 @@ def init_gpt(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
         return torch.ones((h,), dtype=dt, device=device)
 
     kv_dim = cfg.n_kv * cfg.head_dim
+    qw = cfg.heads * cfg.head_dim
     params: Dict = {
         "tok_emb": normal((cfg.vocab, h), 0.02),
         "layers": {},
@@ -108,17 +192,23 @@ def init_gpt(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
         "lm_head": dense((h, cfg.vocab)),
     }
     for i in range(cfg.layers):
-        params["layers"][str(i)] = {
+        layer = {
             "ln1": {"scale": ones()},
-            "wq": dense((h, h)),
+            "wq": dense((h, qw)),
             "wk": dense((h, kv_dim)),
             "wv": dense((h, kv_dim)),
-            "wo": dense((h, h)),
+            "wo": dense((qw, h)),
             "ln2": {"scale": ones()},
-            "w_up": dense((h, h * cfg.mlp_ratio)),
-            "w_gate": dense((h, h * cfg.mlp_ratio)),
-            "w_down": dense((h * cfg.mlp_ratio, h)),
         }
+        if cfg.n_experts:
+            e, f = cfg.n_experts, cfg.expert_ffn
+            layer.update(router=dense((h, e)), expert_gate=normal((e, h, f), h ** -0.5),
+                         expert_up=normal((e, h, f), h ** -0.5),
+                         expert_down=normal((e, f, h), f ** -0.5))
+        else:
+            layer.update(w_up=dense((h, h * cfg.mlp_ratio)), w_gate=dense((h, h * cfg.mlp_ratio)),
+                         w_down=dense((h * cfg.mlp_ratio, h)))
+        params["layers"][str(i)] = layer
     return params
 
 
@@ -128,29 +218,47 @@ def _rmsnorm(x, p):
     return (out * p["scale"].float()).to(x.dtype)
 
 
-_ROPE_FREQS: Dict[Tuple[torch.device, int, float], torch.Tensor] = {}
+_ROPE_FREQS: Dict[Tuple[torch.device, int, RoPE], torch.Tensor] = {}
 
 
-def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
-    """theta ** -(i / half) for i < half, f32, computed on `device` on first
-    use and kept (per device, width and theta): the same bits every call,
-    and no host copy on the decode path, which a CUDA graph captures."""
-    key = (device, half, float(theta))
+def _rope_freqs(half: int, rope: RoPE, device: torch.device) -> torch.Tensor:
+    """The rotation frequencies of `rope` for i < half, f32, computed on
+    `device` on first use and kept (per device, width and RoPE): the same
+    bits every call, and no host copy on the decode path, which a CUDA
+    graph captures. theta ** -(i / half); with YaRN, inv_interp (1 - m) +
+    inv_extrap m with m = 1 - clamp((i - low) / (high - low), 0, 1), in
+    float64, then f32."""
+    key = (device, half, rope)
     freqs = _ROPE_FREQS.get(key)
     if freqs is None:
         exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+        freqs = 1.0 / torch.pow(torch.tensor(rope.theta, dtype=torch.float32, device=device),
+                                exps)
+        if rope.yarn is not None:
+            extrap = 1.0 / rope.theta ** (torch.arange(half, dtype=torch.float64,
+                                                       device=device) / half)
+            low, high = yarn_correction_range(rope, 2 * half)
+            ramp = (torch.arange(half, dtype=torch.float64, device=device) - low) / max(
+                high - low, 1e-3)
+            m = 1.0 - ramp.clamp(0.0, 1.0)
+            freqs = (extrap / rope.yarn.factor * (1.0 - m) + extrap * m).float()
         _ROPE_FREQS[key] = freqs
     return freqs
 
 
-def _rope(x, positions, theta: float):
-    """x: [B, H, T, D]; rotate half-pairs by position-dependent angles."""
+def _rope(x, positions, rope):
+    """x: [B, H, T, D]; rotate half-pairs by position-dependent angles.
+    `rope` is a `RoPE`, or a theta (the reference's signature)."""
+    if not isinstance(rope, RoPE):
+        rope = RoPE(float(rope))
     half = x.shape[-1] // 2
-    freqs = _rope_freqs(half, theta, x.device)
+    freqs = _rope_freqs(half, rope, x.device)
     angles = positions[:, :, None].float() * freqs[None, None, :]
     cos = torch.cos(angles)[:, None, :, :]  # [B,1,T,half]
     sin = torch.sin(angles)[:, None, :, :]
+    if rope.yarn is not None:
+        scale = rope.yarn.cos_sin_scale()
+        cos, sin = cos * scale, sin * scale
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -175,12 +283,14 @@ def tp_local_config(cfg: GPTConfig, tp: int) -> GPTConfig:
     )
 
 
-def project_qkv(x, p, cfg: GPTConfig, positions, repeat_kv: bool = True):
-    """QKV projections with RoPE: x [B, T, h] -> q [B, nh, T, hd], k/v
-    [B, nkv, T, hd]. With `repeat_kv`, grouped KV heads are repeated up to
-    the query head count; cached decode passes False and attends grouped."""
+def project_qkv(x, p, cfg: GPTConfig, positions, repeat_kv: bool = True, layer: int = 0):
+    """QKV projections with RoPE (layer `layer`'s): x [B, T, h] -> q [B, nh,
+    T, hd], k/v [B, nkv, T, hd]. With `repeat_kv`, grouped KV heads are
+    repeated up to the query head count; cached decode passes False and
+    attends grouped."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.heads, cfg.n_kv, cfg.head_dim
+    rope = cfg.rope(layer)
 
     def split_heads(y, n):
         return y.reshape(b, t, n, hd).transpose(1, 2)
@@ -188,12 +298,12 @@ def project_qkv(x, p, cfg: GPTConfig, positions, repeat_kv: bool = True):
     if cfg.fuse_projections:
         wqkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
         q_flat, k_flat, v_flat = torch.split(x @ wqkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
-        q = _rope(split_heads(q_flat, nh), positions, cfg.rope_theta)
-        k = _rope(split_heads(k_flat, nkv), positions, cfg.rope_theta)
+        q = _rope(split_heads(q_flat, nh), positions, rope)
+        k = _rope(split_heads(k_flat, nkv), positions, rope)
         v = split_heads(v_flat, nkv)
     else:
-        q = _rope(split_heads(x @ p["wq"], nh), positions, cfg.rope_theta)
-        k = _rope(split_heads(x @ p["wk"], nkv), positions, cfg.rope_theta)
+        q = _rope(split_heads(x @ p["wq"], nh), positions, rope)
+        k = _rope(split_heads(x @ p["wk"], nkv), positions, rope)
         v = split_heads(x @ p["wv"], nkv)
     if repeat_kv and nkv != nh:
         k = torch.repeat_interleave(k, nh // nkv, dim=1)
@@ -202,10 +312,10 @@ def project_qkv(x, p, cfg: GPTConfig, positions, repeat_kv: bool = True):
 
 
 def _attention(x, p, cfg: GPTConfig, positions):
-    b, t, h = x.shape
+    b, t, _ = x.shape
     q, k, v = project_qkv(x, p, cfg, positions)
     o = flash_attention(q, k, v, causal=True)
-    return o.transpose(1, 2).reshape(b, t, h) @ p["wo"]
+    return o.transpose(1, 2).reshape(b, t, -1) @ p["wo"]
 
 
 def _mlp(y, p, cfg: GPTConfig):
@@ -214,6 +324,15 @@ def _mlp(y, p, cfg: GPTConfig):
         g, u = torch.chunk(y @ torch.cat([p["w_gate"], p["w_up"]], dim=1), 2, dim=-1)
         return (F.silu(g) * u) @ p["w_down"]
     return (F.silu(y @ p["w_gate"]) * (y @ p["w_up"])) @ p["w_down"]
+
+
+def _dense_only(cfg: GPTConfig, what: str) -> None:
+    """Refuse a layout the training forward does not compute: its blocks
+    are dense full-attention layers under one RoPE."""
+    if cfg.mixed:
+        raise ValueError(f"{what} runs dense full-attention layers with one RoPE; this "
+                         "config has windows, experts or per-layer RoPE (serve it through "
+                         "the paged programs)")
 
 
 def _block(x, p, cfg: GPTConfig, positions):
@@ -226,6 +345,7 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, mesh=None):
     `remat_blocks` each block runs under activation checkpointing: the
     backward recomputes its activations instead of storing them. With a
     mesh: the global hidden states on the first position's device."""
+    _dense_only(cfg, "gpt_hidden")
     if mesh is not None:
         params, toks = _on_mesh(params, tokens, mesh)
         return unshard_tensor(_mesh_hidden(params, toks, cfg, mesh), mesh,
@@ -375,6 +495,7 @@ def _mesh_block(x, lp, cfg: GPTConfig, positions, mesh, attention: str):
 def _mesh_hidden(params: MeshTree, toks: List[torch.Tensor], cfg: GPTConfig,
                  mesh) -> List[torch.Tensor]:
     """Final hidden states at every position, [B/dp, T/sp, H] each."""
+    _dense_only(cfg, "the mesh forward")
     tp = mesh.shape.get("tp", 1)
     local = tp_local_config(cfg, tp)
     if tp > 1:

@@ -73,6 +73,19 @@
 // K tile and one bf16 V tile in the swizzled layout the fragment loads
 // read, while the next tile's codes are in flight. A key past the stream
 // reads nothing: zero codes, zero scales.
+//
+// A sliding layer's window (`sliding` > 0 in every launcher) bounds the keys
+// below: a row with limit L attends keys max(0, L - sliding) <= j < L. The
+// split route starts its splits at the page of that bound
+// (split_decode.cuh). The simt route masks each row's keys below its bound
+// and starts at the page of the tile's lowest bound. The mma route masks
+// each row's keys below its bound, starts its key tiles at the tile of the
+// block's lowest valid row's bound (the tiles wholly below it are neither
+// copied nor multiplied), and a warp skips the tiles wholly below its own
+// rows'; rows past a lane's length, which read key 0 without a window, may
+// then read no key and give 0. 0 is the unbounded kernel; the mma route's
+// windowed kernel is an instantiation of its own (bf16 pools only), so the
+// unbounded one carries none of the bound's code.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -106,6 +119,7 @@ struct Params {
   int window;          // W
   int row_tile;        // rows one CUDA block owns (<= kMaxRowTile)
   float scale;
+  int lower;           // the sliding window in keys, > 0 bounds each row's keys below
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -139,7 +153,7 @@ size_t smem_bytes(int row_tile, int hd, int bs) {
                         + static_cast<size_t>(row_tile) * bs  // scores / weights
                         + static_cast<size_t>(row_tile) * hd  // accumulator
                         + 3 * static_cast<size_t>(row_tile);  // m, l, alpha
-  return floats * sizeof(float) + static_cast<size_t>(row_tile) * sizeof(int);
+  return floats * sizeof(float) + 2 * static_cast<size_t>(row_tile) * sizeof(int);
 }
 
 template <typename TQ, typename TKV, bool kQuant>
@@ -166,7 +180,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   float* l_s = m_s + p.row_tile;
   float* a_s = l_s + p.row_tile;
   int* lim_s = reinterpret_cast<int*>(a_s + p.row_tile);
+  int* lo_s = lim_s + p.row_tile;
   __shared__ int max_lim;
+  __shared__ int min_lo;
 
   const size_t qbase = (static_cast<size_t>(bg) * p.rows_per_group + row0) * hd;
   const TQ* q = static_cast<const TQ*>(p.q) + qbase;
@@ -174,24 +190,31 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
     q_s[i] = to_f32(q[i]);
     acc_s[i] = 0.0f;
   }
-  if (tid == 0) max_lim = 0;
+  if (tid == 0) {
+    max_lim = 0;
+    min_lo = 0x7fffffff;
+  }
   __syncthreads();
   for (int r = tid; r < rows; r += kThreads) {
     const int lim = row_limit(p, b, row0 + r);
+    const int lo = p.lower > 0 ? max(0, lim - p.lower) : 0;
     lim_s[r] = lim;
+    lo_s[r] = lo;
     m_s[r] = kNegInf;
     l_s[r] = 0.0f;
     atomicMax(&max_lim, lim);
+    atomicMin(&min_lo, lo);
   }
   __syncthreads();
   const int n_pages = min(p.n_pages, (max_lim + bs - 1) / bs);
+  const int first_page = min_lo / bs;
 
   const TKV* kpool = static_cast<const TKV*>(p.k);
   const TKV* vpool = static_cast<const TKV*>(p.v);
   const int32_t* table = p.table + static_cast<size_t>(b) * p.n_pages;
   const int chunks = bs * hd / 8;
 
-  for (int page = 0; page < n_pages; ++page) {
+  for (int page = first_page; page < n_pages; ++page) {
     const int blk = table[page];
     const size_t off = (static_cast<size_t>(blk) * p.n_kv + g) * bs * hd;
     float ks = 1.0f, vs = 1.0f;
@@ -223,13 +246,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       const float* kj = k_s + j * kstride;
       float dot = 0.0f;
       for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kj[d], dot);
-      s_s[i] = (base + j < lim_s[r]) ? dot * p.scale : kNegInf;
+      s_s[i] = (base + j < lim_s[r] && base + j >= lo_s[r]) ? dot * p.scale : kNegInf;
     }
     __syncthreads();
     // Online softmax update, one warp per row.
     for (int r = warp; r < rows; r += kWarps) {
       float* sr = s_s + r * bs;
       const int lim = lim_s[r];
+      const int lo = lo_s[r];
       float mx = kNegInf;
       for (int j = lane; j < bs; j += 32) mx = fmaxf(mx, sr[j]);
       mx = warp_max(mx);
@@ -237,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.0f;
       for (int j = lane; j < bs; j += 32) {
-        const float e = (base + j < lim) ? expf(sr[j] - m_new) : 0.0f;
+        const float e = (base + j < lim && base + j >= lo) ? expf(sr[j] - m_new) : 0.0f;
         sr[j] = e;
         sum += e;
       }
@@ -347,6 +371,7 @@ struct WindowMmaParams {
   int n_pages;
   int units;  // ceil(window / 16) * rep
   float scale;
+  int lower;  // the sliding window in keys, > 0 bounds each row's keys below
 };
 
 // Q, the K/V tiles and the staged page table. A bf16 pool: a two-stage
@@ -373,7 +398,7 @@ __device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
                     pack_bf16(code(w1, 0), code(w1, 1)), pack_bf16(code(w1, 2), code(w1, 3)));
 }
 
-template <int D, bool kQuant>
+template <int D, bool kQuant, bool kWindow>
 __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams p) {
   using namespace nos::mma;
   using bf16 = __nv_bfloat16;
@@ -404,6 +429,8 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   const int n_stream = p.n_pages * p.block_size;  // keys the table can address
   // Row w's limit (row_limit above); a masked lane's rows all read key 0.
   auto limit_of = [&](int w) { return (active && w < len_b) ? pos_b + w + 1 : 1; };
+  // Row w's lowest key: with a sliding window (kWindow) its bound below.
+  auto lower_of = [&](int w) { return max(0, limit_of(w) - p.lower); };
   // The largest limit of unit u's rows (0 for no unit): limits grow with w
   // up to lengths[b] - 1 and are 1 past it.
   auto unit_max = [&](int u) {
@@ -416,6 +443,17 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   for (int i = 0; i < kWinUnits; ++i) block_max = max(block_max, unit_max(unit0 + i));
   const int n_keys = min(block_max, n_stream);
   const int n_tiles = (n_keys + kWinKeys - 1) / kWinKeys;
+  int kt0 = 0;  // the first key tile: with a window, that of the block's lowest valid bound
+  if constexpr (kWindow) {
+    int block_lo = n_keys;
+#pragma unroll
+    for (int i = 0; i < kWinUnits; ++i) {
+      const int u = unit0 + i;
+      const int w0 = (u / p.rep) * 16;  // the unit's first row has its lowest bound
+      if (u < p.units && active && w0 < len_b) block_lo = min(block_lo, lower_of(w0));
+    }
+    kt0 = block_lo == n_keys ? 0 : block_lo / kWinKeys;
+  }
 
   const size_t q_rows = static_cast<size_t>(b) * p.n_heads * p.window;  // b's first row
   copy_rows<D, kWinThreads>(q_s, kWinUnits * 16, tid, p.q, [&](int r) -> const bf16* {
@@ -499,10 +537,12 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
       *reinterpret_cast<uint4*>(v_s + Swizzled<D>::at(r, 2 * c + 1)) = widen8(vw.z, vw.w);
     }
   };
-  if constexpr (kQuant) {
-    load_codes(0, 0);
-  } else {
-    load_kv(0, 0);
+  if (!kWindow || kt0 < n_tiles) {
+    if constexpr (kQuant) {
+      load_codes(kt0, kt0 & 1);
+    } else {
+      load_kv(kt0, kt0 & 1);
+    }
   }
   cp_async_commit();  // Q and the first K/V tile
 
@@ -512,18 +552,21 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   const int warp_max = unit_max(unit);
   const int key0 = part * kWarpKeys;  // the warp's first key of each tile
   const int tq = lane & 3;
-  int lim[2];  // the thread's rows w0 + lane / 4 and w0 + lane / 4 + 8
+  int lim[2], lo[2] = {0, 0};  // the thread's rows w0 + lane / 4 and w0 + lane / 4 + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int w = w0 + (lane >> 2) + 8 * i;
-    lim[i] = (has_unit && w < p.window) ? min(limit_of(w), n_stream) : 0;
+    const bool in = has_unit && w < p.window;
+    lim[i] = in ? min(limit_of(w), n_stream) : 0;
+    if constexpr (kWindow) lo[i] = in ? lower_of(w) : 0;
   }
+  const int warp_lo = kWindow && has_unit ? lower_of(w0) : 0;  // the warp's rows' lowest bound
   Softmax<kN> sm;
   float acc[D / 8][4];
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < n_tiles; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     if constexpr (kQuant) {
@@ -537,6 +580,7 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
     }
     const int j0 = kt * kWinKeys + key0;
     if (j0 >= warp_max) continue;  // every key from here is past the warp's limits
+    if (kWindow && j0 + kWarpKeys <= warp_lo) continue;  // the tile lies below its bounds
     const bf16* kt_s = k_s + (kQuant ? 0 : (kt & 1) * kWinKeys * D);
     const bf16* vt_s = v_s + (kQuant ? 0 : (kt & 1) * kWinKeys * D);
     float s[kN][4];
@@ -552,8 +596,11 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
         s[n][e] *= p.scale;
       }
     float alpha[2];
-    sm.update(s, [&](int n, int e) { return j0 + 8 * n + 2 * tq + (e & 1) < lim[e >> 1]; },
-              alpha);
+    sm.update(s, [&](int n, int e) {
+      const int j = j0 + 8 * n + 2 * tq + (e & 1);
+      if constexpr (kWindow) return j < lim[e >> 1] && j >= lo[e >> 1];
+      return j < lim[e >> 1];
+    }, alpha);
     rescale(acc, alpha);
     if constexpr (kQuant) {
       // The weights times each key's V scale, after l took them unscaled.
@@ -621,14 +668,14 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(WindowMmaParams
   }
 }
 
-template <int D, bool kQuant>
+template <int D, bool kQuant, bool kWindow>
 cudaError_t launch_window_mma(const WindowMmaParams& p, int groups, cudaStream_t stream) {
   // The exchange after the loop fits in the region from the K tile on.
   static_assert(sizeof(__nv_bfloat16) * (kQuant ? 2 : 4) * kWinKeys * D +
                         (kQuant ? 2 * 2 * kWinKeys * (D + sizeof(float)) : 0) >=
                     sizeof(float4) * kWinUnits * 32 * (D / 8 + 1),
                 "the warps' exchange overruns shared memory");
-  auto kernel = window_mma_kernel<D, kQuant>;
+  auto kernel = window_mma_kernel<D, kQuant, kWindow>;
   static size_t granted[kMaxDevices] = {};
   const size_t smem = window_mma_smem<D, kQuant>(p.n_pages);
   const cudaError_t err = opt_in_smem(kernel, smem, granted);
@@ -638,13 +685,15 @@ cudaError_t launch_window_mma(const WindowMmaParams& p, int groups, cudaStream_t
   return cudaGetLastError();
 }
 
-template <bool kQuant>
+// The unbounded kernel and, for a bf16 pool, the windowed one (its own
+// instantiation, so the unbounded path carries none of the bound's code).
+template <bool kQuant, bool kWindow>
 cudaError_t launch_window_mma(const WindowMmaParams& p, int head_dim, int groups,
                               cudaStream_t s) {
   switch (head_dim) {
-    case 64: return launch_window_mma<64, kQuant>(p, groups, s);
-    case 128: return launch_window_mma<128, kQuant>(p, groups, s);
-    case 256: return launch_window_mma<256, kQuant>(p, groups, s);
+    case 64: return launch_window_mma<64, kQuant, kWindow>(p, groups, s);
+    case 128: return launch_window_mma<128, kQuant, kWindow>(p, groups, s);
+    case 256: return launch_window_mma<256, kQuant, kWindow>(p, groups, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -682,7 +731,7 @@ int nos_paged_decode_attention(const void* q, const void* k, const void* v,
                                float* part, int* counters, int batch, int n_heads, int n_kv,
                                int head_dim, int block_size, int n_pages, int q_dtype,
                                int kv_dtype, float scale, long long part_floats,
-                               long long n_counters, void* stream) {
+                               long long n_counters, int sliding, void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || block_size <= 0 || n_pages <= 0 ||
       static_cast<long long>(block_size) * n_pages > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -693,6 +742,7 @@ int nos_paged_decode_attention(const void* q, const void* k, const void* v,
   p.n_kv = n_kv; p.rep = n_heads / n_kv; p.head_dim = head_dim;
   p.keys = block_size * n_pages; p.block_size = block_size; p.n_pages = n_pages;
   p.scale = scale;
+  p.window = sliding;
   return static_cast<int>(launch_decode(p, batch, q_dtype, kv_dtype, part_floats, n_counters,
                                          static_cast<cudaStream_t>(stream)));
 }
@@ -705,8 +755,8 @@ int nos_paged_window_attention(const void* q, const void* k, const void* v,
                                const int32_t* lengths, const uint8_t* mask, void* out,
                                int batch, int n_heads, int n_kv, int window, int head_dim,
                                int block_size, int n_pages, int q_dtype, int kv_dtype,
-                               float scale, void* stream) {
-  if (n_kv <= 0 || n_heads % n_kv != 0 || window <= 0) {
+                               float scale, int sliding, void* stream) {
+  if (n_kv <= 0 || n_heads % n_kv != 0 || window <= 0 || sliding < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{};
@@ -716,6 +766,7 @@ int nos_paged_window_attention(const void* q, const void* k, const void* v,
   p.rows_per_group = (n_heads / n_kv) * window;
   p.window = window;
   p.scale = scale;
+  p.lower = sliding;
   return launch(p, batch, q_dtype, kv_dtype, stream);
 }
 
@@ -729,9 +780,10 @@ int nos_paged_window_attention_mma(const void* q, const void* k, const void* v,
                                    const int32_t* lengths, const uint8_t* mask, void* out,
                                    int batch, int n_heads, int n_kv, int window, int head_dim,
                                    int block_size, int n_pages, int kv_dtype, float scale,
-                                   void* stream) {
+                                   int sliding, void* stream) {
   const bool quant = kv_dtype == kI8;
   if (n_kv <= 0 || n_heads % n_kv != 0 || window <= 0 || block_size <= 0 || n_pages <= 0 ||
+      sliding < 0 || (quant && sliding > 0) ||
       batch < 0 || batch * n_kv > 65535 || (kv_dtype != kBF16 && !quant) ||
       (quant && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -748,10 +800,12 @@ int nos_paged_window_attention_mma(const void* q, const void* k, const void* v,
   p.block_size = block_size; p.n_pages = n_pages;
   p.units = ((window + 15) / 16) * p.rep;
   p.scale = scale;
+  p.lower = sliding;
   const int groups = batch * n_kv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = quant ? launch_window_mma<true>(p, head_dim, groups, s)
-                                : launch_window_mma<false>(p, head_dim, groups, s);
+  const cudaError_t err = quant        ? launch_window_mma<true, false>(p, head_dim, groups, s)
+                         : sliding > 0 ? launch_window_mma<false, true>(p, head_dim, groups, s)
+                                       : launch_window_mma<false, false>(p, head_dim, groups, s);
   return static_cast<int>(err);
 }
 

@@ -17,6 +17,9 @@
 // masked). Dense: key j is row j of the cache [B, nkv, max, hd]; n_keys =
 // min(limit, max), and limit <= 0 scores every one of the `max` positions
 // alike (the reference's finite NEG_INF), so the output is the mean of V.
+// A paged call may bound the keys below too (a sliding layer's `window` >
+// 0): lane b then attends only keys lo <= j < n_keys, lo = max(0, n_keys -
+// window).
 //
 // What bounds it on an H100: bytes, K and V under each limit read once over
 // HBM's 3.35 TB/s (4.95 MB, 1.5 us, at the serving step's limits); the
@@ -28,9 +31,13 @@
 // - Grid (B nkv, n_split, row tiles). Split s holds keys [s K, (s + 1) K)
 //   of its lane, K = kSplitKeys, n_split = ceil(keys / K) from the widths
 //   the host knows (n_pages bs, or max); a split at or past the lane's
-//   n_keys returns at once. The boundaries depend on the position alone,
-//   not on nkv, B or the card, so a tensor-parallel shard computes every
-//   head bit for bit as the whole kernel does.
+//   n_keys returns at once. With a window the splits start at the first
+//   key of the page that holds lo (split s holds [p0 + s K, p0 + (s + 1)
+//   K), p0 = lo - lo % bs), keys below lo in it are masked and not read,
+//   and n_split = ceil((window + bs - 1) / K) covers the rest; without one
+//   p0 = lo = 0. The boundaries depend on the position alone, not on nkv,
+//   B or the card, so a tensor-parallel shard computes every head bit for
+//   bit as the whole kernel does.
 // - A block keeps up to kMaxRows of the group's heads (a row tile), so K and
 //   V are read once per group, the saving GQA exists for. Each lane holds
 //   an 8-element chunk of every row's q in registers; kGroup lanes (8 at
@@ -89,6 +96,7 @@ struct Params {
   int n_split;           // ceil(keys / kSplitKeys)
   int n_tiles;           // ceil(rep / rows)
   float scale;
+  int window;            // paged native pools only: > 0 bounds the keys below (see the header)
 };
 
 // Eight consecutive elements as loaded (16 bytes of bf16, 32 of f32, 8 of
@@ -141,7 +149,8 @@ struct Raw<int8_t> {
   }
 };
 
-template <typename TQ, typename TKV, bool kQuant, bool kPaged, int kRows, int kGroup>
+template <typename TQ, typename TKV, bool kQuant, bool kPaged, bool kWindow, int kRows,
+          int kGroup>
 __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
   constexpr int kKeysPerWarp = 32 / kGroup;       // key rows a warp reads a step
   constexpr int kStride = kWarps * kKeysPerWarp;  // and the block
@@ -173,7 +182,10 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
   const int lim = p.limit[b];
   const bool uniform = !kPaged && lim <= 0;
   const int n_keys = uniform ? p.keys : min(max(lim, 0), p.keys);
-  const int n_work = (n_keys + kSplitKeys - 1) / kSplitKeys;  // the lane's working splits
+  // The lane's lowest key and the first key of its page (0 without a window).
+  const int lo = kWindow ? max(0, n_keys - p.window) : 0;
+  const int key0 = kWindow ? lo - lo % p.block_size : 0;
+  const int n_work = (n_keys - key0 + kSplitKeys - 1) / kSplitKeys;  // the lane's working splits
   const size_t head0 = static_cast<size_t>(bg) * p.rep + row0;  // the tile's first head
   TQ* out = static_cast<TQ*>(p.out) + head0 * hd;
   if (n_work == 0) {  // paged limit <= 0: every weight masked
@@ -183,8 +195,9 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
     return;
   }
   if (s >= n_work) return;
-  const int split0 = s * kSplitKeys;
+  const int split0 = key0 + s * kSplitKeys;
   const int split_len = min(kSplitKeys, n_keys - split0);
+  const int skip = kWindow ? max(0, lo - split0) : 0;  // keys at the split's start below lo
 
   float q[kRows][8];
   {
@@ -230,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
   auto fetch = [&](int t, int d) {
     const int jj = (t * kWarps + warp) * kKeysPerWarp + sub;
     ksc[d] = vsc[d] = 1.f;
-    if (t < n_steps && jj < split_len && has_chunk) {
+    if (t < n_steps && jj < split_len && (!kWindow || jj >= skip) && has_chunk) {
       const size_t off = locate(split0 + jj, ksc[d], vsc[d]);
       kr[d].load(kbase + off);
       vr[d].load(vbase + off);
@@ -266,7 +279,8 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
         }
       }
       fetch(t + kDepth, d);  // refill this slot while the step's math runs
-      const bool valid = (t * kWarps + warp) * kKeysPerWarp + sub < split_len;
+      const int jv = (t * kWarps + warp) * kKeysPerWarp + sub;
+      const bool valid = jv < split_len && (!kWindow || jv >= skip);
       float sc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -388,25 +402,41 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(Params p) {
   }
 }
 
-template <typename TQ, typename TKV, bool kQuant, bool kPaged, int kRows, int kGroup>
+template <typename TQ, typename TKV, bool kQuant, bool kPaged, bool kWindow, int kRows,
+          int kGroup>
 cudaError_t launch_shape(const Params& p, int groups, cudaStream_t stream) {
   const dim3 grid(groups, p.n_split, p.n_tiles);
-  split_decode_kernel<TQ, TKV, kQuant, kPaged, kRows, kGroup><<<grid, kThreads, 0, stream>>>(p);
+  split_decode_kernel<TQ, TKV, kQuant, kPaged, kWindow, kRows, kGroup>
+      <<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool kQuant, bool kPaged, int kRows>
+template <typename TQ, typename TKV, bool kQuant, bool kPaged, bool kWindow, int kRows>
 cudaError_t launch_rows(const Params& p, int groups, cudaStream_t stream) {
-  if (p.head_dim <= 64) return launch_shape<TQ, TKV, kQuant, kPaged, kRows, 8>(p, groups, stream);
-  if (p.head_dim <= 128) {
-    return launch_shape<TQ, TKV, kQuant, kPaged, kRows, 16>(p, groups, stream);
+  if (p.head_dim <= 64) {
+    return launch_shape<TQ, TKV, kQuant, kPaged, kWindow, kRows, 8>(p, groups, stream);
   }
-  return launch_shape<TQ, TKV, kQuant, kPaged, kRows, 32>(p, groups, stream);
+  if (p.head_dim <= 128) {
+    return launch_shape<TQ, TKV, kQuant, kPaged, kWindow, kRows, 16>(p, groups, stream);
+  }
+  return launch_shape<TQ, TKV, kQuant, kPaged, kWindow, kRows, 32>(p, groups, stream);
+}
+
+template <typename TQ, typename TKV, bool kQuant, bool kPaged, bool kWindow>
+cudaError_t launch_tiles(const Params& p, int rows, int groups, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_rows<TQ, TKV, kQuant, kPaged, kWindow, 1>(p, groups, stream);
+    case 2: return launch_rows<TQ, TKV, kQuant, kPaged, kWindow, 2>(p, groups, stream);
+    case 4: return launch_rows<TQ, TKV, kQuant, kPaged, kWindow, 4>(p, groups, stream);
+    default: return launch_rows<TQ, TKV, kQuant, kPaged, kWindow, kMaxRows>(p, groups, stream);
+  }
 }
 
 // Checks the shape and the scratch, sets the split and tile counts, and
 // launches. `part_floats` and `n_counters` are the sizes of p.part and
-// p.counters; the launch is refused when either is short.
+// p.counters; the launch is refused when either is short. A window is a
+// kernel of its own (kWindow), for a paged native pool only, so the
+// unbounded kernel carries none of the bound's code.
 template <typename TQ, typename TKV, bool kQuant, bool kPaged>
 cudaError_t launch(Params p, int batch, long long part_floats, long long n_counters,
                    cudaStream_t stream) {
@@ -417,6 +447,9 @@ cudaError_t launch(Params p, int batch, long long part_floats, long long n_count
   if (batch == 0) return cudaSuccess;
   const int rows = p.rep > 4 ? kMaxRows : p.rep > 2 ? 4 : p.rep;  // 1, 2, 4 or 8
   p.n_split = (p.keys + kSplitKeys - 1) / kSplitKeys;
+  if (p.window > 0) {
+    p.n_split = min(p.n_split, (p.window + p.block_size - 1 + kSplitKeys - 1) / kSplitKeys);
+  }
   p.n_tiles = (p.rep + rows - 1) / rows;
   const long long groups = static_cast<long long>(batch) * p.n_kv;
   if (groups > 0x7fffffffLL || p.n_split > 65535 || p.n_tiles > 65535 ||
@@ -425,12 +458,14 @@ cudaError_t launch(Params p, int batch, long long part_floats, long long n_count
     return cudaErrorInvalidValue;
   }
   const int n = static_cast<int>(groups);
-  switch (rows) {
-    case 1: return launch_rows<TQ, TKV, kQuant, kPaged, 1>(p, n, stream);
-    case 2: return launch_rows<TQ, TKV, kQuant, kPaged, 2>(p, n, stream);
-    case 4: return launch_rows<TQ, TKV, kQuant, kPaged, 4>(p, n, stream);
-    default: return launch_rows<TQ, TKV, kQuant, kPaged, kMaxRows>(p, n, stream);
+  if (p.window > 0) {
+    if constexpr (kPaged && !kQuant) {
+      return launch_tiles<TQ, TKV, kQuant, kPaged, true>(p, rows, n, stream);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
+  return launch_tiles<TQ, TKV, kQuant, kPaged, false>(p, rows, n, stream);
 }
 
 }  // namespace split

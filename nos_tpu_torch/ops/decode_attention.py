@@ -43,8 +43,9 @@ def reset_launch_counts() -> None:
         ROUTE_LAUNCHES[name] = {"split": 0}
 
 
-def _reference(q, cache_k, cache_v, limit):
-    """q [B,nh,hd]; cache [B,nkv,max,hd]; limit [B] -> [B,nh,hd]."""
+def _reference(q, cache_k, cache_v, limit, window: int = 0):
+    """q [B,nh,hd]; cache [B,nkv,max,hd]; limit [B] -> [B,nh,hd]. With a
+    `window` > 0 only the keys limit - window <= j < limit count."""
     b, nh, hd = q.shape
     nkv = cache_k.shape[1]
     rep = nh // nkv
@@ -53,6 +54,8 @@ def _reference(q, cache_k, cache_v, limit):
     s = torch.einsum("bgrd,bgsd->bgrs", qg.float(), cache_k.float()) * scale
     idx = torch.arange(cache_k.shape[2], device=q.device)
     mask = idx[None, :] < limit[:, None]  # [B, max]
+    if window:
+        mask &= idx[None, :] >= limit[:, None] - window
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bgsd->bgrd", p, cache_v.float())

@@ -13,6 +13,11 @@ for everything else (an f32 q over any pool, other head dims). The decode kernel
 keys in fixed splits over the card, combined in split order
 (`csrc/split_decode.cuh`), for every dtype.
 
+Both entry points take a `window` (0: none): a sliding layer's lower key
+bound, each query row with limit L attending only keys L - window <= j < L;
+the kernels then read no key below the bound's page (see
+`csrc/paged_attention.cu`).
+
 The public entry points dispatch on the tensors' device: CUDA tensors always
 launch the kernel (a failed build or launch raises, nothing falls back), CPU
 tensors take the plain gather versions, which are the reference's
@@ -85,9 +90,9 @@ def _gather_pool(pool, table, scale, out_dtype):
     return g.permute(0, 2, 1, 3, 4).reshape(b, nkv, p * bs, hd)
 
 
-def _reference(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
+def _reference(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None, window=0):
     """The gather formulation: q [B,nh,hd]; pool [T,nkv,bs,hd]; table [B,P]
-    int32; limit [B] -> [B,nh,hd]."""
+    int32; limit [B] -> [B,nh,hd]; `window` as `paged_decode_attention`'s."""
     from nos_tpu_torch.ops.decode_attention import _reference as dense_reference
 
     return dense_reference(
@@ -95,15 +100,17 @@ def _reference(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
         _gather_pool(pool_k, table, k_scale, q.dtype),
         _gather_pool(pool_v, table, v_scale, q.dtype),
         limit,
+        window,
     )
 
 
 def _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, window=0):
     """The gather formulation of the windowed read: q [B,nh,W,hd]; pool
     [T,nkv,bs,hd]; table [B,P]; pos/lengths [B]; mask [B] bool ->
     [B,nh,W,hd]. Invalid rows attend the scratch page's first position only
-    (an all-masked row would softmax to NaN)."""
+    (an all-masked row would softmax to NaN); `window` as
+    `paged_window_attention`'s."""
     from nos_tpu_torch.models.decode import _attend_cache
 
     b, nh, w, hd = q.shape
@@ -118,6 +125,7 @@ def _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
         _gather_pool(pool_v, table, v_scale, q.dtype),
         nh // nkv,
         limit,
+        window,
     )
 
 
@@ -126,9 +134,9 @@ _VP, _I = _build.VP, _build.I
 _require = _build.require
 _SIGNATURES = {
     "nos_paged_decode_attention": [_VP] * 10 + [_I] * 8 + [_build.F, _build.LL, _build.LL,
-                                                          _VP],
-    "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _VP],
-    "nos_paged_window_attention_mma": [_VP] * 10 + [_I] * 8 + [_build.F, _VP],
+                                                          _I, _VP],
+    "nos_paged_window_attention": [_VP] * 10 + [_I] * 9 + [_build.F, _I, _VP],
+    "nos_paged_window_attention_mma": [_VP] * 10 + [_I] * 8 + [_build.F, _I, _VP],
 }
 
 
@@ -173,7 +181,14 @@ def _check_common(q, pool_k, pool_v, table, k_scale, v_scale):
     return _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], scales
 
 
-def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
+def _window_keys(window: int, block_size: int, n_pages: int) -> int:
+    """Keys a lane's splits can span: every addressable one, or with a
+    window the window plus the part of its first page below it."""
+    keys = n_pages * block_size
+    return min(keys, window + block_size - 1) if window > 0 else keys
+
+
+def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None, window=0,
                    count="paged_decode_attention"):
     b, nh, hd = q.shape
     nkv = pool_k.shape[1]
@@ -184,14 +199,17 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
     bs, n_pages = pool_k.shape[2], table.shape[1]
     out = torch.empty_like(q)
-    part, counters = _build.split_scratch(q, b * nkv, nh // nkv, hd, n_pages * bs)
+    _require(window >= 0 and not (window and k_scale is not None),
+             "window must be >= 0, and 0 over an int8 pool")
+    part, counters = _build.split_scratch(q, b * nkv, nh // nkv, hd,
+                                          _window_keys(window, bs, n_pages))
     lib = _lib()
     rc = lib.nos_paged_decode_attention(
         _VP(q.data_ptr()), _VP(pool_k.data_ptr()), _VP(pool_v.data_ptr()), ks, vs,
         _VP(table.data_ptr()), _VP(limit.data_ptr()), _VP(out.data_ptr()),
         _VP(part.data_ptr()), _VP(counters.data_ptr()),
         b, nh, nkv, hd, bs, n_pages, qc, kc, hd ** -0.5, part.numel(), counters.numel(),
-        _build.stream(q),
+        int(window), _build.stream(q),
     )
     _build.raise_on(lib, rc, "paged_decode_attention")
     _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, count, "split")
@@ -199,7 +217,7 @@ def _decode_kernel(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
 
 
 def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
-                   k_scale=None, v_scale=None, count="paged_window_attention"):
+                   k_scale=None, v_scale=None, window=0, count="paged_window_attention"):
     b, nh, w, hd = q.shape
     nkv = pool_k.shape[1]
     _require(nh % nkv == 0 and pool_k.shape[3] == hd, "q does not match the pool's heads")
@@ -209,7 +227,10 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
         _require(t.dtype == dt and t.shape == (b,) and t.is_contiguous()
                  and t.device == q.device, "{} must be [B] {} on q's device", name, dt)
     qc, kc, (ks, vs) = _check_common(q, pool_k, pool_v, table, k_scale, v_scale)
+    _require(window >= 0, "window must be >= 0")
     route = _window_route(q, pool_k, k_scale)
+    _require(not (window and route == "mma" and k_scale is not None),
+             "the mma route takes no window over an int8 pool")
     out = torch.empty_like(q)
     lib = _lib()
     ptrs = [_VP(x.data_ptr()) for x in (q, pool_k, pool_v)]
@@ -217,10 +238,10 @@ def _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
     dims = (b, nh, nkv, w, hd, pool_k.shape[2], table.shape[1])
     if route == "mma":
         rc = lib.nos_paged_window_attention_mma(*ptrs, ks, vs, *rows, *dims, kc, hd ** -0.5,
-                                                _build.stream(q))
+                                                int(window), _build.stream(q))
     else:
         rc = lib.nos_paged_window_attention(*ptrs, ks, vs, *rows, *dims, qc, kc, hd ** -0.5,
-                                            _build.stream(q))
+                                            int(window), _build.stream(q))
     _build.raise_on(lib, rc, f"paged_window_attention ({route})")
     _build.count_launch(LAUNCHES, ROUTE_LAUNCHES, count, route)
     return out
@@ -235,31 +256,35 @@ def _on_cuda(q) -> bool:
     raise ValueError(f"paged attention runs on cuda or cpu, not {q.device}")
 
 
-def paged_decode_attention(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None):
+def paged_decode_attention(q, pool_k, pool_v, table, limit, k_scale=None, v_scale=None,
+                           window: int = 0):
     """Single-token attention over a block-paged KV pool: q [B,nh,hd], pools
     [total_blocks,nkv,block,hd], table [B,P] page ids (rows beyond a
-    sequence's allocation point at the scratch page), limit [B]. `k_scale`/
-    `v_scale` [T] f32: the pools are int8 with per-block scales. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
+    sequence's allocation point at the scratch page), limit [B]: lane b
+    attends keys j < limit[b], and with a `window` > 0 (a sliding layer's)
+    only those with j >= limit[b] - window. `k_scale`/`v_scale` [T] f32: the
+    pools are int8 with per-block scales. CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
     if _on_cuda(q):
-        return _decode_kernel(q, pool_k, pool_v, table, limit, k_scale, v_scale)
-    return _reference(q, pool_k, pool_v, table, limit, k_scale, v_scale)
+        return _decode_kernel(q, pool_k, pool_v, table, limit, k_scale, v_scale, window)
+    return _reference(q, pool_k, pool_v, table, limit, k_scale, v_scale, window)
 
 
 def paged_window_attention(q, pool_k, pool_v, table, pos, lengths, mask,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, window: int = 0):
     """Windowed-query attention over a block-paged KV pool: q [B,nh,W,hd],
     table [B,P], pos [B] window base positions, lengths [B] valid window
     lengths, mask [B] active lanes. Query (b, w) attends its pages up to
-    pos[b]+w+1 while w < lengths[b] and mask[b]; other rows attend only the
-    first position of their first page (garbage the caller ignores, never
-    NaN). CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    pos[b]+w+1 while w < lengths[b] and mask[b], and with a `window` > 0
+    (a sliding layer's) only from pos[b]+w+1-window; other rows attend only
+    the first position of their first page (garbage the caller ignores,
+    never NaN; with a window the kernel may give them 0 instead). CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
     if _on_cuda(q):
         return _window_kernel(q, pool_k, pool_v, table, pos, lengths, mask,
-                              k_scale, v_scale)
+                              k_scale, v_scale, window)
     return _window_reference(q, pool_k, pool_v, table, pos, lengths, mask,
-                             k_scale, v_scale)
+                             k_scale, v_scale, window)
 
 
 # -- tensor-parallel sharding (docs/sharded-decode.md) -------------------------

@@ -110,7 +110,8 @@ chunk; a final chunk with its head on the last row and its first token's
 draw), over one packed input buffer that each chunk's single upload fills
 (`_chunk_in`: start, length, slot, serial, step0 and the tokens) and the
 tick state's table, in one memory pool. The multi-slot prefill wave runs
-eagerly, and so do verify rounds and the spill tier's copies, which write
+eagerly over its own lanes only (their table rows gathered on the device,
+so it computes its chunks' rows and no others), and so do verify rounds and the spill tier's copies, which write
 the pool in place: a verify round moves a drafting slot's `pos` on the
 host, and the next packed sync carries it into the TickState buffers the
 graph reads. On the CPU the same `_macro` and chunk bodies run eagerly.
@@ -163,7 +164,7 @@ from nos_tpu_torch.models.speculative import (
     _LookupIndex,
     accept_prefix,
 )
-from nos_tpu_torch.ops import _build, decode_attention, flash_attention, paged_attention
+from nos_tpu_torch.ops import _build, decode_attention, flash_attention, moe, paged_attention
 from nos_tpu_torch.ops import quantized_kv as qkv
 from nos_tpu_torch.parallel.mesh import canonical_device
 from nos_tpu_torch.runtime.block_manager import BlockManager
@@ -252,7 +253,7 @@ def _launch_counts() -> Dict[tuple, int]:
     """Every kernel wrapper's launch count, keyed (ops module, entry
     point, route); LAUNCHES[name] is the sum over its routes."""
     counts = {}
-    for mod in (decode_attention, flash_attention, paged_attention):
+    for mod in (decode_attention, flash_attention, paged_attention, moe):
         for entry, routes in mod.ROUTE_LAUNCHES.items():
             for route, n in routes.items():
                 counts[(mod, entry, route)] = n
@@ -612,7 +613,11 @@ class DecodeServer:
         `kv_dtype="int8"` stores the pool as int8
         codes with one f32 scale per (block, layer, k|v): about half the
         pool's and every spill payload's bytes, its divergence from the
-        native pool bounded by `runtime/divergence.py`.
+        native pool bounded by `runtime/divergence.py`. A `cfg` with
+        experts, sliding layers or per-layer RoPE (`cfg.mixed`) is served
+        on one device over the native pool: a tensor-parallel mesh or the
+        int8 pool raises. Its expert layers count their work on the device
+        (`expert_counts()`).
 
         `quota` (a `runtime/quota.py` QuotaPolicy) arms elastic tenant
         quotas over decode ticks, `tracing` (a `tracing.EngineTracing`)
@@ -639,6 +644,11 @@ class DecodeServer:
         CPU does."""
         if kv_dtype not in constants.KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {constants.KV_DTYPES}: {kv_dtype!r}")
+        if cfg.mixed and (kv_dtype == constants.KV_DTYPE_INT8
+                          or (mesh is not None and int(mesh.shape.get(tp_axis, 1)) > 1)):
+            raise ValueError("a config with experts, sliding windows or per-layer RoPE is "
+                             "served on one device over the native pool: no tensor "
+                             "parallelism, no int8 pool")
         # Tensor-parallel serving (decode_server.py:646-691): a mesh whose
         # tp axis is wider than 1 arms it; tp=1 (or no mesh) is the
         # single-device path, with no placement and no wrapping.
@@ -907,6 +917,11 @@ class DecodeServer:
         self.spec_history_demotions = 0
         #: Ticks that dispatched both a verify round and a macro window.
         self.both_dispatch_ticks = 0
+        #: The expert layers' device tallies (`ops/moe.py`), one row for the
+        #: prefill programs (chunks, waves) and one for decode (windows,
+        #: bursts, verify rounds): [rows routed, (layer, call) pairs summed
+        #: over the experts that got a row]. Read by `expert_counts()`.
+        self._expert_tally = torch.zeros((2, 2), dtype=torch.int64, device=self.device)
         #: CUDA graphs of the decode window captured, and windows run as a
         #: graph replay.
         self.graph_captures = 0
@@ -1111,7 +1126,7 @@ class DecodeServer:
                 mask = mask & ~self._finished
             logits, _ = paged_decode_step(
                 self.params, token, self.cfg, self.cache, table, pos_k, mask,
-                self.block_size, tp=self._tp,
+                self.block_size, tp=self._tp, moe_tally=self._expert_tally[1],
             )
             nxt = self._sample(logits, st.serial, st.step + k)
             token = torch.where(mask, nxt, token)
@@ -1161,10 +1176,12 @@ class DecodeServer:
                 row = [t.index_select(0, slot.to(t.device))[0] for t in tables]
             if not final:
                 paged_prefill_chunk(self.params, tokens, self.cfg, self.cache, row, start,
-                                    length, self.block_size, with_logits=False, tp=self._tp)
+                                    length, self.block_size, with_logits=False, tp=self._tp,
+                                    moe_tally=self._expert_tally[0])
                 return None
             logits, _ = paged_prefill_last(self.params, tokens, self.cfg, self.cache, row,
-                                           start, length, self.block_size, tp=self._tp)
+                                           start, length, self.block_size, tp=self._tp,
+                                           moe_tally=self._expert_tally[0])
             self._chunk_tok.copy_(self._sample(logits, serial, step0))
             return None
 
@@ -1206,7 +1223,7 @@ class DecodeServer:
     def _prefill_window(self, tokens, table, pos, lengths, active) -> None:
         paged_prefill_window(
             self.params, tokens, self.cfg, self.cache, table, pos, lengths, active,
-            self.block_size, tp=self._tp,
+            self.block_size, tp=self._tp, moe_tally=self._expert_tally[0],
         )
 
     # -- client side -----------------------------------------------------------
@@ -2145,23 +2162,32 @@ class DecodeServer:
                     self._tick_state.sync(packed)
                     self._prefill_chunk(inputs, final=False)
             else:
-                tokens = np.zeros((self.n_slots, bucket), dtype=np.int32)
-                pos = np.zeros((self.n_slots,), dtype=np.int32)
-                lengths = np.zeros((self.n_slots,), dtype=np.int32)
-                active = np.zeros((self.n_slots,), dtype=bool)
-                for idx, start, piece in entries:
-                    tokens[idx, : len(piece)] = piece
-                    pos[idx] = start
-                    lengths[idx] = len(piece)
-                    active[idx] = True
+                # The wave's own lanes only, their table rows gathered on
+                # the device: n chunks compute n x bucket rows, whatever
+                # the engine's lane count.
+                n = len(entries)
+                tokens = np.zeros((n, bucket), dtype=np.int32)
+                lanes = np.zeros((n,), dtype=np.int64)
+                pos = np.zeros((n,), dtype=np.int32)
+                lengths = np.zeros((n,), dtype=np.int32)
+                for row, (idx, start, piece) in enumerate(entries):
+                    tokens[row, : len(piece)] = piece
+                    lanes[row] = idx
+                    pos[row] = start
+                    lengths[row] = len(piece)
                 with self._prof.dispatch(DISPATCH_PREFILL_WINDOW):
                     self._tick_state.sync(packed)
+                    rows = self._stage.to_device(lanes)
+                    if self._tp is None:
+                        wave_table = table.index_select(0, rows)
+                    else:
+                        wave_table = [t.index_select(0, rows.to(t.device)) for t in table]
                     self._prefill_window(
                         self._stage.to_device(tokens),
-                        table,
+                        wave_table,
                         self._stage.to_device(pos),
                         self._stage.to_device(lengths),
-                        self._stage.to_device(active),
+                        torch.ones((n,), dtype=torch.bool, device=rows.device),
                     )
                 self.prefill_window_dispatches += 1
             dispatches += 1
@@ -2477,6 +2503,7 @@ class DecodeServer:
                 self.params, self._stage.to_device(tokens), self.cfg, self.cache,
                 self._table(), self._tick_state.pos, self._stage.to_device(lengths),
                 self._stage.to_device(active), self.block_size, tp=self._tp,
+                moe_tally=self._expert_tally[1],
             )
             preds = _TokRef(greedy(logits), self._syncs)
         self.steps_run += 1
@@ -3140,6 +3167,19 @@ class DecodeServer:
             self._inflight.popleft().np()
 
     # -- counters (read through to the BlockManager and the spill tier) ---------
+    def expert_counts(self) -> Dict[str, int]:
+        """The expert layers' tallies as host ints (one blocking read; 0
+        for a dense config): `prefill_rows` / `decode_rows`, the (token,
+        expert) rows routed by the prefill programs and by the decode
+        ones, and `prefill_expert_hits` / `decode_expert_hits`, the
+        (layer, call) pairs summed over the experts that got at least one
+        row. A captured graph's replays add to them like eager calls."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        (pr, ph), (dr, dh) = self._expert_tally.tolist()
+        return {"prefill_rows": pr, "prefill_expert_hits": ph,
+                "decode_rows": dr, "decode_expert_hits": dh}
+
     @property
     def prefix_lookups(self) -> int:
         return self._block_mgr.lookups

@@ -32,17 +32,21 @@ def test_config_fields_and_properties_match():
     jcfg = jgpt.GPTConfig(vocab=32000, hidden=512, layers=8, heads=8, kv_heads=2,
                           max_seq=8192)
     tcfg = _tcfg(jcfg)
-    assert [f.name for f in dataclasses.fields(tcfg)] == [
-        f.name for f in dataclasses.fields(jcfg)
-    ]
+    # The reference's fields, in its order, then the port's serving layouts'
+    # (head size, layer kinds, YaRN on the full layers, experts), which
+    # default off.
+    ref = [f.name for f in dataclasses.fields(jcfg)]
+    assert [f.name for f in dataclasses.fields(tcfg)] == ref + [
+        "head_size", "layer_types", "sliding_window", "rope_yarn", "n_experts", "top_k",
+        "expert_ffn", "norm_topk_prob"]
+    assert not tcfg.mixed
     assert (tcfg.head_dim, tcfg.n_kv) == (jcfg.head_dim, jcfg.n_kv) == (64, 2)
     assert tcfg.torch_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tgpt.GPTConfig(heads=8, kv_heads=3).n_kv
     for tp in (1, 2):
-        assert dataclasses.asdict(tgpt.tp_local_config(tcfg, tp)) == dataclasses.asdict(
-            jgpt.tp_local_config(jcfg, tp)
-        )
+        port = dataclasses.asdict(tgpt.tp_local_config(tcfg, tp))
+        assert {k: port[k] for k in ref} == dataclasses.asdict(jgpt.tp_local_config(jcfg, tp))
     with pytest.raises(ValueError):
         tgpt.tp_local_config(tcfg, 3)
 
